@@ -1,0 +1,239 @@
+"""Quantizable dense layer — port of the reference's ``core/quant_dense.py``.
+
+A weight leaf takes one of three forms:
+
+  {"w": f32}                   master float weights (plain ``torch.matmul``,
+                               as the reference leaves it to XLA)
+  {"q": int8, "delta"}         serve form A: int8 levels at full shape
+                               (the ``qmatmul`` kernel's format, 1 B/wt)
+  {"qp": int32, "delta"}       serve form B: 3-bit containers packed along
+                               K (10 wt/word, the ``qmatvec`` format)
+
+``export_levels`` / ``export_container`` turn a float tree into the serve
+forms (per-output-channel deltas; stacked layer dims handled).
+
+Serve-form matmuls dispatch on ``mode``:
+
+  'kernel'   the hand-written kernels through their ``ops`` wrappers (on a
+             CUDA tensor the CUDA kernel; on a CPU tensor its plain version)
+  'dequant'  the kernels' plain versions (``ref.py``): levels cast to the
+             activation dtype, fp32 accumulate, delta and bias on the
+             (M, N) output — the parity oracle
+  'auto'     'kernel' for CUDA tensors, 'dequant' elsewhere
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core import packing, qat
+from repro_torch.core import quantizer as qz
+from repro_torch.core.precision import QuantPolicy
+from repro_torch.core.treeutil import flatten_with_path, role_of, unflatten
+from repro_torch.kernels.qmatmul import ops as qmm_ops
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+from repro_torch.kernels.qmatvec import ops as qmv_ops
+from repro_torch.kernels.qmatvec.ref import qmatvec_ref
+
+__all__ = ["init", "apply", "serve_apply", "tied_logits",
+           "resolve_matmul_mode", "MATMUL_MODES", "effective_weight",
+           "export_levels", "export_container"]
+
+MATMUL_MODES = ("auto", "kernel", "dequant")
+
+
+def init(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool = True,
+         dtype=torch.float32, device=None,
+         scale: Optional[float] = None) -> Dict[str, Any]:
+    """Uniform(-1, 1) / sqrt(in_dim) init from ``gen`` (on ``device``).
+    Param names: 'w' (in, out), optional 'b' (out,)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(in_dim)
+    w = torch.rand((in_dim, out_dim), generator=gen, dtype=dtype,
+                   device=device)
+    p = {"w": w.mul_(2.0).sub_(1.0).mul_(scale)}
+    if bias:
+        p["b"] = torch.zeros((out_dim,), dtype=dtype, device=device)
+    return p
+
+
+def resolve_matmul_mode(mode: str, device=None) -> str:
+    """'auto' -> the kernels for CUDA tensors, the plain dequant path
+    elsewhere."""
+    if mode == "auto":
+        return "kernel" if torch.device(device or "cpu").type == "cuda" \
+            else "dequant"
+    if mode not in ("kernel", "dequant"):
+        raise ValueError(f"matmul mode must be one of {MATMUL_MODES}, "
+                         f"got {mode!r}")
+    return mode
+
+
+def effective_weight(params, policy: QuantPolicy, role: str,
+                     k: Optional[int] = None,
+                     dtype=torch.float32) -> torch.Tensor:
+    """The weight the forward pass sees; for the serve forms it
+    MATERIALIZES the dequantized matrix at ``dtype`` (the test oracle;
+    the serve path goes through :func:`serve_apply`). ``k`` is the logical
+    reduction dim, needed for the ``qp`` form."""
+    if not isinstance(params, dict):
+        params = {"w": params}
+    if "qp" in params:
+        assert k is not None, "container form needs the logical K"
+        q = packing.unpack_matrix(params["qp"], k, 3)
+        return q.to(dtype) * params["delta"].to(dtype)
+    if "q" in params:
+        return params["q"].to(dtype) * params["delta"].to(dtype)
+    if policy.spec_for(role) is None:
+        return params["w"]
+    raise NotImplementedError(
+        "STE fake-quant of float master weights is training-side and not "
+        "ported yet; serve a float tree under FLOAT or export it first")
+
+
+def serve_apply(params: Dict[str, Any], x: torch.Tensor, *,
+                mode: str = "auto", out_dtype=None) -> torch.Tensor:
+    """Dense forward for a 2D serve-form leaf ({"q"} or {"qp"}, + "delta",
+    optional "b"). Never materializes a dequantized weight matrix in
+    'kernel' mode. fp32 accumulate, fp32 epilogue, one cast to
+    ``out_dtype`` (default the activation dtype)."""
+    mode = resolve_matmul_mode(mode, x.device)
+    k = x.shape[-1]
+    bias = params.get("b")
+    delta = params["delta"].reshape(-1)          # (1, N) -> (N,)
+    if mode == "kernel":
+        if "qp" in params:
+            return qmv_ops.qmatvec(x, params["qp"], delta, k=k, bias=bias,
+                                   out_dtype=out_dtype)
+        return qmm_ops.qmatmul(x, params["q"], delta, bias=bias,
+                               out_dtype=out_dtype)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    if "qp" in params:
+        out = qmatvec_ref(x2, params["qp"], delta, k, bias=bias,
+                          out_dtype=out_dtype)
+    else:
+        out = qmatmul_ref(x2, params["q"], delta, bias=bias,
+                          out_dtype=out_dtype)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def tied_logits(params: Dict[str, Any], h: torch.Tensor, *,
+                mode: str = "auto") -> torch.Tensor:
+    """Tied-embedding readout h @ (q * delta)^T for a serve-form table
+    {"q": (V, D), "delta": (1, D)} without dequantizing it: delta is per
+    reduction dim, so it rescales the activations, (h * delta) @ q^T. The
+    kernel reads ``q.T`` as a strided view, never a copy."""
+    mode = resolve_matmul_mode(mode, h.device)
+    d1 = params["delta"].reshape(-1).to(torch.float32)        # (D,)
+    hs = (h.to(torch.float32) * d1).to(h.dtype)
+    if mode == "kernel":
+        return qmm_ops.qmatmul(hs, params["q"].T, 1.0)
+    lead = h.shape[:-1]
+    out = qmatmul_ref(hs.reshape(-1, hs.shape[-1]), params["q"].T, 1.0)
+    return out.reshape(*lead, params["q"].shape[0])
+
+
+def apply(params: Dict[str, Any], x: torch.Tensor, *, policy: QuantPolicy,
+          role: str = "hidden", quantize_input: bool = False,
+          mode: str = "auto") -> torch.Tensor:
+    """Dense forward under any weight form: serve forms go through
+    :func:`serve_apply`, float master weights through ``torch.matmul``."""
+    if not isinstance(params, dict):
+        params = {"w": params}
+    if quantize_input and policy.act_bits:
+        x = qat.fake_quant_act(x, policy.act_bits)
+    if "qp" in params or "q" in params:
+        return serve_apply(params, x, mode=mode)
+    w = effective_weight(params, policy, role, k=x.shape[-1])
+    y = x @ w.to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+# --- whole-tree operations ----------------------------------------------------
+
+def _is_weight(path: str) -> bool:
+    return path.endswith("/w") or path == "w"
+
+
+def _stacked_dims(path: str) -> int:
+    """Leading layer-stack dims for stacked params (layers/ =1, groups/ =2)."""
+    if path.startswith("groups/") or "/groups/" in path:
+        return 2
+    if any(path.startswith(p) or f"/{p}/" in path
+           for p in ("layers", "tail")):
+        return 1
+    return 0
+
+
+def _leaf_spec(path: str, policy: QuantPolicy) -> Optional[qz.QuantSpec]:
+    if not _is_weight(path):
+        return None
+    return policy.spec_for(role_of(path))
+
+
+def _quantize_leaf(leaf: torch.Tensor, spec: qz.QuantSpec, nd: int):
+    """Per-output-channel (last dim) levels + delta, every stacked layer at
+    once. Returns (q int8 same shape, delta broadcastable against q)."""
+    cspec = qz.QuantSpec(bits=spec.bits, per_channel=-1, iters=spec.iters)
+    if nd == 0:
+        d = qz.optimal_uniform_delta(leaf, cspec)
+        q = qz.quantize_levels(leaf, d, cspec)
+        return q, d.reshape([1] * (leaf.dim() - 1) + [leaf.shape[-1]])
+    n = leaf.shape[-1]
+    flat = leaf.reshape(-1, math.prod(leaf.shape[nd:-1]), n)   # (P, K, N)
+    rows = flat.transpose(1, 2).reshape(-1, flat.shape[1])     # (P*N, K)
+    d = qz._optimal_delta_rows(rows, cspec.levels, cspec.iters)
+    d = d.reshape(flat.shape[0], 1, n)
+    q = torch.clamp(torch.round(flat / torch.clamp(d, min=1e-12)),
+                    -cspec.levels, cspec.levels).to(torch.int8)
+    bshape = leaf.shape[:nd] + (1,) * (leaf.dim() - nd - 1) + (n,)
+    return q.reshape(leaf.shape), d.reshape(bshape)
+
+
+def _base(path: str) -> str:
+    return path.rsplit("/", 1)[0] + "/" if "/" in path else ""
+
+
+def export_levels(params: Any, policy: QuantPolicy) -> Any:
+    """Serve form A: every quantizable weight -> {"q": int8, "delta"}."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flatten_with_path(params).items():
+        spec = _leaf_spec(path, policy)
+        if spec is None:
+            out[path] = leaf
+            continue
+        q, d = _quantize_leaf(leaf, spec, _stacked_dims(path))
+        out[_base(path) + "q"] = q
+        out[_base(path) + "delta"] = d
+    return unflatten(out)
+
+
+def export_container(params: Any, policy: QuantPolicy) -> Any:
+    """Serve form B: 3-bit roles -> {"qp": int32 containers packed along K,
+    "delta" (..., 1, N)}; other quantized roles (8-bit output/embed) stay
+    form A."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flatten_with_path(params).items():
+        spec = _leaf_spec(path, policy)
+        if spec is None:
+            out[path] = leaf
+            continue
+        nd = _stacked_dims(path)
+        q, d = _quantize_leaf(leaf, spec, nd)
+        base = _base(path)
+        # container form only for logically-2D weights (K, N)
+        if spec.bits == 3 and leaf.dim() - nd == 2:
+            k = math.prod(leaf.shape[nd:-1])
+            q2 = q.reshape(leaf.shape[:nd] + (k, leaf.shape[-1]))
+            out[base + "qp"] = packing.pack_matrix(q2, 3)
+            out[base + "delta"] = d.reshape(leaf.shape[:nd]
+                                            + (1, leaf.shape[-1]))
+        else:
+            out[base + "q"] = q
+            out[base + "delta"] = d
+    return unflatten(out)

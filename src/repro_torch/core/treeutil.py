@@ -1,0 +1,66 @@
+"""Small nested-dict tree helpers (pure-dict param trees), the JAX-free part
+of the reference's ``core/treeutil.py``."""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+__all__ = ["map_with_path", "flatten_with_path", "unflatten", "role_of"]
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Any, _prefix: str = "") -> Any:
+    """Map ``fn(path, leaf)`` over a nested-dict tree; preserves structure.
+    ``None`` leaves map to ``None``."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{_prefix}/{k}" if _prefix else k)
+                for k, v in tree.items()}
+    if tree is None:
+        return None
+    return fn(_prefix, tree)
+
+
+def flatten_with_path(tree: Any, _prefix: str = "") -> Dict[str, Any]:
+    """Flatten a nested-dict tree into {path: leaf} (skips None leaves)."""
+    out: Dict[str, Any] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_with_path(v, f"{_prefix}/{k}" if _prefix else k))
+    elif tree is not None:
+        out[_prefix] = tree
+    return out
+
+
+def unflatten(flat: Dict[str, Any]) -> Any:
+    """Inverse of :func:`flatten_with_path`."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+# --- role inference from parameter path (see precision.py role table) --------
+
+_OUTPUT_MARKERS = ("head", "unembed", "logits", "w_out_layer", "output_layer")
+_EMBED_MARKERS = ("embed",)
+_ROUTER_MARKERS = ("router", "gate_w")
+_SSM_MARKERS = ("a_log", "dt_bias", "dt_w", "conv", "ssm_d")
+_SKIP_MARKERS = ("norm", "scale", "/b", "bias", "ln_", "rope")
+
+
+def role_of(path: str) -> str:
+    """Infer the quantization role of a weight from its tree path."""
+    p = path.lower()
+    if any(m in p for m in _SSM_MARKERS):
+        return "ssm"
+    if any(m in p for m in _SKIP_MARKERS) or p.endswith("/b") or p.endswith("bias"):
+        return "bias"
+    if any(m in p for m in _ROUTER_MARKERS):
+        return "router"
+    if any(m in p for m in _OUTPUT_MARKERS):
+        return "output"
+    if any(m in p for m in _EMBED_MARKERS):
+        return "embed"
+    return "hidden"

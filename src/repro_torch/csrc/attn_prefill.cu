@@ -1,0 +1,199 @@
+// attn_prefill: blocked online-softmax attention with per-query [lo, hi)
+// windows, for bucketed prefill admission.
+//
+// Replaces the TPU kernel
+// src/repro/kernels/attn_prefill/kernel.py::attn_prefill_pallas (body
+// _kernel).
+//
+// Layout: q (B, T, KV, G, D) in the compute dtype T (fp32 or bf16), already
+// scaled by 1/sqrt(D). k, v (B, S, KV, D) in T, or int8 with per-token fp32
+// scales k_scale, v_scale (B, S). lo, hi (B, T) int32: query t of row b sees
+// the key positions lo[b, t] <= p < hi[b, t] (prefill: lo = 0,
+// hi = min(t + 1, len[b])). out (B, T, KV, G, D) in T.
+//
+// Numerics, as the reference: fp32 scores; int8 k_scale after Q.K and
+// v_scale on the probabilities before P.V; an online softmax with m, l and
+// the accumulator in fp32; probabilities cast to the compute dtype before
+// P.V; one cast of acc / l at the end. A query whose window is empty
+// (hi <= lo) writes zeros, never NaN: it simply never visits a key, so no
+// masked position can enter its sums (the reference's `alive` guard).
+//
+// What bounds it on the H100: a prefill of a T-token bucket does about
+// 4 * T^2 / 2 * D flops per head for 2 * T * D * KV bytes of K and V per
+// row, so for T >= 64 it is bound by operations. This first kernel does
+// them on the CUDA cores in fp32; the tensor-core version (wgmma tiles,
+// FA3-style) is later work.
+//
+// What the design does about it: one block per (b, tile of QT = 8 queries,
+// kv head), one warp per query head of the group, each warp carrying its
+// 8 query rows in registers. The block walks the key positions
+// [min lo, max hi) of its tile in chunks of KB, staging each chunk of K and
+// V in shared memory once for all G x QT rows; each row then visits only
+// the keys of the chunk inside its own [lo, hi), so the causal upper
+// triangle and the padded tail of a row are neither read nor computed.
+#include "common.cuh"
+
+namespace {
+
+constexpr int QT = 8;                 // queries per block
+
+template <typename T, typename TKV, int EPT>
+__global__ void attn_prefill_kernel(const T* __restrict__ q,
+                                    const TKV* __restrict__ k,
+                                    const TKV* __restrict__ v,
+                                    const float* __restrict__ k_scale,
+                                    const float* __restrict__ v_scale,
+                                    const int32_t* __restrict__ lo,
+                                    const int32_t* __restrict__ hi,
+                                    T* __restrict__ out, int Tq, int S,
+                                    int KV, int G) {
+  constexpr bool QUANT = sizeof(TKV) == 1;
+  constexpr int D = EPT * 32;
+  constexpr int KB = 4096 / D;        // keys per staged chunk (32 KB of smem)
+  __shared__ float ksm[KB][D];
+  __shared__ float vsm[KB][D];
+  __shared__ float kss[KB];
+  __shared__ float vss[KB];
+
+  const int nt = (Tq + QT - 1) / QT;
+  const int h = blockIdx.x % KV;
+  const int bt = blockIdx.x / KV;
+  const int tile = bt % nt;
+  const int b = bt / nt;
+  const int t0 = tile * QT;
+  const int g = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool live = g < G;
+
+  int rlo[QT], rhi[QT];
+  int kmin = S, kmax = 0;
+#pragma unroll
+  for (int r = 0; r < QT; ++r) {
+    const int t = t0 + r;
+    if (t < Tq) {
+      rlo[r] = max(lo[(size_t)b * Tq + t], 0);
+      rhi[r] = min(hi[(size_t)b * Tq + t], S);
+    } else {
+      rlo[r] = 0;
+      rhi[r] = 0;                     // padded query: empty window
+    }
+    if (rhi[r] > rlo[r]) {
+      kmin = min(kmin, rlo[r]);
+      kmax = max(kmax, rhi[r]);
+    }
+  }
+
+  float qr[QT][EPT], acc[QT][EPT], m[QT], l[QT];
+#pragma unroll
+  for (int r = 0; r < QT; ++r) {
+    const int t = t0 + r;
+    m[r] = -1e30f;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      acc[r][e] = 0.f;
+      qr[r][e] = (live && t < Tq)
+          ? rt::to_f(q[((((size_t)b * Tq + t) * KV + h) * G + g) * D + lane + 32 * e])
+          : 0.f;
+    }
+  }
+
+  for (int c0 = kmin; c0 < kmax; c0 += KB) {
+    const int cn = min(KB, kmax - c0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < cn * D; i += blockDim.x) {
+      const int j = i / D;
+      const int d = i - j * D;
+      const size_t off = (((size_t)b * S + c0 + j) * KV + h) * D + d;
+      ksm[j][d] = rt::to_f(k[off]);
+      vsm[j][d] = rt::to_f(v[off]);
+    }
+    if constexpr (QUANT) {
+      for (int j = threadIdx.x; j < cn; j += blockDim.x) {
+        kss[j] = k_scale[(size_t)b * S + c0 + j];
+        vss[j] = v_scale[(size_t)b * S + c0 + j];
+      }
+    }
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll
+    for (int r = 0; r < QT; ++r) {
+      const int ps = max(rlo[r], c0), pe = min(rhi[r], c0 + cn);
+      for (int p = ps; p < pe; ++p) {
+        const int j = p - c0;
+        float s = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) s = fmaf(qr[r][e], ksm[j][lane + 32 * e], s);
+        s = rt::warp_sum(s);
+        if constexpr (QUANT) s *= kss[j];
+        const float m_new = fmaxf(m[r], s);
+        const float corr = expf(m[r] - m_new);
+        const float pr = expf(s - m_new);
+        l[r] = l[r] * corr + pr;
+        float pc;
+        if constexpr (QUANT) pc = rt::round_to<T>(pr * vss[j]);
+        else pc = rt::round_to<TKV>(pr);
+#pragma unroll
+        for (int e = 0; e < EPT; ++e)
+          acc[r][e] = fmaf(pc, vsm[j][lane + 32 * e], acc[r][e] * corr);
+        m[r] = m_new;
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < QT; ++r) {
+    const int t = t0 + r;
+    if (t >= Tq) break;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    const size_t ooff = ((((size_t)b * Tq + t) * KV + h) * G + g) * D;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) out[ooff + lane + 32 * e] = rt::from_f<T>(acc[r][e] * inv);
+  }
+}
+
+template <typename T, typename TKV>
+int launch_d(int D, const void* q, const void* k, const void* v,
+             const void* ks, const void* vs, const void* lo, const void* hi,
+             void* out, int B, int Tq, int S, int KV, int G, cudaStream_t st) {
+  dim3 grid(B * ((Tq + QT - 1) / QT) * KV), block(G * 32);
+#define RT_CASE(E)                                                          \
+  case E * 32:                                                              \
+    attn_prefill_kernel<T, TKV, E><<<grid, block, 0, st>>>(                 \
+        (const T*)q, (const TKV*)k, (const TKV*)v, (const float*)ks,        \
+        (const float*)vs, (const int32_t*)lo, (const int32_t*)hi, (T*)out,  \
+        Tq, S, KV, G);                                                      \
+    break;
+  switch (D) {
+    RT_CASE(1) RT_CASE(2) RT_CASE(4) RT_CASE(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RT_CASE
+  return 0;
+}
+
+}  // namespace
+
+// q_dtype: 0 fp32, 1 bf16; kv_dtype: the same code as q, or 2 for int8
+// (then k_scale and v_scale are required). D must be 32, 64, 128 or 256 and
+// G * 32 <= 1024. Returns the CUDA error code of the launch (0 on success).
+extern "C" int attn_prefill_launch(const void* q, const void* k, const void* v,
+                                   const void* k_scale, const void* v_scale,
+                                   const void* lo, const void* hi, void* out,
+                                   int B, int Tq, int S, int KV, int G, int D,
+                                   int q_dtype, int kv_dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc;
+  if (q_dtype == 0 && kv_dtype == 0)
+    rc = launch_d<float, float>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
+  else if (q_dtype == 1 && kv_dtype == 1)
+    rc = launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
+  else if (q_dtype == 0 && kv_dtype == 2)
+    rc = launch_d<float, int8_t>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
+  else if (q_dtype == 1 && kv_dtype == 2)
+    rc = launch_d<__nv_bfloat16, int8_t>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,49 @@
+"""Plain PyTorch version of the blocked prefill attention (the reference's
+``attn_prefill/ref.py``): the CPU path of ``ops.attn_prefill`` and the
+oracle the CUDA kernel is held against.
+
+One dense contraction: fp32 scores, per-query [lo, hi) masking, guarded
+softmax (empty windows give zeros), int8 scales factored where the kernel
+applies them. ``calls`` counts its uses, and also the model-level reference
+prefill path (``models.attention.prefill_attention(mode="ref")``) that
+stands in for the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["attn_prefill_ref", "NEG_INF", "calls"]
+
+NEG_INF = -1e30
+calls = 0
+
+
+def attn_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lo, hi, k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """q (B, T, KV, G, D) PRE-SCALED by 1/sqrt(D); k/v (B, S, KV, D);
+    lo/hi (B, T) int32; optional (B, S) fp32 per-token scales. Returns
+    (B, T, KV, G, D) in q's dtype."""
+    global calls
+    calls += 1
+    b, t = q.shape[:2]
+    s = k.shape[1]
+    lo = torch.as_tensor(lo, device=q.device).expand(b, t)
+    hi = torch.as_tensor(hi, device=q.device).expand(b, t)
+    sc = torch.einsum("btkgd,bskd->bkgts", q.float(), k.to(q.dtype).float())
+    if k_scale is not None:
+        sc = sc * k_scale.float()[:, None, None, None, :]
+    pos = torch.arange(s, device=q.device)
+    valid = ((pos[None, None, :] < hi[:, :, None])
+             & (pos[None, None, :] >= lo[:, :, None]))          # (B, T, S)
+    sc = torch.where(valid[:, None, None], sc,
+                     torch.tensor(NEG_INF, device=q.device))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(m > NEG_INF / 2, torch.exp(sc - m), torch.zeros_like(sc))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    vf = v.to(q.dtype)
+    if v_scale is not None:
+        p = p * v_scale.float()[:, None, None, None, :]
+    p = p.to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", p.float(), vf.float())
+    return out.to(q.dtype)

@@ -1,0 +1,318 @@
+"""Decoder-only transformer backbone, dense family — port of the reference's
+``models/transformer.py`` serve path (GQA, QKV bias, RoPE, tied
+embeddings, SwiGLU).
+
+Parameters keep the reference's tree and its stacked layout: every leaf
+under ``layers`` has a leading (L,) axis, and a Python loop over layers
+takes the place of ``jax.lax.scan``. Every projection goes through
+``quant_dense`` so the W3A8 policy applies.
+
+The reference is functional and donates the cache to its jitted calls;
+here the cache tensors are updated IN PLACE (``decode_step``, the
+``insert_prefill*`` and ``free_slots`` primitives write into the tensors
+they are given and return the same dict), so one slot-major cache is
+allocated once and never copied. Writes that the reference drops because
+their row index is out of range (``.at[...].set(mode="drop")``) are masked
+out here, since torch indexing would raise on them.
+
+Not ported yet: sliding-window rings (``cfg.sliding_window > 0`` raises),
+qk-norm, MoE, the training ``forward`` and speculative verify/rollback.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant_dense
+from repro_torch.core.precision import QuantPolicy
+from repro_torch.models.attention import (decode_attention, prefill_attention,
+                                          resolve_attn_mode)
+from repro_torch.models.layers import (apply_rope, embed_init, embed_lookup,
+                                       logits_readout, mlp_apply, mlp_init,
+                                       rmsnorm, rmsnorm_init, rope_freqs)
+
+__all__ = ["init", "cache_len_for", "init_cache", "prefill", "decode_step",
+           "insert_prefill", "insert_prefill_many", "free_slots"]
+
+
+def _check_supported(cfg: ModelConfig):
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window KV rings are not ported yet")
+    if cfg.qk_norm or cfg.family != "dense":
+        raise NotImplementedError(f"only the dense family without qk-norm is "
+                                  f"ported; got {cfg.name} ({cfg.family})")
+
+
+# --- init -----------------------------------------------------------------------
+
+def _layer_init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device)
+    attn = {
+        "wq": quant_dense.init(gen, d, h * hd, bias=cfg.qkv_bias, **kw),
+        "wk": quant_dense.init(gen, d, kv * hd, bias=cfg.qkv_bias, **kw),
+        "wv": quant_dense.init(gen, d, kv * hd, bias=cfg.qkv_bias, **kw),
+        "wo": quant_dense.init(gen, h * hd, d, bias=False, **kw),
+    }
+    return {"ln1": rmsnorm_init(d, device), "ln2": rmsnorm_init(d, device),
+            "attn": attn,
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, **kw)}
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+         device=None) -> Dict[str, Any]:
+    """Random float master weights from ``gen`` on ``device``, in the
+    reference's stacked tree layout. The numbers differ from the
+    reference's ``jax.random`` init; parity tests bridge JAX weights."""
+    _check_supported(cfg)
+    layers = _stack([_layer_init(gen, cfg, dtype, device)
+                     for _ in range(cfg.num_layers)])
+    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                  device),
+              "layers": layers, "final_norm": rmsnorm_init(cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        params["head"] = quant_dense.init(gen, cfg.d_model, cfg.vocab_size,
+                                          bias=False, dtype=dtype,
+                                          device=device)
+    return params
+
+
+# --- blocks ---------------------------------------------------------------------
+
+def _layer(layers, i: int):
+    if isinstance(layers, dict):
+        return {k: _layer(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
+def _qkv(lp, h, cfg: ModelConfig, policy, positions, inv_freq, mm: str):
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    a = lp["attn"]
+    q = quant_dense.apply(a["wq"], h, policy=policy, role="hidden", mode=mm)
+    k = quant_dense.apply(a["wk"], h, policy=policy, role="hidden", mode=mm)
+    v = quant_dense.apply(a["wv"], h, policy=policy, role="hidden", mode=mm)
+    q = q.reshape(b, s, cfg.num_heads, hd)
+    k = k.reshape(b, s, cfg.num_kv_heads, hd)
+    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
+
+
+def _attn_out(lp, o, cfg, policy, b, s, mm: str):
+    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return quant_dense.apply(lp["attn"]["wo"], o, policy=policy,
+                             role="hidden", mode=mm)
+
+
+def _ffn(lp, h, cfg: ModelConfig, policy, mm: str):
+    return mlp_apply(lp["mlp"], h, act=cfg.mlp_act, policy=policy,
+                     matmul_mode=mm)
+
+
+def _logits(params, h, cfg, policy, mm: str):
+    return logits_readout(params, h, cfg, policy=policy, matmul_mode=mm)
+
+
+# --- serving: cache, prefill, decode ---------------------------------------------
+
+def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, quantized: bool = False, device=None):
+    """KV cache (L, B, S, KV, D). ``quantized``: int8 entries plus
+    per-(layer, batch, position) fp32 scales."""
+    s = cache_len_for(cfg, max_len)
+    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.head_dim)
+    zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+    if quantized:
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_scale": zeros(shape[:3], torch.float32),
+                "v_scale": zeros(shape[:3], torch.float32),
+                "len": zeros((), torch.int32)}
+    return {"k": zeros(shape, dtype), "v": zeros(shape, dtype),
+            "len": zeros((), torch.int32)}
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(..., S, KV, D) -> (int8 values, (..., S) scales). Per-token absmax."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=(-2, -1))
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
+            dtype=torch.bfloat16, attn_chunk: int = 1024,
+            max_len: Optional[int] = None, quantize_cache: bool = False,
+            lengths: Optional[torch.Tensor] = None,
+            matmul_mode: str = "auto", attn_mode: str = "auto"):
+    """Run the prompt, build the KV cache. Returns (last_logits (B, 1, V)
+    fp32, cache).
+
+    ``lengths`` (B,) enables right-padded multi-request prefill: row ``i``
+    holds a prompt of true length ``lengths[i]`` left-aligned in the padded
+    (B, S) tokens; logits are gathered at each row's last real token and
+    ``cache["len"]`` is the per-row length."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    attn_mode = resolve_attn_mode(attn_mode, tokens.device)
+    h = embed_lookup(params["embed"], tokens, policy=policy, dtype=dtype)
+    b, s, _ = h.shape
+    max_len = max_len or s
+    cs = cache_len_for(cfg, max_len)
+    if lengths is not None and s > cs:
+        raise ValueError(f"padded prefill length {s} exceeds cache length "
+                         f"{cs}; per-row ring alignment is undefined")
+    positions = torch.arange(s, device=h.device)[None, :]
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, h.device)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+        q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, matmul_mode)
+        o = prefill_attention(q, k, v, lengths=lengths, mode=attn_mode,
+                              chunk=min(attn_chunk, s))
+        h = h + _attn_out(lp, o, cfg, policy, b, s, matmul_mode)
+        hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+        h = h + _ffn(lp, hn, cfg, policy, matmul_mode)
+        ks.append(k[:, -cs:])
+        vs.append(v[:, -cs:])
+    ks, vs = torch.stack(ks), torch.stack(vs)              # (L, B, S, KV, D)
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=h.device).to(torch.int32)
+        idx = (lengths.long() - 1).reshape(b, 1, 1).expand(b, 1, h.shape[-1])
+        h = torch.gather(h, 1, idx)
+    else:
+        h = h[:, -1:]
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = _logits(params, h, cfg, policy, matmul_mode)
+    if cs > ks.shape[2]:
+        padw = cs - ks.shape[2]
+        ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, padw))
+        vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, padw))
+    clen = (torch.tensor(s, dtype=torch.int32, device=h.device)
+            if lengths is None else lengths)
+    if quantize_cache:
+        qk, sk = _quantize_kv(ks)
+        qv, sv = _quantize_kv(vs)
+        cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv, "len": clen}
+    else:
+        cache = {"k": ks, "v": vs, "len": clen}
+    return logits, cache
+
+
+def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
+                policy: QuantPolicy, dtype=torch.bfloat16,
+                matmul_mode: str = "auto", attn_mode: str = "auto"):
+    """One token for the whole batch. tokens: (B, 1) int. Writes the new
+    K/V into ``cache`` in place and returns (logits (B, 1, V) fp32, cache
+    with ``len + 1``). ``cache["len"]`` is a scalar or a (B,) vector of
+    per-row lengths (slot-major continuous batching). Rows whose position
+    is past the cache write nothing (the reference's dropped scatter)."""
+    _check_supported(cfg)
+    b = tokens.shape[0]
+    dev = tokens.device
+    attn_mode = resolve_attn_mode(attn_mode, dev)
+    pos = cache["len"].to(torch.int32).reshape(-1).expand(b)       # (B,)
+    quantized = "k_scale" in cache
+    h = embed_lookup(params["embed"], tokens, policy=policy, dtype=dtype)
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, dev)
+    positions = pos[:, None]                                       # (B, 1)
+    cs = cache["k"].shape[2]
+    in_range = pos < cs
+    slot = torch.clamp(pos, max=cs - 1).long()
+    rows = torch.arange(b, device=dev)
+    valid = torch.clamp(pos + 1, max=cs)
+
+    def _write(buf, layer, new):
+        """buf[layer, rows, slot] = new where the row is in range."""
+        keep = in_range.reshape((b,) + (1,) * (new.dim() - 1))
+        buf[layer, rows, slot] = torch.where(keep, new.to(buf.dtype),
+                                             buf[layer, rows, slot])
+
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+        q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, matmul_mode)
+        if quantized:
+            kq, ksc = _quantize_kv(k)
+            vq, vsc = _quantize_kv(v)
+            _write(cache["k"], i, kq[:, 0])
+            _write(cache["v"], i, vq[:, 0])
+            _write(cache["k_scale"], i, ksc[:, 0])
+            _write(cache["v_scale"], i, vsc[:, 0])
+            ks_, vs_ = cache["k_scale"][i], cache["v_scale"][i]
+        else:
+            _write(cache["k"], i, k[:, 0])
+            _write(cache["v"], i, v[:, 0])
+            ks_ = vs_ = None
+        o = decode_attention(q, cache["k"][i], cache["v"][i], valid,
+                             k_scale=ks_, v_scale=vs_, mode=attn_mode)
+        h = h + _attn_out(lp, o, cfg, policy, b, 1, matmul_mode)
+        hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+        h = h + _ffn(lp, hn, cfg, policy, matmul_mode)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = _logits(params, h, cfg, policy, matmul_mode)
+    new_cache = dict(cache)
+    new_cache["len"] = cache["len"] + 1
+    return logits, new_cache
+
+
+def _kv_names(cache):
+    return ("k", "v") + (("k_scale", "v_scale") if "k_scale" in cache else ())
+
+
+def _in_range(idx, nb: int, device):
+    """(kept positions, kept indices) of an index vector, entries >= nb
+    dropped. A host (list / numpy / CPU tensor) index is filtered on the
+    host, so admission and release never wait on the card."""
+    sm = torch.as_tensor(idx).long().reshape(-1)
+    keep = (sm < nb).nonzero()[:, 0]
+    return keep.to(device), sm[keep.to(sm.device)].to(device)
+
+
+def free_slots(cache, slots):
+    """Zero rows ``slots`` (N,) of a slot-major cache in place and reset
+    their ``len`` to 0. Entries ``>= batch`` are dropped."""
+    _, idx = _in_range(slots, cache["k"].shape[1], cache["k"].device)
+    for name in _kv_names(cache):                # leaves (L, slots, ...)
+        cache[name][:, idx] = 0
+    cache["len"][idx] = 0
+    return cache
+
+
+def insert_prefill(cache, slot: int, src):
+    """Copy a single-request prefill cache (batch 1, same cache length) into
+    row ``slot`` of a slot-major cache whose ``len`` is per-slot, in
+    place."""
+    for name in _kv_names(cache):
+        cache[name][:, slot] = src[name][:, 0].to(cache[name].dtype)
+    cache["len"][slot] = torch.as_tensor(src["len"]).reshape(()).to(
+        cache["len"].dtype)
+    return cache
+
+
+def insert_prefill_many(cache, slot_map, src):
+    """Scatter an N-row batched prefill cache into rows ``slot_map`` (N,) of
+    a slot-major cache (per-slot ``len``), in place. Entries with
+    ``slot_map[i] >= slots`` are dropped — the engine points its padding
+    rows there."""
+    n = src["k"].shape[1]
+    keep, dst = _in_range(slot_map, cache["k"].shape[1], cache["k"].device)
+    for name in _kv_names(cache):                # leaves (L, slots, ...)
+        cache[name][:, dst] = src[name][:, keep].to(cache[name].dtype)
+    lens = torch.as_tensor(src["len"], device=cache["len"].device)
+    cache["len"][dst] = lens.reshape(-1).expand(n)[keep].to(
+        cache["len"].dtype)
+    return cache

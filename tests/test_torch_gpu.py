@@ -1,0 +1,206 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``gpu`` marker and skips (inside the ``cuda``
+fixture, never at import) where ``torch.cuda.is_available()`` is false: a
+CUDA kernel has no CPU mode. Imports torch only, so it also runs on a
+machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerance: max |kernel - plain| <= 1e-4 x max |plain| in fp32 and
+2e-2 x max |plain| in bf16 (the kernels sum in another order, and in bf16
+round their probabilities at other points of the online softmax)."""
+import pytest
+import torch
+
+from repro_torch.core.packing import pack_matrix
+from repro_torch.kernels.attn_decode import kernel as dec_k
+from repro_torch.kernels.attn_decode import ops as dec_ops
+from repro_torch.kernels.attn_prefill import kernel as pf_k
+from repro_torch.kernels.attn_prefill import ops as pf_ops
+from repro_torch.kernels.qmatmul import kernel as qmm_k
+from repro_torch.kernels.qmatmul import ops as qmm_ops
+from repro_torch.kernels.qmatvec import kernel as qmv_k
+from repro_torch.kernels.qmatvec import ops as qmv_ops
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(seed=0):
+    return torch.Generator().manual_seed(seed)
+
+
+def _check(got, ref, dtype):
+    assert got.device.type == "cuda" and got.dtype == ref.dtype
+    got, ref = got.cpu().float(), ref.float()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), err
+
+
+def _on(dev, *ts):
+    return [None if t is None else t.to(dev) for t in ts]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(8, 1536, 256), (3, 23, 40), (37, 8960, 100),
+                                   (512, 1536, 1536)])
+def test_qmatvec(cuda, dtype, m, k, n):
+    g = _gen(m + k)
+    x = torch.randn((m, k), generator=g).to(dtype)
+    w = pack_matrix(torch.randint(-4, 4, (k, n), generator=g,
+                                  dtype=torch.int8), 3)
+    d = torch.rand(n, generator=g) * 0.1
+    b = torch.randn(n, generator=g)
+    ref = qmv_ops.qmatvec(x, w, d, k=k, bias=b)
+    n0 = qmv_k.launches
+    got = qmv_ops.qmatvec(*_on(cuda, x, w, d), k=k, bias=b.to(cuda))
+    assert qmv_k.launches == n0 + 1
+    _check(got, ref, dtype)
+    got32 = qmv_ops.qmatvec(*_on(cuda, x, w, d), k=k, out_dtype=torch.float32)
+    _check(got32, qmv_ops.qmatvec(x, w, d, k=k, out_dtype=torch.float32),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_qmatmul(cuda, dtype, transposed):
+    g = _gen(1)
+    m, k, n = 8, 1536, 4099
+    x = torch.randn((m, k), generator=g).to(dtype)
+    if transposed:                       # the tied readout's q.T view
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).T
+        d, b = 1.0, None
+    else:
+        w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        d, b = torch.rand(n, generator=g) * 0.01, torch.randn(n, generator=g)
+    ref = qmm_ops.qmatmul(x, w, d, bias=b)
+    wc = w.to(cuda)
+    assert wc.is_contiguous() != transposed
+    n0 = qmm_k.launches
+    got = qmm_ops.qmatmul(x.to(cuda), wc, d if transposed else d.to(cuda),
+                          bias=None if b is None else b.to(cuda))
+    assert qmm_k.launches == n0 + 1
+    _check(got, ref, dtype)
+
+
+def _cache(g, b, s, kv, d, dtype, quantized):
+    if quantized:
+        k = torch.randint(-127, 128, (b, s, kv, d), generator=g,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, s, kv, d), generator=g,
+                          dtype=torch.int8)
+        return k, v, torch.rand((b, s), generator=g) * 0.02, \
+            torch.rand((b, s), generator=g) * 0.02
+    return (torch.randn((b, s, kv, d), generator=g).to(dtype),
+            torch.randn((b, s, kv, d), generator=g).to(dtype), None, None)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d,kv,grp", [(128, 2, 6), (64, 4, 1)])
+def test_attn_decode(cuda, dtype, quantized, d, kv, grp):
+    g = _gen(2)
+    b, s = 6, 300
+    q = torch.randn((b, 1, kv * grp, d), generator=g).to(dtype)
+    k, v, ks, vs = _cache(g, b, s, kv, d, dtype, quantized)
+    lens = torch.tensor([0, 1, 17, 128, 299, 300], dtype=torch.int32)
+    ref = dec_ops.attn_decode(q, k, v, lens, ks, vs)
+    n0 = dec_k.launches
+    got = dec_ops.attn_decode(*_on(cuda, q, k, v, lens, ks, vs))
+    assert dec_k.launches == n0 + 1
+    _check(got, ref, dtype)
+    assert (got[0].cpu() == 0).all()                  # empty row: zeros
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("quantized", [False, True])
+def test_attn_prefill(cuda, dtype, quantized):
+    g = _gen(3)
+    b, t, kv, grp, d = 3, 70, 2, 6, 128
+    q = torch.randn((b, t, kv * grp, d), generator=g).to(dtype)
+    k, v, ks, vs = _cache(g, b, t, kv, d, dtype, quantized)
+    lo = torch.randint(0, t, (b, t), generator=g, dtype=torch.int32)
+    hi = torch.clamp(lo + torch.randint(-5, 40, (b, t), generator=g,
+                                        dtype=torch.int32), max=t)
+    hi[0, :9] = lo[0, :9]                             # empty windows
+    ref = pf_ops.attn_prefill(q, k, v, hi, lo=lo, k_scale=ks, v_scale=vs)
+    n0 = pf_k.launches
+    got = pf_ops.attn_prefill(*_on(cuda, q, k, v, hi), lo=lo.to(cuda),
+                              k_scale=None if ks is None else ks.to(cuda),
+                              v_scale=None if vs is None else vs.to(cuda))
+    assert pf_k.launches == n0 + 1
+    _check(got, ref, dtype)
+    empty = (hi <= lo)
+    assert (got.cpu()[empty] == 0).all()
+
+
+def test_bucketed_prefill_mask(cuda):
+    g = _gen(4)
+    b, t = 4, 256
+    q = torch.randn((b, t, 12, 128), generator=g).to(torch.bfloat16)
+    k, v, _, _ = _cache(g, b, t, 2, 128, torch.bfloat16, False)
+    lens = torch.tensor([1, 256, 100, 7], dtype=torch.int32)
+    hi = torch.minimum(torch.arange(t, dtype=torch.int32)[None] + 1,
+                       lens[:, None])
+    _check(pf_ops.attn_prefill(*_on(cuda, q, k, v, hi)),
+           pf_ops.attn_prefill(q, k, v, hi), torch.bfloat16)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 20), device=cuda)
+    with pytest.raises(ValueError):      # 3 container rows cannot hold K=20
+        qmv_k.qmatvec_cuda(x, torch.zeros((3, 4), dtype=torch.int32,
+                                          device=cuda),
+                           torch.ones(4, device=cuda))
+    with pytest.raises(ValueError):      # delta on the wrong device
+        qmv_k.qmatvec_cuda(x, torch.zeros((2, 4), dtype=torch.int32,
+                                          device=cuda), torch.ones(4))
+    with pytest.raises(ValueError):      # head_dim 48 not supported
+        dec_k.attn_decode_cuda(
+            torch.zeros((1, 1, 2, 48), device=cuda),
+            torch.zeros((1, 4, 1, 48), device=cuda),
+            torch.zeros((1, 4, 1, 48), device=cuda),
+            torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):      # CPU tensors never reach a kernel
+        pf_k.attn_prefill_cuda(*(torch.zeros(1),) * 5)
+
+
+@pytest.mark.parametrize("kv_bits", [None, 8])
+def test_engine_on_card_matches_cpu(cuda, kv_bits):
+    """A small W3 qwen2-1.5b (head_dim 32) served on the card through the
+    kernels gives the tokens the CPU plain paths give, fp32, T = 0."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServingEngine, generate
+    cfg = reduced(get_config("qwen2-1.5b"), d_model=128, vocab=256)
+    policy = dataclasses.replace(W3A8, act_bits=None)
+    master = get_model(cfg).init(_gen(7), cfg)
+    params = quant_dense.export_container(master, policy)
+    prompts = [[1, 2, 3], list(range(5, 17)), [9] * 7, [4, 4]]
+    outs = []
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(params, cfg, policy=policy, slots=2, max_len=64,
+                            dtype=torch.float32, kv_bits=kv_bits, device=dev)
+        uid = {int(eng.submit(p, max_new=6)): i for i, p in enumerate(prompts)}
+        outs.append({uid[r.uid]: r.out for r in eng.run_all()})
+    assert outs[0] == outs[1]
+    g = [generate(params, [[3, 1, 4, 1, 5]], cfg, policy=policy,
+                  max_new_tokens=5, dtype=torch.float32, device=dev).cpu()
+         for dev in ("cpu", cuda)]
+    assert torch.equal(g[0], g[1])
