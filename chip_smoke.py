@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py              # on a machine with a CUDA card
-    python3 chip_smoke.py --rehearse   # CPU rehearsal: reduced model, the
-                                       # kernels' plain versions, no result line
+    python3 chip_smoke.py --rehearse   # CPU rehearsal: reduced models (MLP
+                                       # hidden 64), the kernels' plain
+                                       # versions, no result line
 
 Phases, each printing one JSON line:
 
@@ -11,25 +12,48 @@ Phases, each printing one JSON line:
              versions, the kernels' build time (one nvcc per source, all at
              once, for sm_90a). TF32 is switched off for fp32 products.
 2. parity    every CUDA kernel against its plain PyTorch version at the
-             main path's shapes, in bf16 and fp32 (int8 KV for attention):
+             main paths' shapes, in bf16 and fp32 (int8 KV for attention):
              max abs error against the tolerance, held row by row (fp32:
              1e-4 x the row's max|ref|; bf16: 2e-2 x the row's max|ref|, the
              sums run in another order; a row is one output vector of a
              matmul, one query of attention), and the
              median CUDA-event ms of the kernel, the plain version and one
-             PyTorch library call computing the same function.
+             PyTorch library call computing the same function. The PLAN
+             sigmoid (forward and backward) must be bit-identical, NaN where
+             the plain version has NaN; its library column is torch.sigmoid
+             (the same bytes, not the same function).
 3. engine    full-width qwen2-1.5b, fp32 master weights from a seeded
              generator on the card, exported to W3A8 containers on the
              card, served by ServingEngine(slots=8, max_len=512, bf16) for
              16 requests x 32 new tokens, once with a bf16 KV cache and once
              with kv_bits=8. Launch counters are zeroed just before each run
-             and read just after: every kernel must have launched and no
-             plain version may have run.
+             and read just after: every kernel of the path must have
+             launched and no plain version may have run.
 4. path      prefill + 4 decode steps at full width in fp32 activations
              (no activation quant) with all kernels, then with the plain
              paths (matmul_mode="dequant", attn_mode="ref") on the same
              weights: logits must agree (max |diff| <= 2e-3 x max |logit|).
-5. kernels   the per-kernel summary line, then the card line as nvidia-smi
+5. paper     the paper's 3-step experiment (RBM pretraining, float SGD,
+             3-bit quantization, STE retraining, packed check) for the digit
+             net at full width 784-1022-1022-1022-10, batch 100, lr 0.1,
+             momentum 0.9; the only cut is the epoch counts (1 / 3 / 2).
+             Fails on a non-finite loss, float MCR >= 35%, packed max err
+             >= 1e-4 or a packed/float weight ratio <= 8.
+6. deploy    the retrained digit net and a seeded full-width phoneme net
+             (429-1022x4-61), exported with export_container(W3A8) and run by
+             dnn.forward(..., sigmoid_mode="pw") at batch 100 / 128: each
+             forward must launch qmatvec once per hidden layer, qmatmul once
+             and sigmoid_pw once per hidden layer, with no plain version;
+             each layer must agree with its CPU plain version fed the same
+             input (8-bit signals off; 1e-4 x the row's max, sigmoid_pw bit
+             for bit) and dnn.forward with that chain bit for bit; end to
+             end against the CPU, the logits must agree within 1e-4 x
+             max|logit| but for a few rows, by no more than PLAN's 1/256
+             jump at |x| = 2.375 can move them, with greedy agreement
+             >= 0.99 (8-bit signals off) and all but a few rows' argmax
+             equal (on). Prints the deployed test MCR and images/s of the
+             W3A8 kernel forward and of the float net, batch 100.
+7. kernels   the per-kernel summary line, then the card line as nvidia-smi
              prints it, then the result line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -39,6 +63,7 @@ without a CUDA card (unless --rehearse), or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import sys
@@ -60,7 +85,14 @@ KERNEL_META = {
                     "src/repro/kernels/attn_decode/kernel.py:116"),
     "attn_prefill": ("src/repro_torch/csrc/attn_prefill.cu",
                      "src/repro/kernels/attn_prefill/kernel.py:124"),
+    "sigmoid_pw": ("src/repro_torch/csrc/sigmoid_pw.cu",
+                   "src/repro/kernels/sigmoid_pw/kernel.py:28"),
 }
+ENGINE_KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill")
+PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
+SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, 0.99999994,
+           -1.0000001, 2.3749998, 4.9999995, -5.0000005, 1e-40, -1e-40,
+           float("inf"), float("-inf"), float("nan")]
 
 
 def emit(obj):
@@ -125,6 +157,21 @@ def compare(got, ref, dtype: str, what: str, row_dims: int = 1) -> float:
     return float(diff.max())
 
 
+def compare_exact(got, ref, what: str) -> float:
+    """0.0 if ``got`` has ``ref``'s values bit for bit (NaN exactly where
+    ``ref`` has NaN, zeros of the same sign), else fail."""
+    import torch
+    nan = torch.isnan(ref)
+    if got.dtype != ref.dtype or got.shape != ref.shape \
+            or not torch.equal(torch.isnan(got), nan) \
+            or not torch.equal(got[~nan], ref[~nan]) \
+            or not torch.equal(torch.signbit(got[~nan]), torch.signbit(ref[~nan])):
+        d = (got.float() - ref.float()).abs()
+        fail(f"{what}: kernel differs from the plain version (tolerance 0; "
+             f"max abs err {float(d[~nan].max()) if (~nan).any() else 'n/a'})")
+    return 0.0
+
+
 # --- phase 1 ----------------------------------------------------------------------
 
 def card_phase(device, rehearse: bool):
@@ -157,7 +204,6 @@ def _kernel_cases(cfg, device, clock):
     """Yield one dict per (kernel, shape, dtype) case."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.core.packing import pack_matrix, unpack_matrix
     from repro_torch.kernels.attn_decode import ops as dec_ops
     from repro_torch.kernels.attn_decode.ref import attn_decode_ref
     from repro_torch.kernels.attn_prefill import ops as pf_ops
@@ -165,8 +211,6 @@ def _kernel_cases(cfg, device, clock):
     from repro_torch.kernels.attn_decode.ref import scale_q
     from repro_torch.kernels.qmatmul import ops as qmm_ops
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
-    from repro_torch.kernels.qmatvec import ops as qmv_ops
-    from repro_torch.kernels.qmatvec.ref import qmatvec_ref
 
     g = torch.Generator(device=device).manual_seed(1234)
     d, hd = cfg.d_model, cfg.head_dim
@@ -178,28 +222,11 @@ def _kernel_cases(cfg, device, clock):
 
     # qmatvec: the 7 projection shapes (4 distinct), decode and prefill M
     for k, n in ((d, h * hd), (d, kvh * hd), (d, cfg.d_ff), (cfg.d_ff, d)):
-        lv = torch.randint(-3, 4, (k, n), generator=g, device=device,
-                           dtype=torch.int8)
-        w = pack_matrix(lv, 3)
-        delta = torch.rand(n, generator=g, device=device) * 0.05
-        bias = randn(n)
         for m in (8, 8 * 64):
             for dname, dt in dts:
-                x = randn(m, k, dtype=dt)
-                got = qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)
-                ref = qmatvec_ref(x, w, delta, k, bias=bias)
-                wdq = (unpack_matrix(w, k, 3).float() * delta).to(dt)
-                bx = bias.to(dt)
-                xb = x.element_size()
-                nbytes = m * k * xb + w.numel() * 4 + 2 * n * 4 + m * n * xb
-                yield dict(
-                    name="qmatvec", shape=f"M={m} K={k} N={n}", dtype=dname,
-                    err=compare(got, ref, dname, f"qmatvec {m}x{k}x{n} {dname}"),
-                    ms=clock(lambda: qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)),
-                    plain_ms=clock(lambda: qmatvec_ref(x, w, delta, k, bias=bias)),
-                    library_ms=clock(lambda: torch.addmm(bx, x, wdq)),
-                    bound=bound_ms(nbytes, 2 * m * k * n, dname),
-                    headline=(m == 8 and n == cfg.d_ff and dname == "bfloat16"))
+                yield _qmatvec_case(g, device, clock, m, k, n, dname, dt,
+                                    headline=(m == 8 and n == cfg.d_ff
+                                              and dname == "bfloat16"))
 
     # qmatmul: the tied readout, (slots, D) x (D, V) as the transposed view
     table = torch.randint(-127, 128, (cfg.vocab_size, d), generator=g,
@@ -306,10 +333,115 @@ def _kernel_cases(cfg, device, clock):
                 headline=(t == 256 and dname == "bfloat16"))
 
 
+def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
+    import torch
+    from repro_torch.core.packing import pack_matrix, unpack_matrix
+    from repro_torch.kernels.qmatvec import ops as qmv_ops
+    from repro_torch.kernels.qmatvec.ref import qmatvec_ref
+    lv = torch.randint(-3, 4, (k, n), generator=g, device=device,
+                       dtype=torch.int8)
+    w = pack_matrix(lv, 3)
+    delta = torch.rand(n, generator=g, device=device) * 0.05
+    bias = torch.randn(n, generator=g, device=device)
+    x = torch.randn((m, k), generator=g, device=device).to(dt)
+    got = qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)
+    ref = qmatvec_ref(x, w, delta, k, bias=bias)
+    wdq = (unpack_matrix(w, k, 3).float() * delta).to(dt)
+    bx = bias.to(dt)
+    xb = x.element_size()
+    nbytes = m * k * xb + w.numel() * 4 + 2 * n * 4 + m * n * xb
+    return dict(
+        name="qmatvec", shape=f"M={m} K={k} N={n}", dtype=dname,
+        err=compare(got, ref, dname, f"qmatvec {m}x{k}x{n} {dname}"),
+        ms=clock(lambda: qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)),
+        plain_ms=clock(lambda: qmatvec_ref(x, w, delta, k, bias=bias)),
+        library_ms=clock(lambda: torch.addmm(bx, x, wdq)),
+        bound=bound_ms(nbytes, 2 * m * k * n, dname), headline=headline)
+
+
+def _qmatmul_head_case(g, device, clock, m, k, n, dname, dt):
+    """The MLP's 8-bit head: int8 levels, per-channel delta, bias."""
+    import torch
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    w = torch.randint(-127, 128, (k, n), generator=g, device=device,
+                      dtype=torch.int8)
+    delta = torch.rand(n, generator=g, device=device) * 0.01
+    bias = torch.randn(n, generator=g, device=device)
+    x = torch.randn((m, k), generator=g, device=device).to(dt)
+    got = qmm_ops.qmatmul(x, w, delta, bias=bias)
+    ref = qmatmul_ref(x, w, delta, bias=bias)
+    wdq, bx = (w.float() * delta).to(dt), bias.to(dt)
+    xb = x.element_size()
+    nbytes = m * k * xb + w.numel() + 2 * n * 4 + m * n * xb
+    return dict(
+        name="qmatmul", shape=f"M={m} K={k} N={n} (MLP head)", dtype=dname,
+        err=compare(got, ref, dname, f"qmatmul head {m}x{k}x{n} {dname}"),
+        ms=clock(lambda: qmm_ops.qmatmul(x, w, delta, bias=bias)),
+        plain_ms=clock(lambda: qmatmul_ref(x, w, delta, bias=bias)),
+        library_ms=clock(lambda: torch.addmm(bx, x, wdq)),
+        bound=bound_ms(nbytes, 2 * m * k * n, dname), headline=False)
+
+
+def _mlp_cases(device, clock, rehearse):
+    """The paper MLP's shapes: its hidden layers through qmatvec, its head
+    through qmatmul, and the PLAN sigmoid forward and backward."""
+    import torch
+    from repro_torch.kernels.sigmoid_pw import kernel as sig_k
+    from repro_torch.kernels.sigmoid_pw import ops as sig_ops
+    from repro_torch.kernels.sigmoid_pw import ref as sig_ref
+
+    g = torch.Generator(device=device).manual_seed(4321)
+    dts = [("bfloat16", torch.bfloat16), ("float32", torch.float32)]
+    for k in (784, 429):
+        for dname, dt in dts:
+            yield _qmatvec_case(g, device, clock, 100, k, 1022, dname, dt)
+    for dname, dt in dts:
+        yield _qmatmul_head_case(g, device, clock, 100, 1022, 10, dname, dt)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device) * 4
+
+    big = 1 << (20 if rehearse else 26)
+    bwd = sig_k.sigmoid_pw_bwd_cuda if device.type == "cuda" \
+        else sig_ref.sigmoid_pw_bwd
+    for dname, dt in dts:
+        cases = [("(100, 1022)", randn(100, 1022)), ("(7,)", randn(7)),
+                 ("(2, 3, 129)", randn(2, 3, 129)),
+                 ("(64, 130)[:, 1:129:2] view", randn(64, 130)[:, 1:129:2]),
+                 ("linspace(-8, 8, 1000), breaks, +-0, +-inf, NaN",
+                  torch.cat([torch.linspace(-8, 8, 1000, device=device),
+                             torch.tensor(SPECIAL, device=device)])),
+                 (f"({big},)", randn(big))]
+        for label, x in cases:
+            x = x.to(dt)
+            r = randn(*x.shape).to(dt)
+            what = f"sigmoid_pw {label} {dname}"
+            err = compare_exact(sig_ops.sigmoid_pw(x), sig_ref.sigmoid_pw_fwd(x),
+                                what)
+            compare_exact(bwd(x, r), sig_ref.sigmoid_pw_bwd(x, r),
+                          what + " backward")
+            n, xb = x.numel(), x.element_size()
+            case = dict(
+                name="sigmoid_pw", shape=label, dtype=dname, err=err,
+                backward_err=0.0,
+                ms=clock(lambda: sig_ops.sigmoid_pw(x)),
+                plain_ms=clock(lambda: sig_ref.sigmoid_pw(x)),
+                library_ms=clock(lambda: torch.sigmoid(x)),
+                library="torch.sigmoid (same bytes, not the same function)",
+                backward_ms=clock(lambda: bwd(x, r)),
+                bound=bound_ms(2 * n * xb, 2 * n, dname),
+                headline=(label == "(100, 1022)" and dname == "float32"))
+            case["GB_per_s"] = round(2 * n * xb / case["ms"] / 1e6, 1)
+            yield case
+            del x, r
+
+
 def parity_phase(cfg, device, rehearse):
     clock = Clock(device, reps=3 if rehearse else 20)
     cases = []
-    for c in _kernel_cases(cfg, device, clock):
+    for c in itertools.chain(_kernel_cases(cfg, device, clock),
+                             _mlp_cases(device, clock, rehearse)):
         c["bound_ms"], c["bound_by"] = c.pop("bound")
         cases.append(c)
     emit({"phase": "parity", "tolerance": TOL,
@@ -327,8 +459,10 @@ def _counters():
     from repro_torch.kernels.attn_prefill import kernel as k2, ref as r2
     from repro_torch.kernels.qmatmul import kernel as k3, ref as r3
     from repro_torch.kernels.qmatvec import kernel as k4, ref as r4
+    from repro_torch.kernels.sigmoid_pw import kernel as k5, ref as r5
     return {"qmatvec": (k4, r4), "qmatmul": (k3, r3),
-            "attn_decode": (k1, r1), "attn_prefill": (k2, r2)}
+            "attn_decode": (k1, r1), "attn_prefill": (k2, r2),
+            "sigmoid_pw": (k5, r5)}
 
 
 def reset_counts():
@@ -391,10 +525,10 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
         fail("engine emitted a token id outside the vocabulary")
     if not rehearse:
-        if min(launches.values()) <= 0:
-            fail(f"a kernel of the main path never launched: {launches}")
+        if min(launches[k] for k in ENGINE_KERNELS) <= 0:
+            fail(f"a kernel of the engine path never launched: {launches}")
         if max(plain.values()) != 0:
-            fail(f"a plain version ran on the main path: {plain}")
+            fail(f"a plain version ran on the engine path: {plain}")
     return launches, {r.uid: r.out for r in done}
 
 
@@ -447,6 +581,223 @@ def path_phase(cfg, params, device):
              f"(> 2e-3 x {scale})")
 
 
+# --- phase 5 ----------------------------------------------------------------------
+
+def paper_phase(device, rehearse):
+    """The paper's 3-step experiment for the digit net, epochs cut."""
+    import math
+
+    import torch
+    from repro_torch.paper.pipeline import PaperRunConfig, run_paper_experiment
+    hidden = (64, 64, 64) if rehearse else None        # None: 1022 x 3
+    rc = PaperRunConfig(task="digit", hidden=hidden, **PAPER_EPOCHS)
+    reset_counts()
+    t0 = time.perf_counter()
+    m = run_paper_experiment(
+        rc, device=device, log=lambda line: print(line, file=sys.stderr,
+                                                  flush=True))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    params = m.pop("params")
+    ratio = m["weight_bytes_float"] / m["weight_bytes_packed"]
+    emit({"phase": "paper", "task": "digit",
+          "net": "784-" + "-".join(map(str, hidden or (1022,) * 3)) + "-10",
+          "batch": rc.batch, "lr": rc.lr, "momentum": rc.momentum,
+          "reduced": f"epochs only: RBM {rc.pretrain_epochs}/layer, float "
+                     f"{rc.float_epochs}, retrain {rc.retrain_epochs} "
+                     "(paper: 50 / 100 / 100)",
+          **m, "weight_ratio": ratio, "wall_s": round(wall, 3),
+          "w3a8_vs_direct": "reported, not gated at this epoch count",
+          "launches": launches, "plain_calls": plain})
+    losses = (m["float_final_loss"], m["retrain_final_loss"])
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite training loss: {losses}")
+    if not m["float_mcr"] < 35.0:
+        fail(f"float MCR {m['float_mcr']} >= 35%")
+    if not m["packed_max_err"] < 1e-4:
+        fail(f"packed vs fake-quant logits differ by {m['packed_max_err']}")
+    if not ratio > 8.0:
+        fail(f"packed weights only {ratio:.2f}x smaller than fp32")
+    if not rehearse and max(plain.values()) != 0:
+        fail(f"a plain version ran on the paper path: {plain}")
+    return params, m, launches
+
+
+# --- phase 6 ----------------------------------------------------------------------
+
+def _mcr(params, task, policy, device):
+    import torch
+    from repro_torch.models import dnn
+    from repro_torch.training.losses import accuracy
+    with torch.no_grad():
+        accs = [float(accuracy(dnn.forward(params, x, policy=policy,
+                                           sigmoid_mode="pw"), y))
+                for x, y in task.batches("test", 500, device=device)]
+    return 100.0 * (1.0 - sum(accs) / len(accs))
+
+
+def _layerwise(served, cpu, x, policy):
+    """Each layer of the deployed forward on the card (qmatvec or qmatmul,
+    then sigmoid_pw) against its plain version on the CPU, both fed the
+    card's input to that layer. Returns each layer's max abs error and the
+    card's logits at the end of this chain."""
+    import torch
+    from repro_torch.core import quant_dense
+    from repro_torch.kernels.sigmoid_pw import ops as sig_ops
+    from repro_torch.kernels.sigmoid_pw.ref import sigmoid_pw_fwd
+    names = [f"fc{i}" for i in range(len(served) - 1)] + ["head"]
+    h, errs = x, {}
+    with torch.no_grad():
+        for name in names:
+            role = "output" if name == "head" else "hidden"
+            y = quant_dense.apply(served[name], h, policy=policy, role=role)
+            ref = quant_dense.apply(cpu[name], h.cpu(), policy=policy,
+                                    role=role)
+            errs[name] = compare(y.cpu(), ref, "float32",
+                                 f"deploy layer {name}")
+            if name != "head":
+                h = sig_ops.sigmoid_pw(y)
+                compare_exact(h.cpu(), sigmoid_pw_fwd(y.cpu()),
+                              f"deploy sigmoid_pw after {name}")
+    return errs, y
+
+
+def _e2e_gate(name, card, plain, card_a8, plain_a8, head):
+    """End-to-end parity of the deployed forward with the CPU. With the
+    8-bit signals off the logits must agree within 1e-4 x max|logit|, but
+    for a few rows: the PLAN sigmoid jumps by 1/256 at |x| = 2.375, so a
+    pre-activation that the two sides round to either side of the break
+    moves a row. No row may move by more than that jump can move it, if
+    every unit of the last hidden layer jumped: (1/256) x max_j sum_i
+    |W_head[i, j]|, plus the rounding. Greedy agreement >= 0.99; with the
+    8-bit signals on (a level can flip at a rounding tie) all but a few
+    rows must agree. Returns the numbers the gate read."""
+    import torch
+    batch = plain.shape[0]
+    few = max(2, batch // 50)
+    diff = (card - plain).abs()
+    err, scale = float(diff.max()), float(plain.abs().max())
+    w_head = head["q"].float().abs() * head["delta"].float().abs().reshape(-1)
+    jump_bound = float(w_head.sum(0).max()) / 256 + 1e-4 * scale
+    over = int((diff.amax(-1) > 1e-4 * scale).sum())
+    agree = float((card.argmax(-1) == plain.argmax(-1)).float().mean())
+    miss_a8 = int((card_a8.argmax(-1) != plain_a8.argmax(-1)).sum())
+    if not bool(torch.isfinite(card).all()):
+        fail(f"deploy {name}: non-finite logits")
+    if over > few:
+        fail(f"deploy {name}: {over} rows differ from the CPU by more than "
+             f"1e-4 x max|logit| ({1e-4 * scale}); at most {few} may")
+    if not err <= jump_bound:
+        fail(f"deploy {name}: logits differ from the CPU by {err}, more "
+             f"than the PLAN jump can explain ({jump_bound})")
+    if not agree >= 0.99:
+        fail(f"deploy {name}: greedy agreement with the CPU {agree} < 0.99")
+    if miss_a8 > few:
+        fail(f"deploy {name}: with 8-bit signals {miss_a8} rows' argmax "
+             f"differ from the CPU; at most {few} may")
+    return {"act_bits_none_max_abs_logit_diff": err,
+            "max_abs_logit": scale,
+            "act_bits_none_rows_over_1e-4_max_logit": over,
+            "rows_allowed_over": few,
+            "plan_jump_bound": jump_bound,
+            "act_bits_none_greedy_agreement_vs_cpu": agree,
+            "a8_greedy_agreement_vs_cpu": 1.0 - miss_a8 / batch}
+
+
+def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
+    """The W3A8 deployment of the paper's nets through the kernels."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.data.synthetic import digit_task, phoneme_task
+    from repro_torch.models import dnn
+    width = 64 if rehearse else 1022
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nets = {
+        "digit": (digit_params, digit_task(seed=seed), 100),
+        "phoneme": (dnn.init(gen, 429, (width,) * 4, 61, device=device),
+                    phoneme_task(seed=seed), 128),
+    }
+    clock = Clock(device, reps=5 if rehearse else 50)
+    no_a8 = dataclasses.replace(W3A8, act_bits=None)
+    total = {k: 0 for k in _counters()}
+    out = {"phase": "deploy", "form": "export_container(W3A8): qp hidden, "
+                                      "q head, per-channel deltas",
+           "sigmoid_mode": "pw", "nets": {}}
+    for name, (master, task, batch) in nets.items():
+        served = quant_dense.export_container(master, W3A8)
+        layers = len(master) - 1
+        x = torch.from_numpy(task.test[0][:batch]).to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        with torch.no_grad():
+            logits = dnn.forward(served, x, policy=W3A8, sigmoid_mode="pw")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches, plain = read_counts()
+        for k, v in launches.items():
+            total[k] += v
+        want = {"qmatvec": layers, "qmatmul": 1, "sigmoid_pw": layers}
+        if not rehearse:
+            if any(launches[k] != v for k, v in want.items()):
+                fail(f"deploy {name}: launches {launches}, want {want}")
+            if max(plain.values()) != 0:
+                fail(f"deploy {name}: a plain version ran: {plain}")
+        # parity with the CPU plain path on the same weights and inputs:
+        # layer by layer (both fed the card's input to the layer), the
+        # real forward against that chain bit for bit, then end to end
+        cpu = {k: {kk: v.cpu() for kk, v in leaf.items()}
+               for k, leaf in served.items()}
+        layer_err, chain = _layerwise(served, cpu, x, no_a8)
+        with torch.no_grad():
+            card = dnn.forward(served, x, policy=no_a8, sigmoid_mode="pw")
+            plain_out = dnn.forward(cpu, x.cpu(), policy=no_a8,
+                                    sigmoid_mode="pw")
+            plain_a8 = dnn.forward(cpu, x.cpu(), policy=W3A8,
+                                   sigmoid_mode="pw")
+        if logits.shape != (batch, task.num_classes) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"deploy {name}: bad logits {tuple(logits.shape)}")
+        if not torch.equal(card, chain):
+            fail(f"deploy {name}: dnn.forward's logits differ from its "
+                 f"layers' ({float((card - chain).abs().max())})")
+        net = {"batch": batch, "launches": launches, "plain_calls": plain,
+               "layerwise_max_abs_err": layer_err,
+               "layerwise_tolerance": "1e-4 x the row's max|plain| per "
+                                      "layer; sigmoid_pw bit-identical",
+               "end_to_end_gate": "act_bits None: rows over 1e-4 x "
+                                  "max|logit| <= rows_allowed_over, max "
+                                  "diff <= plan_jump_bound, greedy >= 0.99; "
+                                  "A8: greedy misses <= rows_allowed_over",
+               **_e2e_gate(name, card.cpu(), plain_out, logits.cpu(),
+                           plain_a8, cpu["head"])}
+        if name == "digit":
+            with torch.no_grad():
+                x100 = x[:100]
+                w3a8_ms = clock(lambda: dnn.forward(served, x100, policy=W3A8,
+                                                    sigmoid_mode="pw"))
+                float_ms = clock(lambda: dnn.forward(master, x100,
+                                                     policy=FLOAT))
+            net.update({
+                "deployed_test_mcr": _mcr(served, task, W3A8, device),
+                "w3a8_mcr_fake_quant_per_tensor": digit_mcr,
+                "forward_ms_w3a8_kernels": w3a8_ms,
+                "forward_ms_float": float_ms,
+                "images_per_s_w3a8_kernels": 100 / (w3a8_ms / 1e3),
+                "images_per_s_float": 100 / (float_ms / 1e3),
+                "timing": "median of 50 CUDA-event timings of one forward, "
+                          "batch 100" if not rehearse else
+                          "host clock (CPU rehearsal, not device times)"})
+        out["nets"][name] = net
+    emit(out)
+    return total
+
+
 # --- main -------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -478,12 +829,24 @@ def main(argv=None) -> int:
     launches, _ = engine_phase(cfg, params, device, None, args.rehearse)
     engine_phase(cfg, params, device, 8, args.rehearse)
     path_phase(cfg, params, device)
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    digit, metrics, paper_launches = paper_phase(device, args.rehearse)
+    deploy_launches = deploy_phase(digit, metrics["w3a8_mcr"], device,
+                                   args.seed, args.rehearse)
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
+        by_path = {"engine_bf16_kv": launches[name],
+                   "paper": paper_launches[name],
+                   "deploy": deploy_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": by_path["engine_bf16_kv" if name in ENGINE_KERNELS
+                                else "deploy"],
+            "launches_by_path": by_path,
             "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"], "shape": c["shape"],

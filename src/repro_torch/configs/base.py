@@ -172,6 +172,8 @@ ARCH_IDS = (
 
 _MODULE_FOR = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "digit": "digit",
+    "phoneme": "phoneme",
 }
 
 

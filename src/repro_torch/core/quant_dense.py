@@ -3,14 +3,18 @@
 A weight leaf takes one of three forms:
 
   {"w": f32}                   master float weights (plain ``torch.matmul``,
-                               as the reference leaves it to XLA)
+                               as the reference leaves it to XLA); under a
+                               'fake' policy the STE fake-quant view of
+                               them (the paper's retraining step)
   {"q": int8, "delta"}         serve form A: int8 levels at full shape
                                (the ``qmatmul`` kernel's format, 1 B/wt)
   {"qp": int32, "delta"}       serve form B: 3-bit containers packed along
                                K (10 wt/word, the ``qmatvec`` format)
 
 ``export_levels`` / ``export_container`` turn a float tree into the serve
-forms (per-output-channel deltas; stacked layer dims handled).
+forms (per-output-channel deltas; stacked layer dims handled);
+``fit_deltas`` / ``export_packed`` / ``packed_apply`` are the paper MLP's
+per-tensor quantization step and its packed deployment check.
 
 Serve-form matmuls dispatch on ``mode``:
 
@@ -31,7 +35,8 @@ import torch
 from repro_torch.core import packing, qat
 from repro_torch.core import quantizer as qz
 from repro_torch.core.precision import QuantPolicy
-from repro_torch.core.treeutil import flatten_with_path, role_of, unflatten
+from repro_torch.core.treeutil import (flatten_with_path, map_with_path,
+                                       role_of, unflatten)
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.kernels.qmatvec import ops as qmv_ops
@@ -39,7 +44,8 @@ from repro_torch.kernels.qmatvec.ref import qmatvec_ref
 
 __all__ = ["init", "apply", "serve_apply", "tied_logits",
            "resolve_matmul_mode", "MATMUL_MODES", "effective_weight",
-           "export_levels", "export_container"]
+           "fit_deltas", "export_levels", "export_container", "export_packed",
+           "packed_apply", "is_serve_form"]
 
 MATMUL_MODES = ("auto", "kernel", "dequant")
 
@@ -72,11 +78,15 @@ def resolve_matmul_mode(mode: str, device=None) -> str:
 
 
 def effective_weight(params, policy: QuantPolicy, role: str,
+                     delta: Optional[torch.Tensor] = None,
                      k: Optional[int] = None,
                      dtype=torch.float32) -> torch.Tensor:
-    """The weight the forward pass sees; for the serve forms it
-    MATERIALIZES the dequantized matrix at ``dtype`` (the test oracle;
-    the serve path goes through :func:`serve_apply`). ``k`` is the logical
+    """The weight the forward pass sees. ``params``: leaf dict or raw tensor.
+
+    For a float master under a quantizing policy this is the STE fake-quant
+    view (``delta`` fixed, or refit when None). For the serve forms it
+    MATERIALIZES the dequantized matrix at ``dtype`` (the test oracle; the
+    serve path goes through :func:`serve_apply`). ``k`` is the logical
     reduction dim, needed for the ``qp`` form."""
     if not isinstance(params, dict):
         params = {"w": params}
@@ -86,11 +96,11 @@ def effective_weight(params, policy: QuantPolicy, role: str,
         return q.to(dtype) * params["delta"].to(dtype)
     if "q" in params:
         return params["q"].to(dtype) * params["delta"].to(dtype)
-    if policy.spec_for(role) is None:
-        return params["w"]
-    raise NotImplementedError(
-        "STE fake-quant of float master weights is training-side and not "
-        "ported yet; serve a float tree under FLOAT or export it first")
+    w = params["w"]
+    spec = policy.spec_for(role)
+    if spec is None:
+        return w
+    return qat.fake_quant(w, spec, delta)
 
 
 def serve_apply(params: Dict[str, Any], x: torch.Tensor, *,
@@ -137,17 +147,18 @@ def tied_logits(params: Dict[str, Any], h: torch.Tensor, *,
 
 
 def apply(params: Dict[str, Any], x: torch.Tensor, *, policy: QuantPolicy,
-          role: str = "hidden", quantize_input: bool = False,
-          mode: str = "auto") -> torch.Tensor:
+          role: str = "hidden", delta: Optional[torch.Tensor] = None,
+          quantize_input: bool = False, mode: str = "auto") -> torch.Tensor:
     """Dense forward under any weight form: serve forms go through
-    :func:`serve_apply`, float master weights through ``torch.matmul``."""
+    :func:`serve_apply`, float and fake-quant master weights through
+    ``torch.matmul`` (as the reference leaves them to XLA)."""
     if not isinstance(params, dict):
         params = {"w": params}
     if quantize_input and policy.act_bits:
         x = qat.fake_quant_act(x, policy.act_bits)
     if "qp" in params or "q" in params:
         return serve_apply(params, x, mode=mode)
-    w = effective_weight(params, policy, role, k=x.shape[-1])
+    w = effective_weight(params, policy, role, delta, k=x.shape[-1])
     y = x @ w.to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
@@ -155,6 +166,13 @@ def apply(params: Dict[str, Any], x: torch.Tensor, *, policy: QuantPolicy,
 
 
 # --- whole-tree operations ----------------------------------------------------
+
+def is_serve_form(params: Any) -> bool:
+    """True if the tree already carries serve-form leaves ({"q"} levels or
+    {"qp"} packed containers) rather than float master weights."""
+    return any(p == n or p.endswith("/" + n)
+               for p in flatten_with_path(params) for n in ("q", "qp"))
+
 
 def _is_weight(path: str) -> bool:
     return path.endswith("/w") or path == "w"
@@ -174,6 +192,19 @@ def _leaf_spec(path: str, policy: QuantPolicy) -> Optional[qz.QuantSpec]:
     if not _is_weight(path):
         return None
     return policy.spec_for(role_of(path))
+
+
+def fit_deltas(params: Any, policy: QuantPolicy) -> Any:
+    """Step 2 of the paper: the L2-optimal delta of every quantized weight
+    (per-tensor, unstacked trees — the MLP); other leaves map to None."""
+    def fit(path, leaf):
+        spec = _leaf_spec(path, policy)
+        if spec is None:
+            return None
+        return qz.optimal_uniform_delta(leaf, spec)
+
+    with torch.no_grad():
+        return map_with_path(fit, params)
 
 
 def _quantize_leaf(leaf: torch.Tensor, spec: qz.QuantSpec, nd: int):
@@ -237,3 +268,40 @@ def export_container(params: Any, policy: QuantPolicy) -> Any:
             out[base + "q"] = q
             out[base + "delta"] = d
     return unflatten(out)
+
+
+def export_packed(params: Any, policy: QuantPolicy) -> Any:
+    """The MLP's container export: every quantized weight -> {"q": int32
+    words packed along K at its own width (10 3-bit or 4 8-bit fields per
+    word), per-tensor "delta", "bits", "shape"}."""
+    out: Dict[str, Any] = {}
+    for path, leaf in flatten_with_path(params).items():
+        spec = _leaf_spec(path, policy)
+        if spec is None:
+            out[path] = leaf
+            continue
+        q, delta = qz.quantize(leaf, spec)
+        q2d = q.reshape(-1, q.shape[-1]) if q.dim() >= 2 else q.reshape(-1, 1)
+        dev = leaf.device
+        out[path] = {
+            "q": packing.pack_matrix(q2d, spec.bits),
+            "delta": delta.to(torch.float32),
+            "bits": torch.tensor(spec.bits, dtype=torch.int32, device=dev),
+            "shape": torch.tensor(leaf.shape, dtype=torch.int32, device=dev),
+        }
+    return unflatten(out)
+
+
+def packed_apply(packed: Dict[str, Any], x: torch.Tensor, *,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """Inference matmul against a packed leaf from :func:`export_packed`.
+    A 2-D CUDA input against 3-bit words goes to the ``qmatvec`` kernel
+    when ``use_kernel``; everything else unpacks."""
+    shape = tuple(packed["shape"].tolist())
+    bits = int(packed["bits"])
+    k = math.prod(shape[:-1])
+    if use_kernel and x.is_cuda and x.dim() == 2 and bits == 3:
+        return qmv_ops.qmatvec(x, packed["q"], packed["delta"], k=k)
+    q = packing.unpack_matrix(packed["q"], k, bits).reshape(shape)
+    w = q.to(torch.float32) * packed["delta"]
+    return x @ w.to(x.dtype)

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 __all__ = ["QuantSpec", "max_level", "optimal_uniform_delta",
-           "quantize_levels"]
+           "quantize_levels", "dequantize", "quantize"]
 
 
 def max_level(bits: int) -> int:
@@ -88,3 +88,16 @@ def quantize_levels(w: torch.Tensor, delta: torch.Tensor,
     q = torch.clamp(torch.round(w / torch.clamp(d, min=1e-12)),
                     -spec.levels, spec.levels)
     return q.to(torch.int8)
+
+
+def dequantize(q: torch.Tensor, delta: torch.Tensor, spec: QuantSpec,
+               dtype=torch.float32) -> torch.Tensor:
+    d = _broadcast_delta(torch.as_tensor(delta, device=q.device), q.shape,
+                         spec.per_channel)
+    return (q.to(torch.float32) * d).to(dtype)
+
+
+def quantize(w: torch.Tensor, spec: QuantSpec):
+    """Full pipeline: fit delta, assign levels. Returns (q_int8, delta)."""
+    delta = optimal_uniform_delta(w, spec)
+    return quantize_levels(w, delta, spec), delta

@@ -27,7 +27,7 @@ import torch
 __all__ = ["KERNELS", "CSRC", "BUILD_DIR", "build", "load", "function",
            "check", "require", "stream_ptr", "dtype_code", "build_log"]
 
-KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill")
+KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill", "sigmoid_pw")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -100,15 +100,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, argtypes):
-    """The C launch function ``<name>_launch`` of kernel ``name`` with its
-    argument types set (pointers and the stream as ``c_void_p``), loaded
-    once."""
-    fn = _FNS.get(name)
+def function(name: str, argtypes, entry: str | None = None):
+    """The C launch function ``<entry>_launch`` (``entry`` defaults to
+    ``name``) of kernel library ``name`` with its argument types set
+    (pointers and the stream as ``c_void_p``), loaded once."""
+    entry = entry or name
+    fn = _FNS.get(entry)
     if fn is None:
-        fn = getattr(load(name), f"{name}_launch")
+        fn = getattr(load(name), f"{entry}_launch")
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _FNS[name] = fn
+        _FNS[entry] = fn
     return fn
 
 

@@ -59,8 +59,11 @@ def _serve(eng, vocab):
     return sum(len(r.out) for r in done)
 
 
-def _device_ms_by_kernel(prof):
-    out = {k: 0.0 for k in KERNELS + ("other",)}
+def device_ms_by_kernel(prof, kernels=KERNELS):
+    """Self device ms of the profiler's CUDA-type rows, by port kernel name
+    (anything else as ``other``). Op rows are skipped: their self device
+    time repeats the kernel rows beneath them."""
+    out = {k: 0.0 for k in kernels + ("other",)}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -69,7 +72,7 @@ def _device_ms_by_kernel(prof):
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if not us:
             continue
-        name = next((k for k in KERNELS if f"{k}_kernel" in ev.key), "other")
+        name = next((k for k in kernels if f"{k}_kernel" in ev.key), "other")
         out[name] += us / 1e3
     return out
 
@@ -94,7 +97,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         toks = _serve(eng, cfg.vocab_size)
         wall = time.perf_counter() - t0
-    by_kernel = _device_ms_by_kernel(prof)
+    by_kernel = device_ms_by_kernel(prof)
     busy = sum(by_kernel.values())
     calls = {"decode_calls": eng.decode_calls,
              "prefill_calls": eng.prefill_calls}

@@ -1,0 +1,101 @@
+"""Where the paper MLP's time goes on the card: the digit net at full width
+(784-1022-1022-1022-10, batch 100) deployed as W3A8 containers, the same
+net as a float forward, and its float and STE training steps, each under
+``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_mlp
+
+The weights are a seeded init (the time does not depend on training). For
+each forward form it times ``FORWARDS`` forwards with the host clock (after
+a synchronize) and then again under the profiler; for each training form
+one epoch of ``STEPS`` SGD steps (``paper.pipeline.train_mlp`` on a
+``STEPS * 100``-example digit task). Prints one JSON line: per form the ms
+per forward or step, images per second, device time summed by kernel (the
+port's kernels by name, everything else as ``other``), device busy ms and
+the device's idle share of the profiled wall time. Device times are the
+self times of the profiler's CUDA-type rows, as in ``profile_engine.py``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+import torch
+
+from repro_torch.core import quant_dense
+from repro_torch.core.precision import FLOAT, W3A8
+from repro_torch.data.synthetic import digit_task
+from repro_torch.launch.profile_engine import card_line, device_ms_by_kernel
+from repro_torch.models import dnn
+from repro_torch.paper.pipeline import train_mlp
+
+KERNELS = ("qmatvec", "qmatmul", "sigmoid_pw")
+FORWARDS = 200
+STEPS = 20
+BATCH = 100
+
+
+def _profiled(fn, count: int):
+    """Host-clock ms per call, then the profiled breakdown per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / count * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {k: v / count
+                 for k, v in device_ms_by_kernel(prof, KERNELS).items()}
+    busy = sum(by_kernel.values())
+    return {"ms": ms, "profiled_ms": wall / count * 1e3,
+            "device_ms_by_kernel": by_kernel, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / (wall / count * 1e3)}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_mlp needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    master = dnn.init(gen, 784, (1022, 1022, 1022), 10, device=dev)
+    served = quant_dense.export_container(master, W3A8)
+    task = digit_task(seed=0, n_train=STEPS * BATCH, n_test=BATCH)
+    x = torch.from_numpy(task.test[0]).to(dev)
+    out = {"card": card_line(), "net": "784-1022-1022-1022-10",
+           "batch": BATCH}
+    forwards = {
+        "w3a8_kernels": lambda: dnn.forward(served, x, policy=W3A8,
+                                            sigmoid_mode="pw"),
+        "w3a8_kernels_no_a8": lambda: dnn.forward(
+            served, x, policy=dataclasses.replace(W3A8, act_bits=None),
+            sigmoid_mode="pw"),
+        "float": lambda: dnn.forward(master, x, policy=FLOAT),
+    }
+    with torch.no_grad():
+        for name, fn in forwards.items():
+            r = _profiled(fn, FORWARDS)
+            r["images_per_s"] = BATCH / (r["ms"] / 1e3)
+            out[f"forward_{name}"] = r
+    kw = dict(epochs=1, batch=BATCH, lr=0.1, momentum=0.9)
+    for name, policy in (("float", FLOAT), ("ste_w3a8", W3A8)):
+        r = _profiled(lambda: train_mlp(master, task, policy=policy, **kw), 1)
+        for k in ("ms", "profiled_ms", "device_busy_ms"):
+            r[k] /= STEPS
+        r["device_ms_by_kernel"] = {k: v / STEPS for k, v in
+                                    r["device_ms_by_kernel"].items()}
+        out[f"train_step_{name}"] = r
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -22,7 +22,7 @@ from repro.models import get_model as jget_model
 
 from repro_torch import bridge
 from repro_torch.core import packing, qat, quant_dense, quantizer as qz
-from repro_torch.core.precision import W3A8
+from repro_torch.core.precision import FLOAT, W3A8
 from repro_torch.core.treeutil import flatten_with_path, role_of
 
 
@@ -107,6 +107,35 @@ def test_fake_quant_act_within_one_ulp(shape, signed):
     ref = np.asarray(jqat.fake_quant_act(jnp.asarray(x), 8, signed))
     got = qat.fake_quant_act(torch.from_numpy(x), 8, signed).numpy()
     np.testing.assert_array_max_ulp(got, ref, maxulp=1)
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_effective_weight_and_apply_take_delta(fixed):
+    """The reference's signatures: ``effective_weight(params, policy, role,
+    delta, k)`` and ``apply(..., delta=)``; a float master under a
+    quantizing policy is the STE fake-quant view. A fixed delta gives the
+    reference's weight bit for bit; a refit one within rtol 1e-6."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((40, 12)).astype(np.float32)
+    b = rng.standard_normal(12).astype(np.float32)
+    x = rng.standard_normal((5, 40)).astype(np.float32)
+    jd = (jqz.optimal_uniform_delta(jnp.asarray(w), jqz.QuantSpec(bits=3))
+          * 1.1 if fixed else None)
+    jleaf = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+    leaf = {"w": torch.from_numpy(w), "b": torch.from_numpy(b)}
+    d = None if jd is None else torch.from_numpy(np.array(jd))
+    ref_w = np.asarray(jqd.effective_weight(jleaf, JW3A8, "hidden", jd))
+    got_w = quant_dense.effective_weight(leaf, W3A8, "hidden", d).numpy()
+    if fixed:
+        np.testing.assert_array_equal(got_w, ref_w)
+    else:
+        np.testing.assert_allclose(got_w, ref_w, rtol=1e-6)
+    ref_y = np.asarray(jqd.apply(jleaf, jnp.asarray(x), policy=JW3A8,
+                                 role="hidden", delta=jd))
+    got_y = quant_dense.apply(leaf, torch.from_numpy(x), policy=W3A8,
+                              role="hidden", delta=d).numpy()
+    np.testing.assert_allclose(got_y, ref_y, rtol=1e-5, atol=1e-5)
+    assert quant_dense.effective_weight(leaf, FLOAT, "hidden", d) is leaf["w"]
 
 
 def test_role_of_matches():

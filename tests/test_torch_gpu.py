@@ -9,7 +9,8 @@ machine without JAX:
 
 Tolerance: max |kernel - plain| <= 1e-4 x max |plain| in fp32 and
 2e-2 x max |plain| in bf16 (the kernels sum in another order, and in bf16
-round their probabilities at other points of the online softmax)."""
+round their probabilities at other points of the online softmax); the PLAN
+sigmoid and its gradient are bit-identical (every product is exact)."""
 import pytest
 import torch
 
@@ -22,6 +23,9 @@ from repro_torch.kernels.qmatmul import kernel as qmm_k
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.qmatvec import kernel as qmv_k
 from repro_torch.kernels.qmatvec import ops as qmv_ops
+from repro_torch.kernels.sigmoid_pw import kernel as sig_k
+from repro_torch.kernels.sigmoid_pw import ops as sig_ops
+from repro_torch.kernels.sigmoid_pw import ref as sig_ref
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -55,7 +59,8 @@ def _on(dev, *ts):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,k,n", [(8, 1536, 256), (3, 23, 40), (37, 8960, 100),
-                                   (512, 1536, 1536)])
+                                   (512, 1536, 1536), (100, 784, 1022),
+                                   (100, 429, 1022), (100, 1022, 1022)])
 def test_qmatvec(cuda, dtype, m, k, n):
     g = _gen(m + k)
     x = torch.randn((m, k), generator=g).to(dtype)
@@ -73,11 +78,77 @@ def test_qmatvec(cuda, dtype, m, k, n):
            dtype)
 
 
+SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, 0.99999994,
+           -1.0000001, 2.3749998, 4.9999995, -5.0000005, 1e-40, -1e-40,
+           float("inf"), float("-inf"), float("nan")]
+
+
+def _same(got, ref):
+    """Bit-identical values; NaN where and only where the plain one is."""
+    got = got.cpu()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], ref[~nan])
+    assert torch.equal(torch.signbit(got[~nan]), torch.signbit(ref[~nan]))
+
+
+def _sig_inputs(dtype):
+    g = _gen(5)
+    yield (torch.cat([torch.linspace(-8, 8, 1000), torch.tensor(SPECIAL)])
+           .to(dtype))
+    for shape in ((100, 1022), (7,), (3, 5), (2, 3, 129)):
+        yield (torch.randn(shape, generator=g) * 4).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sigmoid_pw_forward_and_backward_bit_identical(cuda, dtype):
+    for x in _sig_inputs(dtype):
+        n0, b0 = sig_k.launches, sig_k.bwd_launches
+        xc = x.to(cuda).requires_grad_(True)
+        y = sig_ops.sigmoid_pw(xc)
+        r = torch.randn(x.shape, generator=_gen(6)).to(dtype)
+        (y * r.to(cuda)).sum().backward()
+        assert (sig_k.launches, sig_k.bwd_launches) == (n0 + 1, b0 + 1)
+        xp = x.clone().requires_grad_(True)
+        yp = sig_ref.sigmoid_pw(xp)
+        (yp * r).sum().backward()
+        _same(y.detach(), yp.detach())
+        keep = ~torch.isnan(x)
+        _same(xc.grad.cpu()[keep], xp.grad[keep])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sigmoid_pw_views(cuda, dtype):
+    """A strided view and a contiguous view whose start is not 16-byte
+    aligned (the scalar path) give the plain version's bits."""
+    base = (torch.randn((64, 130), generator=_gen(7)) * 4).to(dtype)
+    on = base.to(cuda)
+    with torch.no_grad():
+        _same(sig_ops.sigmoid_pw(on[:, 1:129:2]),
+              sig_ref.sigmoid_pw(base[:, 1:129:2]))
+        _same(sig_ops.sigmoid_pw(on.reshape(-1)[1:]),
+              sig_ref.sigmoid_pw(base.reshape(-1)[1:]))
+
+
+def test_sigmoid_pw_rejects_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        sig_k.sigmoid_pw_cuda(torch.zeros(4))
+    with pytest.raises(ValueError):
+        sig_k.sigmoid_pw_cuda(torch.zeros(4, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError):
+        sig_k.sigmoid_pw_bwd_cuda(torch.zeros(4, device=cuda),
+                                  torch.zeros(5, device=cuda))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("transposed", [False, True])
-def test_qmatmul(cuda, dtype, transposed):
+@pytest.mark.parametrize("m,k,n", [(8, 1536, 4099), (100, 1022, 10),
+                                   (128, 1022, 61)])
+def test_qmatmul(cuda, dtype, transposed, m, k, n):
+    """The tied readout (8, 1536, V-like N) and the paper MLP's 8-bit
+    heads; row-major and the transposed view."""
     g = _gen(1)
-    m, k, n = 8, 1536, 4099
     x = torch.randn((m, k), generator=g).to(dtype)
     if transposed:                       # the tied readout's q.T view
         w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).T
@@ -204,3 +275,62 @@ def test_engine_on_card_matches_cpu(cuda, kv_bits):
                   max_new_tokens=5, dtype=torch.float32, device=dev).cpu()
          for dev in ("cpu", cuda)]
     assert torch.equal(g[0], g[1])
+
+
+def test_deployed_digit_forward_on_card_matches_cpu(cuda):
+    """The paper's digit net at full width, exported to W3A8 containers and
+    run with the PLAN sigmoid: each layer on the card (qmatvec or qmatmul,
+    then sigmoid_pw) agrees with its plain version on the CPU fed the same
+    input, within 1e-4 x max|plain| (the sigmoid bit for bit). End to end
+    the card's classes agree with the CPU's on >= 98% of the rows, with and
+    without the 8-bit signals: PLAN jumps by 1/256 at |x| = 2.375 and an
+    8-bit signal can flip at a rounding tie, so logits are not compared
+    end to end."""
+    import dataclasses
+
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.models import dnn
+    master = dnn.init(_gen(8), 784, (1022, 1022, 1022), 10)
+    served = quant_dense.export_container(master, W3A8)
+    x = torch.rand((100, 784), generator=_gen(9))
+    on = {k: {kk: v.to(cuda) for kk, v in leaf.items()}
+          for k, leaf in served.items()}
+    no_a8 = dataclasses.replace(W3A8, act_bits=None)
+    h = x.to(cuda)
+    with torch.no_grad():
+        for name in ("fc0", "fc1", "fc2", "head"):
+            role = "output" if name == "head" else "hidden"
+            y = quant_dense.apply(on[name], h, policy=no_a8, role=role)
+            _check(y, quant_dense.apply(served[name], h.cpu(), policy=no_a8,
+                                        role=role), torch.float32)
+            if name != "head":
+                h = sig_ops.sigmoid_pw(y)
+                _same(h, sig_ref.sigmoid_pw(y.cpu()))
+        for policy in (no_a8, W3A8):
+            n0 = (qmv_k.launches, qmm_k.launches, sig_k.launches)
+            got = dnn.forward(on, x.to(cuda), policy=policy, sigmoid_mode="pw")
+            assert (qmv_k.launches, qmm_k.launches, sig_k.launches) == \
+                (n0[0] + 3, n0[1] + 1, n0[2] + 3)
+            ref = dnn.forward(served, x, policy=policy, sigmoid_mode="pw")
+            agree = (got.cpu().argmax(-1) == ref.argmax(-1)).float().mean()
+            assert agree >= 0.98
+
+
+def test_packed_apply_kernel_on_card(cuda):
+    """``packed_apply`` sends a 2-D CUDA input against 3-bit words to the
+    qmatvec kernel and unpacks the 8-bit head; both agree with the CPU."""
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.models import dnn
+    packed = quant_dense.export_packed(dnn.init(_gen(10), 784, (64,), 10),
+                                       W3A8)
+    x = torch.rand((100, 784), generator=_gen(11))
+    for name, xin, launched in (("fc0", x, 1), ("head", torch.rand(
+            (100, 64), generator=_gen(12)), 0)):
+        leaf = {k: v.to(cuda) for k, v in packed[name]["w"].items()}
+        n0 = qmv_k.launches
+        got = quant_dense.packed_apply(leaf, xin.to(cuda))
+        assert qmv_k.launches == n0 + launched
+        _check(got, quant_dense.packed_apply(packed[name]["w"], xin),
+               torch.float32)
