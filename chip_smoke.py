@@ -12,13 +12,20 @@ Phases, each printing one JSON line:
              versions, the kernels' build time (one nvcc per source, all at
              once, for sm_90a). TF32 is switched off for fp32 products.
 2. parity    every CUDA kernel against its plain PyTorch version at the
-             main paths' shapes, in bf16 and fp32 (int8 KV for attention):
+             main paths' shapes, in bf16 and fp32 (int8 KV for attention;
+             attn_prefill at the buckets T = 16, 64 and 256; qmatmul for
+             the tied readout and both MLP heads), each case naming the
+             layout or kernel it took (qmatmul: k_lanes / n_lanes;
+             attn_prefill: wgmma for bf16 queries, simt for fp32):
              max abs error against the tolerance, held row by row (fp32:
              1e-4 x the row's max|ref|; bf16: 2e-2 x the row's max|ref|, the
              sums run in another order; a row is one output vector of a
              matmul, one query of attention), and the
-             median CUDA-event ms of the kernel, the plain version and one
-             PyTorch library call computing the same function. The PLAN
+             median CUDA-event ms of one call of the kernel, the plain
+             version and one PyTorch library call computing the same
+             function (host time included where the call is shorter than
+             its launch), beside the device ms of one call of the kernel
+             and of the library call from torch.profiler. The PLAN
              sigmoid (forward and backward) must be bit-identical, NaN where
              the plain version has NaN; its library column is torch.sigmoid
              (the same bytes, not the same function).
@@ -28,7 +35,9 @@ Phases, each printing one JSON line:
              16 requests x 32 new tokens, once with a bf16 KV cache and once
              with kv_bits=8. Launch counters are zeroed just before each run
              and read just after: every kernel of the path must have
-             launched and no plain version may have run.
+             launched, no plain version may have run, every readout must
+             have taken qmatmul's k_lanes layout and every admission the
+             wgmma attn_prefill.
 4. path      prefill + 4 decode steps at full width in fp32 activations
              (no activation quant) with all kernels, then with the plain
              paths (matmul_mode="dequant", attn_mode="ref") on the same
@@ -43,7 +52,8 @@ Phases, each printing one JSON line:
              (429-1022x4-61), exported with export_container(W3A8) and run by
              dnn.forward(..., sigmoid_mode="pw") at batch 100 / 128: each
              forward must launch qmatvec once per hidden layer, qmatmul once
-             and sigmoid_pw once per hidden layer, with no plain version;
+             (the head, in the k_lanes layout) and sigmoid_pw once per
+             hidden layer, with no plain version;
              each layer must agree with its CPU plain version fed the same
              input (8-bit signals off; 1e-4 x the row's max, sigmoid_pw bit
              for bit) and dnn.forward with that chain bit for bit; end to
@@ -53,8 +63,10 @@ Phases, each printing one JSON line:
              >= 0.99 (8-bit signals off) and all but a few rows' argmax
              equal (on). Prints the deployed test MCR and images/s of the
              W3A8 kernel forward and of the float net, batch 100.
-7. kernels   the per-kernel summary line, then the card line as nvidia-smi
-             prints it, then the result line
+7. kernels   the per-kernel summary line (one entry per TPU kernel; qmatmul
+             and attn_prefill add their launches by layout / kernel on each
+             path), then the card line as nvidia-smi prints it, then the
+             result line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Any failure raises and exits non-zero without a result line; so does a run
@@ -83,12 +95,22 @@ KERNEL_META = {
                 "src/repro/kernels/qmatmul/kernel.py:50"),
     "attn_decode": ("src/repro_torch/csrc/attn_decode.cu",
                     "src/repro/kernels/attn_decode/kernel.py:116"),
-    "attn_prefill": ("src/repro_torch/csrc/attn_prefill.cu",
+    "attn_prefill": ("src/repro_torch/csrc/attn_prefill_tc.cu",
                      "src/repro/kernels/attn_prefill/kernel.py:124"),
     "sigmoid_pw": ("src/repro_torch/csrc/sigmoid_pw.cu",
                    "src/repro/kernels/sigmoid_pw/kernel.py:28"),
 }
 ENGINE_KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill")
+# kernels with more than one CUDA kernel or layout behind one wrapper: the
+# counter that splits their launches, and the source of each variant
+VARIANTS = {
+    "qmatmul": ("launches_by_layout",
+                {"k_lanes": "src/repro_torch/csrc/qmatmul.cu",
+                 "n_lanes": "src/repro_torch/csrc/qmatmul.cu"}),
+    "attn_prefill": ("launches_by_variant",
+                     {"wgmma": "src/repro_torch/csrc/attn_prefill_tc.cu",
+                      "simt": "src/repro_torch/csrc/attn_prefill.cu"}),
+}
 PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
 SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, 0.99999994,
            -1.0000001, 2.3749998, 4.9999995, -5.0000005, 1e-40, -1e-40,
@@ -131,6 +153,30 @@ class Clock:
             evs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+    def device_ms(self, fn):
+        """Device ms of one call of ``fn``: the self time of every kernel,
+        copy and set it runs on the card, from torch.profiler, averaged over
+        ``reps`` calls. Free of the host's time, which a CUDA-event timing
+        of one small call is not. A session that records no device activity
+        at all (a short one sometimes does) is run again, up to three
+        times, and then reported as None; so is the CPU rehearsal."""
+        import torch
+        from repro_torch.launch.profile_engine import device_ms_by_kernel
+        if self.device.type != "cuda":
+            return None
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(self.reps):
+                    fn()
+                torch.cuda.synchronize()
+            total = sum(device_ms_by_kernel(prof).values())
+            if total > 0:
+                return total / self.reps
+        return None
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
@@ -233,7 +279,8 @@ def _kernel_cases(cfg, device, clock):
                           device=device, dtype=torch.int8)
     for dname, dt in dts:
         hs = randn(8, d, dtype=dt)
-        got = qmm_ops.qmatmul(hs, table.T, 1.0)
+        got, layout = launched_variant(
+            "qmatmul", lambda: qmm_ops.qmatmul(hs, table.T, 1.0), "k_lanes")
         ref = qmatmul_ref(hs, table.T, 1.0)
         tdq = table.to(dt)
         xb = hs.element_size()
@@ -241,10 +288,11 @@ def _kernel_cases(cfg, device, clock):
             + 8 * cfg.vocab_size * xb
         yield dict(
             name="qmatmul", shape=f"M=8 K={d} N={cfg.vocab_size} (q.T view)",
-            dtype=dname, err=compare(got, ref, dname, f"qmatmul {dname}"),
-            ms=clock(lambda: qmm_ops.qmatmul(hs, table.T, 1.0)),
-            plain_ms=clock(lambda: qmatmul_ref(hs, table.T, 1.0)),
-            library_ms=clock(lambda: torch.matmul(hs, tdq.T)),
+            dtype=dname, variant=layout,
+            err=compare(got, ref, dname, f"qmatmul {dname}"),
+            run=(lambda: qmm_ops.qmatmul(hs, table.T, 1.0)),
+            plain=(lambda: qmatmul_ref(hs, table.T, 1.0)),
+            library=(lambda: torch.matmul(hs, tdq.T)),
             bound=bound_ms(nbytes, 2 * 8 * d * cfg.vocab_size, dname),
             headline=dname == "bfloat16")
     del table
@@ -290,47 +338,79 @@ def _kernel_cases(cfg, device, clock):
                                       f"lens ragged (one 0)",
             dtype=f"{dname}/kv-{kvname}",
             err=compare(got, ref, dname, f"attn_decode {dname} kv-{kvname}"),
-            ms=clock(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs)),
-            plain_ms=clock(lambda: attn_decode_ref(q, kc, vc, lens, ks, vs)),
-            library_ms=clock(lambda: F.scaled_dot_product_attention(
+            run=(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs)),
+            plain=(lambda: attn_decode_ref(q, kc, vc, lens, ks, vs)),
+            library=(lambda: F.scaled_dot_product_attention(
                 qs, kh, vh, attn_mask=mask)),
             bound=bound_ms(nbytes, 4 * hd * h * tot, dname),
             headline=(kvname == "bf16" and dname == "bfloat16"))
 
-    # attn_prefill: B = 8, T = S in {64, 256}, ragged lengths, hi = min(t+1, len)
-    for t in (64, 256):
-        plen = torch.tensor([1, t, t // 2, 3, t - 1, 17, t // 4, 9],
-                            dtype=torch.int32, device=device)
+    # attn_prefill: B = 8, T = S in {16, 64, 256} (the smallest bucket, a
+    # middle one, the largest the engine admits), ragged lengths,
+    # hi = min(t + 1, len); bf16 and fp32 q with a K/V of their dtype, and
+    # bf16 q with an int8 K/V (the library yardstick then attends over the
+    # dequantized K/V, as for attn_decode)
+    for t in (16, 64, 256):
+        plen = torch.tensor([1, t, t // 2, 3, t - 1, min(17, t), t // 4,
+                             min(9, t)], dtype=torch.int32, device=device)
         pos = torch.arange(t, dtype=torch.int32, device=device)
         hi = torch.minimum(pos[None, :] + 1, plen[:, None])
         lo = torch.zeros_like(hi)
-        for dname, dt in dts:
+        kinds = [("bf16", "bfloat16", torch.bfloat16),
+                 ("fp32", "float32", torch.float32)]
+        if t >= 64:
+            kinds.append(("int8", "bfloat16", torch.bfloat16))
+        for kvname, dname, dt in kinds:
             q = randn(b, t, h, hd, dtype=dt)
-            k_ = randn(b, t, kvh, hd, dtype=dt)
-            v_ = randn(b, t, kvh, hd, dtype=dt)
-            got = pf_ops.attn_prefill(q, k_, v_, hi)
+            if kvname == "int8":
+                k_ = torch.randint(-127, 128, (b, t, kvh, hd), generator=g,
+                                   device=device, dtype=torch.int8)
+                v_ = torch.randint(-127, 128, (b, t, kvh, hd), generator=g,
+                                   device=device, dtype=torch.int8)
+                ks = torch.rand((b, t), generator=g, device=device) * 0.02
+                vs = torch.rand((b, t), generator=g, device=device) * 0.02
+                kl = (k_.float() * ks[..., None, None]).to(dt)
+                vl = (v_.float() * vs[..., None, None]).to(dt)
+            else:
+                k_, v_ = randn(b, t, kvh, hd, dtype=dt), randn(b, t, kvh, hd,
+                                                               dtype=dt)
+                ks = vs = None
+                kl, vl = k_, v_
+            got, variant = launched_variant("attn_prefill", lambda: (
+                pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks, v_scale=vs)),
+                "wgmma" if dt == torch.bfloat16 else "simt")
             qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
-            ref = attn_prefill_ref(qg, k_, v_, lo, hi).reshape(b, t, h, hd)
+            ref = attn_prefill_ref(qg, k_, v_, lo, hi, ks,
+                                   vs).reshape(b, t, h, hd)
+            empty_rows = hi <= lo
+            if bool((got[empty_rows] != 0).any()):
+                fail(f"attn_prefill T={t} {dname} kv-{kvname}: a row with "
+                     f"an empty window is not exactly zero")
             qs = q.transpose(1, 2)
-            kh = k_.transpose(1, 2).repeat_interleave(grp, dim=1)
-            vh = v_.transpose(1, 2).repeat_interleave(grp, dim=1)
+            kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
+            vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
             mask = (pos[None, None, :] < hi[:, :, None])[:, None]
-            eb = q.element_size()
-            nbytes = (2 * b * t * h * hd * eb
-                      + 2 * int(plen.sum()) * kvh * hd * eb + 2 * b * t * 4)
+            qb, kb = q.element_size(), k_.element_size()
+            nbytes = (2 * b * t * h * hd * qb
+                      + 2 * int(plen.sum()) * kvh * hd * kb
+                      + (2 * int(plen.sum()) * 4 if ks is not None else 0)
+                      + 2 * b * t * 4)
             ops = 4 * hd * h * int((hi - lo).sum())
             yield dict(
                 name="attn_prefill", shape=f"B={b} T=S={t} KV={kvh} G={grp} "
                                            f"D={hd} lens ragged",
-                dtype=dname, err=compare(got, ref, dname,
-                                         f"attn_prefill T={t} {dname}",
-                                         row_dims=2),
-                ms=clock(lambda: pf_ops.attn_prefill(q, k_, v_, hi)),
-                plain_ms=clock(lambda: attn_prefill_ref(qg, k_, v_, lo, hi)),
-                library_ms=clock(lambda: F.scaled_dot_product_attention(
+                dtype=f"{dname}/kv-{kvname}", variant=variant,
+                err=compare(got, ref, dname,
+                            f"attn_prefill T={t} {dname} kv-{kvname}",
+                            row_dims=2),
+                run=(lambda: pf_ops.attn_prefill(q, k_, v_, hi,
+                                                     k_scale=ks, v_scale=vs)),
+                plain=(lambda: attn_prefill_ref(qg, k_, v_, lo, hi,
+                                                        ks, vs)),
+                library=(lambda: F.scaled_dot_product_attention(
                     qs, kh, vh, attn_mask=mask)),
                 bound=bound_ms(nbytes, ops, dname),
-                headline=(t == 256 and dname == "bfloat16"))
+                headline=(t == 256 and kvname == "bf16"))
 
 
 def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
@@ -353,9 +433,9 @@ def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
     return dict(
         name="qmatvec", shape=f"M={m} K={k} N={n}", dtype=dname,
         err=compare(got, ref, dname, f"qmatvec {m}x{k}x{n} {dname}"),
-        ms=clock(lambda: qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)),
-        plain_ms=clock(lambda: qmatvec_ref(x, w, delta, k, bias=bias)),
-        library_ms=clock(lambda: torch.addmm(bx, x, wdq)),
+        run=(lambda: qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)),
+        plain=(lambda: qmatvec_ref(x, w, delta, k, bias=bias)),
+        library=(lambda: torch.addmm(bx, x, wdq)),
         bound=bound_ms(nbytes, 2 * m * k * n, dname), headline=headline)
 
 
@@ -369,17 +449,18 @@ def _qmatmul_head_case(g, device, clock, m, k, n, dname, dt):
     delta = torch.rand(n, generator=g, device=device) * 0.01
     bias = torch.randn(n, generator=g, device=device)
     x = torch.randn((m, k), generator=g, device=device).to(dt)
-    got = qmm_ops.qmatmul(x, w, delta, bias=bias)
+    got, layout = launched_variant(
+        "qmatmul", lambda: qmm_ops.qmatmul(x, w, delta, bias=bias), "k_lanes")
     ref = qmatmul_ref(x, w, delta, bias=bias)
     wdq, bx = (w.float() * delta).to(dt), bias.to(dt)
     xb = x.element_size()
     nbytes = m * k * xb + w.numel() + 2 * n * 4 + m * n * xb
     return dict(
         name="qmatmul", shape=f"M={m} K={k} N={n} (MLP head)", dtype=dname,
-        err=compare(got, ref, dname, f"qmatmul head {m}x{k}x{n} {dname}"),
-        ms=clock(lambda: qmm_ops.qmatmul(x, w, delta, bias=bias)),
-        plain_ms=clock(lambda: qmatmul_ref(x, w, delta, bias=bias)),
-        library_ms=clock(lambda: torch.addmm(bx, x, wdq)),
+        variant=layout, err=compare(got, ref, dname, f"qmatmul head {m}x{k}x{n} {dname}"),
+        run=(lambda: qmm_ops.qmatmul(x, w, delta, bias=bias)),
+        plain=(lambda: qmatmul_ref(x, w, delta, bias=bias)),
+        library=(lambda: torch.addmm(bx, x, wdq)),
         bound=bound_ms(nbytes, 2 * m * k * n, dname), headline=False)
 
 
@@ -396,8 +477,9 @@ def _mlp_cases(device, clock, rehearse):
     for k in (784, 429):
         for dname, dt in dts:
             yield _qmatvec_case(g, device, clock, 100, k, 1022, dname, dt)
-    for dname, dt in dts:
-        yield _qmatmul_head_case(g, device, clock, 100, 1022, 10, dname, dt)
+    for m, n in ((100, 10), (128, 61)):             # digit and phoneme heads
+        for dname, dt in dts:
+            yield _qmatmul_head_case(g, device, clock, m, 1022, n, dname, dt)
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=device) * 4
@@ -425,14 +507,14 @@ def _mlp_cases(device, clock, rehearse):
             case = dict(
                 name="sigmoid_pw", shape=label, dtype=dname, err=err,
                 backward_err=0.0,
-                ms=clock(lambda: sig_ops.sigmoid_pw(x)),
-                plain_ms=clock(lambda: sig_ref.sigmoid_pw(x)),
-                library_ms=clock(lambda: torch.sigmoid(x)),
-                library="torch.sigmoid (same bytes, not the same function)",
+                run=(lambda: sig_ops.sigmoid_pw(x)),
+                plain=(lambda: sig_ref.sigmoid_pw(x)),
+                library=(lambda: torch.sigmoid(x)),
+                library_call="torch.sigmoid (same bytes, not the same function)",
                 backward_ms=clock(lambda: bwd(x, r)),
                 bound=bound_ms(2 * n * xb, 2 * n, dname),
                 headline=(label == "(100, 1022)" and dname == "float32"))
-            case["GB_per_s"] = round(2 * n * xb / case["ms"] / 1e6, 1)
+            case["bytes_moved"] = 2 * n * xb
             yield case
             del x, r
 
@@ -443,6 +525,13 @@ def parity_phase(cfg, device, rehearse):
     for c in itertools.chain(_kernel_cases(cfg, device, clock),
                              _mlp_cases(device, clock, rehearse)):
         c["bound_ms"], c["bound_by"] = c.pop("bound")
+        run, plain, library = c.pop("run"), c.pop("plain"), c.pop("library")
+        c["ms"], c["device_ms"] = clock(run), clock.device_ms(run)
+        c["plain_ms"] = clock(plain)
+        c["library_ms"] = clock(library)
+        c["library_device_ms"] = clock.device_ms(library)
+        if "bytes_moved" in c:
+            c["GB_per_s"] = round(c.pop("bytes_moved") / c["ms"] / 1e6, 1)
         cases.append(c)
     emit({"phase": "parity", "tolerance": TOL,
           "timing": "median ms, CUDA events" if not rehearse
@@ -466,15 +555,41 @@ def _counters():
 
 
 def reset_counts():
-    for kmod, rmod in _counters().values():
+    c = _counters()
+    for kmod, rmod in c.values():
         kmod.launches = 0
         rmod.calls = 0
+    for name, (attr, _) in VARIANTS.items():
+        split = getattr(c[name][0], attr)
+        for key in split:
+            split[key] = 0
 
 
 def read_counts():
     c = _counters()
     return ({n: km.launches for n, (km, _) in c.items()},
             {n: rm.calls for n, (_, rm) in c.items()})
+
+
+def read_variants():
+    """Launches by layout (qmatmul) and by kernel (attn_prefill)."""
+    c = _counters()
+    return {name: dict(getattr(c[name][0], attr))
+            for name, (attr, _) in VARIANTS.items()}
+
+
+def launched_variant(name, fn, expect):
+    """Run ``fn`` and return its output and the variant of kernel ``name``
+    it launched. On the card it must have launched ``expect``, the variant
+    meant for these inputs, and no other; on the CPU rehearsal no kernel
+    runs and the variant is None."""
+    before = read_variants()[name]
+    out = fn()
+    after = read_variants()[name]
+    ran = [k for k in after if after[k] != before[k]]
+    if out.is_cuda and ran != [expect]:
+        fail(f"{name}: launched {ran or 'nothing'}, expected {expect}")
+    return out, (ran[0] if ran else None)
 
 
 def build_model(cfg, device, seed):
@@ -512,13 +627,15 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = read_counts()
+    variants = read_variants()
     toks = sum(len(r.out) for r in done)
     out = {"phase": "engine", "kv": "int8" if kv_bits else "bf16",
            "requests": len(done), "tokens": toks,
            "decode_calls": eng.decode_calls,
            "prefill_calls": eng.prefill_calls,
            "wall_s": round(wall, 4), "tok_per_s": round(toks / wall, 2),
-           "launches": launches, "plain_calls": plain}
+           "launches": launches, "launches_by_variant": variants,
+           "plain_calls": plain}
     emit(out)
     if len(done) != len(reqs) or any(len(r.out) != MAX_NEW for r in done):
         fail(f"engine did not serve every request its {MAX_NEW} tokens")
@@ -529,7 +646,14 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
             fail(f"a kernel of the engine path never launched: {launches}")
         if max(plain.values()) != 0:
             fail(f"a plain version ran on the engine path: {plain}")
-    return launches, {r.uid: r.out for r in done}
+        # every readout reads the table with lanes along K, every bf16
+        # admission runs the tensor-core attention
+        if variants["qmatmul"]["k_lanes"] != launches["qmatmul"]:
+            fail(f"a readout did not take the k_lanes layout: {variants}")
+        if variants["attn_prefill"]["wgmma"] != launches["attn_prefill"]:
+            fail(f"a bf16 admission did not run the wgmma attn_prefill: "
+                 f"{variants}")
+    return launches, variants, {r.uid: r.out for r in done}
 
 
 # --- phase 4 ----------------------------------------------------------------------
@@ -725,6 +849,7 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
     clock = Clock(device, reps=5 if rehearse else 50)
     no_a8 = dataclasses.replace(W3A8, act_bits=None)
     total = {k: 0 for k in _counters()}
+    total_variants = {k: dict.fromkeys(v, 0) for k, v in read_variants().items()}
     out = {"phase": "deploy", "form": "export_container(W3A8): qp hidden, "
                                       "q head, per-channel deltas",
            "sigmoid_mode": "pw", "nets": {}}
@@ -740,14 +865,21 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
         if device.type == "cuda":
             torch.cuda.synchronize()
         launches, plain = read_counts()
+        variants = read_variants()
         for k, v in launches.items():
             total[k] += v
+        for k, split in variants.items():
+            for key, v in split.items():
+                total_variants[k][key] += v
         want = {"qmatvec": layers, "qmatmul": 1, "sigmoid_pw": layers}
         if not rehearse:
             if any(launches[k] != v for k, v in want.items()):
                 fail(f"deploy {name}: launches {launches}, want {want}")
             if max(plain.values()) != 0:
                 fail(f"deploy {name}: a plain version ran: {plain}")
+            if variants["qmatmul"]["k_lanes"] != 1:
+                fail(f"deploy {name}: the 8-bit head did not take the "
+                     f"k_lanes layout: {variants}")
         # parity with the CPU plain path on the same weights and inputs:
         # layer by layer (both fed the card's input to the layer), the
         # real forward against that chain bit for bit, then end to end
@@ -766,7 +898,8 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
         if not torch.equal(card, chain):
             fail(f"deploy {name}: dnn.forward's logits differ from its "
                  f"layers' ({float((card - chain).abs().max())})")
-        net = {"batch": batch, "launches": launches, "plain_calls": plain,
+        net = {"batch": batch, "launches": launches,
+               "launches_by_variant": variants, "plain_calls": plain,
                "layerwise_max_abs_err": layer_err,
                "layerwise_tolerance": "1e-4 x the row's max|plain| per "
                                       "layer; sigmoid_pw bit-identical",
@@ -795,7 +928,7 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
                           "host clock (CPU rehearsal, not device times)"})
         out["nets"][name] = net
     emit(out)
-    return total
+    return total, total_variants
 
 
 # --- main -------------------------------------------------------------------------
@@ -826,22 +959,25 @@ def main(argv=None) -> int:
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "form": "qp (W3A8 export_container)", "init_export_s":
           round(build_s, 3)})
-    launches, _ = engine_phase(cfg, params, device, None, args.rehearse)
-    engine_phase(cfg, params, device, 8, args.rehearse)
+    launches, variants, _ = engine_phase(cfg, params, device, None,
+                                         args.rehearse)
+    launches8, variants8, _ = engine_phase(cfg, params, device, 8,
+                                           args.rehearse)
     path_phase(cfg, params, device)
     del params
     if device.type == "cuda":
         torch.cuda.empty_cache()
     digit, metrics, paper_launches = paper_phase(device, args.rehearse)
-    deploy_launches = deploy_phase(digit, metrics["w3a8_mcr"], device,
-                                   args.seed, args.rehearse)
+    deploy_launches, deploy_variants = deploy_phase(
+        digit, metrics["w3a8_mcr"], device, args.seed, args.rehearse)
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
         by_path = {"engine_bf16_kv": launches[name],
+                   "engine_int8_kv": launches8[name],
                    "paper": paper_launches[name],
                    "deploy": deploy_launches[name]}
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": by_path["engine_bf16_kv" if name in ENGINE_KERNELS
@@ -849,8 +985,16 @@ def main(argv=None) -> int:
             "launches_by_path": by_path,
             "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"], "shape": c["shape"],
-            "dtype": c["dtype"]})
+            "library_ms": c["library_ms"], "device_ms": c["device_ms"],
+            "library_device_ms": c["library_device_ms"], "shape": c["shape"],
+            "dtype": c["dtype"]}
+        if name in VARIANTS:
+            entry.update(
+                variant=c["variant"], variant_sources=VARIANTS[name][1],
+                launches_by_variant={"engine_bf16_kv": variants[name],
+                                     "engine_int8_kv": variants8[name],
+                                     "deploy": deploy_variants[name]})
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     if args.rehearse:

@@ -1,28 +1,28 @@
 // attn_prefill: blocked online-softmax attention with per-query [lo, hi)
-// windows, for bucketed prefill admission.
+// windows, for bucketed prefill admission, with fp32 queries. bf16 queries
+// run on the tensor cores, in attn_prefill_tc.cu.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/attn_prefill/kernel.py::attn_prefill_pallas (body
 // _kernel).
 //
-// Layout: q (B, T, KV, G, D) in the compute dtype T (fp32 or bf16), already
-// scaled by 1/sqrt(D). k, v (B, S, KV, D) in T, or int8 with per-token fp32
-// scales k_scale, v_scale (B, S). lo, hi (B, T) int32: query t of row b sees
-// the key positions lo[b, t] <= p < hi[b, t] (prefill: lo = 0,
-// hi = min(t + 1, len[b])). out (B, T, KV, G, D) in T.
+// Layout: q (B, T, KV, G, D) fp32, already scaled by 1/sqrt(D). k, v
+// (B, S, KV, D) fp32, or int8 with per-token fp32 scales k_scale, v_scale
+// (B, S). lo, hi (B, T) int32: query t of row b sees the key positions
+// lo[b, t] <= p < hi[b, t] (prefill: lo = 0, hi = min(t + 1, len[b])); lo
+// may be null, for all zeros. out (B, T, KV, G, D) fp32.
 //
-// Numerics, as the reference: fp32 scores; int8 k_scale after Q.K and
-// v_scale on the probabilities before P.V; an online softmax with m, l and
-// the accumulator in fp32; probabilities cast to the compute dtype before
-// P.V; one cast of acc / l at the end. A query whose window is empty
-// (hi <= lo) writes zeros, never NaN: it simply never visits a key, so no
-// masked position can enter its sums (the reference's `alive` guard).
+// Numerics, as the reference in fp32: fp32 scores; int8 k_scale after Q.K
+// and v_scale on the probabilities before P.V; an online softmax with m, l
+// and the accumulator in fp32; one division by l at the end. A query whose
+// window is empty (hi <= lo) writes zeros, never NaN: it simply never
+// visits a key, so no masked position can enter its sums (the reference's
+// `alive` guard). The fp32 parity gates admit no TF32, so this kernel stays
+// on the CUDA cores.
 //
 // What bounds it on the H100: a prefill of a T-token bucket does about
 // 4 * T^2 / 2 * D flops per head for 2 * T * D * KV bytes of K and V per
-// row, so for T >= 64 it is bound by operations. This first kernel does
-// them on the CUDA cores in fp32; the tensor-core version (wgmma tiles,
-// FA3-style) is later work.
+// row, so for T >= 64 it is bound by fp32 operations.
 //
 // What the design does about it: one block per (b, tile of QT = 8 queries,
 // kv head), one warp per query head of the group, each warp carrying its
@@ -37,15 +37,15 @@ namespace {
 
 constexpr int QT = 8;                 // queries per block
 
-template <typename T, typename TKV, int EPT>
-__global__ void attn_prefill_kernel(const T* __restrict__ q,
+template <typename TKV, int EPT>
+__global__ void attn_prefill_kernel(const float* __restrict__ q,
                                     const TKV* __restrict__ k,
                                     const TKV* __restrict__ v,
                                     const float* __restrict__ k_scale,
                                     const float* __restrict__ v_scale,
                                     const int32_t* __restrict__ lo,
                                     const int32_t* __restrict__ hi,
-                                    T* __restrict__ out, int Tq, int S,
+                                    float* __restrict__ out, int Tq, int S,
                                     int KV, int G) {
   constexpr bool QUANT = sizeof(TKV) == 1;
   constexpr int D = EPT * 32;
@@ -71,7 +71,7 @@ __global__ void attn_prefill_kernel(const T* __restrict__ q,
   for (int r = 0; r < QT; ++r) {
     const int t = t0 + r;
     if (t < Tq) {
-      rlo[r] = max(lo[(size_t)b * Tq + t], 0);
+      rlo[r] = lo ? max(lo[(size_t)b * Tq + t], 0) : 0;
       rhi[r] = min(hi[(size_t)b * Tq + t], S);
     } else {
       rlo[r] = 0;
@@ -93,7 +93,7 @@ __global__ void attn_prefill_kernel(const T* __restrict__ q,
     for (int e = 0; e < EPT; ++e) {
       acc[r][e] = 0.f;
       qr[r][e] = (live && t < Tq)
-          ? rt::to_f(q[((((size_t)b * Tq + t) * KV + h) * G + g) * D + lane + 32 * e])
+          ? q[((((size_t)b * Tq + t) * KV + h) * G + g) * D + lane + 32 * e]
           : 0.f;
     }
   }
@@ -130,9 +130,8 @@ __global__ void attn_prefill_kernel(const T* __restrict__ q,
         const float corr = expf(m[r] - m_new);
         const float pr = expf(s - m_new);
         l[r] = l[r] * corr + pr;
-        float pc;
-        if constexpr (QUANT) pc = rt::round_to<T>(pr * vss[j]);
-        else pc = rt::round_to<TKV>(pr);
+        float pc = pr;
+        if constexpr (QUANT) pc *= vss[j];
 #pragma unroll
         for (int e = 0; e < EPT; ++e)
           acc[r][e] = fmaf(pc, vsm[j][lane + 32 * e], acc[r][e] * corr);
@@ -148,21 +147,21 @@ __global__ void attn_prefill_kernel(const T* __restrict__ q,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     const size_t ooff = ((((size_t)b * Tq + t) * KV + h) * G + g) * D;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) out[ooff + lane + 32 * e] = rt::from_f<T>(acc[r][e] * inv);
+    for (int e = 0; e < EPT; ++e) out[ooff + lane + 32 * e] = acc[r][e] * inv;
   }
 }
 
-template <typename T, typename TKV>
+template <typename TKV>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, const void* lo, const void* hi,
              void* out, int B, int Tq, int S, int KV, int G, cudaStream_t st) {
   dim3 grid(B * ((Tq + QT - 1) / QT) * KV), block(G * 32);
 #define RT_CASE(E)                                                          \
   case E * 32:                                                              \
-    attn_prefill_kernel<T, TKV, E><<<grid, block, 0, st>>>(                 \
-        (const T*)q, (const TKV*)k, (const TKV*)v, (const float*)ks,        \
-        (const float*)vs, (const int32_t*)lo, (const int32_t*)hi, (T*)out,  \
-        Tq, S, KV, G);                                                      \
+    attn_prefill_kernel<TKV, E><<<grid, block, 0, st>>>(                    \
+        (const float*)q, (const TKV*)k, (const TKV*)v, (const float*)ks,    \
+        (const float*)vs, (const int32_t*)lo, (const int32_t*)hi,           \
+        (float*)out, Tq, S, KV, G);                                         \
     break;
   switch (D) {
     RT_CASE(1) RT_CASE(2) RT_CASE(4) RT_CASE(8)
@@ -174,24 +173,20 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q_dtype: 0 fp32, 1 bf16; kv_dtype: the same code as q, or 2 for int8
-// (then k_scale and v_scale are required). D must be 32, 64, 128 or 256 and
-// G * 32 <= 1024. Returns the CUDA error code of the launch (0 on success).
+// q and out fp32; kv_dtype: 0 fp32, or 2 for int8 (then k_scale and
+// v_scale are required). D must be 32, 64, 128 or 256 and G * 32 <= 1024.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int attn_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
                                    const void* lo, const void* hi, void* out,
                                    int B, int Tq, int S, int KV, int G, int D,
-                                   int q_dtype, int kv_dtype, void* stream) {
+                                   int kv_dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if (q_dtype == 0 && kv_dtype == 0)
-    rc = launch_d<float, float>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
-  else if (q_dtype == 1 && kv_dtype == 1)
-    rc = launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
-  else if (q_dtype == 0 && kv_dtype == 2)
-    rc = launch_d<float, int8_t>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
-  else if (q_dtype == 1 && kv_dtype == 2)
-    rc = launch_d<__nv_bfloat16, int8_t>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
+  if (kv_dtype == 0)
+    rc = launch_d<float>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
+  else if (kv_dtype == 2)
+    rc = launch_d<int8_t>(D, q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, st);
   else
     return (int)cudaErrorInvalidValue;
   if (rc) return rc;

@@ -1,6 +1,7 @@
-// Shared helpers of the port's CUDA kernels: element conversions and a
-// warp-wide sum. Element types are float (code 0), __nv_bfloat16 (code 1)
-// and int8_t (code 2), as the Python wrappers pass them.
+// Shared helpers of the port's CUDA kernels: element conversions, an exact
+// int8 -> bf16x2 conversion and a warp-wide sum. Element types are float
+// (code 0), __nv_bfloat16 (code 1) and int8_t (code 2), as the Python
+// wrappers pass them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +24,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // converts fp32 probabilities to the compute dtype before a contraction.
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
+}
+
+// Two signed int8 levels of u (already xor 0x80808080, so byte = level +
+// 128) -> bf16x2, exactly: the byte goes into the mantissa of 2^23, one
+// subtraction leaves the level as a float whose low 16 bits are zero, and
+// its top half is the bf16. s0 / s1 select the bytes (0x744i for byte i).
+__device__ __forceinline__ uint32_t bf16x2_of_levels(uint32_t u, uint32_t s0,
+                                                     uint32_t s1) {
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, s0)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, s1)) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -27,7 +27,8 @@ import torch
 __all__ = ["KERNELS", "CSRC", "BUILD_DIR", "build", "load", "function",
            "check", "require", "stream_ptr", "dtype_code", "build_log"]
 
-KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill", "sigmoid_pw")
+KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill",
+           "attn_prefill_tc", "sigmoid_pw")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]

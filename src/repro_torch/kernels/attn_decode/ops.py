@@ -13,7 +13,14 @@ import torch
 
 from repro_torch.kernels.attn_decode import kernel, ref
 
-__all__ = ["attn_decode"]
+__all__ = ["attn_decode", "prescale_q"]
+
+
+def prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """``ref.scale_q`` with its scalar rounded to q's dtype on the host: the
+    same product, without copying a scalar tensor to the card, which would
+    be a blocking copy and so synchronise the stream on every call."""
+    return q * torch.tensor(scale, dtype=q.dtype).item()
 
 
 def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -28,7 +35,7 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"attn_decode: no path for device {q.device}")
     b, _, h, d = q.shape
     kv = k_cache.shape[2]
-    q4 = ref.scale_q(q, 1.0 / (d ** 0.5)).reshape(b, kv, h // kv, d)
+    q4 = prescale_q(q, 1.0 / (d ** 0.5)).reshape(b, kv, h // kv, d)
     q4 = q4.contiguous()
     lens = torch.as_tensor(cache_len, device=q.device).to(torch.int32)
     lens = lens.reshape(-1).expand(b).contiguous()

@@ -1,51 +1,110 @@
-"""CUDA launch wrapper of the blocked prefill attention
-(``csrc/attn_prefill.cu``). ``launches`` counts launches; nothing else
-touches it.
+"""CUDA launch wrappers of the blocked prefill attention.
+
+Two kernels, chosen by the queries' dtype in :func:`plan` (pure Python, so
+the CPU tests reach it), neither a fallback for the other:
+- ``wgmma`` (``csrc/attn_prefill_tc.cu``): bf16 queries with a bf16 or int8
+  K/V and head_dim 64 or 128, on the tensor cores;
+- ``simt`` (``csrc/attn_prefill.cu``): fp32 queries with an fp32 or int8
+  K/V, on the CUDA cores in fp32, as the fp32 parity gates require.
+Any other combination raises. ``launches`` counts launches and
+``launches_by_variant`` splits them by kernel; nothing else touches either.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.attn_decode.kernel import check_kv
 
-__all__ = ["attn_prefill_cuda", "launches"]
+__all__ = ["attn_prefill_cuda", "plan", "Plan", "launches",
+           "launches_by_variant", "VARIANTS"]
 
+VARIANTS = ("wgmma", "simt")
 launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# wgmma: 64 flattened (t, g) query rows and key blocks of 64 per block
+_TC_ROWS, _TC_BK, _TC_HEAD_DIMS = 64, 64, (64, 128)
+_SIMT_HEAD_DIMS = (32, 64, 128, 256)
+
+# the launch functions: 8 pointers, 8 ints (wgmma) or 7 (simt), the stream
+_TC_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SIMT_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    """One launch: the kernel and the dynamic shared memory it asks for
+    (bytes). The launcher sizes the grid."""
+    variant: str
+    dynamic_smem: int
+
+
+def plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int,
+         d: int) -> Plan:
+    """The kernel for queries of ``q_dtype`` (G heads per KV head, head_dim
+    D) against a K/V of ``kv_dtype``. Raises for a combination no kernel
+    takes."""
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+        if d not in _TC_HEAD_DIMS:
+            raise ValueError(f"attn_prefill: bf16 queries need head_dim in "
+                             f"{_TC_HEAD_DIMS}, got {d}")
+        tile = _TC_BK * d * 2
+        if kv_dtype == torch.int8:      # bf16 blocks, 2 int8 buffers, scales
+            kv_bytes = 2 * tile + 4 * _TC_BK * d + 4 * _TC_BK * 4
+        else:                           # 2 buffers of bf16 K and V blocks
+            kv_bytes = 4 * tile
+        return Plan("wgmma", _TC_ROWS * d * 2 + kv_bytes)
+    if q_dtype == torch.float32 and kv_dtype in (torch.float32, torch.int8):
+        if d not in _SIMT_HEAD_DIMS or g * 32 > 1024:
+            raise ValueError(f"attn_prefill: fp32 queries need head_dim in "
+                             f"{_SIMT_HEAD_DIMS} and G <= 32, got {d}, {g}")
+        return Plan("simt", 0)
+    raise ValueError(f"attn_prefill: no kernel takes {q_dtype} queries with "
+                     f"a {kv_dtype} K/V (bf16 with bf16/int8, fp32 with "
+                     f"fp32/int8)")
 
 
 def attn_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lo: torch.Tensor, hi: torch.Tensor,
+                      lo: torch.Tensor | None, hi: torch.Tensor,
                       k_scale: torch.Tensor | None = None,
                       v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """q (B, T, KV, G, D) fp32/bf16 pre-scaled by 1/sqrt(D); k/v
     (B, S, KV, D) in q's dtype, or int8 with (B, S) fp32 scales; lo/hi
-    (B, T) int32 -> (B, T, KV, G, D) in q's dtype."""
+    (B, T) int32, lo None for all zeros -> (B, T, KV, G, D) in q's
+    dtype."""
     global launches
     if not q.is_cuda or q.dim() != 5 or not q.is_contiguous():
         raise ValueError(f"attn_prefill q: need a contiguous (B, T, KV, G, D)"
                          f" CUDA tensor, got {tuple(q.shape)} on {q.device}")
     b, t, kv, g, d = q.shape
     s = k.shape[1]
+    p = plan(q.dtype, k.dtype, g, d)
     quantized = check_kv(q, k, v, k_scale, v_scale, (b, s, kv, d),
                          "attn_prefill")
-    _build.require(lo, (b, t), (torch.int32,), q.device, "attn_prefill lo")
+    if lo is not None:
+        _build.require(lo, (b, t), (torch.int32,), q.device, "attn_prefill lo")
     _build.require(hi, (b, t), (torch.int32,), q.device, "attn_prefill hi")
     out = torch.empty_like(q)
     if b * t * kv == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = _build.function("attn_prefill", _ARGTYPES)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
-            lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
-            b, t, s, kv, g, d, _build.dtype_code(q.dtype),
-            _build.dtype_code(k.dtype), _build.stream_ptr(q.device))
-    _build.check(rc, "attn_prefill")
+            None if lo is None else lo.data_ptr(), hi.data_ptr(),
+            out.data_ptr())
+    with torch.cuda.device(q.device):
+        if p.variant == "wgmma":
+            rc = _build.function("attn_prefill_tc", _TC_ARGTYPES)(
+                *ptrs, b, t, s, kv, g, d, _build.dtype_code(k.dtype),
+                p.dynamic_smem, _build.stream_ptr(q.device))
+        else:
+            rc = _build.function("attn_prefill", _SIMT_ARGTYPES)(
+                *ptrs, b, t, s, kv, g, d, _build.dtype_code(k.dtype),
+                _build.stream_ptr(q.device))
+    _build.check(rc, f"attn_prefill ({p.variant})")
     launches += 1
+    launches_by_variant[p.variant] += 1
     return out

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.attn_decode.ref import scale_q
+from repro_torch.kernels.attn_decode.ops import prescale_q
 from repro_torch.kernels.attn_prefill import kernel, ref
 
 __all__ = ["attn_prefill"]
@@ -26,18 +26,18 @@ def attn_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hi,
     (B, T, H, D) in q's dtype."""
     b, t, h, d = q.shape
     kv = k.shape[2]
-    qg = scale_q(q, d ** -0.5).reshape(b, t, kv, h // kv, d)
+    qg = prescale_q(q, d ** -0.5).reshape(b, t, kv, h // kv, d)
     hi = torch.as_tensor(hi, device=q.device).to(torch.int32).expand(b, t)
-    if lo is None:
-        lo = torch.zeros((b, t), dtype=torch.int32, device=q.device)
-    else:
+    if lo is not None:
         lo = torch.as_tensor(lo, device=q.device).to(torch.int32).expand(b, t)
     if q.device.type == "cpu":
+        if lo is None:
+            lo = torch.zeros((b, t), dtype=torch.int32)
         out = ref.attn_prefill_ref(qg, k, v, lo, hi, k_scale, v_scale)
-    elif q.is_cuda:
+    elif q.is_cuda:                      # the kernels read lo = None as 0
         out = kernel.attn_prefill_cuda(qg.contiguous(), k, v,
-                                       lo.contiguous(), hi.contiguous(),
-                                       k_scale, v_scale)
+                                       None if lo is None else lo.contiguous(),
+                                       hi.contiguous(), k_scale, v_scale)
     else:
         raise ValueError(f"attn_prefill: no path for device {q.device}")
     return out.reshape(b, t, h, d)

@@ -27,8 +27,12 @@ def qmatmul(x: torch.Tensor, w_q: torch.Tensor, delta,
     if x.device.type == "cpu":
         out = ref.qmatmul_ref(x2, w_q, delta, bias=bias, out_dtype=out_dtype)
     elif x.is_cuda:
-        d = torch.as_tensor(delta, dtype=torch.float32, device=x.device)
-        d = d.reshape(-1).expand(n).contiguous()
+        if isinstance(delta, (int, float)):      # the tied readout's 1.0
+            d = torch.full((n,), float(delta), dtype=torch.float32,
+                           device=x.device)
+        else:
+            d = torch.as_tensor(delta, dtype=torch.float32, device=x.device)
+            d = d.reshape(-1).expand(n).contiguous()
         b = None if bias is None else bias.to(torch.float32).contiguous()
         out = kernel.qmatmul_cuda(x2.contiguous(), w_q, d, b, out_dtype)
     else:

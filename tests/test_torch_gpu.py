@@ -144,26 +144,41 @@ def test_sigmoid_pw_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("m,k,n", [(8, 1536, 4099), (100, 1022, 10),
-                                   (128, 1022, 61)])
+                                   (128, 1022, 61), (1, 1536, 4099),
+                                   (9, 1536, 4099), (100, 1536, 1000),
+                                   (8, 1000, 300), (8, 1022, 777),
+                                   (37, 23, 64), (9, 100, 65)])
 def test_qmatmul(cuda, dtype, transposed, m, k, n):
     """The tied readout (8, 1536, V-like N) and the paper MLP's 8-bit
-    heads; row-major and the transposed view."""
+    heads; row-major and the transposed view, through the layout the plan
+    picks (lanes along K for the view and for N <= 64, else along N). Edges:
+    M = 1, 8, 9 and 100 (one, two and four 8-row tiles, and a grid over
+    them), N not a multiple of any column tile, K not a multiple of 16, and
+    a transposed view with K = 1022 (rows not 16-byte aligned)."""
     g = _gen(1)
     x = torch.randn((m, k), generator=g).to(dtype)
     if transposed:                       # the tied readout's q.T view
         w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).T
-        d, b = 1.0, None
     else:
         w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
-        d, b = torch.rand(n, generator=g) * 0.01, torch.randn(n, generator=g)
-    ref = qmm_ops.qmatmul(x, w, d, bias=b)
+    d, b = torch.rand(n, generator=g) * 0.01, torch.randn(n, generator=g)
     wc = w.to(cuda)
     assert wc.is_contiguous() != transposed
-    n0 = qmm_k.launches
-    got = qmm_ops.qmatmul(x.to(cuda), wc, d if transposed else d.to(cuda),
-                          bias=None if b is None else b.to(cuda))
-    assert qmm_k.launches == n0 + 1
-    _check(got, ref, dtype)
+    layout = "k_lanes" if transposed or n <= 64 else "n_lanes"
+    assert qmm_k.plan(m, k, n, *wc.stride(), dtype).layout == layout
+    for delta, bias in ((d, b), (1.0, None)):
+        ref = qmm_ops.qmatmul(x, w, delta, bias=bias)
+        n0, l0 = qmm_k.launches, qmm_k.launches_by_layout[layout]
+        got = qmm_ops.qmatmul(x.to(cuda), wc, _on(cuda, delta)[0]
+                              if torch.is_tensor(delta) else delta,
+                              bias=None if bias is None else bias.to(cuda))
+        assert qmm_k.launches == n0 + 1
+        assert qmm_k.launches_by_layout[layout] == l0 + 1
+        _check(got, ref, dtype)
+    got32 = qmm_ops.qmatmul(x.to(cuda), wc, d.to(cuda), bias=b.to(cuda),
+                            out_dtype=torch.float32)
+    _check(got32, qmm_ops.qmatmul(x, w, d, bias=b, out_dtype=torch.float32),
+           dtype)
 
 
 def _cache(g, b, s, kv, d, dtype, quantized):
@@ -197,24 +212,48 @@ def test_attn_decode(cuda, dtype, quantized, d, kv, grp):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("quantized", [False, True])
-def test_attn_prefill(cuda, dtype, quantized):
+@pytest.mark.parametrize("t", [1, 8, 16, 70, 256])
+@pytest.mark.parametrize("d", [128, 64])
+def test_attn_prefill(cuda, dtype, quantized, t, d):
+    """bf16 queries on the tensor-core kernel, fp32 on the CUDA-core one,
+    with bf16/fp32 or int8 K/V and random [lo, hi) windows; batch row 0 has
+    only empty windows (its tiles run no key block) and row 1 some: their
+    outputs are exact zeros."""
     g = _gen(3)
-    b, t, kv, grp, d = 3, 70, 2, 6, 128
+    b, kv, grp = 3, 2, 6
     q = torch.randn((b, t, kv * grp, d), generator=g).to(dtype)
     k, v, ks, vs = _cache(g, b, t, kv, d, dtype, quantized)
     lo = torch.randint(0, t, (b, t), generator=g, dtype=torch.int32)
-    hi = torch.clamp(lo + torch.randint(-5, 40, (b, t), generator=g,
+    hi = torch.clamp(lo + torch.randint(-5, 90, (b, t), generator=g,
                                         dtype=torch.int32), max=t)
-    hi[0, :9] = lo[0, :9]                             # empty windows
+    hi[0] = lo[0]                                     # all windows empty
+    hi[1, :9] = lo[1, :9]                             # some windows empty
     ref = pf_ops.attn_prefill(q, k, v, hi, lo=lo, k_scale=ks, v_scale=vs)
-    n0 = pf_k.launches
+    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    n0, v0 = pf_k.launches, pf_k.launches_by_variant[variant]
     got = pf_ops.attn_prefill(*_on(cuda, q, k, v, hi), lo=lo.to(cuda),
                               k_scale=None if ks is None else ks.to(cuda),
                               v_scale=None if vs is None else vs.to(cuda))
     assert pf_k.launches == n0 + 1
+    assert pf_k.launches_by_variant[variant] == v0 + 1
     _check(got, ref, dtype)
     empty = (hi <= lo)
     assert (got.cpu()[empty] == 0).all()
+
+
+def test_attn_prefill_refuses_what_no_kernel_takes(cuda):
+    q = torch.zeros((1, 4, 2, 128), dtype=torch.bfloat16, device=cuda)
+    kv32 = torch.zeros((1, 4, 1, 128), device=cuda)
+    hi = torch.ones((1, 4), dtype=torch.int32, device=cuda)
+    n0 = pf_k.launches
+    with pytest.raises(ValueError):      # bf16 queries, fp32 K/V
+        pf_ops.attn_prefill(q, kv32, kv32, hi)
+    with pytest.raises(ValueError):      # bf16 queries, head_dim 32
+        pf_ops.attn_prefill(q[..., :32].contiguous(),
+                            *(kv32[..., :32].to(torch.bfloat16),) * 2, hi)
+    with pytest.raises(ValueError):      # fp16
+        pf_ops.attn_prefill(q.half(), kv32.half(), kv32.half(), hi)
+    assert pf_k.launches == n0
 
 
 def test_bucketed_prefill_mask(cuda):
