@@ -13,10 +13,14 @@ Phases, each printing one JSON line:
              once, for sm_90a). TF32 is switched off for fp32 products.
 2. parity    every CUDA kernel against its plain PyTorch version at the
              main paths' shapes, in bf16 and fp32 (int8 KV for attention;
-             attn_prefill at the buckets T = 16, 64 and 256; qmatmul for
-             the tied readout and both MLP heads), each case naming the
-             layout or kernel it took (qmatmul: k_lanes / n_lanes;
-             attn_prefill: wgmma for bf16 queries, simt for fp32):
+             attn_prefill at the buckets T = 16, 64 and 256; attn_decode
+             also at B = 16 and S = 2048; qmatvec at M = 8, 512 and, for
+             the d_ff shapes, 2048; qmatmul for the tied readout and both
+             MLP heads), each case naming the variant, layout or kernel it
+             took and gated that it is the one its plan gives (qmatvec:
+             decode for M <= 16, else prefill; qmatmul: k_lanes / n_lanes;
+             attn_prefill: wgmma for bf16 queries, simt for fp32), and
+             qmatvec and attn_decode run twice for the same bits:
              max abs error against the tolerance, held row by row (fp32:
              1e-4 x the row's max|ref|; bf16: 2e-2 x the row's max|ref|, the
              sums run in another order; a row is one output vector of a
@@ -36,8 +40,9 @@ Phases, each printing one JSON line:
              with kv_bits=8. Launch counters are zeroed just before each run
              and read just after: every kernel of the path must have
              launched, no plain version may have run, every readout must
-             have taken qmatmul's k_lanes layout and every admission the
-             wgmma attn_prefill.
+             have taken qmatmul's k_lanes layout, every admission the
+             wgmma attn_prefill, and every qmatvec launch the variant its
+             plan gives for its M (ticks decode, admissions prefill).
 4. path      prefill + 4 decode steps at full width in fp32 activations
              (no activation quant) with all kernels, then with the plain
              paths (matmul_mode="dequant", attn_mode="ref") on the same
@@ -51,8 +56,9 @@ Phases, each printing one JSON line:
 6. deploy    the retrained digit net and a seeded full-width phoneme net
              (429-1022x4-61), exported with export_container(W3A8) and run by
              dnn.forward(..., sigmoid_mode="pw") at batch 100 / 128: each
-             forward must launch qmatvec once per hidden layer, qmatmul once
-             (the head, in the k_lanes layout) and sigmoid_pw once per
+             forward must launch qmatvec once per hidden layer (its
+             prefill kernel), qmatmul once (the head, in the k_lanes
+             layout) and sigmoid_pw once per
              hidden layer, with no plain version;
              each layer must agree with its CPU plain version fed the same
              input (8-bit signals off; 1e-4 x the row's max, sigmoid_pw bit
@@ -63,10 +69,10 @@ Phases, each printing one JSON line:
              >= 0.99 (8-bit signals off) and all but a few rows' argmax
              equal (on). Prints the deployed test MCR and images/s of the
              W3A8 kernel forward and of the float net, batch 100.
-7. kernels   the per-kernel summary line (one entry per TPU kernel; qmatmul
-             and attn_prefill add their launches by layout / kernel on each
-             path), then the card line as nvidia-smi prints it, then the
-             result line
+7. kernels   the per-kernel summary line (one entry per TPU kernel; qmatvec,
+             qmatmul and attn_prefill add their launches by variant /
+             layout / kernel on each path), then the card line as
+             nvidia-smi prints it, then the result line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Any failure raises and exits non-zero without a result line; so does a run
@@ -104,6 +110,9 @@ ENGINE_KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill")
 # kernels with more than one CUDA kernel or layout behind one wrapper: the
 # counter that splits their launches, and the source of each variant
 VARIANTS = {
+    "qmatvec": ("launches_by_variant",
+                {"decode": "src/repro_torch/csrc/qmatvec.cu",
+                 "prefill": "src/repro_torch/csrc/qmatvec.cu"}),
     "qmatmul": ("launches_by_layout",
                 {"k_lanes": "src/repro_torch/csrc/qmatmul.cu",
                  "n_lanes": "src/repro_torch/csrc/qmatmul.cu"}),
@@ -203,6 +212,17 @@ def compare(got, ref, dtype: str, what: str, row_dims: int = 1) -> float:
     return float(diff.max())
 
 
+def same_bits(fn, what: str):
+    """``fn()`` twice: the two outputs must be the same bits (the kernels
+    sum in a fixed order, with no atomics). Returns the first."""
+    import torch
+    a, b = fn(), fn()
+    if a.is_cuda and not torch.equal(a, b):
+        fail(f"{what}: two runs differ (max "
+             f"{float((a.float() - b.float()).abs().max())})")
+    return a
+
+
 def compare_exact(got, ref, what: str) -> float:
     """0.0 if ``got`` has ``ref``'s values bit for bit (NaN exactly where
     ``ref`` has NaN, zeros of the same sign), else fail."""
@@ -220,6 +240,28 @@ def compare_exact(got, ref, what: str) -> float:
 
 # --- phase 1 ----------------------------------------------------------------------
 
+def ptxas_summary(log: str) -> list:
+    """One line per compiled CUDA kernel from nvcc's -Xptxas -v output: its
+    mangled name, then registers and spill bytes (stores/loads)."""
+    import re
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:                    # the kernel and its template arguments
+            tail = m.group(1).split("_cu_")[-1]
+            name = re.search(r"[a-z_]*_kernel\w*", tail).group(0)
+            name = name.split("EEv")[0]
+            spill = None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = f"{m.group(1)}/{m.group(2)} B spill"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill}")
+            name = None
+    return out
+
+
 def card_phase(device, rehearse: bool):
     import torch
     from repro_torch.kernels import _build
@@ -236,8 +278,7 @@ def card_phase(device, rehearse: bool):
         secs = _build.build()
         info["build_s"] = round(time.perf_counter() - t0, 3)
         info["nvcc_s"] = {k: round(v, 3) for k, v in secs.items()}
-        info["ptxas"] = {k: [ln.strip() for ln in v.splitlines()
-                             if "registers" in ln or "spill" in ln][:4]
+        info["ptxas"] = {k: ptxas_summary(v)
                          for k, v in _build.build_log.items()}
     info["nvidia_smi"] = smi
     emit(info)
@@ -250,6 +291,7 @@ def _kernel_cases(cfg, device, clock):
     """Yield one dict per (kernel, shape, dtype) case."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.attn_decode import kernel as dec_k
     from repro_torch.kernels.attn_decode import ops as dec_ops
     from repro_torch.kernels.attn_decode.ref import attn_decode_ref
     from repro_torch.kernels.attn_prefill import ops as pf_ops
@@ -266,13 +308,18 @@ def _kernel_cases(cfg, device, clock):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=device).to(dtype)
 
-    # qmatvec: the 7 projection shapes (4 distinct), decode and prefill M
-    for k, n in ((d, h * hd), (d, kvh * hd), (d, cfg.d_ff), (cfg.d_ff, d)):
-        for m in (8, 8 * 64):
-            for dname, dt in dts:
-                yield _qmatvec_case(g, device, clock, m, k, n, dname, dt,
-                                    headline=(m == 8 and n == cfg.d_ff
-                                              and dname == "bfloat16"))
+    # qmatvec: the 7 projection shapes (4 distinct) at decode and prefill
+    # M, and the largest admission (8 slots x the 256 bucket) at the d_ff
+    # ones in bf16
+    proj = ((d, h * hd), (d, kvh * hd), (d, cfg.d_ff), (cfg.d_ff, d))
+    qmv = [(m, k, n, dn, dt) for k, n in proj for m in (8, 8 * 64)
+           for dn, dt in dts]
+    qmv += [(8 * 256, k, n, "bfloat16", torch.bfloat16) for k, n in proj
+            if cfg.d_ff in (k, n)]
+    for m, k, n, dname, dt in qmv:
+        yield _qmatvec_case(g, device, clock, m, k, n, dname, dt,
+                            headline=(m == 8 and n == cfg.d_ff
+                                      and dname == "bfloat16"))
 
     # qmatmul: the tied readout, (slots, D) x (D, V) as the transposed view
     table = torch.randint(-127, 128, (cfg.vocab_size, d), generator=g,
@@ -297,15 +344,21 @@ def _kernel_cases(cfg, device, clock):
             headline=dname == "bfloat16")
     del table
 
-    # attn_decode: 8 slots, S = 512, ragged lengths with one empty row
-    b, s = 8, 512
-    lens = torch.tensor([0, 1, 37, 128, 200, 333, 511, 512], dtype=torch.int32,
-                        device=device)
+    # attn_decode: 8 slots, S = 512, ragged lengths with one empty row, in
+    # every cache form; then 16 slots, and a 2048-token cache
     grp = h // kvh
-    for kvname, dname, dt in (("bf16", "bfloat16", torch.bfloat16),
-                              ("int8", "bfloat16", torch.bfloat16),
-                              ("fp32", "float32", torch.float32),
-                              ("int8", "float32", torch.float32)):
+    decode_cases = [(8, 512, kvn, dn, dt_) for kvn, dn, dt_ in (
+        ("bf16", "bfloat16", torch.bfloat16),
+        ("int8", "bfloat16", torch.bfloat16),
+        ("fp32", "float32", torch.float32),
+        ("int8", "float32", torch.float32))]
+    decode_cases += [(16, 512, "bf16", "bfloat16", torch.bfloat16),
+                     (8, 2048, "bf16", "bfloat16", torch.bfloat16)]
+    for b, s, kvname, dname, dt in decode_cases:
+        base = [0, 1, 37, 128, 200, 333, s - 1, s]
+        lens = torch.tensor([min(base[i % 8] + 64 * (i // 8), s)
+                             for i in range(b)], dtype=torch.int32,
+                            device=device)
         q = randn(b, 1, h, hd, dtype=dt)
         if kvname == "int8":
             kc = torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
@@ -320,8 +373,12 @@ def _kernel_cases(cfg, device, clock):
             kc, vc, ks, vs = randn(b, s, kvh, hd, dtype=dt), \
                 randn(b, s, kvh, hd, dtype=dt), None, None
             kl, vl = kc, vc
-        got = dec_ops.attn_decode(q, kc, vc, lens, ks, vs)
+        what = f"attn_decode B={b} S={s} {dname} kv-{kvname}"
+        got = same_bits(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs),
+                        what)
         ref = attn_decode_ref(q, kc, vc, lens, ks, vs)
+        if bool((got[lens == 0] != 0).any()):
+            fail(f"{what}: an empty row is not exactly zero")
         # library yardstick: SDPA over the (dequantized) cache, KV heads
         # expanded to the query heads beforehand
         qs = q.transpose(1, 2)
@@ -337,19 +394,22 @@ def _kernel_cases(cfg, device, clock):
             name="attn_decode", shape=f"B={b} S={s} KV={kvh} G={grp} D={hd} "
                                       f"lens ragged (one 0)",
             dtype=f"{dname}/kv-{kvname}",
-            err=compare(got, ref, dname, f"attn_decode {dname} kv-{kvname}"),
+            splits=dec_k.plan(b, s, kvh, grp, hd, kc.dtype).splits,
+            err=compare(got, ref, dname, what),
             run=(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs)),
             plain=(lambda: attn_decode_ref(q, kc, vc, lens, ks, vs)),
             library=(lambda: F.scaled_dot_product_attention(
                 qs, kh, vh, attn_mask=mask)),
             bound=bound_ms(nbytes, 4 * hd * h * tot, dname),
-            headline=(kvname == "bf16" and dname == "bfloat16"))
+            headline=(b == 8 and s == 512 and kvname == "bf16"
+                      and dname == "bfloat16"))
 
     # attn_prefill: B = 8, T = S in {16, 64, 256} (the smallest bucket, a
     # middle one, the largest the engine admits), ragged lengths,
     # hi = min(t + 1, len); bf16 and fp32 q with a K/V of their dtype, and
     # bf16 q with an int8 K/V (the library yardstick then attends over the
     # dequantized K/V, as for attn_decode)
+    b = 8
     for t in (16, 64, 256):
         plen = torch.tensor([1, t, t // 2, 3, t - 1, min(17, t), t // 4,
                              min(9, t)], dtype=torch.int32, device=device)
@@ -416,6 +476,7 @@ def _kernel_cases(cfg, device, clock):
 def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
     import torch
     from repro_torch.core.packing import pack_matrix, unpack_matrix
+    from repro_torch.kernels.qmatvec import kernel as qmv_k
     from repro_torch.kernels.qmatvec import ops as qmv_ops
     from repro_torch.kernels.qmatvec.ref import qmatvec_ref
     lv = torch.randint(-3, 4, (k, n), generator=g, device=device,
@@ -424,7 +485,11 @@ def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
     delta = torch.rand(n, generator=g, device=device) * 0.05
     bias = torch.randn(n, generator=g, device=device)
     x = torch.randn((m, k), generator=g, device=device).to(dt)
-    got = qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)
+    what = f"qmatvec {m}x{k}x{n} {dname}"
+    got, variant = launched_variant(
+        "qmatvec", lambda: same_bits(
+            lambda: qmv_ops.qmatvec(x, w, delta, k=k, bias=bias), what),
+        qmv_k.plan(m, k, n, dt).variant)
     ref = qmatvec_ref(x, w, delta, k, bias=bias)
     wdq = (unpack_matrix(w, k, 3).float() * delta).to(dt)
     bx = bias.to(dt)
@@ -432,7 +497,7 @@ def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
     nbytes = m * k * xb + w.numel() * 4 + 2 * n * 4 + m * n * xb
     return dict(
         name="qmatvec", shape=f"M={m} K={k} N={n}", dtype=dname,
-        err=compare(got, ref, dname, f"qmatvec {m}x{k}x{n} {dname}"),
+        variant=variant, err=compare(got, ref, dname, what),
         run=(lambda: qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)),
         plain=(lambda: qmatvec_ref(x, w, delta, k, bias=bias)),
         library=(lambda: torch.addmm(bx, x, wdq)),
@@ -611,8 +676,9 @@ def build_model(cfg, device, seed):
 def engine_phase(cfg, params, device, kv_bits, rehearse):
     import torch
     from repro_torch.core.precision import W3A8
+    from repro_torch.kernels.qmatvec import kernel as qmv_k
     from repro_torch.launch.profile_engine import MAX_NEW, prompts
-    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.engine import _MIN_BUCKET, ServingEngine
     eng = ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
                         dtype=torch.bfloat16, kv_bits=kv_bits, device=device)
     reqs = prompts(cfg.vocab_size)
@@ -653,6 +719,21 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
         if variants["attn_prefill"]["wgmma"] != launches["attn_prefill"]:
             fail(f"a bf16 admission did not run the wgmma attn_prefill: "
                  f"{variants}")
+        # every tick (M = slots) takes qmatvec's decode tiles and every
+        # admission (M = slots x bucket) the variant its plan gives, which
+        # is prefill from the smallest bucket up
+        plan = qmv_k.plan
+        calls = eng.decode_calls + eng.prefill_calls
+        per_call, rest = divmod(launches["qmatvec"], calls)
+        want = {"decode": per_call * eng.decode_calls,
+                "prefill": per_call * eng.prefill_calls}
+        if (rest or plan(eng.slots, cfg.d_model, cfg.d_model,
+                         torch.bfloat16).variant != "decode"
+                or plan(eng.slots * _MIN_BUCKET, cfg.d_model, cfg.d_model,
+                        torch.bfloat16).variant != "prefill"
+                or variants["qmatvec"] != want):
+            fail(f"qmatvec launches by variant {variants['qmatvec']}, want "
+                 f"{want} ({per_call} a forward)")
     return launches, variants, {r.uid: r.out for r in done}
 
 
@@ -880,6 +961,9 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
             if variants["qmatmul"]["k_lanes"] != 1:
                 fail(f"deploy {name}: the 8-bit head did not take the "
                      f"k_lanes layout: {variants}")
+            if variants["qmatvec"] != {"decode": 0, "prefill": layers}:
+                fail(f"deploy {name}: the hidden layers (M = {batch}) did "
+                     f"not all take qmatvec's prefill tiles: {variants}")
         # parity with the CPU plain path on the same weights and inputs:
         # layer by layer (both fed the card's input to the layer), the
         # real forward against that chain bit for bit, then end to end

@@ -1,128 +1,437 @@
-// attn_decode: one-token GQA attention against a (B, S, KV, D) KV cache.
+// attn_decode: one-token GQA attention against a (B, S, KV, D) KV cache,
+// split along S (flash-decoding) and merged by a second kernel.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/attn_decode/kernel.py::attn_decode_pallas (body _kernel).
 //
-// Layout: q (B, KV, G, D) in the compute dtype T (fp32 or bf16), already
-// scaled by 1/sqrt(D). k, v (B, S, KV, D) in T, or int8 with per-token
+// Layout: q (B, KV, G, D) in the compute dtype T (fp32 or bf16), scaled by
+// 1/sqrt(D) in T as the kernel stages it. k, v (B, S, KV, D) in T, or int8 with per-token
 // fp32 scales k_scale, v_scale (B, S). cache_len (B,) int32: row b sees the
-// positions p < cache_len[b]. out (B, KV, G, D) in T.
+// positions p < cache_len[b]. out (B, KV, G, D) in T. Scratch (fp32, the
+// wrapper allocates it): pm, pl (B * KV, splits, G) and pacc
+// (B * KV, splits, G, D), each split's running max, sum and unnormalised
+// accumulator.
 //
-// Numerics, as the reference: fp32 scores; for an int8 cache the scores are
-// multiplied by k_scale after Q.K and the probabilities by v_scale before
-// P.V; an online softmax keeps m, l and the accumulator in fp32; each
-// probability is cast to the compute dtype (the cache dtype for a float
-// cache, T for int8) before P.V; one cast of acc / l at the end. A row with
-// cache_len 0 writes zeros.
+// Numerics, as the reference, per block of BK keys: fp32 scores; for an
+// int8 cache the scores are multiplied by k_scale after Q.K and the
+// probabilities by v_scale before P.V; an online softmax keeps m, l and the
+// accumulator in fp32, rescaled once per key block; each probability is
+// cast to the compute dtype (the cache dtype for a float cache, T for
+// int8) before P.V. The merge takes out = sum_i acc_i e^(m_i - M) /
+// sum_i l_i e^(m_i - M), M the largest m_i, over the splits in order (no
+// atomics: the same bits every run), then one cast. A split that starts at
+// or past its row's cache_len writes l = 0 and m = -inf and is skipped by
+// the merge, which never evaluates e^(-inf - (-inf)); a row with
+// cache_len 0 writes exact zeros.
 //
 // What bounds it on the H100: per token it reads the row's valid K and V
 // once and does 4 * D flops per position and head group: about 1 flop per
-// byte, so it is bound by the bytes of the cache it reads (28 KB per slot-
-// token in bf16 for qwen2-1.5b, over all 28 layers).
+// byte, so it is bound by the bytes of the cache it reads; at the engine's
+// shapes (8 slots, S = 512, 1.8 MB) that is well under one launch, so what
+// is left is latency.
 //
-// What the design does about it: one block per (b, kv head), one warp per
-// query head of the group (G warps), lanes over D (D / 32 elements each,
-// lane-interleaved so a warp reads a cache row in one coalesced pass). The
-// loop over positions is bounded by this row's cache_len, so a short row
-// reads only its own prefix and padded or stale positions are never read;
-// the G warps of a block read the same K/V rows, which the L1 serves. The
-// grid is B x KV blocks (16 at 8 slots): splitting S across blocks with a
-// combine pass (flash-decoding) is later work.
+// What the design does about it: a grid of splits x (b, kv head), the
+// split length chosen by kernels/attn_decode/kernel.py::plan from S (never
+// from cache_len, which would need the host to read it) so the grid fills
+// the card (256 blocks at the engine's shape). A block of 8 warps stages
+// BK = 32 keys of K and V at a time with cp.async, two buffers deep (int8
+// stays raw in shared memory and is widened when read; rows are padded by
+// 16 bytes so lanes over keys read without bank conflicts). Warp w owns the
+// heads w, w + 8, ... of the group. Scoring: lane = key, 16-byte reads of
+// its K row against q in shared memory (broadcast); then one warp max and
+// one warp sum per key block and head, never one per key. P goes to the
+// warp's own shared memory row, and P.V runs with lanes over D: each lane
+// reads D / 32 values of a V row and multiplies them by every head's p.
 #include "common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+constexpr int BK = 32;         // keys per staged block (one per lane)
+constexpr int WARPS = 8;
+constexpr int HPW = 4;         // most heads per warp: G <= 32
+constexpr int PAD = 16;        // bytes of padding after each staged row
 
-template <typename T, typename TKV, int EPT>
-__global__ void attn_decode_kernel(const T* __restrict__ q,
-                                   const TKV* __restrict__ k,
-                                   const TKV* __restrict__ v,
-                                   const float* __restrict__ k_scale,
-                                   const float* __restrict__ v_scale,
-                                   const int32_t* __restrict__ cache_len,
-                                   T* __restrict__ out, int S, int KV, int G) {
-  constexpr bool QUANT = sizeof(TKV) == 1;
-  constexpr int D = EPT * 32;
-  const int b = blockIdx.x / KV;
-  const int h = blockIdx.x - b * KV;
-  const int g = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (g >= G) return;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const size_t qoff = (((size_t)b * KV + h) * G + g) * D;
-  float qr[EPT], acc[EPT];
+// N values of type E at p, widened to float: vector loads where N fills
+// them (p is then aligned to the vector), else one at a time.
+template <typename E, int N>
+__device__ __forceinline__ void load_f(const E* p, float (&out)[N]) {
+  if constexpr (sizeof(E) == 4 && N % 4 == 0) {
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) {
-    qr[e] = rt::to_f(q[qoff + lane + 32 * e]);
-    acc[e] = 0.f;
+    for (int i = 0; i < N; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + i);
+      out[i] = f.x; out[i + 1] = f.y; out[i + 2] = f.z; out[i + 3] = f.w;
+    }
+  } else if constexpr (sizeof(E) == 2 && N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(p + i));
+      out[i] = f.x; out[i + 1] = f.y;
+    }
+  } else if constexpr (sizeof(E) == 1 && N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const char4 c = *reinterpret_cast<const char4*>(p + i);
+      out[i] = c.x; out[i + 1] = c.y; out[i + 2] = c.z; out[i + 3] = c.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = rt::to_f(p[i]);
   }
+}
+
+// Bytes of dynamic shared memory: q (fp32), each warp's P rows, then two
+// buffers of K and V blocks (rows padded) and, for int8, their scales.
+template <typename TKV, int D>
+struct Smem {
+  static constexpr int ROW = D * (int)sizeof(TKV) + PAD;
+  static constexpr int KVBUF = 2 * BK * ROW + (sizeof(TKV) == 1 ? 2 * BK * 4 : 0);
+  static __host__ __device__ int q_bytes(int G) { return G * D * 4; }
+  static __host__ __device__ int p_bytes() { return WARPS * HPW * BK * 4; }
+  static __host__ __device__ int total(int G) {
+    return q_bytes(G) + p_bytes() + 2 * KVBUF;
+  }
+};
+
+template <typename T, typename TKV, int D>
+__global__ void __launch_bounds__(WARPS * 32)
+attn_decode_kernel_split(const T* __restrict__ q, const TKV* __restrict__ k,
+                         const TKV* __restrict__ v,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
+                         const int32_t* __restrict__ cache_len,
+                         float* __restrict__ pm, float* __restrict__ pl,
+                         float* __restrict__ pacc, float scale, int S,
+                         int KV, int G, int split_len) {
+  constexpr bool QUANT = sizeof(TKV) == 1;
+  constexpr int EPT = D / 32;                 // P.V: values of a row a lane
+  constexpr int CH = 16 / sizeof(TKV);        // elements per 16-byte chunk
+  constexpr int CPR = D / CH;                 // 16-byte chunks per row
+  using SM = Smem<TKV, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ps = reinterpret_cast<float*>(smem + SM::q_bytes(G));
+  unsigned char* kvbuf = smem + SM::q_bytes(G) + SM::p_bytes();
+
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int bh = blockIdx.y;
+  const int b = bh / KV, h = bh - b * KV;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int len = cache_len[b];
   len = len < 0 ? 0 : (len > S ? S : len);
-  float m = NEG_INF, l = 0.f;
-  for (int p = 0; p < len; ++p) {
-    const size_t koff = (((size_t)b * S + p) * KV + h) * D;
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) s = fmaf(qr[e], rt::to_f(k[koff + lane + 32 * e]), s);
-    s = rt::warp_sum(s);
-    if constexpr (QUANT) s *= k_scale[(size_t)b * S + p];
-    const float m_new = fmaxf(m, s);
-    const float corr = expf(m - m_new);
-    const float pr = expf(s - m_new);
-    l = l * corr + pr;
-    float pc;
-    if constexpr (QUANT) pc = rt::round_to<T>(pr * v_scale[(size_t)b * S + p]);
-    else pc = rt::round_to<TKV>(pr);
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      acc[e] = fmaf(pc, rt::to_f(v[koff + lane + 32 * e]), acc[e] * corr);
-    m = m_new;
+  const int k0 = split * split_len;
+  const int k1 = min(k0 + split_len, len);
+  const size_t part = (size_t)bh * nsplit + split;     // (bh, split)
+  if (k0 >= k1) {                                      // empty split
+    for (int g = tid; g < G; g += WARPS * 32) {
+      pm[part * G + g] = -INFINITY;
+      pl[part * G + g] = 0.f;
+    }
+    return;
   }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
+  const int nblk = (k1 - k0 + BK - 1) / BK;
+  const size_t head0 = ((size_t)b * S * KV + h) * D;   // k/v of (b, 0, h)
+  const size_t key_stride = (size_t)KV * D;
+
+  auto stage = [&](int j, int buf) {
+    unsigned char* kt = kvbuf + buf * SM::KVBUF;
+    unsigned char* vt = kt + BK * SM::ROW;
+    const int kb = k0 + j * BK;
+    for (int i = tid; i < BK * CPR; i += WARPS * 32) {
+      const int r = i / CPR, c = i - r * CPR;
+      const int key = kb + r;
+      const bool ok = key < k1;
+      const size_t off = head0 + (size_t)(ok ? key : k0) * key_stride + c * CH;
+      cp_async16(smem_u32(kt + r * SM::ROW + 16 * c), k + off, ok);
+      cp_async16(smem_u32(vt + r * SM::ROW + 16 * c), v + off, ok);
+    }
+    if constexpr (QUANT) {
+      float* sc = reinterpret_cast<float*>(vt + BK * SM::ROW);
+      for (int i = tid; i < BK; i += WARPS * 32) {
+        const int key = kb + i;
+        const bool ok = key < k1;
+        const size_t off = (size_t)b * S + (ok ? key : k0);
+        cp_async4(smem_u32(sc + i), k_scale + off, ok);
+        cp_async4(smem_u32(sc + BK + i), v_scale + off, ok);
+      }
+    }
+  };
+
+  stage(0, 0);
+  cp_commit();
+  // q of the group, 16 bytes a thread at a time (G * D * sizeof(T) is a
+  // multiple of 16), times the 1/sqrt(D) scale rounded to T (the product
+  // in T, as the reference's scale_q), widened to fp32
+  constexpr int QE = 16 / sizeof(T);
+  const uint4* qrow = reinterpret_cast<const uint4*>(q + (size_t)bh * G * D);
+  for (int i = tid; i < G * D / QE; i += WARPS * 32) {
+    float f[QE];
+    const uint4 raw = __ldg(qrow + i);
+    load_f<T, QE>(reinterpret_cast<const T*>(&raw), f);
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) out[qoff + lane + 32 * e] = rt::from_f<T>(acc[e] * inv);
+    for (int e = 0; e < QE; ++e) qs[i * QE + e] = rt::round_to<T>(f[e] * scale);
+  }
+
+  float acc[HPW][EPT], m_run[HPW], l_run[HPW];
+#pragma unroll
+  for (int j = 0; j < HPW; ++j) {
+    m_run[j] = -INFINITY;
+    l_run[j] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) acc[j][e] = 0.f;
+  }
+  float* pw = ps + warp * HPW * BK;            // this warp's P rows
+
+  for (int j = 0; j < nblk; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < nblk) {
+      stage(j + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                           // block j (and q) landed
+    const unsigned char* kt = kvbuf + buf * SM::KVBUF;
+    const unsigned char* vt = kt + BK * SM::ROW;
+    const float* sc = reinterpret_cast<const float*>(vt + BK * SM::ROW);
+    const int key = k0 + j * BK + lane;
+    const bool valid = key < k1;
+
+    // scores of this lane's key for the warp's heads
+    float s[HPW], s2[HPW];                     // two chains: even, odd e
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh) s[hh] = s2[hh] = 0.f;
+    const TKV* krow = reinterpret_cast<const TKV*>(kt + lane * SM::ROW);
+#pragma unroll 4
+    for (int c = 0; c < CPR; ++c) {
+      float kf[CH];
+      load_f<TKV, CH>(krow + c * CH, kf);
+#pragma unroll
+      for (int hh = 0; hh < HPW; ++hh) {
+        const int g = warp + WARPS * hh;
+        if (g < G) {
+          const float* qg = qs + g * D + c * CH;
+#pragma unroll
+          for (int e = 0; e < CH; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qg + e);
+            s[hh] = fmaf(qv.x, kf[e], s[hh]);
+            s2[hh] = fmaf(qv.y, kf[e + 1], s2[hh]);
+            s[hh] = fmaf(qv.z, kf[e + 2], s[hh]);
+            s2[hh] = fmaf(qv.w, kf[e + 3], s2[hh]);
+          }
+        }
+      }
+    }
+    const float kscale = QUANT ? sc[lane] : 1.f;
+    const float vscale = QUANT ? sc[BK + lane] : 1.f;
+
+    // one max and one sum per head over the block; p to the warp's rows
+    float corr[HPW];
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh) {
+      corr[hh] = 1.f;
+      if (warp + WARPS * hh >= G) continue;
+      const float sv = (s[hh] + s2[hh]) * kscale;
+      float mx = valid ? sv : -INFINITY;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_run[hh], mx);   // finite: key k0+j*BK valid
+      corr[hh] = __expf(m_run[hh] - m_new);
+      const float p = valid ? __expf(sv - m_new) : 0.f;
+      l_run[hh] = l_run[hh] * corr[hh] + rt::warp_sum(p);
+      m_run[hh] = m_new;
+      float pc;
+      if constexpr (QUANT) pc = rt::round_to<T>(p * vscale);
+      else pc = rt::round_to<TKV>(p);
+      pw[hh * BK + lane] = pc;
+    }
+    __syncwarp();
+
+    // P.V: lanes over D
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh)
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) acc[hh][e] *= corr[hh];
+    const int nk = min(BK, k1 - (k0 + j * BK));
+    for (int r = 0; r < nk; ++r) {
+      float vf[EPT];
+      load_f<TKV, EPT>(reinterpret_cast<const TKV*>(vt + r * SM::ROW) +
+                           lane * EPT, vf);
+#pragma unroll
+      for (int hh = 0; hh < HPW; ++hh) {
+        if (warp + WARPS * hh < G) {
+          const float p = pw[hh * BK + r];
+#pragma unroll
+          for (int e = 0; e < EPT; ++e) acc[hh][e] = fmaf(p, vf[e], acc[hh][e]);
+        }
+      }
+    }
+    __syncthreads();                           // buffer free for block j + 2
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < HPW; ++hh) {
+    const int g = warp + WARPS * hh;
+    if (g >= G) continue;
+    if (lane == 0) {
+      pm[part * G + g] = m_run[hh];
+      pl[part * G + g] = l_run[hh];
+    }
+    float* dst = pacc + (part * G + g) * D + lane * EPT;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) dst[e] = acc[hh][e];
+  }
+}
+
+// One block per (b, kv head, head g of the group), one thread per d:
+// out[g][d] merges the splits in order. Warp 0 turns the splits' m and l
+// into weights w = e^(m - M) (0 for an empty split) and the denominator
+// sum l w, in shared memory; then each thread sums acc w over the splits in
+// order. acc of an empty split is never written: its load is discarded by
+// a select, so no garbage enters the sum.
+constexpr int MAX_SPLITS = 1024;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+attn_decode_kernel_combine(const float* __restrict__ pm,
+                           const float* __restrict__ pl,
+                           const float* __restrict__ pacc,
+                           T* __restrict__ out, int G, int nsplit) {
+  __shared__ float wsp[MAX_SPLITS];
+  __shared__ float den;
+  const int bh = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
+  const size_t base = (size_t)bh * nsplit;       // (bh, split) index base
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float M = -INFINITY;
+    for (int sp = lane; sp < nsplit; sp += 32) {
+      const size_t pi = (base + sp) * G + g;
+      if (pl[pi] > 0.f) M = fmaxf(M, pm[pi]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+    float dsum = 0.f;
+    for (int sp = lane; sp < nsplit; sp += 32) {
+      const size_t pi = (base + sp) * G + g;
+      const float l = pl[pi];
+      const float w = l > 0.f ? __expf(pm[pi] - M) : 0.f;
+      wsp[sp] = w;
+      dsum = fmaf(l, w, dsum);
+    }
+    dsum = rt::warp_sum(dsum);
+    if (lane == 0) den = dsum;
+  }
+  __syncthreads();
+  float num = 0.f;
+#pragma unroll 8
+  for (int sp = 0; sp < nsplit; ++sp) {
+    const float v = pacc[((base + sp) * G + g) * D + d];
+    const float w = wsp[sp];
+    num = w > 0.f ? fmaf(v, w, num) : num;
+  }
+  out[((size_t)bh * G + g) * D + d] = rt::from_f<T>(den > 0.f ? num / den : 0.f);
+}
+
+template <typename T, typename TKV, int D>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* lens, void* out, float* pm, float* pl,
+           float* pacc, float scale, int B, int S, int KV, int G,
+           int split_len, int nsplit, int smem, cudaStream_t st) {
+  using SM = Smem<TKV, D>;
+  if (G > WARPS * HPW || split_len <= 0 || split_len % BK ||
+      (long long)nsplit * split_len < S || nsplit > MAX_SPLITS ||
+      smem < SM::total(G))
+    return (int)cudaErrorInvalidValue;
+  auto kern = attn_decode_kernel_split<T, TKV, D>;
+  static int smem_set = 48 * 1024;            // per instantiation
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  kern<<<dim3(nsplit, B * KV), WARPS * 32, smem, st>>>(
+      (const T*)q, (const TKV*)k, (const TKV*)v, (const float*)ks,
+      (const float*)vs, (const int32_t*)lens, pm, pl, pacc, scale, S, KV, G,
+      split_len);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  attn_decode_kernel_combine<T, D><<<dim3(B * KV, G), D, 0, st>>>(
+      pm, pl, pacc, (T*)out, G, nsplit);
+  return 0;
 }
 
 template <typename T, typename TKV>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, const void* lens, void* out,
-             int B, int S, int KV, int G, cudaStream_t st) {
-  dim3 grid(B * KV), block(G * 32);
-#define RT_CASE(E)                                                          \
-  case E * 32:                                                              \
-    attn_decode_kernel<T, TKV, E><<<grid, block, 0, st>>>(                  \
-        (const T*)q, (const TKV*)k, (const TKV*)v, (const float*)ks,        \
-        (const float*)vs, (const int32_t*)lens, (T*)out, S, KV, G);         \
-    break;
+             float* pm, float* pl, float* pacc, float scale, int B, int S,
+             int KV, int G, int split_len, int nsplit, int smem,
+             cudaStream_t st) {
+#define RT_CASE(DD)                                                         \
+  case DD:                                                                  \
+    return launch<T, TKV, DD>(q, k, v, ks, vs, lens, out, pm, pl, pacc,     \
+                              scale, B, S, KV, G, split_len, nsplit, smem,  \
+                              st);
   switch (D) {
-    RT_CASE(1) RT_CASE(2) RT_CASE(4) RT_CASE(8)
+    RT_CASE(32) RT_CASE(64) RT_CASE(128) RT_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RT_CASE
-  return 0;
 }
 
 }  // namespace
 
-// q_dtype: 0 fp32, 1 bf16; kv_dtype: the same code as q, or 2 for int8
+// scale multiplies q in q's dtype (the wrapper passes 1/sqrt(D) rounded to
+// it). q_dtype: 0 fp32, 1 bf16; kv_dtype: the same code as q, or 2 for int8
 // (then k_scale and v_scale are required). D must be 32, 64, 128 or 256 and
-// G * 32 <= 1024. Returns the CUDA error code of the launch (0 on success).
+// G <= 32. split_len (a multiple of 32) and nsplit (nsplit * split_len >=
+// S) come from the wrapper's plan, with smem, the dynamic shared memory;
+// pm, pl, pacc are its fp32 scratch. Launches the split kernel and the
+// merge on the stream. Returns the CUDA error code (0 on success).
 extern "C" int attn_decode_launch(const void* q, const void* k, const void* v,
                                   const void* k_scale, const void* v_scale,
-                                  const void* cache_len, void* out, int B,
+                                  const void* cache_len, void* out, void* pm,
+                                  void* pl, void* pacc, float scale, int B,
                                   int S, int KV, int G, int D, int q_dtype,
-                                  int kv_dtype, void* stream) {
+                                  int kv_dtype, int split_len, int nsplit,
+                                  int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  float *m = (float*)pm, *l = (float*)pl, *a = (float*)pacc;
   int rc;
   if (q_dtype == 0 && kv_dtype == 0)
-    rc = launch_d<float, float>(D, q, k, v, k_scale, v_scale, cache_len, out, B, S, KV, G, st);
+    rc = launch_d<float, float>(D, q, k, v, k_scale, v_scale, cache_len, out, m, l, a, scale, B, S, KV, G, split_len, nsplit, smem, st);
   else if (q_dtype == 1 && kv_dtype == 1)
-    rc = launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, k_scale, v_scale, cache_len, out, B, S, KV, G, st);
+    rc = launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, k_scale, v_scale, cache_len, out, m, l, a, scale, B, S, KV, G, split_len, nsplit, smem, st);
   else if (q_dtype == 0 && kv_dtype == 2)
-    rc = launch_d<float, int8_t>(D, q, k, v, k_scale, v_scale, cache_len, out, B, S, KV, G, st);
+    rc = launch_d<float, int8_t>(D, q, k, v, k_scale, v_scale, cache_len, out, m, l, a, scale, B, S, KV, G, split_len, nsplit, smem, st);
   else if (q_dtype == 1 && kv_dtype == 2)
-    rc = launch_d<__nv_bfloat16, int8_t>(D, q, k, v, k_scale, v_scale, cache_len, out, B, S, KV, G, st);
+    rc = launch_d<__nv_bfloat16, int8_t>(D, q, k, v, k_scale, v_scale, cache_len, out, m, l, a, scale, B, S, KV, G, split_len, nsplit, smem, st);
   else
     return (int)cudaErrorInvalidValue;
   if (rc) return rc;

@@ -4,10 +4,13 @@ Takes the model-side decode shapes (q (B, 1, H, D) against a (B, S, KV, D)
 cache, scalar or per-row ``cache_len``, optional (B, S) int8-cache scales)
 and dispatches on the tensor's device: a CPU tensor runs the plain version
 (``ref.attn_decode_ref``), a CUDA tensor the hand-written kernel after the
-GQA reshape and the 1/sqrt(D) pre-scale in q's dtype; the kernel raises
-rather than fall back.
+GQA reshape, with the 1/sqrt(D) scale rounded to q's dtype on the host
+(the kernel multiplies q by it in q's dtype as it stages q); the kernel
+raises rather than fall back.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,6 +26,12 @@ def prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(scale, dtype=q.dtype).item()
 
 
+@functools.lru_cache(maxsize=None)
+def _q_scale(d: int, dtype: torch.dtype) -> float:
+    """1/sqrt(D) rounded to ``dtype``, as ``ref.scale_q`` rounds it."""
+    return torch.tensor(1.0 / (d ** 0.5), dtype=dtype).item()
+
+
 def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 cache_len, k_scale: torch.Tensor | None = None,
                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -35,9 +44,9 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"attn_decode: no path for device {q.device}")
     b, _, h, d = q.shape
     kv = k_cache.shape[2]
-    q4 = prescale_q(q, 1.0 / (d ** 0.5)).reshape(b, kv, h // kv, d)
-    q4 = q4.contiguous()
+    q4 = q.reshape(b, kv, h // kv, d).contiguous()
     lens = torch.as_tensor(cache_len, device=q.device).to(torch.int32)
     lens = lens.reshape(-1).expand(b).contiguous()
-    out = kernel.attn_decode_cuda(q4, k_cache, v_cache, lens, k_scale, v_scale)
+    out = kernel.attn_decode_cuda(q4, k_cache, v_cache, lens, k_scale, v_scale,
+                                  q_scale=_q_scale(d, q.dtype))
     return out.reshape(b, 1, h, d)

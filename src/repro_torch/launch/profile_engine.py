@@ -2,16 +2,21 @@
 the engine on the card, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine [--kv8]
+        [--steady-only]
 
 Serves the same 16 requests as ``chip_smoke.py`` (the launch/serve.py
 prompt mix plus eight 100-250-token prompts, 32 new tokens each, 8 slots,
 max_len 512, bf16) once to warm up, then again under the profiler, and
-then times steady-state decode ticks with all 8 slots active. Prints one
+then times steady-state decode ticks with all 8 slots active
+(``--steady-only``: the warm-up and the ticks only). Prints one
 JSON line: wall time and tokens of the profiled run, device time summed by
 kernel (the port's four CUDA kernels by name, everything else as
-``other``), the device's idle share of the wall time, and ms per steady
-decode tick. Device times are the self times of the profiler's
-CUDA-type rows (kernels, copies, sets): an operator's row also carries
+``other``; ``qmatvec``'s split by variant, ``decode`` and ``prefill``, from
+the names of its CUDA kernels), the device's idle share of the wall time,
+ms per steady decode tick, and the device ms of one steady tick by kernel
+(``STEADY_TICKS`` ticks under the profiler, every slot active: all of its
+``qmatvec`` launches are decode launches). Device times are the self
+times of the profiler's CUDA-type rows (kernels, copies, sets): an operator's row also carries
 the time of the kernels it launched, so summing every row would count
 those twice. The idle share is 1 - (summed kernel time / wall time),
 exact for one stream.
@@ -35,6 +40,7 @@ PROMPT_LENS = [4, 8, 5, 12, 3, 16, 7, 9, 100, 130, 180, 250, 120, 200, 140, 230]
 MAX_NEW = 32
 STEADY_TICKS = 20
 KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill")
+QMATVEC_VARIANTS = ("decode", "prefill")
 
 
 def prompts(vocab: int) -> list[list[int]]:
@@ -64,22 +70,40 @@ def device_ms_by_kernel(prof, kernels=KERNELS):
     (anything else as ``other``). Op rows are skipped: their self device
     time repeats the kernel rows beneath them."""
     out = {k: 0.0 for k in kernels + ("other",)}
+    for key, ms in _cuda_rows(prof):
+        out[next((k for k in kernels if f"{k}_kernel" in key), "other")] += ms
+    return out
+
+
+def _cuda_rows(prof):
+    """(name, self device ms) of the profiler's CUDA-type rows."""
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not us:
-            continue
-        name = next((k for k in kernels if f"{k}_kernel" in ev.key), "other")
-        out[name] += us / 1e3
+        if us:
+            yield ev.key, us / 1e3
+
+
+def qmatvec_ms_by_variant(prof):
+    """Self device ms of ``qmatvec``'s CUDA kernels by variant: a kernel
+    whose name holds ``qmatvec_kernel_<variant>`` counts under it."""
+    out = dict.fromkeys(QMATVEC_VARIANTS, 0.0)
+    for key, ms in _cuda_rows(prof):
+        for v in QMATVEC_VARIANTS:
+            if f"qmatvec_kernel_{v}" in key:
+                out[v] += ms
     return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--kv8", action="store_true")
+    ap.add_argument("--steady-only", action="store_true",
+                    help="skip the profiled run of the 16 requests; time "
+                         "only the steady ticks (quick A/B of two trees)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA card")
@@ -90,22 +114,29 @@ def main(argv=None):
     kw = dict(policy=policy, slots=8, max_len=512, dtype=torch.bfloat16,
               kv_bits=8 if args.kv8 else None, device=dev)
     _serve(ServingEngine(params, cfg, **kw), cfg.vocab_size)     # warm-up
-    eng = ServingEngine(params, cfg, **kw)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        toks = _serve(eng, cfg.vocab_size)
-        wall = time.perf_counter() - t0
-    by_kernel = device_ms_by_kernel(prof)
-    busy = sum(by_kernel.values())
-    calls = {"decode_calls": eng.decode_calls,
-             "prefill_calls": eng.prefill_calls}
+    out = {"card": card_line(), "kv": "int8" if args.kv8 else "bf16"}
+    if not args.steady_only:
+        eng = ServingEngine(params, cfg, **kw)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            toks = _serve(eng, cfg.vocab_size)
+            wall = time.perf_counter() - t0
+        by_kernel = device_ms_by_kernel(prof)
+        busy = sum(by_kernel.values())
+        out.update({
+            "profiled_wall_s": wall, "tokens": toks,
+            "tok_per_s": toks / wall, "decode_calls": eng.decode_calls,
+            "prefill_calls": eng.prefill_calls,
+            "device_ms_by_kernel": by_kernel,
+            "qmatvec_device_ms_by_variant": qmatvec_ms_by_variant(prof),
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3)})
 
     # steady state: 8 long requests, then time ticks with every slot active
     eng = ServingEngine(params, cfg, **kw)
     for i in range(8):
-        eng.submit([i + 1] * 64, max_new=STEADY_TICKS + 8)
+        eng.submit([i + 1] * 64, max_new=2 * STEADY_TICKS + 8)
     eng.step(); eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -113,14 +144,16 @@ def main(argv=None):
         eng.step()
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / STEADY_TICKS * 1e3
-    print(json.dumps({
-        "card": card_line(), "kv": "int8" if args.kv8 else "bf16",
-        "profiled_wall_s": wall, "tokens": toks,
-        "tok_per_s": toks / wall, **calls,
-        "device_ms_by_kernel": by_kernel, "device_busy_ms": busy,
-        "idle_share": 1.0 - busy / (wall * 1e3),
-        "steady_tick_ms_8_slots": tick_ms,
-        "steady_tok_per_s_8_slots": 8 * 1e3 / tick_ms}))
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(STEADY_TICKS):
+            eng.step()
+        torch.cuda.synchronize()
+    tick_dev = {k: v / STEADY_TICKS
+                for k, v in device_ms_by_kernel(prof).items()}
+    out.update({"steady_tick_ms_8_slots": tick_ms,
+                "steady_tok_per_s_8_slots": 8 * 1e3 / tick_ms,
+                "steady_tick_device_ms_by_kernel": tick_dev})
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

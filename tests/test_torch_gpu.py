@@ -60,22 +60,38 @@ def _on(dev, *ts):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,k,n", [(8, 1536, 256), (3, 23, 40), (37, 8960, 100),
                                    (512, 1536, 1536), (100, 784, 1022),
-                                   (100, 429, 1022), (100, 1022, 1022)])
+                                   (100, 429, 1022), (100, 1022, 1022),
+                                   (1, 1536, 1536), (16, 1536, 8960),
+                                   (17, 429, 61), (8, 1022, 10),
+                                   (8, 8960, 1536), (8, 23, 61),
+                                   (2048, 1536, 8960), (2048, 8960, 1536)])
 def test_qmatvec(cuda, dtype, m, k, n):
+    """The engine's projections at decode M (1, 8, 16) and prefill M (up to
+    2048), the paper MLP's layers, K not a multiple of a chunk (23, 429,
+    1022) and N not a multiple of any tile (10, 61, 100, 1022): with and
+    without bias, in x's dtype and in fp32, through the variant the plan
+    picks for M; two runs give the same bits."""
     g = _gen(m + k)
     x = torch.randn((m, k), generator=g).to(dtype)
     w = pack_matrix(torch.randint(-4, 4, (k, n), generator=g,
                                   dtype=torch.int8), 3)
     d = torch.rand(n, generator=g) * 0.1
     b = torch.randn(n, generator=g)
-    ref = qmv_ops.qmatvec(x, w, d, k=k, bias=b)
-    n0 = qmv_k.launches
-    got = qmv_ops.qmatvec(*_on(cuda, x, w, d), k=k, bias=b.to(cuda))
-    assert qmv_k.launches == n0 + 1
-    _check(got, ref, dtype)
-    got32 = qmv_ops.qmatvec(*_on(cuda, x, w, d), k=k, out_dtype=torch.float32)
-    _check(got32, qmv_ops.qmatvec(x, w, d, k=k, out_dtype=torch.float32),
-           dtype)
+    variant = "decode" if m <= 16 else "prefill"
+    assert qmv_k.plan(m, k, n, dtype).variant == variant
+    xc, wc, dc = _on(cuda, x, w, d)
+    for bias, out_dtype in ((b, None), (None, None), (b, torch.float32),
+                            (None, torch.bfloat16)):
+        ref = qmv_ops.qmatvec(x, w, d, k=k, bias=bias, out_dtype=out_dtype)
+        n0, v0 = qmv_k.launches, qmv_k.launches_by_variant[variant]
+        bc = None if bias is None else bias.to(cuda)
+        got = qmv_ops.qmatvec(xc, wc, dc, k=k, bias=bc, out_dtype=out_dtype)
+        assert qmv_k.launches == n0 + 1
+        assert qmv_k.launches_by_variant[variant] == v0 + 1
+        _check(got, ref, torch.bfloat16 if torch.bfloat16 in (
+            dtype, out_dtype) else torch.float32)
+        again = qmv_ops.qmatvec(xc, wc, dc, k=k, bias=bc, out_dtype=out_dtype)
+        assert torch.equal(got, again)
 
 
 SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, 0.99999994,
@@ -193,21 +209,51 @@ def _cache(g, b, s, kv, d, dtype, quantized):
             torch.randn((b, s, kv, d), generator=g).to(dtype), None, None)
 
 
+def _decode_lens(b, s, split_len):
+    """Ragged lengths: an empty row, one key, split boundaries (the last
+    key of a split, a whole split, one past it), the whole cache."""
+    pat = [s, 0, 1, split_len, split_len + 1, 2 * split_len - 1, s - 1, 17]
+    return torch.tensor([min(max(pat[i % len(pat)], 0), s) for i in range(b)],
+                        dtype=torch.int32)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("d,kv,grp", [(128, 2, 6), (64, 4, 1)])
-def test_attn_decode(cuda, dtype, quantized, d, kv, grp):
+@pytest.mark.parametrize("d,kv,grp,b,s", [(128, 2, 6, 6, 300),
+                                          (64, 4, 1, 6, 300),
+                                          (128, 2, 6, 1, 1),
+                                          (128, 2, 6, 16, 512),
+                                          (128, 2, 6, 8, 512),
+                                          (64, 2, 6, 4, 2048),
+                                          (256, 1, 4, 3, 77),
+                                          (32, 2, 32, 2, 100)])
+def test_attn_decode(cuda, dtype, quantized, d, kv, grp, b, s):
+    """The split kernel and its merge: S not a multiple of the split
+    length, S = 1, B = 1 and 16, lengths on split boundaries, an empty row
+    (exact zeros); two runs give the same bits."""
     g = _gen(2)
-    b, s = 6, 300
     q = torch.randn((b, 1, kv * grp, d), generator=g).to(dtype)
     k, v, ks, vs = _cache(g, b, s, kv, d, dtype, quantized)
-    lens = torch.tensor([0, 1, 17, 128, 299, 300], dtype=torch.int32)
+    split_len = dec_k.plan(b, s, kv, grp, d, k.dtype).split_len
+    lens = _decode_lens(b, s, split_len)
     ref = dec_ops.attn_decode(q, k, v, lens, ks, vs)
     n0 = dec_k.launches
-    got = dec_ops.attn_decode(*_on(cuda, q, k, v, lens, ks, vs))
+    args = _on(cuda, q, k, v, lens, ks, vs)
+    got = dec_ops.attn_decode(*args)
     assert dec_k.launches == n0 + 1
     _check(got, ref, dtype)
-    assert (got[0].cpu() == 0).all()                  # empty row: zeros
+    assert (got.cpu()[lens == 0] == 0).all()          # empty rows: zeros
+    assert torch.equal(got, dec_ops.attn_decode(*args))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_attn_decode_all_rows_empty(cuda, quantized):
+    g = _gen(3)
+    q = torch.randn((4, 1, 12, 128), generator=g).to(torch.bfloat16)
+    k, v, ks, vs = _cache(g, 4, 96, 2, 128, torch.bfloat16, quantized)
+    lens = torch.zeros(4, dtype=torch.int32)
+    got = dec_ops.attn_decode(*_on(cuda, q, k, v, lens, ks, vs))
+    assert torch.equal(got.cpu(), torch.zeros_like(q))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,22 +1,28 @@
 """The launch plans of the port's redesigned CUDA kernels, on the CPU.
 
-Which kernel and layout each call takes is decided in pure Python
-(``kernels/qmatmul/kernel.py::plan``, ``kernels/attn_prefill/kernel.py::
-plan``) before anything is launched, so these tests pin the dispatch that
-the card runs: the qmatmul layout for the tied readout's transposed view,
-the paper MLP's 8-bit heads and a wide row-major W; the attn_prefill kernel
-for each query / K-V dtype, and the refusal of what no kernel takes; and
-the dynamic shared memory each launch asks for, twice of which must fit the
-H100's 232 448 bytes a block (two blocks per SM). Also the exact arithmetic the qmatmul tensor-core layout rests on:
-an int8 level is a bf16 exactly, and an fp32 x is the sum of its three
-bf16 planes. Imports no JAX."""
+Which kernel and layout each call takes is decided in pure Python (``plan``
+in ``kernels/{qmatvec,qmatmul,attn_decode,attn_prefill}/kernel.py``) before
+anything is launched, so these tests pin the dispatch that the card runs:
+the qmatvec variant and tiles by M, and its split of K; the qmatmul layout
+for the tied readout's transposed view, the paper MLP's 8-bit heads and a
+wide row-major W; the attn_decode split of S; the attn_prefill kernel for
+each query / K-V dtype, and the refusal of what no kernel takes; and the
+dynamic shared memory each launch asks for, within the H100's 232 448
+bytes a block. Also the exact arithmetic the tensor-core kernels rest on:
+an int8 or 3-bit level is a bf16 exactly, an fp32 x is the sum of its
+three bf16 planes, qmatvec's permuted K order gives x . W exactly, and
+attn_decode's split-and-merge softmax equals one softmax. Imports no
+JAX."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.packing import pack_matrix
+from repro_torch.kernels.attn_decode import kernel as dec_k
 from repro_torch.kernels.attn_prefill import kernel as pf_k
 from repro_torch.kernels.qmatmul import kernel as qmm_k
+from repro_torch.kernels.qmatvec import kernel as qmv_k
 
 QWEN = get_config("qwen2-1.5b")
 SMEM = 232448                    # shared memory one block may use, H100
@@ -189,3 +195,169 @@ def test_fp32_x_is_the_sum_of_three_bf16_planes():
         rest = rest - p.float()
     total = planes[0].float() + planes[1].float() + planes[2].float()
     assert x.dtype == torch.float32 and torch.equal(total, x)
+
+
+# --- qmatvec: the variant by M, the tile shape, the K permutation ---------
+
+# the engine's four projection shapes (K, N) and the paper MLP's layers
+_QMV_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536),
+               (784, 1022), (429, 1022), (1022, 1022), (1022, 61), (23, 10)]
+
+
+@pytest.mark.parametrize("m,variant,nt", [(1, "decode", 1), (8, "decode", 1),
+                                          (9, "decode", 2),
+                                          (16, "decode", 2),
+                                          (17, "prefill", 2),
+                                          (64, "prefill", 2),
+                                          (100, "prefill", 2),
+                                          (255, "prefill", 2),
+                                          (256, "prefill", 8),
+                                          (2048, "prefill", 8)])
+def test_qmatvec_plan_picks_the_variant_by_m(m, variant, nt):
+    """M <= 16 (a decode tick's slots) takes the decode kernel, anything
+    larger (admission's slots x bucket, the MLP's batch) the prefill
+    kernel: 16-row tiles below M = 256, 64-row tiles that stage x from
+    there."""
+    for k, n in _QMV_SHAPES:
+        p = qmv_k.plan(m, k, n, torch.bfloat16)
+        assert (p.variant, p.nt) == (variant, nt)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 100, 512, 2048])
+@pytest.mark.parametrize("k,n", _QMV_SHAPES)
+@pytest.mark.parametrize("dtype", _FLOATS)
+def test_qmatvec_plan_is_a_valid_launch(m, k, n, dtype):
+    """What csrc/qmatvec.cu checks before it launches: a column group of
+    32 in 1/2/4/8, slices of K across blocks that cover K with none empty,
+    a staged piece no longer than a slice, and shared memory for the staged
+    x (64-row tiles) and for the partial sums, within the card's 232 448 bytes a
+    block. A slice whose x fits in 96 KB is staged whole."""
+    p = qmv_k.plan(m, k, n, dtype)
+    nch = -(-(-(-k // 10)) // 8)
+    assert p.cg in (1, 2, 4, 8) and 1 <= p.ksplit <= 16
+    assert p.cps * p.ksplit >= nch and (p.ksplit - 1) * p.cps < nch
+    assert 1 <= p.piece <= p.cps
+    planes = 3 if dtype == torch.float32 else 1
+    per_chunk = planes * 8 * p.nt * 80 * 2
+    assert p.dynamic_smem >= 8 * 32 * 2 * p.nt * 4 * 4
+    assert p.dynamic_smem <= SMEM
+    if p.nt == 8:                    # x staged in shared memory
+        assert p.dynamic_smem >= planes * 8 * p.nt * (80 * p.piece + 8) * 2
+        assert p.piece == p.cps or p.piece == 96 * 1024 // per_chunk
+    else:                            # x read in place, one pass over K
+        assert p.piece == p.cps
+
+
+@pytest.mark.parametrize("m,k,n,ksplit", [(8, 1536, 8960, 1),
+                                          (8, 1536, 1536, 1),
+                                          (8, 1536, 256, 7),
+                                          (8, 8960, 1536, 4),
+                                          (100, 784, 1022, 1),
+                                          (2048, 1536, 8960, 1),
+                                          (2048, 8960, 1536, 1),
+                                          (512, 8960, 1536, 1)])
+def test_qmatvec_grid_and_k_split(m, k, n, ksplit):
+    """At the engine's shapes and the MLP's: 64-row tiles hold a block for
+    each of the H100's 132 SMs; smaller tiles at least 48 blocks, none of
+    whose warps walks more than 4 chunks of K. K is split across blocks
+    (and summed by a second kernel) only where that needs it: the 256-wide
+    k/v projections and the 8960-deep down projection at decode."""
+    p = qmv_k.plan(m, k, n, torch.bfloat16)
+    blocks = -(-n // (32 * p.cg)) * -(-m // (8 * p.nt)) * p.ksplit
+    assert p.ksplit == ksplit
+    if p.nt == 8:
+        assert blocks >= 132
+    else:
+        assert blocks >= 48 and -(-p.cps // (8 // p.cg)) <= 4
+
+
+@pytest.mark.parametrize("k,n", [(23, 10), (429, 61), (784, 100),
+                                 (1022, 1022), (1536, 40), (8960, 7)])
+@pytest.mark.parametrize("dtype", _FLOATS)
+def test_qmatvec_fragment_permutation_is_exact(k, n, dtype):
+    """The kernel's 80-K chunk permutation and its level decoding (xor
+    bias, 128 + field in bf16, minus 132), summed in float64 over the bf16
+    plane(s) of x, give x . W exactly: bf16 x as is, fp32 x as three
+    planes."""
+    g = torch.Generator().manual_seed(k + n)
+    lv = torch.randint(-4, 4, (k, n), generator=g, dtype=torch.int8)
+    x = torch.randn((5, k), generator=g).to(dtype)
+    got = qmv_k.fragment_product(x, pack_matrix(lv, 3), k)
+    assert torch.equal(got, x.double() @ lv.double())
+
+
+def test_qmatvec_levels_are_exact_in_bf16():
+    """Every 3-bit level of every field position decodes exactly."""
+    lv = torch.arange(-4, 4, dtype=torch.int64)
+    for f in range(10):
+        words = ((lv & 7) << (3 * f)) ^ 0x24924924
+        pair = qmv_k._level_pair(words, f // 2)
+        assert torch.equal(pair[:, f % 2].float(), lv.float())
+
+
+# --- attn_decode: the split of S, the merge --------------------------------
+
+@pytest.mark.parametrize("b,s,split_len,splits", [(8, 512, 32, 16),
+                                                  (16, 512, 32, 16),
+                                                  (8, 2048, 32, 64),
+                                                  (1, 1, 32, 1),
+                                                  (8, 96, 32, 3),
+                                                  (8, 8192, 128, 64),
+                                                  (1, 524288, 1024, 512)])
+def test_attn_decode_plan_splits_by_s(b, s, split_len, splits):
+    """The split length comes from the cache's static length S (and B, KV),
+    never from cache_len: a power of two from 32, as many splits as cover
+    S, at most 1024 of them (the merge's shared memory)."""
+    p = dec_k.plan(b, s, 2, 32, 128, torch.bfloat16)
+    assert p.splits <= 1024
+    assert (p.split_len, p.splits) == (split_len, splits)
+    assert p.splits * p.split_len >= s > (p.splits - 1) * p.split_len
+
+
+def test_attn_decode_grid_fills_the_card_at_the_engine_shape():
+    b, s = 8, 512                      # ServingEngine(slots=8, max_len=512)
+    kvh = QWEN.num_kv_heads
+    for dtype in (torch.bfloat16, torch.int8):
+        p = dec_k.plan(b, s, kvh, QWEN.num_heads // kvh, QWEN.head_dim, dtype)
+        assert p.splits * b * kvh >= 132
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 6, 32])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.int8])
+def test_attn_decode_smem_within_the_card(d, g, kv_dtype):
+    p = dec_k.plan(8, 512, 2, g, d, kv_dtype)
+    row = d * torch.tensor([], dtype=kv_dtype).element_size() + 16
+    assert p.dynamic_smem >= g * d * 4 + 2 * 2 * 32 * row
+    assert p.dynamic_smem <= SMEM
+
+
+@pytest.mark.parametrize("s,split_len", [(1, 32), (77, 32), (300, 64),
+                                         (512, 32), (1000, 256)])
+def test_attn_decode_split_softmax_matches_one_pass(s, split_len):
+    """Each split's softmax statistics merged in order equal one softmax
+    over the row within fp32 rounding; splits past a row's length and rows
+    of length 0 give no NaN, and the empty rows exact zeros."""
+    g = torch.Generator().manual_seed(s)
+    b, h, d = 6, 3, 16
+    sc = torch.randn((b, h, s), generator=g) * 4
+    v = torch.randn((b, s, d), generator=g)
+    lens = torch.tensor([0, 1, min(split_len, s), min(split_len + 1, s),
+                         s // 2, s], dtype=torch.int32)
+    got = dec_k.split_softmax(sc, v, lens, split_len)
+    valid = torch.arange(s)[None, :] < lens[:, None]
+    p = torch.softmax(torch.where(valid[:, None], sc.double(),
+                                  torch.tensor(float("-inf"),
+                                               dtype=torch.float64)), -1)
+    p = torch.nan_to_num(p)
+    want = torch.einsum("bhs,bsd->bhd", p, v.double())
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_qmatvec_launch_counters_name_each_variant():
+    variants = {qmv_k.plan(m, 1536, 8960, torch.bfloat16).variant
+                for m in (1, 8, 16, 17, 2048)}
+    assert variants == set(qmv_k.launches_by_variant)
