@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
              once, for sm_90a). TF32 is switched off for fp32 products.
 2. parity    every CUDA kernel against its plain PyTorch version at the
              main paths' shapes, in bf16 and fp32 (int8 KV for attention;
-             attn_prefill at the buckets T = 16, 64 and 256; attn_decode
+             attn_prefill at the buckets T = 16, 64 and 256 and at the
+             speculative verify shape T = 5 against a 512-entry cache with
+             ragged hi = valid, a row without a valid key; attn_decode
              also at B = 16 and S = 2048; qmatvec at M = 8, 512 and, for
              the d_ff shapes, 2048; qmatmul for the tied readout and both
              MLP heads), each case naming the variant, layout or kernel it
@@ -37,7 +39,10 @@ Phases, each printing one JSON line:
              generator on the card, exported to W3A8 containers on the
              card, served by ServingEngine(slots=8, max_len=512, bf16) for
              16 requests x 32 new tokens, once with a bf16 KV cache and once
-             with kv_bits=8. Launch counters are zeroed just before each run
+             with kv_bits=8. Every timed engine (here and in the spec phase)
+             follows a warm-up engine that served the same requests for
+             WARM_NEW tokens, so tok/s are compared warm. Launch counters
+             are zeroed just before each timed run
              and read just after: every kernel of the path must have
              launched, no plain version may have run, every readout must
              have taken qmatmul's k_lanes layout, every admission the
@@ -47,13 +52,33 @@ Phases, each printing one JSON line:
              (no activation quant) with all kernels, then with the plain
              paths (matmul_mode="dequant", attn_mode="ref") on the same
              weights: logits must agree (max |diff| <= 2e-3 x max |logit|).
-5. paper     the paper's 3-step experiment (RBM pretraining, float SGD,
+5. spec      self-speculative serving at full width: the same seeded fp32
+             master, its weights cast once to bf16, is the target (FLOAT
+             policy); its W3A8 container export (api.draft_of) drafts
+             spec_k = 4 tokens a tick. ServingEngine(slots=8, max_len=512,
+             bf16, spec_k=4) serves the engine phase's 16 requests x 32
+             tokens: every request gets its tokens, all four serving kernels
+             launched exactly as often as the tick's structure fixes (each
+             tick: L verify attn_prefill, (spec_k + 1) x L attn_decode and
+             7 L qmatvec decode, spec_k + 1 readouts; each admission round:
+             target and drafter prefill), no plain version ran, every
+             attn_prefill took wgmma, every readout k_lanes and every
+             qmatvec the variant its plan gives. Prints tok/s, ticks,
+             tokens per tick, the accept rate and histogram beside a plain
+             spec_k=0 engine on the same target and the qp engine phase,
+             and the share of requests whose bf16 stream matches the plain
+             engine's (not gated: verify and decode round in different
+             orders). Then the fp32 gate: generate(spec_k=4) on the fp32
+             master must be token-identical to greedy generate (8 prompts x
+             16 new tokens, TF32 off, every attn_prefill on simt); on a
+             mismatch it prints the top-2 logit margin where they part.
+6. paper     the paper's 3-step experiment (RBM pretraining, float SGD,
              3-bit quantization, STE retraining, packed check) for the digit
              net at full width 784-1022-1022-1022-10, batch 100, lr 0.1,
              momentum 0.9; the only cut is the epoch counts (1 / 3 / 2).
              Fails on a non-finite loss, float MCR >= 35%, packed max err
              >= 1e-4 or a packed/float weight ratio <= 8.
-6. deploy    the retrained digit net and a seeded full-width phoneme net
+7. deploy    the retrained digit net and a seeded full-width phoneme net
              (429-1022x4-61), exported with export_container(W3A8) and run by
              dnn.forward(..., sigmoid_mode="pw") at batch 100 / 128: each
              forward must launch qmatvec once per hidden layer (its
@@ -69,7 +94,7 @@ Phases, each printing one JSON line:
              >= 0.99 (8-bit signals off) and all but a few rows' argmax
              equal (on). Prints the deployed test MCR and images/s of the
              W3A8 kernel forward and of the float net, batch 100.
-7. kernels   the per-kernel summary line (one entry per TPU kernel; qmatvec,
+8. kernels   the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path), then the card line as
              nvidia-smi prints it, then the result line
@@ -121,6 +146,9 @@ VARIANTS = {
                       "simt": "src/repro_torch/csrc/attn_prefill.cu"}),
 }
 PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
+SPEC_K = 4                                  # drafts a speculative tick
+SPEC_GATE = dict(prompts=8, prompt_len=16, max_new=16)   # fp32 identity gate
+WARM_NEW = 2 * (SPEC_K + 1)     # new tokens a request of a warm-up serve
 SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, 0.99999994,
            -1.0000001, 2.3749998, 4.9999995, -5.0000005, 1e-40, -1e-40,
            float("inf"), float("-inf"), float("nan")]
@@ -472,6 +500,78 @@ def _kernel_cases(cfg, device, clock):
                 bound=bound_ms(nbytes, ops, dname),
                 headline=(t == 256 and kvname == "bf16"))
 
+    # attn_prefill at the speculative verify shape: T = spec_k + 1 = 5
+    # queries of each of 8 slots against the whole 512-entry decode cache,
+    # hi = valid, the cache lengths spread over 0..S-T (row 0 at 0); row 1
+    # has no valid key at all and must come out as exact zeros
+    for kvname, dname, dt in (("bf16", "bfloat16", torch.bfloat16),
+                              ("int8", "bfloat16", torch.bfloat16),
+                              ("fp32", "float32", torch.float32)):
+        yield _verify_case(g, device, cfg, kvname, dname, dt)
+
+
+def _verify_case(g, device, cfg, kvname, dname, dt, b=8, t=SPEC_K + 1,
+                 s=512):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn_decode.ref import scale_q
+    from repro_torch.kernels.attn_prefill import ops as pf_ops
+    from repro_torch.kernels.attn_prefill.ref import attn_prefill_ref
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    grp = h // kvh
+    lens = torch.tensor([0, 1, 37, 128, 200, 333, 480, s - t],
+                        dtype=torch.int32, device=device)
+    valid = torch.clamp(lens[:, None] + torch.arange(
+        1, t + 1, dtype=torch.int32, device=device)[None, :], max=s)
+    valid[1] = 0
+    q = torch.randn((b, t, h, hd), generator=g, device=device).to(dt)
+    if kvname == "int8":
+        k_ = torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
+                           device=device, dtype=torch.int8)
+        v_ = torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
+                           device=device, dtype=torch.int8)
+        ks = torch.rand((b, s), generator=g, device=device) * 0.02
+        vs = torch.rand((b, s), generator=g, device=device) * 0.02
+        kl = (k_.float() * ks[..., None, None]).to(dt)
+        vl = (v_.float() * vs[..., None, None]).to(dt)
+    else:
+        k_ = torch.randn((b, s, kvh, hd), generator=g, device=device).to(dt)
+        v_ = torch.randn((b, s, kvh, hd), generator=g, device=device).to(dt)
+        ks = vs = None
+        kl, vl = k_, v_
+    what = f"attn_prefill verify T={t} S={s} {dname} kv-{kvname}"
+    got, variant = launched_variant("attn_prefill", lambda: (
+        pf_ops.attn_prefill(q, k_, v_, valid, k_scale=ks, v_scale=vs)),
+        "wgmma" if dt == torch.bfloat16 else "simt")
+    qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
+    lo = torch.zeros_like(valid)
+    ref = attn_prefill_ref(qg, k_, v_, lo, valid, ks, vs).reshape(b, t, h, hd)
+    if bool((got[valid == 0] != 0).any()):
+        fail(f"{what}: a query with no valid key is not exactly zero")
+    qs = q.transpose(1, 2)
+    kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    mask = (torch.arange(s, device=device)[None, None, :]
+            < valid[:, :, None])[:, None]                    # (B, 1, T, S)
+    # each row reads its keys below its largest frontier once
+    keys = int(valid.amax(1).sum())
+    qb, kb = q.element_size(), k_.element_size()
+    nbytes = (2 * b * t * h * hd * qb + 2 * keys * kvh * hd * kb
+              + (2 * keys * 4 if ks is not None else 0) + b * t * 4)
+    return dict(
+        name="attn_prefill", shape=f"verify B={b} T={t} S={s} KV={kvh} "
+                                   f"G={grp} D={hd} hi=valid ragged",
+        dtype=f"{dname}/kv-{kvname}", variant=variant,
+        err=compare(got, ref, dname, what, row_dims=2),
+        run=(lambda: pf_ops.attn_prefill(q, k_, v_, valid, k_scale=ks,
+                                         v_scale=vs)),
+        plain=(lambda: attn_prefill_ref(qg, k_, v_, lo, valid, ks, vs)),
+        library=(lambda: F.scaled_dot_product_attention(
+            qs, kh, vh, attn_mask=mask)),
+        library_call="SDPA with the (B, H, T, S) mask of valid",
+        bound=bound_ms(nbytes, 4 * hd * h * int(valid.sum()), dname),
+        headline=False)
+
 
 def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
     import torch
@@ -658,6 +758,8 @@ def launched_variant(name, fn, expect):
 
 
 def build_model(cfg, device, seed):
+    """fp32 master weights from a seeded generator on the card and their
+    W3A8 container export: (master, params, seconds)."""
     import torch
     from repro_torch.core import quant_dense
     from repro_torch.core.precision import W3A8
@@ -666,11 +768,9 @@ def build_model(cfg, device, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     master = get_model(cfg).init(gen, cfg, device=device)
     params = quant_dense.export_container(master, W3A8)
-    del master
     if device.type == "cuda":
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-    return params, time.perf_counter() - t0
+    return master, params, time.perf_counter() - t0
 
 
 def engine_phase(cfg, params, device, kv_bits, rehearse):
@@ -679,19 +779,11 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
     from repro_torch.kernels.qmatvec import kernel as qmv_k
     from repro_torch.launch.profile_engine import MAX_NEW, prompts
     from repro_torch.serving.engine import _MIN_BUCKET, ServingEngine
-    eng = ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
-                        dtype=torch.bfloat16, kv_bits=kv_bits, device=device)
     reqs = prompts(cfg.vocab_size)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    for p in reqs:
-        eng.submit(p, max_new=MAX_NEW)
-    done = eng.run_all()
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    eng = _warmed(lambda: ServingEngine(
+        params, cfg, policy=W3A8, slots=8, max_len=512, dtype=torch.bfloat16,
+        kv_bits=kv_bits, device=device), reqs)
+    done, wall = _serve(eng, reqs, device)
     launches, plain = read_counts()
     variants = read_variants()
     toks = sum(len(r.out) for r in done)
@@ -734,7 +826,7 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
                 or variants["qmatvec"] != want):
             fail(f"qmatvec launches by variant {variants['qmatvec']}, want "
                  f"{want} ({per_call} a forward)")
-    return launches, variants, {r.uid: r.out for r in done}
+    return launches, variants, toks / wall
 
 
 # --- phase 4 ----------------------------------------------------------------------
@@ -788,6 +880,189 @@ def path_phase(cfg, params, device):
 
 # --- phase 5 ----------------------------------------------------------------------
 
+def _warmed(make_engine, reqs):
+    """A fresh engine from ``make_engine()``, after a first one has served
+    ``reqs`` for WARM_NEW tokens each: the timed run that follows finds
+    every shape it launches (admission buckets, tick, readout) already
+    loaded and tuned, so engines are compared warm."""
+    warm = make_engine()
+    for p in reqs:
+        warm.submit(p, max_new=WARM_NEW)
+    warm.run_all()
+    return make_engine()
+
+
+def _serve(eng, reqs, device):
+    import torch
+    from repro_torch.launch.profile_engine import MAX_NEW
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for p in reqs:
+        eng.submit(p, max_new=MAX_NEW)
+    done = sorted(eng.run_all(), key=lambda r: r.uid)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return done, time.perf_counter() - t0
+
+
+def _spec_launch_gate(eng, cfg, dcfg, launches, plain, variants, rehearse):
+    """The launches one run of the spec engine must have made, from the
+    tick's structure: each tick verifies through the target's L layers
+    (attn_prefill) after spec_k + 1 drafter steps (Ld attn_decode, 7 Ld
+    qmatvec decode, one qmatmul readout each); each admission round
+    prefills target and drafter (L + Ld attn_prefill, 7 Ld qmatvec
+    prefill, one drafter readout). The target's products are plain float
+    matmuls. On the CPU rehearsal the plain versions take the same calls,
+    so the formulas are checked there too."""
+    import torch
+    from repro_torch.kernels.qmatvec import kernel as qmv_k
+    from repro_torch.serving.engine import _MIN_BUCKET
+    ticks, rounds, t1 = eng.decode_calls, eng.prefill_calls, SPEC_K + 1
+    big, small = cfg.num_layers, dcfg.num_layers
+    want = {"attn_prefill": big * ticks + (big + small) * rounds,
+            "attn_decode": small * t1 * ticks,
+            "qmatmul": t1 * ticks + rounds,
+            "qmatvec": 7 * small * (t1 * ticks + rounds)}
+    seen = plain if rehearse else launches
+    if {k: seen[k] for k in want} != want:
+        fail(f"spec engine {'plain calls' if rehearse else 'launches'} "
+             f"{seen}, want {want} ({ticks} ticks, {rounds} rounds)")
+    if rehearse:
+        return want
+    if max(plain.values()) != 0:
+        fail(f"a plain version ran on the spec path: {plain}")
+    if variants["attn_prefill"]["wgmma"] != launches["attn_prefill"]:
+        fail(f"a bf16 verify or admission did not run the wgmma "
+             f"attn_prefill: {variants}")
+    if variants["qmatmul"]["k_lanes"] != launches["qmatmul"]:
+        fail(f"a drafter readout did not take the k_lanes layout: {variants}")
+    plan = qmv_k.plan
+    vwant = {"decode": 7 * small * t1 * ticks, "prefill": 7 * small * rounds}
+    if (plan(eng.slots, cfg.d_model, cfg.d_model,
+             torch.bfloat16).variant != "decode"
+            or plan(eng.slots * _MIN_BUCKET, cfg.d_model, cfg.d_model,
+                    torch.bfloat16).variant != "prefill"
+            or variants["qmatvec"] != vwant):
+        fail(f"drafter qmatvec launches by variant {variants['qmatvec']}, "
+             f"want {vwant}")
+    return want
+
+
+def _first_mismatch_margin(master, cfg, policy, prompts, spec, plain):
+    """Where the spec and plain fp32 streams first differ: the row, the
+    position, both tokens, and the top-2 margin of the target's logits
+    there (prefill of the plain stream's prefix)."""
+    import torch
+    from repro_torch.models import api
+    p = prompts.shape[1]
+    diff = (spec != plain).nonzero()
+    r, c = int(diff[0, 0]), int(diff[0, 1])
+    with torch.no_grad():
+        logits, _ = api.prefill(master, {"tokens": plain[r:r + 1, :c]}, cfg,
+                                policy=policy, dtype=torch.float32,
+                                max_len=c)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return {"row": r, "new_token_index": c - p, "spec": int(spec[r, c]),
+            "plain": int(plain[r, c]),
+            "top2_margin": float(top[0] - top[1])}
+
+
+def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
+    """Self-speculative serving at full width: the float master is the
+    target (FLOAT policy), its packed 3-bit export the drafter."""
+    import torch
+    from repro_torch.core.precision import FLOAT
+    from repro_torch.launch.profile_engine import MAX_NEW, prompts
+    from repro_torch.launch.serve import cast_weights
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine, generate
+    dcfg, dparams = api.draft_of(cfg, params)       # already the qp export
+    target = cast_weights(master, torch.bfloat16)
+    reqs = prompts(cfg.vocab_size)
+    kw = dict(policy=FLOAT, slots=8, max_len=512, dtype=torch.bfloat16,
+              device=device)
+    eng = _warmed(lambda: ServingEngine(
+        target, cfg, spec_k=SPEC_K, draft_params=dparams, draft_cfg=dcfg,
+        **kw), reqs)
+    done, wall = _serve(eng, reqs, device)
+    launches, plain = read_counts()
+    variants = read_variants()
+    toks = sum(len(r.out) for r in done)
+    if len(done) != len(reqs) or any(len(r.out) != MAX_NEW for r in done):
+        fail(f"spec engine did not serve every request its {MAX_NEW} tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+        fail("spec engine emitted a token id outside the vocabulary")
+    want = _spec_launch_gate(eng, cfg, dcfg, launches, plain, variants,
+                             rehearse)
+    hist: dict = {}
+    for r in done:
+        for n, c in r.accept_hist.items():
+            hist[n] = hist.get(n, 0) + c
+    eng0 = _warmed(lambda: ServingEngine(target, cfg, **kw), reqs)
+    base, base_wall = _serve(eng0, reqs, device)
+    same = sum(a.out == b.out for a, b in zip(done, base)) / len(done)
+    slot_ticks = sum(r.ticks for r in done)
+    del target
+    out = {"phase": "spec", "target": "float master, FLOAT policy, bf16 "
+                                      "weights (cast once)",
+           "drafter": f"draft_of: qp export, {dcfg.num_layers} layers",
+           "spec_k": SPEC_K, "requests": len(done), "tokens": toks,
+           "ticks": eng.decode_calls, "prefill_calls": eng.prefill_calls,
+           "tokens_per_tick": toks / eng.decode_calls,
+           "tokens_per_slot_tick": sum(len(r.out) - 1 for r in done)
+           / slot_ticks,
+           "spec_accept_rate": eng.spec_accept_rate,
+           "spec_drafted": eng.spec_drafted,
+           "spec_accepted": eng.spec_accepted,
+           "accept_hist_tokens_per_tick": dict(sorted(hist.items())),
+           "wall_s": round(wall, 4), "tok_per_s": round(toks / wall, 2),
+           "plain_float_engine_tok_per_s": round(
+               sum(len(r.out) for r in base) / base_wall, 2),
+           "plain_float_engine_ticks": eng0.decode_calls,
+           "qp_engine_tok_per_s": round(qp_tok_s, 2),
+           "bf16_share_of_requests_matching_plain_engine": same,
+           "launches": launches, "launches_want": want,
+           "launches_by_variant": variants, "plain_calls": plain}
+    # fp32 token identity: speculative and plain greedy generate on the
+    # fp32 master (TF32 off), every attn_prefill on the simt kernel
+    n, plen, new = (SPEC_GATE[k] for k in ("prompts", "prompt_len",
+                                           "max_new"))
+    gp = torch.tensor([r[:plen] for r in reqs[-n:]], dtype=torch.int32)
+    gkw = dict(policy=FLOAT, max_new_tokens=new, dtype=torch.float32,
+               device=device)
+    reset_counts()
+    spec = generate(master, gp, cfg, spec_k=SPEC_K, draft_params=dparams,
+                    draft_cfg=dcfg, **gkw).cpu()
+    launches32, plain32 = read_counts()
+    variants32 = read_variants()
+    greedy = generate(master, gp, cfg, **gkw).cpu()
+    out.update({"fp32_gate": f"generate(spec_k={SPEC_K}) == greedy "
+                             f"generate, {n} prompts x {new} new tokens, "
+                             "fp32 activations, TF32 off",
+                "fp32_token_identical": bool(torch.equal(spec, greedy)),
+                "fp32_attn_prefill_by_variant": variants32["attn_prefill"]})
+    if not torch.equal(spec, greedy):
+        out["fp32_first_mismatch"] = _first_mismatch_margin(
+            master, cfg, FLOAT, gp.to(device), spec.to(device),
+            greedy.to(device))
+    emit(out)
+    if not torch.equal(spec, greedy):
+        fail(f"fp32 spec stream differs from greedy: "
+             f"{out['fp32_first_mismatch']}")
+    if not rehearse:
+        if max(plain32.values()) != 0:
+            fail(f"a plain version ran on the fp32 spec path: {plain32}")
+        if not 0 < variants32["attn_prefill"]["simt"] \
+                == launches32["attn_prefill"]:
+            fail(f"an fp32 verify or admission did not run the simt "
+                 f"attn_prefill: {variants32}")
+    return launches, variants
+
+
+# --- phase 6 ----------------------------------------------------------------------
+
 def paper_phase(device, rehearse):
     """The paper's 3-step experiment for the digit net, epochs cut."""
     import math
@@ -830,7 +1105,7 @@ def paper_phase(device, rehearse):
     return params, m, launches
 
 
-# --- phase 6 ----------------------------------------------------------------------
+# --- phase 7 ----------------------------------------------------------------------
 
 def _mcr(params, task, policy, device):
     import torch
@@ -1038,17 +1313,19 @@ def main(argv=None) -> int:
         cfg = reduced(cfg)
     smi = card_phase(device, args.rehearse)
     headline = parity_phase(cfg, device, args.rehearse)
-    params, build_s = build_model(cfg, device, args.seed)
+    master, params, build_s = build_model(cfg, device, args.seed)
     emit({"phase": "model", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "form": "qp (W3A8 export_container)", "init_export_s":
           round(build_s, 3)})
-    launches, variants, _ = engine_phase(cfg, params, device, None,
-                                         args.rehearse)
+    launches, variants, qp_tok_s = engine_phase(cfg, params, device, None,
+                                                args.rehearse)
     launches8, variants8, _ = engine_phase(cfg, params, device, 8,
                                            args.rehearse)
     path_phase(cfg, params, device)
-    del params
+    spec_launches, spec_variants = spec_phase(cfg, master, params, device,
+                                              qp_tok_s, args.rehearse)
+    del params, master
     if device.type == "cuda":
         torch.cuda.empty_cache()
     digit, metrics, paper_launches = paper_phase(device, args.rehearse)
@@ -1058,9 +1335,11 @@ def main(argv=None) -> int:
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
         by_path = {"engine_bf16_kv": launches[name],
-                   "engine_int8_kv": launches8[name],
-                   "paper": paper_launches[name],
-                   "deploy": deploy_launches[name]}
+                   "engine_int8_kv": launches8[name]}
+        if name in ENGINE_KERNELS:
+            by_path["spec"] = spec_launches[name]
+        by_path.update(paper=paper_launches[name],
+                       deploy=deploy_launches[name])
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1077,6 +1356,7 @@ def main(argv=None) -> int:
                 variant=c["variant"], variant_sources=VARIANTS[name][1],
                 launches_by_variant={"engine_bf16_kv": variants[name],
                                      "engine_int8_kv": variants8[name],
+                                     "spec": spec_variants[name],
                                      "deploy": deploy_variants[name]})
         kernels.append(entry)
     emit({"kernels": kernels})

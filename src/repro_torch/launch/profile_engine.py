@@ -2,7 +2,7 @@
 the engine on the card, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine [--kv8]
-        [--steady-only]
+        [--steady-only] [--spec-k K]
 
 Serves the same 16 requests as ``chip_smoke.py`` (the launch/serve.py
 prompt mix plus eight 100-250-token prompts, 32 new tokens each, 8 slots,
@@ -20,6 +20,20 @@ times of the profiler's CUDA-type rows (kernels, copies, sets): an operator's ro
 the time of the kernels it launched, so summing every row would count
 those twice. The idle share is 1 - (summed kernel time / wall time),
 exact for one stream.
+
+``--spec-k K`` profiles self-speculative serving instead: the seeded float
+master, its weights cast once to bf16 (``serve.build_params``), is the
+target (FLOAT policy) and
+its W3A8 container export drafts K tokens a tick. ``attn_prefill``'s
+device time is then split by use, the target's verify (T = K + 1) and the
+admissions (T = bucket). The profiled run is driven step by step, noting
+the admission rounds and the tick of each step from the engine's
+``prefill_calls`` and ``decode_calls``; a step admits before it ticks, an
+admission round launches ``attn_prefill`` once a layer of target and
+drafter, a tick once a target layer, and one stream runs the kernels in
+launch order, so the i-th ``attn_prefill`` kernel of the trace (by start)
+is the i-th launch of that sequence (the counts must match). A steady
+tick's ``attn_prefill`` is all verify.
 """
 from __future__ import annotations
 
@@ -98,30 +112,85 @@ def qmatvec_ms_by_variant(prof):
     return out
 
 
+def _serve_by_step(eng, vocab):
+    """``_serve`` driven step by step, draining as ``run_all`` does (and
+    whenever a step ran no tick). Returns the tokens served and, per step,
+    (admission rounds, ticks) from the engine's call counters."""
+    for p in prompts(vocab):
+        eng.submit(p, max_new=MAX_NEW)
+    done, steps = [], []
+    while len(done) < len(PROMPT_LENS):
+        r0, t0 = eng.prefill_calls, eng.decode_calls
+        eng.step()
+        steps.append((eng.prefill_calls - r0, eng.decode_calls - t0))
+        if eng.decode_calls == t0 or eng.decode_calls % eng.drain_every == 0:
+            done.extend(eng.drain())
+    torch.cuda.synchronize()
+    return sum(len(r.out) for r in done), steps
+
+
+def launch_uses(steps, layers, draft_layers):
+    """The use of every ``attn_prefill`` launch, in launch order: a step's
+    admission rounds (``layers + draft_layers`` launches each) come before
+    its tick (``layers`` verify launches)."""
+    seq = []
+    for rounds, ticks in steps:
+        seq += ["admission"] * (rounds * (layers + draft_layers))
+        seq += ["verify"] * (ticks * layers)
+    return seq
+
+
+def attn_prefill_ms_by_use(prof, uses):
+    """Device ms and launches of the ``attn_prefill`` kernels by use:
+    ``uses`` holds the use of every launch in order; the kernels of the
+    trace, sorted by start, are those launches in that order (one
+    stream)."""
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "attn_prefill_kernel" in e.name),
+                 key=lambda e: e.time_range.start)
+    if len(evs) != len(uses):
+        raise RuntimeError(f"{len(evs)} attn_prefill kernels in the trace, "
+                           f"{len(uses)} launches")
+    out = {"verify": 0.0, "admission": 0.0}
+    for e, use in zip(evs, uses):
+        out[use] += (e.time_range.end - e.time_range.start) / 1e3
+    out["verify_launches"] = uses.count("verify")
+    out["admission_launches"] = uses.count("admission")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--kv8", action="store_true")
     ap.add_argument("--steady-only", action="store_true",
                     help="skip the profiled run of the 16 requests; time "
                          "only the steady ticks (quick A/B of two trees)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="profile speculative serving: the float target "
+                         "verifies K drafts of its 3-bit export a tick")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA card")
     dev = torch.device("cuda")
     cfg = get_config("qwen2-1.5b")
-    params, policy = build_params(cfg, quant="w3", form="qp", seed=0,
-                                  device=dev)
+    spec_k = args.spec_k
+    params, policy, draft_cfg, draft_params = build_params(
+        cfg, quant="float" if spec_k else "w3", form="qp", seed=0,
+        device=dev, spec_k=spec_k)
     kw = dict(policy=policy, slots=8, max_len=512, dtype=torch.bfloat16,
-              kv_bits=8 if args.kv8 else None, device=dev)
+              kv_bits=8 if args.kv8 else None, spec_k=spec_k,
+              draft_params=draft_params, draft_cfg=draft_cfg, device=dev)
     _serve(ServingEngine(params, cfg, **kw), cfg.vocab_size)     # warm-up
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    out = {"card": card_line(), "kv": "int8" if args.kv8 else "bf16"}
+    out = {"card": card_line(), "kv": "int8" if args.kv8 else "bf16",
+           "spec_k": spec_k}
     if not args.steady_only:
         eng = ServingEngine(params, cfg, **kw)
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            toks = _serve(eng, cfg.vocab_size)
+            toks, steps = _serve_by_step(eng, cfg.vocab_size)
             wall = time.perf_counter() - t0
         by_kernel = device_ms_by_kernel(prof)
         busy = sum(by_kernel.values())
@@ -132,18 +201,29 @@ def main(argv=None):
             "device_ms_by_kernel": by_kernel,
             "qmatvec_device_ms_by_variant": qmatvec_ms_by_variant(prof),
             "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3)})
+        if spec_k:
+            by_use = attn_prefill_ms_by_use(prof, launch_uses(
+                steps, cfg.num_layers, draft_cfg.num_layers))
+            out.update({"attn_prefill_device_ms_by_use": by_use,
+                        "spec_accept_rate": eng.spec_accept_rate})
 
     # steady state: 8 long requests, then time ticks with every slot active
     eng = ServingEngine(params, cfg, **kw)
     for i in range(8):
-        eng.submit([i + 1] * 64, max_new=2 * STEADY_TICKS + 8)
+        eng.submit([i + 1] * 64, max_new=(2 * STEADY_TICKS + 4)
+                   * (spec_k + 1) + 4)
     eng.step(); eng.step()
+    eng.drain()
     torch.cuda.synchronize()
+    acc0 = eng.spec_accepted
     t0 = time.perf_counter()
     for _ in range(STEADY_TICKS):
         eng.step()
     torch.cuda.synchronize()
     tick_ms = (time.perf_counter() - t0) / STEADY_TICKS * 1e3
+    eng.drain()
+    # every slot emits its pending token plus the drafts accepted
+    tok_per_tick = 8 + (eng.spec_accepted - acc0) / STEADY_TICKS
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(STEADY_TICKS):
             eng.step()
@@ -151,8 +231,10 @@ def main(argv=None):
     tick_dev = {k: v / STEADY_TICKS
                 for k, v in device_ms_by_kernel(prof).items()}
     out.update({"steady_tick_ms_8_slots": tick_ms,
-                "steady_tok_per_s_8_slots": 8 * 1e3 / tick_ms,
-                "steady_tick_device_ms_by_kernel": tick_dev})
+                "steady_tokens_per_tick": tok_per_tick,
+                "steady_tok_per_s_8_slots": tok_per_tick * 1e3 / tick_ms,
+                "steady_tick_device_ms_by_kernel": tick_dev,
+                "steady_tick_device_ms": sum(tick_dev.values())})
     print(json.dumps(out))
 
 

@@ -5,9 +5,11 @@ card (one decode call per tick, all slots at once).
         --requests 8 --slots 4 --max-new 16
 
 ``--reduced`` shrinks the model for a rehearsal; ``--device cpu`` runs the
-kernels' plain versions on the CPU. The same flags as the reference's
-``launch/serve.py`` for what the port supports (no speculative decoding,
-overload or durability flags yet).
+kernels' plain versions on the CPU. ``--spec-k K`` serves speculatively:
+the packed 3-bit export of the same master weights drafts K tokens a tick
+(``--draft-depth`` keeps a leading share of its layers) and the target
+verifies them. The same flags as the reference's ``launch/serve.py`` for
+what the port supports (no overload or durability flags yet).
 """
 from __future__ import annotations
 
@@ -19,23 +21,42 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import quant_dense
 from repro_torch.core.precision import FLOAT, W3A8
+from repro_torch.models import api as model_api
 from repro_torch.models import get_model
 from repro_torch.serving.engine import ServingEngine
 
 
-def build_params(cfg, *, quant: str, form: str, seed: int, device):
+def cast_weights(tree, dtype):
+    """A float master with its weights and biases cast to ``dtype`` once,
+    so that no forward casts the whole master again; the norms' scales
+    stay fp32."""
+    return {k: (cast_weights(v, dtype) if isinstance(v, dict)
+                else v.to(dtype) if k in ("w", "b") else v)
+            for k, v in tree.items()}
+
+
+def build_params(cfg, *, quant: str, form: str, seed: int, device,
+                 spec_k: int = 0, draft_depth: float = 1.0):
     """Float master weights from a seeded generator on ``device``, exported
-    to the serve form there; the master is freed. Returns (params,
-    policy)."""
+    to the serve form there, or for ``quant="float"`` cast once to bf16,
+    the serving dtype; the fp32 master is freed. With ``spec_k`` the
+    drafter is derived from the master BEFORE the export (``draft_of``
+    exports its own slice to ``qp``). Returns (params, policy, draft_cfg,
+    draft_params), the last two None without ``spec_k``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params = get_model(cfg).init(gen, cfg, device=device)
+    draft_cfg = draft_params = None
+    if spec_k:
+        draft_cfg, draft_params = model_api.draft_of(
+            cfg, params, depth_fraction=draft_depth)
     if quant != "w3":
-        return params, FLOAT
+        return (cast_weights(params, torch.bfloat16), FLOAT, draft_cfg,
+                draft_params)
     export = {"q": quant_dense.export_levels,
               "qp": quant_dense.export_container}.get(form)
     if export:
         params = export(params, W3A8)
-    return params, W3A8
+    return params, W3A8, draft_cfg, draft_params
 
 
 def main(argv=None):
@@ -61,6 +82,11 @@ def main(argv=None):
                          "kernels, reference, or auto (kernels on CUDA)")
     ap.add_argument("--kv8", action="store_true",
                     help="serve from an int8 KV cache (per-token scales)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: the packed 3-bit drafter "
+                         "proposes this many tokens a tick (0 = off)")
+    ap.add_argument("--draft-depth", type=float, default=1.0,
+                    help="share of the layers the drafter keeps")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -68,15 +94,17 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    params, policy = build_params(cfg, quant=args.quant, form=args.form,
-                                  seed=args.seed, device=args.device)
+    params, policy, draft_cfg, draft_params = build_params(
+        cfg, quant=args.quant, form=args.form, seed=args.seed,
+        device=args.device, spec_k=args.spec_k, draft_depth=args.draft_depth)
     eng = ServingEngine(params, cfg, policy=policy, slots=args.slots,
-                        max_len=64 + args.max_new,
+                        max_len=64 + args.max_new + args.spec_k,
                         temperature=args.temperature, eos_id=args.eos_id,
                         matmul_mode=args.matmul_mode,
                         attn_mode=args.attn_mode,
                         kv_bits=8 if args.kv8 else None, seed=args.seed,
-                        device=args.device)
+                        spec_k=args.spec_k, draft_params=draft_params,
+                        draft_cfg=draft_cfg, device=args.device)
     # mixed prompt lengths: exercises the length-bucketed batched admission
     lens = [4, 8, 5, 12, 3, 16, 7, 9]
     t0 = time.time()
@@ -95,6 +123,11 @@ def main(argv=None):
           f"({toks / max(eng.decode_calls, 1):.2f} tok/tick), "
           f"{eng.prefill_calls} bucketed prefill calls "
           f"({len(done) / max(eng.prefill_calls, 1):.2f} req/prefill)")
+    if args.spec_k:
+        print(f"spec accept rate {eng.spec_accept_rate:.3f} "
+              f"({eng.spec_accepted}/{eng.spec_drafted} drafts, "
+              f"spec_k={args.spec_k}, draft depth "
+              f"{eng.draft_cfg.num_layers}/{cfg.num_layers})")
 
 
 if __name__ == "__main__":

@@ -4,6 +4,9 @@ the families the port serves (dense).
     init(gen, cfg, dtype, device)                        -> params
     prefill(params, batch, cfg, *, policy, ...)          -> (logits, cache)
     decode_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache)
+    verify_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache, None)
+    rollback_cache(cfg, cache, slots, new_lens)          -> cache (in place)
+    draft_of(cfg, params, depth_fraction=)               -> (draft_cfg, qp params)
     init_cache(cfg, batch, max_len, ...)                 -> cache
     insert_prefill / insert_prefill_many / free_slots    -> cache (in place)
 
@@ -14,15 +17,19 @@ cache as int8 plus per-token fp32 scales.
 """
 from __future__ import annotations
 
+import dataclasses
 from types import ModuleType
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant_dense
+from repro_torch.core.precision import W3A8
 from repro_torch.models import transformer
 
 __all__ = ["get_model", "init_cache", "prefill", "decode_step",
+           "verify_step", "rollback_cache", "spec_state_snapshot", "draft_of",
            "insert_prefill", "insert_prefill_many", "free_slots"]
 
 _FAMILY_MODULE = {"dense": transformer}
@@ -56,6 +63,54 @@ def prefill(params, batch, cfg: ModelConfig, **kw):
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, **kw):
     return get_model(cfg).decode_step(params, cache, tokens, cfg, **kw)
+
+
+def verify_step(params, cache, tokens, cfg: ModelConfig, **kw):
+    """Multi-token decode against the live cache (speculative verify).
+    Returns (logits (B, T, V), cache, trajectory)."""
+    return get_model(cfg).verify_step(params, cache, tokens, cfg, **kw)
+
+
+def rollback_cache(cfg: ModelConfig, cache, slots, new_lens, trajectory=None):
+    """Rewind rows ``slots`` to ``new_lens``, in place — undo rejected
+    draft suffixes (see ``transformer.rollback_cache``)."""
+    return get_model(cfg).rollback_cache(cache, slots, new_lens, trajectory)
+
+
+def spec_state_snapshot(cfg: ModelConfig, cache):
+    """The per-step snapshot a draft chain must stack for rollback (None
+    for the pure-KV dense family)."""
+    return get_model(cfg).spec_state_snapshot(cache)
+
+
+def _head_layers(tree, keep: int):
+    if isinstance(tree, dict):
+        return {k: _head_layers(v, keep) for k, v in tree.items()}
+    return tree[:keep]
+
+
+def draft_of(cfg: ModelConfig, params, *, depth_fraction: float = 1.0):
+    """A speculative DRAFTER from the same checkpoint: ``(draft_cfg,
+    draft_params)``, the params being the packed 3-bit ``qp`` serve form
+    (``quant_dense.export_container`` under W3A8) of the same weights —
+    the paper's fixed-point network drafting for its own full-precision
+    master. ``depth_fraction < 1`` keeps only the first
+    ``int(num_layers * depth_fraction)`` (at least 1) stacked layers, for a
+    cheaper drafter that agrees less often. Params already in a serve form
+    are sliced but not exported again."""
+    if not 0.0 < depth_fraction <= 1.0:
+        raise ValueError(f"depth_fraction must be in (0, 1], "
+                         f"got {depth_fraction}")
+    get_model(cfg)                          # the family must be ported
+    draft_cfg, draft_params = cfg, params
+    if depth_fraction < 1.0:
+        keep = max(1, int(cfg.num_layers * depth_fraction))
+        draft_params = dict(params)
+        draft_params["layers"] = _head_layers(params["layers"], keep)
+        draft_cfg = dataclasses.replace(cfg, num_layers=keep)
+    if not quant_dense.is_serve_form(draft_params):
+        draft_params = quant_dense.export_container(draft_params, W3A8)
+    return draft_cfg, draft_params
 
 
 def free_slots(cfg: ModelConfig, cache, slots):

@@ -10,13 +10,15 @@ Shapes: q (B, Lq, H, D); k/v (B, Lkv, KV, D); GQA groups G = H // KV.
     j < lengths[row]) or the chunked online-softmax reference, which masks
     causally only: identical at every real query position, while padded
     query rows (t >= lengths[row]) may differ — their cache entries are
-    masked downstream and overwritten as the row advances.
+    masked downstream and overwritten as the row advances;
+  * ``verify_attention`` (speculative verify: T = spec_k + 1 queries
+    against the whole decode cache) -> the same ``attn_prefill`` kernel
+    with ``hi = valid`` or the masked-einsum reference.
 
 'auto' picks the kernel for CUDA tensors, the reference elsewhere. The
 reference paths add to the kernels' plain-version counters
 (``kernels.<name>.ref.calls``), so a run can show it never left the
-kernels. Sliding-window attention and speculative verify are not ported
-yet and raise.
+kernels. Sliding-window attention is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.kernels.attn_prefill import ops as pf_ops
 from repro_torch.kernels.attn_prefill import ref as pf_ref
 
 __all__ = ["chunked_attention", "decode_attention", "prefill_attention",
-           "resolve_attn_mode", "ATTN_MODES"]
+           "verify_attention", "resolve_attn_mode", "ATTN_MODES"]
 
 NEG_INF = -1e30
 
@@ -116,6 +118,45 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return pf_ops.attn_prefill(q, k, v, hi)
     pf_ref.calls += 1
     return chunked_attention(q, k, v, chunk=chunk)
+
+
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid: torch.Tensor,
+                     k_scale=None, v_scale=None, *,
+                     mode: str = "auto") -> torch.Tensor:
+    """Multi-token decode attention for speculative verify: q (B, T, H, D)
+    against a (B, S, KV, D) cache; ``valid`` (B, T) is the number of
+    visible cache entries per query (its own just-written position
+    included), so the T positions are masked causally against each other
+    and against the live prefix. 'kernel' runs the ``attn_prefill`` kernel
+    with ``hi = valid``; 'ref' is the reference's einsum term for term (the
+    T > 1 generalisation of ``decode_attention``'s reference, with the
+    same int8 scale factoring) with the guarded softmax, so a query with no
+    valid key gives zeros."""
+    if resolve_attn_mode(mode, q.device) == "kernel":
+        return pf_ops.attn_prefill(q, k_cache, v_cache, valid,
+                                   k_scale=k_scale, v_scale=v_scale)
+    pf_ref.calls += 1
+    b, t, h, d = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    qr = scale_q(q, 1.0 / (d ** 0.5)).reshape(b, t, kvh, g, d)
+    kc = k_cache if k_scale is None else k_cache.to(q.dtype)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qr.float(), kc.float())
+    if k_scale is not None:
+        sc = sc * k_scale[:, None, None, None, :]
+    valid = torch.as_tensor(valid, device=q.device).reshape(b, t)
+    mask = torch.arange(s, device=q.device)[None, None, :] < valid[:, :, None]
+    sc = torch.where(mask[:, None, None], sc, _neg_inf(sc))
+    p = _guarded_softmax(sc)
+    if v_scale is not None:
+        p = (p * v_scale[:, None, None, None, :]).to(q.dtype)
+        vc = v_cache.to(q.dtype)
+    else:
+        p = p.to(v_cache.dtype)
+        vc = v_cache
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), vc.float()).to(vc.dtype)
+    return out.reshape(b, t, h, d).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

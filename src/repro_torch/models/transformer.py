@@ -15,8 +15,13 @@ allocated once and never copied. Writes that the reference drops because
 their row index is out of range (``.at[...].set(mode="drop")``) are masked
 out here, since torch indexing would raise on them.
 
+Speculative decoding: ``verify_step`` runs T tokens against the live
+cache (through ``attention.verify_attention``) and ``rollback_cache``
+rewinds rows to their committed lengths, zeroing the wiped entries, in
+place.
+
 Not ported yet: sliding-window rings (``cfg.sliding_window > 0`` raises),
-qk-norm, MoE, the training ``forward`` and speculative verify/rollback.
+qk-norm, MoE and the training ``forward``.
 """
 from __future__ import annotations
 
@@ -28,12 +33,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.models.attention import (decode_attention, prefill_attention,
-                                          resolve_attn_mode)
+                                          resolve_attn_mode, verify_attention)
 from repro_torch.models.layers import (apply_rope, embed_init, embed_lookup,
                                        logits_readout, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, rope_freqs)
 
 __all__ = ["init", "cache_len_for", "init_cache", "prefill", "decode_step",
+           "verify_step", "spec_state_snapshot", "rollback_cache",
            "insert_prefill", "insert_prefill_many", "free_slots"]
 
 
@@ -267,6 +273,121 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
     return logits, new_cache
+
+
+def verify_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
+                policy: QuantPolicy, dtype=torch.bfloat16,
+                matmul_mode: str = "auto", attn_mode: str = "auto"):
+    """Multi-token decode against the live cache — the speculative verify
+    entry point. tokens: (B, T) int, the committed last token and T - 1
+    drafts. Position ``t``'s logits are the distribution over the token
+    that follows ``tokens[:, t]``, as ``decode_step`` would give after
+    consuming ``tokens[:, :t + 1]`` one by one. K/V of all T positions are
+    written into ``cache`` in place at ``len .. len + T - 1`` (a position
+    past the cache writes nothing); ``rollback_cache`` undoes the rejected
+    ones. Returns (logits (B, T, V) fp32, cache with ``len + T``, None):
+    the trailing None is the rollback trajectory, which only stateful
+    families have."""
+    _check_supported(cfg)
+    b, t = tokens.shape
+    dev = tokens.device
+    attn_mode = resolve_attn_mode(attn_mode, dev)
+    pos0 = cache["len"].to(torch.int32).reshape(-1).expand(b)      # (B,)
+    quantized = "k_scale" in cache
+    h = embed_lookup(params["embed"], tokens, policy=policy, dtype=dtype)
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, dev)
+    positions = pos0[:, None] + torch.arange(t, dtype=torch.int32,
+                                             device=dev)[None, :]  # (B, T)
+    cs = cache["k"].shape[2]
+    rows = torch.arange(b, device=dev)[:, None]
+    slot = torch.clamp(positions, max=cs - 1).long()
+    # Positions past the cache are clamped onto slot cs - 1 and take the
+    # value that slot ends with (the in-range write of position cs - 1, or
+    # its old entry), so the duplicate indices all write the same value:
+    # the reference's dropped scatter.
+    src = torch.clamp(slot - pos0[:, None], min=0)                 # (B, T)
+    keep = pos0[:, None] + src < cs
+    valid = torch.clamp(positions + 1, max=cs)                     # (B, T)
+
+    def _write(buf, layer, new):
+        """buf[layer, b, position] = new[b, t] for every in-range position."""
+        k_ = keep.reshape((b, t) + (1,) * (new.dim() - 2))
+        buf[layer, rows, slot] = torch.where(k_, new[rows, src].to(buf.dtype),
+                                             buf[layer, rows, slot])
+
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+        q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, matmul_mode)
+        if quantized:
+            kq, ksc = _quantize_kv(k)
+            vq, vsc = _quantize_kv(v)
+            _write(cache["k"], i, kq)
+            _write(cache["v"], i, vq)
+            _write(cache["k_scale"], i, ksc)
+            _write(cache["v_scale"], i, vsc)
+            ks_, vs_ = cache["k_scale"][i], cache["v_scale"][i]
+        else:
+            _write(cache["k"], i, k)
+            _write(cache["v"], i, v)
+            ks_ = vs_ = None
+        o = verify_attention(q, cache["k"][i], cache["v"][i], valid,
+                             k_scale=ks_, v_scale=vs_, mode=attn_mode)
+        h = h + _attn_out(lp, o, cfg, policy, b, t, matmul_mode)
+        hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+        h = h + _ffn(lp, hn, cfg, policy, matmul_mode)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = _logits(params, h, cfg, policy, matmul_mode)
+    new_cache = dict(cache)
+    new_cache["len"] = cache["len"] + t
+    return logits, new_cache, None
+
+
+def _wipe_mask(tgt: torch.Tensor, cur: torch.Tensor, cs: int) -> torch.Tensor:
+    """(B, S) bool: the cache slots holding positions [tgt, cur) of each
+    row — what a rollback erases. Position ``p`` lives at slot ``p % cs``,
+    so the band is the cyclic interval from ``tgt % cs`` of width
+    ``cur - tgt``."""
+    sidx = torch.arange(cs, device=tgt.device)
+    return (torch.remainder(sidx[None, :] - tgt[:, None], cs)
+            < (cur - tgt)[:, None])
+
+
+def spec_state_snapshot(cache):
+    """The subtree a rollback restores from per-step snapshots: none, the
+    dense cache is pure KV and a length rewind suffices."""
+    return None
+
+
+def rollback_cache(cache, slots, new_lens, trajectory=None):
+    """Rewind rows ``slots`` (N,) of a slot-major cache to lengths
+    ``new_lens`` (N,), in place — the speculative rejection primitive.
+
+    Per selected row, ``len`` drops to ``new_lens`` clamped to
+    [0, current] (a zero-distance rewind is the identity), and the K/V
+    entries and int8 per-token scales at the wiped positions are zeroed, so
+    the cache equals one that never saw the rejected tokens. Entries of
+    ``slots`` >= batch are dropped. ``len`` becomes a (B,) vector.
+    ``trajectory`` must be None (the dense family has no state)."""
+    if trajectory is not None:
+        raise ValueError("the dense cache has no state trajectory")
+    b, cs = cache["k"].shape[1], cache["k"].shape[2]
+    dev = cache["k"].device
+    cur = cache["len"].to(torch.int32).reshape(-1).expand(b)
+    idx = torch.as_tensor(slots, device=dev).long().reshape(-1)
+    new = torch.as_tensor(new_lens, device=dev).to(torch.int32).reshape(-1)
+    # out-of-range rows land on a spare last entry, which is cut off
+    ext = torch.cat([cur, cur.new_zeros(1)])
+    ext[torch.clamp(idx, max=b)] = new.expand(idx.shape[0])
+    tgt = torch.minimum(torch.clamp(ext[:b], min=0), cur)
+    wipe = _wipe_mask(tgt, cur, cs)                                # (B, S)
+    for name in ("k", "v"):
+        cache[name].masked_fill_(wipe[None, :, :, None, None], 0)
+    if "k_scale" in cache:
+        for name in ("k_scale", "v_scale"):
+            cache[name].masked_fill_(wipe[None], 0)
+    cache["len"] = tgt
+    return cache
 
 
 def _kv_names(cache):

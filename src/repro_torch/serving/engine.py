@@ -1,6 +1,6 @@
 """Batched continuous-batching serving engine — port of the reference's
-``serving/engine.py`` without speculative decoding, overload hardening or
-durability.
+``serving/engine.py`` with speculative decoding, without overload
+hardening or durability.
 
   * ONE shared slot-major cache — ``(slots, ...)`` rows with per-slot
     length counters — allocated once at construction. The reference
@@ -19,10 +19,22 @@ durability.
     tick never asks the host which slots are live. ``decode_calls`` counts
     ticks.
   * Tokens cross to the host only in bulk at ``drain()`` — no per-token
-    sync. With ``eos_id=None`` lifetimes are host-predictable and
-    admission needs no sync at all.
+    sync. With ``eos_id=None`` and no speculation lifetimes are
+    host-predictable and admission needs no sync at all.
+  * Speculative decoding (``spec_k >= 1``): a DRAFTER (by default the
+    packed 3-bit ``api.draft_of`` export of the target's own weights)
+    keeps a second slot-major cache, admitted in the same bucketed rounds;
+    each tick it proposes ``spec_k`` tokens, the target verifies them in
+    one multi-token pass and every slot commits 1..spec_k+1 tokens
+    (``serving.spec.spec_decode_tick``). Same output distribution as plain
+    decoding, token-identical at T = 0. ``submit`` reserves ``spec_k``
+    positions of verify headroom; ``spec_drafted`` / ``spec_accepted`` /
+    ``spec_accept_rate`` and each request's ``ticks`` and ``accept_hist``
+    are folded in at drain.
 
-A tick that fails raises: the reference's degradation ladder is not ported.
+A tick that fails raises: the reference's degradation ladder, preemption
+and quarantine are not ported (a row whose verify logits are not finite
+raises at the next sync).
 At T > 0 the sampled streams differ from the reference's (``torch``
 generator vs ``jax.random``); at T = 0 both are greedy.
 """
@@ -41,6 +53,7 @@ from repro_torch.models import api as model_api
 from repro_torch.models import get_model
 from repro_torch.models.attention import ATTN_MODES
 from repro_torch.serving.resilience import SubmitOutcome, SubmitRejected
+from repro_torch.serving.spec import emit_counts, spec_decode_tick
 
 __all__ = ["generate", "Request", "ServingEngine", "SubmitOutcome",
            "SubmitRejected"]
@@ -86,9 +99,24 @@ def generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
              max_new_tokens: int = 32, temperature: float = 0.0,
              seed: int = 0, dtype=torch.bfloat16, matmul_mode: str = "auto",
              attn_mode: str = "auto", kv_bits: Optional[int] = None,
+             spec_k: int = 0, draft_params=None,
+             draft_cfg: Optional[ModelConfig] = None,
              device="cuda") -> torch.Tensor:
     """prompts (B, P) int -> (B, P + max_new_tokens) on ``device``: one
-    prefill, then one decode step per token."""
+    prefill, then one decode step per token.
+
+    ``spec_k >= 1`` decodes speculatively: ``draft_params`` (default: the
+    packed 3-bit ``api.draft_of`` export of ``params``) proposes spec_k
+    tokens a step and the target verifies them in one multi-token pass —
+    the same output distribution, token-identical at T = 0."""
+    if spec_k:
+        return _spec_generate(params, prompts, cfg, policy=policy,
+                              max_new_tokens=max_new_tokens,
+                              temperature=temperature, seed=seed,
+                              dtype=dtype, matmul_mode=matmul_mode,
+                              attn_mode=attn_mode, kv_bits=kv_bits,
+                              spec_k=spec_k, draft_params=draft_params,
+                              draft_cfg=draft_cfg, device=device)
     mod = get_model(cfg)
     params = _to_device(params, device)
     prompts = torch.as_tensor(prompts).to(device=device, dtype=torch.int32)
@@ -109,6 +137,76 @@ def generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     return torch.cat(out, dim=1)
 
 
+def _spec_models(params, cfg: ModelConfig, draft_params,
+                 draft_cfg: Optional[ModelConfig]):
+    """The drafter for ``params``: derived from the target checkpoint
+    (``api.draft_of``) when none is given."""
+    if draft_params is None:
+        draft_cfg, draft_params = model_api.draft_of(cfg, params)
+    else:
+        draft_cfg = draft_cfg or cfg
+    if draft_cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(f"draft vocab {draft_cfg.vocab_size} != target "
+                         f"vocab {cfg.vocab_size}")
+    return draft_params, draft_cfg
+
+
+def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
+                   max_new_tokens: int, temperature: float, seed: int, dtype,
+                   matmul_mode: str, attn_mode: str, kv_bits: Optional[int],
+                   spec_k: int, draft_params, draft_cfg: Optional[ModelConfig],
+                   device) -> torch.Tensor:
+    """Speculative ``generate``: an eager loop over the shared
+    ``spec_decode_tick``; each tick commits 1..spec_k+1 tokens per row into
+    a fixed output buffer. The loop reads one flag a tick from the device
+    to know when every row is done."""
+    draft_params, draft_cfg = _spec_models(params, cfg, draft_params,
+                                           draft_cfg)
+    mod, dmod = get_model(cfg), get_model(draft_cfg)
+    params = _to_device(params, device)
+    draft_params = _to_device(draft_params, device)
+    prompts = torch.as_tensor(prompts).to(device=device, dtype=torch.int32)
+    b, p = prompts.shape
+    # verify writes up to spec_k positions past the committed stream
+    max_len = p + max_new_tokens + spec_k
+    kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
+    mkw = dict(policy=policy, dtype=dtype)
+    gen = torch.Generator(device=prompts.device).manual_seed(seed)
+    logits, cache = mod.prefill(params, {"tokens": prompts}, cfg,
+                                max_len=max_len, **mkw, **kw["prefill"])
+    _, dcache = dmod.prefill(draft_params, {"tokens": prompts}, draft_cfg,
+                             max_len=max_len, **mkw, **kw["prefill"])
+    tok0 = _sample(gen, logits[:, 0], temperature).to(torch.int32)[:, None]
+    if max_new_tokens == 1:
+        return torch.cat([prompts, tok0], dim=1)
+    # rollback writes per-row lengths
+    for c in (cache, dcache):
+        c["len"] = c["len"].to(torch.int32).reshape(-1).expand(b).clone()
+    # one spare column takes the writes of rows past their window
+    buf = torch.zeros((b, max_new_tokens + 1), dtype=torch.int32,
+                      device=prompts.device)
+    buf[:, 0] = tok0[:, 0]
+    budget = torch.full((b,), max_new_tokens, dtype=torch.int32,
+                        device=prompts.device)
+    emitted = torch.ones((b,), dtype=torch.int32, device=prompts.device)
+    rows = torch.arange(b, device=prompts.device)
+    pending = tok0
+    while bool((emitted < max_new_tokens).any()):
+        active = emitted < max_new_tokens
+        cache, dcache, a, out, pending, _ = spec_decode_tick(
+            mod, dmod, params, draft_params, cfg, draft_cfg, cache, dcache,
+            pending, active, spec_k=spec_k, temperature=temperature,
+            generator=gen, mkw=mkw, dmkw=mkw, attn_kw=kw["decode"],
+            dattn_kw=kw["decode"])
+        n, _ = emit_counts(out, a, active=active, emitted=emitted,
+                           budget=budget, eos_id=-1)
+        for j in range(spec_k + 1):
+            idx = torch.where(j < n, emitted + j, max_new_tokens)
+            buf[rows, idx.long()] = out[:, j]
+        emitted = emitted + n
+    return torch.cat([prompts, buf[:, :max_new_tokens]], dim=1)
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -116,6 +214,11 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # filled at drain: decode ticks this request took part in, and the
+    # histogram {tokens emitted in a tick: ticks} ({1: n} without
+    # speculation; the accept-length distribution with it)
+    ticks: int = 0
+    accept_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     @property
     def admit_prompt(self) -> List[int]:
@@ -135,7 +238,9 @@ class ServingEngine:
     device); ``drain()`` = bulk host transfer of everything emitted since
     the last drain; ``run_all()`` = drive until queue and slots are empty.
     Admission is FIFO by bucket: each round serves the oldest queued
-    request's bucket, and other same-bucket requests ride along.
+    request's bucket, and other same-bucket requests ride along. With
+    ``spec_k >= 1`` a tick is one speculative tick (draft, verify, accept,
+    rollback of both caches) and emits 1..spec_k+1 tokens per slot.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, policy: QuantPolicy,
@@ -144,8 +249,11 @@ class ServingEngine:
                  seed: int = 0, drain_every: int = 4,
                  matmul_mode: str = "auto", attn_mode: str = "auto",
                  kv_bits: Optional[int] = None, attn_chunk: int = 1024,
-                 device="cuda"):
+                 spec_k: int = 0, draft_params=None,
+                 draft_cfg: Optional[ModelConfig] = None, device="cuda"):
         self._kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.device = torch.device(device)
         self.params = _to_device(params, self.device)
         self.cfg, self.policy, self.dtype = cfg, policy, dtype
@@ -161,6 +269,19 @@ class ServingEngine:
         self.cache = model_api.init_cache(cfg, slots, max_len, dtype,
                                           per_slot_len=True, kv_bits=kv_bits,
                                           device=self.device)
+        # speculative decoding: a second slot-major cache for the DRAFTER,
+        # served with the engine's knobs
+        self.spec_k = int(spec_k)
+        self.spec_drafted = 0                 # draft proposals scored
+        self.spec_accepted = 0                # proposals the target kept
+        if self.spec_k:
+            draft_params, self.draft_cfg = _spec_models(
+                params, cfg, draft_params, draft_cfg)
+            self.draft_params = _to_device(draft_params, self.device)
+            self.dmod = get_model(self.draft_cfg)
+            self.draft_cache = model_api.init_cache(
+                self.draft_cfg, slots, max_len, dtype, per_slot_len=True,
+                kv_bits=kv_bits, device=self.device)
         # per-slot device state (replaced, never mutated: pending records
         # keep references to earlier tensors)
         dev = self.device
@@ -173,8 +294,10 @@ class ServingEngine:
         self.queue: List[Request] = []
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._ticks_left = [0] * slots        # deterministic lifetime bound
-        # pending records: (tokens (slots, 1), emitted mask, done mask,
-        # owners) — one per admission and per tick
+        # pending records, one per admission and per tick: (tokens (slots,
+        # w), emitted counts, done, accepted drafts, non-finite flag,
+        # owners, kind); w is 1 or spec_k + 1, and the last two are None
+        # for admissions and plain ticks
         self._pending: List[Tuple] = []
         self._finished: List[Request] = []    # synced but not yet returned
         self._uid = 0
@@ -193,6 +316,29 @@ class ServingEngine:
                                 max_len=self.max_len, lengths=lengths,
                                 attn_chunk=self.attn_chunk,
                                 **self._kw["prefill"])
+
+    def _spec_tick(self):
+        """Advance every active slot by 1..spec_k+1 tokens: the shared
+        ``spec_decode_tick`` core plus the budget / EOS cut of each window.
+        Inactive rows are frozen on the device (their writes fully
+        rewound, token and length held). Returns the emitted tokens
+        (slots, spec_k + 1), their counts, done, the accepted drafts and
+        the non-finite flag of each row."""
+        active = self._active
+        mkw = dict(policy=self.policy, dtype=self.dtype)
+        self.cache, self.draft_cache, a, out, nxt, row_ok = spec_decode_tick(
+            self.mod, self.dmod, self.params, self.draft_params, self.cfg,
+            self.draft_cfg, self.cache, self.draft_cache, self._tokens,
+            active, spec_k=self.spec_k, temperature=self.temperature,
+            generator=self._gen, mkw=mkw, dmkw=mkw,
+            attn_kw=self._kw["decode"], dattn_kw=self._kw["decode"])
+        bad = active & ~row_ok
+        eff = active & row_ok
+        n, done = emit_counts(out, a, active=eff, emitted=self._emitted,
+                              budget=self._budget, eos_id=self._eos())
+        self._tokens, self._active = nxt, eff & ~done
+        self._emitted = self._emitted + n
+        return out, n, done, torch.where(eff, a, torch.zeros_like(a)), bad
 
     def _tick(self):
         """Advance every active slot one token; masks computed on-device.
@@ -246,13 +392,24 @@ class ServingEngine:
         if max_new < 1:
             raise SubmitRejected("bad_max_new",
                                  f"max_new must be >= 1, got {max_new}")
-        if len(prompt) + max_new > self.max_len:
+        if len(prompt) + max_new + self.spec_k > self.max_len:
+            # speculative verify writes up to spec_k positions past the
+            # last committed token: reserve that headroom in the cache
+            total = len(prompt) + max_new + self.spec_k
+            label = (f"prompt+max_new+spec_k ({len(prompt)}+{max_new}"
+                     f"+{self.spec_k}={total})" if self.spec_k
+                     else f"prompt+max_new ({total})")
             raise SubmitRejected(
-                "too_long", f"prompt+max_new ({len(prompt) + max_new}) "
-                            f"exceeds engine max_len {self.max_len}")
+                "too_long", f"{label} exceeds engine max_len {self.max_len}")
         self._uid += 1
         self.queue.append(Request(self._uid, list(prompt), max_new))
         return SubmitOutcome(self._uid, accepted=True)
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Share of draft proposals the target accepted (drain-synced)."""
+        return (self.spec_accepted / self.spec_drafted if self.spec_drafted
+                else 0.0)
 
     def _bucket_len(self, plen: int) -> int:
         """Admission bucket: next power of two >= plen (floor _MIN_BUCKET),
@@ -273,8 +430,9 @@ class ServingEngine:
         if not self.queue:
             return
         free = self._free_slots()
-        if not free and self.eos_id is not None:
-            # an EOS may have freed a slot we haven't observed yet
+        if not free and (self.eos_id is not None or self.spec_k):
+            # an EOS — or, with speculation, a multi-token burst through
+            # the budget — may have freed a slot we haven't observed yet
             self._sync()
             free = self._free_slots()
         while self.queue and free:
@@ -306,10 +464,22 @@ class ServingEngine:
             ap = r.admit_prompt
             toks[i, :len(ap)] = ap
             lens[i], slot_map[i], budgets[i] = len(ap), s, r.remaining
-        logits0, src = self._prefill(torch.as_tensor(toks, device=self.device),
-                                     torch.as_tensor(lens, device=self.device))
+        toks_d = torch.as_tensor(toks, device=self.device)
+        lens_d = torch.as_tensor(lens, device=self.device)
+        logits0, src = self._prefill(toks_d, lens_d)
         self.prefill_calls += 1
         self._admit_many(slot_map, src, logits0, budgets)
+        if self.spec_k:
+            # the drafter needs the prompt in ITS cache too (its logits are
+            # unused: the target samples every committed token); it rides
+            # the same admission round
+            _, dsrc = self.dmod.prefill(
+                self.draft_params, {"tokens": toks_d}, self.draft_cfg,
+                policy=self.policy, dtype=self.dtype, max_len=self.max_len,
+                lengths=lens_d, attn_chunk=self.attn_chunk,
+                **self._kw["prefill"])
+            self.draft_cache = self.dmod.insert_prefill_many(
+                self.draft_cache, slot_map, dsrc)
         mask_np = np.zeros((self.slots,), bool)
         for s, r in zip(slot_ids, reqs):
             self._slot_req[s] = r
@@ -317,7 +487,7 @@ class ServingEngine:
             mask_np[s] = True
         mask = torch.as_tensor(mask_np, device=self.device)
         self._pending.append((self._tokens, mask, mask & ~self._active,
-                              tuple(self._slot_req)))
+                              None, None, tuple(self._slot_req), "admit"))
         for s in slot_ids:
             if self._ticks_left[s] <= 0:
                 self._slot_req[s] = None
@@ -329,32 +499,72 @@ class ServingEngine:
         self._spin_up()
         if not self._occupied():
             return
-        emitted_mask = self._active                  # who emits this tick
         owners = tuple(self._slot_req)
-        done = self._tick()
-        self._pending.append((self._tokens, emitted_mask, done, owners))
+        if self.spec_k:
+            out, n, done, accepted, bad = self._spec_tick()
+            self._pending.append((out, n, done, accepted, bad, owners,
+                                  "tick"))
+        else:
+            emitted_mask = self._active              # who emits this tick
+            done = self._tick()
+            self._pending.append((self._tokens, emitted_mask, done, None,
+                                  None, owners, "tick"))
         self.decode_calls += 1
         for s in range(self.slots):
             if self._slot_req[s] is not None:
+                # with speculation an upper bound: a tick emits >= 1 token
                 self._ticks_left[s] -= 1
                 if self._ticks_left[s] <= 0:
                     self._slot_req[s] = None     # budget exhausted this tick
 
+    def _pack(self, toks, counts, done, accepted, bad):
+        """One record as a (slots, w + 2) int32 tensor — tokens right-padded
+        to w = spec_k + 1, counts, done — plus, with speculation, the
+        accepted drafts and the non-finite flag (zeros where None)."""
+        w = self.spec_k + 1
+        cols = [toks.to(torch.int32)]
+        if toks.shape[1] < w:
+            cols.append(toks.new_zeros((self.slots, w - toks.shape[1]),
+                                       dtype=torch.int32))
+        flags = (counts, done) + ((accepted, bad) if self.spec_k else ())
+        cols += [torch.zeros((self.slots, 1), dtype=torch.int32,
+                             device=self.device) if c is None
+                 else c.to(torch.int32)[:, None] for c in flags]
+        return torch.cat(cols, dim=1)
+
     def _sync(self):
         """Bulk-sync everything emitted since the last sync (ONE device to
         host copy) and attribute tokens to requests via the per-record owner
-        snapshots. Finished requests wait in ``_finished`` for ``drain()``."""
+        snapshots; a record carries 1..spec_k+1 tokens per slot. Per-request
+        ``ticks`` / ``accept_hist`` and the engine's ``spec_drafted`` /
+        ``spec_accepted`` are folded in here. Finished requests wait in
+        ``_finished`` for ``drain()``."""
         if not self._pending:
             return
-        moved = torch.stack([torch.stack([toks[:, 0], em.to(torch.int32),
-                                          dn.to(torch.int32)])
-                             for toks, em, dn, _ in self._pending]).cpu()
-        moved = moved.numpy()
-        for (toks, em, dn), (_, _, _, owners) in zip(moved, self._pending):
-            for s in np.nonzero(em)[0]:
+        moved = torch.stack([self._pack(*rec[:5])
+                             for rec in self._pending]).cpu().numpy()
+        w = self.spec_k + 1
+        for rec, (*_, owners, kind) in zip(moved, self._pending):
+            toks, counts, dn = rec[:, :w], rec[:, w], rec[:, w + 1]
+            if self.spec_k and rec[:, w + 3].any():
+                s = int(np.nonzero(rec[:, w + 3])[0][0])
+                uid = owners[s].uid if owners[s] is not None else None
+                self._pending.clear()
+                raise RuntimeError(
+                    f"non-finite verify logits in slot {s} (request {uid}); "
+                    f"quarantine is not ported, so the tick fails")
+            for s in np.nonzero(counts)[0]:
                 req = owners[s]
                 if req is not None:
-                    req.out.append(int(toks[s]))
+                    n = int(counts[s])
+                    req.out.extend(int(x) for x in toks[s, :n])
+                    if kind == "tick":
+                        req.ticks += 1
+                        req.accept_hist[n] = req.accept_hist.get(n, 0) + 1
+            if kind == "tick" and self.spec_k:
+                live = counts > 0
+                self.spec_drafted += int(self.spec_k * live.sum())
+                self.spec_accepted += int(rec[live, w + 2].sum())
             for s in np.nonzero(dn)[0]:
                 req = owners[s]
                 if req is not None and not req.done:

@@ -1,0 +1,46 @@
+"""Draft phase — port of the reference's ``serving/spec/draft.py``: the
+drafter's proposals from spec_k + 1 eager ``decode_step`` calls (the
+reference runs them under one ``lax.scan``), through the drafter's own
+serving path (for ``qp`` params the qmatvec, qmatmul and attn_decode
+kernels)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["draft_chain"]
+
+
+def draft_chain(mod, draft_params, dcache, pending: torch.Tensor, dcfg, *,
+                spec_k: int, temperature: float,
+                generator: Optional[torch.Generator] = None,
+                mkw: dict, attn_kw: Optional[dict] = None):
+    """Run ``spec_k + 1`` drafter decode steps from the committed stream.
+
+    ``pending`` (B, 1): the last sampled, not yet fed token. Step ``j``
+    consumes the previous token and samples proposal ``x_{j+1}``. The chain
+    runs ONE step past the K proposals so the drafter's cache also holds
+    the entry of its own last proposal ``x_K``; otherwise a tick that
+    accepts everything would leave the draft cache one entry short of the
+    committed stream. The last step's sample is discarded.
+
+    Returns ``(dcache, trajectory, drafts (B, K), draft_logits (B, K, V))``;
+    ``trajectory`` (the drafter's stacked rollback snapshots in the
+    reference) is None: the dense family is pure KV."""
+    cur, logits, toks = pending, [], []
+    for _ in range(spec_k + 1):
+        lg, dcache = mod.decode_step(draft_params, dcache, cur, dcfg, **mkw,
+                                     **(attn_kw or {}))
+        lg = lg[:, 0]
+        if temperature == 0.0:
+            nxt = torch.argmax(lg, dim=-1)
+        else:
+            probs = torch.softmax(lg.float() / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        cur = nxt.to(torch.int32)[:, None]
+        logits.append(lg)
+        toks.append(cur[:, 0])
+    drafts = torch.stack(toks[:spec_k], dim=1)                   # (B, K)
+    draft_logits = torch.stack(logits[:spec_k], dim=1)           # (B, K, V)
+    return dcache, None, drafts, draft_logits

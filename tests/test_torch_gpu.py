@@ -287,6 +287,35 @@ def test_attn_prefill(cuda, dtype, quantized, t, d):
     assert (got.cpu()[empty] == 0).all()
 
 
+@pytest.mark.parametrize("dtype,quantized", [(torch.bfloat16, False),
+                                             (torch.bfloat16, True),
+                                             (torch.float32, False)])
+def test_attn_prefill_verify_shape(cuda, dtype, quantized):
+    """Speculative verify: T = 5 queries of 8 slots against a 512-entry
+    cache, hi = valid with the frontiers spread over the cache (row 0 at
+    length 0, row 7 ending at the last entry) and row 1 without a valid
+    key (exact zeros); bf16 on wgmma, fp32 on simt."""
+    g = _gen(13)
+    b, t, s, kv, grp, d = 8, 5, 512, 2, 6, 128
+    q = torch.randn((b, t, kv * grp, d), generator=g).to(dtype)
+    k, v, ks, vs = _cache(g, b, s, kv, d, dtype, quantized)
+    lens = torch.tensor([0, 1, 37, 128, 200, 333, 480, s - t],
+                        dtype=torch.int32)
+    valid = torch.clamp(lens[:, None] + torch.arange(1, t + 1,
+                                                     dtype=torch.int32),
+                        max=s)
+    valid[1] = 0
+    ref = pf_ops.attn_prefill(q, k, v, valid, k_scale=ks, v_scale=vs)
+    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    v0 = pf_k.launches_by_variant[variant]
+    got = pf_ops.attn_prefill(*_on(cuda, q, k, v, valid),
+                              k_scale=None if ks is None else ks.to(cuda),
+                              v_scale=None if vs is None else vs.to(cuda))
+    assert pf_k.launches_by_variant[variant] == v0 + 1
+    _check(got, ref, dtype)
+    assert (got.cpu()[1] == 0).all()
+
+
 def test_attn_prefill_refuses_what_no_kernel_takes(cuda):
     q = torch.zeros((1, 4, 2, 128), dtype=torch.bfloat16, device=cuda)
     kv32 = torch.zeros((1, 4, 1, 128), device=cuda)
@@ -419,3 +448,60 @@ def test_packed_apply_kernel_on_card(cuda):
         assert qmv_k.launches == n0 + launched
         _check(got, quant_dense.packed_apply(packed[name]["w"], xin),
                torch.float32)
+
+
+@pytest.mark.parametrize("kv_bits", [None, 8])
+def test_rollback_cache_on_card_matches_cpu(cuda, kv_bits):
+    """``rollback_cache`` on CUDA tensors gives the CPU's cache: lengths
+    rewound (out-of-range rows dropped, never past the current length),
+    the wiped band zeroed, int8 scales too."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import api
+    cfg = reduced(get_config("qwen2-1.5b"))
+    cpu = api.init_cache(cfg, 4, 24, torch.float32, per_slot_len=True,
+                         kv_bits=kv_bits, device="cpu")
+    g = _gen(14)
+    for name, t in cpu.items():
+        if name == "len":
+            t.copy_(torch.tensor([20, 7, 0, 24], dtype=torch.int32))
+        elif t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g))
+        else:
+            t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+    card = {n: t.to(cuda) for n, t in cpu.items()}
+    slots, new = torch.tensor([0, 1, 9, 3]), torch.tensor([15, 9, 1, 19])
+    want = api.rollback_cache(cfg, cpu, slots, new)
+    got = api.rollback_cache(cfg, card, slots.to(cuda), new.to(cuda))
+    assert want["len"].tolist() == [15, 7, 0, 19]
+    for name in want:
+        assert torch.equal(got[name].cpu(), want[name]), name
+
+
+def test_spec_engine_on_card_matches_plain(cuda):
+    """A small float qwen2-1.5b (head_dim 32) served speculatively on the
+    card (its 3-bit export drafting, spec_k = 4, the kernels throughout)
+    gives the tokens of the plain engine and of greedy generate, fp32,
+    T = 0, with a float and an int8 KV cache."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.precision import FLOAT
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServingEngine, generate
+    cfg = reduced(get_config("qwen2-1.5b"), d_model=128, vocab=256)
+    master = get_model(cfg).init(_gen(15), cfg)
+    prompts = [[1, 2, 3], list(range(5, 17)), [9] * 7, [4, 4], [7, 1, 7]]
+    for kv_bits in (None, 8):
+        outs = []
+        for spec_k in (0, 4):
+            eng = ServingEngine(master, cfg, policy=FLOAT, slots=2,
+                                max_len=64, dtype=torch.float32,
+                                kv_bits=kv_bits, spec_k=spec_k, device=cuda)
+            uid = {int(eng.submit(p, max_new=9)): i
+                   for i, p in enumerate(prompts)}
+            outs.append({uid[r.uid]: r.out for r in eng.run_all()})
+        assert outs[0] == outs[1] and eng.spec_drafted > 0
+    n0 = pf_k.launches_by_variant["simt"]
+    g = [generate(master, [[3, 1, 4, 1, 5]], cfg, policy=FLOAT,
+                  max_new_tokens=9, dtype=torch.float32, spec_k=k,
+                  device=cuda).cpu() for k in (0, 4)]
+    assert torch.equal(g[0], g[1])
+    assert pf_k.launches_by_variant["simt"] > n0     # the fp32 verify
