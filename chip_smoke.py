@@ -39,15 +39,28 @@ Phases, each printing one JSON line:
              generator on the card, exported to W3A8 containers on the
              card, served by ServingEngine(slots=8, max_len=512, bf16) for
              16 requests x 32 new tokens, once with a bf16 KV cache and once
-             with kv_bits=8. Every timed engine (here and in the spec phase)
-             follows a warm-up engine that served the same requests for
-             WARM_NEW tokens, so tok/s are compared warm. Launch counters
-             are zeroed just before each timed run
+             with kv_bits=8: the engine replaying its tick and admissions as
+             CUDA graphs, and its capture=False twin. Every timed engine
+             (here and in the spec phase) first served the same requests
+             for WARM_NEW tokens, so tok/s are compared warm and the
+             captured engine's timed serve is replay only (gated: no
+             capture in it). The twins must serve identical tokens. Launch
+             counters (a replay adds the launches its capture recorded) are
+             zeroed just before each timed run
              and read just after: every kernel of the path must have
              launched, no plain version may have run, every readout must
              have taken qmatmul's k_lanes layout, every admission the
              wgmma attn_prefill, and every qmatvec launch the variant its
-             plan gives for its M (ticks decode, admissions prefill).
+             plan gives for its M (ticks decode, admissions prefill); the
+             twins' counts must agree. Then each twin's steady tick (8
+             slots active): host ms over STEADY_TICKS ticks, and device ms by
+             kernel and the card's idle share over PROFILED_TICKS more under
+             torch.profiler, which must name qmatvec, qmatmul and attn_decode
+             in the captured engine's replayed ticks.
+   quarantine the captured qp engine and its eager twin under a FaultPlan
+             putting NaN in slot 3's logits at tick 2 (8 requests x 8
+             tokens): one request "poisoned" with the tokens it had, seven
+             "ok", poisoned_count 1, the twins identical.
 4. path      prefill + 4 decode steps at full width in fp32 activations
              (no activation quant) with all kernels, then with the plain
              paths (matmul_mode="dequant", attn_mode="ref") on the same
@@ -57,7 +70,8 @@ Phases, each printing one JSON line:
              policy); its W3A8 container export (api.draft_of) drafts
              spec_k = 4 tokens a tick. ServingEngine(slots=8, max_len=512,
              bf16, spec_k=4) serves the engine phase's 16 requests x 32
-             tokens: every request gets its tokens, all four serving kernels
+             tokens, captured and as its capture=False twin (identical
+             tokens): every request gets its tokens, all four serving kernels
              launched exactly as often as the tick's structure fixes (each
              tick: L verify attn_prefill, (spec_k + 1) x L attn_decode and
              7 L qmatvec decode, spec_k + 1 readouts; each admission round:
@@ -68,16 +82,23 @@ Phases, each printing one JSON line:
              spec_k=0 engine on the same target and the qp engine phase,
              and the share of requests whose bf16 stream matches the plain
              engine's (not gated: verify and decode round in different
-             orders). Then the fp32 gate: generate(spec_k=4) on the fp32
-             master must be token-identical to greedy generate (8 prompts x
-             16 new tokens, TF32 off, every attn_prefill on simt); on a
-             mismatch it prints the top-2 logit margin where they part.
+             orders), and each twin's steady tick, the profiler naming all
+             four serving kernels in the replayed spec ticks. Then the fp32
+             gate: generate(spec_k=4) on the fp32 master must be
+             token-identical to greedy generate (8 prompts x 16 new tokens,
+             TF32 off, every attn_prefill on simt); on a mismatch it prints
+             the top-2 logit margin where they part. The captured fp32 spec
+             engine must serve greedy's tokens, and the captured fp32 plain
+             engine its capture=False twin's.
 6. paper     the paper's 3-step experiment (RBM pretraining, float SGD,
              3-bit quantization, STE retraining, packed check) for the digit
              net at full width 784-1022-1022-1022-10, batch 100, lr 0.1,
-             momentum 0.9; the only cut is the epoch counts (1 / 3 / 2).
-             Fails on a non-finite loss, float MCR >= 35%, packed max err
-             >= 1e-4 or a packed/float weight ratio <= 8.
+             momentum 0.9; the only cut is the epoch counts (1 / 3 / 2);
+             the training steps and evaluations as CUDA graphs, after an
+             eager twin run (capture=False). Fails on a non-finite loss,
+             float MCR >= 35%, packed max err >= 1e-4, a packed/float
+             weight ratio <= 8, MCRs or final losses that differ between
+             the twins, or other than one capture per training run.
 7. deploy    the retrained digit net and a seeded full-width phoneme net
              (429-1022x4-61), exported with export_container(W3A8) and run by
              dnn.forward(..., sigmoid_mode="pw") at batch 100 / 128: each
@@ -149,6 +170,8 @@ PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
 SPEC_K = 4                                  # drafts a speculative tick
 SPEC_GATE = dict(prompts=8, prompt_len=16, max_new=16)   # fp32 identity gate
 WARM_NEW = 2 * (SPEC_K + 1)     # new tokens a request of a warm-up serve
+STEADY_TICKS = 10               # host-timed steady ticks a steady measurement
+PROFILED_TICKS = 4              # and then ticks under the profiler
 SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, 0.99999994,
            -1.0000001, 2.3749998, 4.9999995, -5.0000005, 1e-40, -1e-40,
            float("inf"), float("-inf"), float("nan")]
@@ -773,60 +796,115 @@ def build_model(cfg, device, seed):
     return master, params, time.perf_counter() - t0
 
 
+def _engine_launch_gate(eng, cfg, run, what):
+    """The plain engine's launch gates over one serve (``run``): every
+    kernel of the path launched, no plain version ran, every readout took
+    qmatmul's k_lanes layout, every admission the wgmma attn_prefill, and
+    every qmatvec launch the variant its plan gives for its M (ticks decode,
+    admissions prefill), the same number for each forward."""
+    import torch
+    from repro_torch.kernels.qmatvec import kernel as qmv_k
+    from repro_torch.serving.engine import _MIN_BUCKET
+    launches, plain, variants = run["launches"], run["plain"], run["variants"]
+    if min(launches[k] for k in ENGINE_KERNELS) <= 0:
+        fail(f"{what}: a kernel of the engine path never launched: {launches}")
+    if max(plain.values()) != 0:
+        fail(f"{what}: a plain version ran on the engine path: {plain}")
+    # every readout reads the table with lanes along K, every bf16
+    # admission runs the tensor-core attention
+    if variants["qmatmul"]["k_lanes"] != launches["qmatmul"]:
+        fail(f"{what}: a readout did not take the k_lanes layout: {variants}")
+    if variants["attn_prefill"]["wgmma"] != launches["attn_prefill"]:
+        fail(f"{what}: a bf16 admission did not run the wgmma attn_prefill: "
+             f"{variants}")
+    # every tick (M = slots) takes qmatvec's decode tiles and every
+    # admission (M = slots x bucket) the variant its plan gives, which is
+    # prefill from the smallest bucket up
+    plan = qmv_k.plan
+    calls = run["ticks"] + run["rounds"]
+    per_call, rest = divmod(launches["qmatvec"], calls)
+    want = {"decode": per_call * run["ticks"],
+            "prefill": per_call * run["rounds"]}
+    if (rest or plan(eng.slots, cfg.d_model, cfg.d_model,
+                     torch.bfloat16).variant != "decode"
+            or plan(eng.slots * _MIN_BUCKET, cfg.d_model, cfg.d_model,
+                    torch.bfloat16).variant != "prefill"
+            or variants["qmatvec"] != want):
+        fail(f"{what}: qmatvec launches by variant {variants['qmatvec']}, "
+             f"want {want} ({per_call} a forward)")
+
+
+def _twin_gate(runs, what, replay_only=True):
+    """The captured engine and its capture=False twin served the same
+    tokens to every request, and (on the card) the captured one, warmed,
+    replayed only: its graphs (one tick, one per admission bucket) were all
+    captured before the timed serve."""
+    a, b = runs["captured"], runs["eager"]
+    outs = [[(r.status, r.out) for r in run["done"]] for run in (a, b)]
+    if outs[0] != outs[1]:
+        i = next(i for i, (x, y) in enumerate(zip(*outs)) if x != y)
+        fail(f"{what}: captured and eager engines differ on request {i}: "
+             f"{outs[0][i]} vs {outs[1][i]}")
+    if replay_only and a["captures"] != a["captures_before"]:
+        fail(f"{what}: the timed serve captured a graph: "
+             f"{a['captures_before']} -> {a['captures']}")
+    if b["captures"]["tick"] or b["captures"]["admit"]:
+        fail(f"{what}: the capture=False twin captured {b['captures']}")
+
+
+def _run_line(run):
+    toks = sum(len(r.out) for r in run["done"])
+    return {"tokens": toks, "ticks": run["ticks"],
+            "prefill_calls": run["rounds"], "wall_s": round(run["wall"], 4),
+            "tok_per_s": round(toks / run["wall"], 2),
+            "captures": run["captures"]}
+
+
 def engine_phase(cfg, params, device, kv_bits, rehearse):
     import torch
     from repro_torch.core.precision import W3A8
-    from repro_torch.kernels.qmatvec import kernel as qmv_k
     from repro_torch.launch.profile_engine import MAX_NEW, prompts
-    from repro_torch.serving.engine import _MIN_BUCKET, ServingEngine
+    from repro_torch.serving.engine import ServingEngine
     reqs = prompts(cfg.vocab_size)
-    eng = _warmed(lambda: ServingEngine(
-        params, cfg, policy=W3A8, slots=8, max_len=512, dtype=torch.bfloat16,
-        kv_bits=kv_bits, device=device), reqs)
-    done, wall = _serve(eng, reqs, device)
-    launches, plain = read_counts()
-    variants = read_variants()
-    toks = sum(len(r.out) for r in done)
+    what = f"engine kv-{'int8' if kv_bits else 'bf16'}"
+
+    def make(capture):
+        return ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
+                             dtype=torch.bfloat16, kv_bits=kv_bits,
+                             capture=capture, device=device)
+    # the captured engine (capture defaults on for the card) and its eager
+    # twin, each warmed, then timed in turn
+    engines = {"captured": _warmed(make(None), reqs),
+               "eager": _warmed(make(False), reqs)}
+    runs = {name: _serve(eng, reqs, device) for name, eng in engines.items()}
+    eng, run = engines["captured"], runs["captured"]
+    done = run["done"]
     out = {"phase": "engine", "kv": "int8" if kv_bits else "bf16",
-           "requests": len(done), "tokens": toks,
-           "decode_calls": eng.decode_calls,
-           "prefill_calls": eng.prefill_calls,
-           "wall_s": round(wall, 4), "tok_per_s": round(toks / wall, 2),
-           "launches": launches, "launches_by_variant": variants,
-           "plain_calls": plain}
-    emit(out)
+           "requests": len(done), **_run_line(run),
+           "eager_twin": _run_line(runs["eager"]),
+           "launches": run["launches"],
+           "launches_by_variant": run["variants"],
+           "plain_calls": run["plain"],
+           "eager_twin_launches": runs["eager"]["launches"]}
     if len(done) != len(reqs) or any(len(r.out) != MAX_NEW for r in done):
         fail(f"engine did not serve every request its {MAX_NEW} tokens")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
         fail("engine emitted a token id outside the vocabulary")
+    _twin_gate(runs, what)
+    out["captured_eager_token_identical"] = True
     if not rehearse:
-        if min(launches[k] for k in ENGINE_KERNELS) <= 0:
-            fail(f"a kernel of the engine path never launched: {launches}")
-        if max(plain.values()) != 0:
-            fail(f"a plain version ran on the engine path: {plain}")
-        # every readout reads the table with lanes along K, every bf16
-        # admission runs the tensor-core attention
-        if variants["qmatmul"]["k_lanes"] != launches["qmatmul"]:
-            fail(f"a readout did not take the k_lanes layout: {variants}")
-        if variants["attn_prefill"]["wgmma"] != launches["attn_prefill"]:
-            fail(f"a bf16 admission did not run the wgmma attn_prefill: "
-                 f"{variants}")
-        # every tick (M = slots) takes qmatvec's decode tiles and every
-        # admission (M = slots x bucket) the variant its plan gives, which
-        # is prefill from the smallest bucket up
-        plan = qmv_k.plan
-        calls = eng.decode_calls + eng.prefill_calls
-        per_call, rest = divmod(launches["qmatvec"], calls)
-        want = {"decode": per_call * eng.decode_calls,
-                "prefill": per_call * eng.prefill_calls}
-        if (rest or plan(eng.slots, cfg.d_model, cfg.d_model,
-                         torch.bfloat16).variant != "decode"
-                or plan(eng.slots * _MIN_BUCKET, cfg.d_model, cfg.d_model,
-                        torch.bfloat16).variant != "prefill"
-                or variants["qmatvec"] != want):
-            fail(f"qmatvec launches by variant {variants['qmatvec']}, want "
-                 f"{want} ({per_call} a forward)")
-    return launches, variants, toks / wall
+        for name, eng_ in engines.items():
+            _engine_launch_gate(eng_, cfg, runs[name], f"{what} {name}")
+        if runs["eager"]["launches"] != run["launches"] \
+                or runs["eager"]["variants"] != run["variants"]:
+            fail(f"{what}: replayed launches {run['variants']} differ from "
+                 f"the eager twin's {runs['eager']['variants']}")
+    out["steady"] = {name: _steady(e, cfg, device, rehearse,
+                                   names=("qmatvec", "qmatmul", "attn_decode"))
+                     for name, e in engines.items()}
+    emit(out)
+    del engines
+    return run["launches"], run["variants"], out["tok_per_s"]
 
 
 # --- phase 4 ----------------------------------------------------------------------
@@ -880,34 +958,104 @@ def path_phase(cfg, params, device):
 
 # --- phase 5 ----------------------------------------------------------------------
 
-def _warmed(make_engine, reqs):
-    """A fresh engine from ``make_engine()``, after a first one has served
-    ``reqs`` for WARM_NEW tokens each: the timed run that follows finds
-    every shape it launches (admission buckets, tick, readout) already
-    loaded and tuned, so engines are compared warm."""
-    warm = make_engine()
+def _warmed(eng, reqs):
+    """``eng`` after it has served ``reqs`` for WARM_NEW tokens each: the
+    timed serve that follows on it finds every shape it launches (admission
+    buckets, tick, readout) loaded and tuned, and on the card every graph
+    it replays captured, so engines are compared warm."""
     for p in reqs:
-        warm.submit(p, max_new=WARM_NEW)
-    warm.run_all()
-    return make_engine()
+        eng.submit(p, max_new=WARM_NEW)
+    eng.run_all()
+    return eng
 
 
-def _serve(eng, reqs, device):
+def _serve(eng, reqs, device, max_new=None):
+    """Serve ``reqs`` on ``eng`` with the launch counters zeroed just before
+    and read just after: the requests (by uid), wall seconds, ticks and
+    admission rounds it took, the counters, and the engine's captures
+    before and after."""
+    import copy
+
     import torch
     from repro_torch.launch.profile_engine import MAX_NEW
     if device.type == "cuda":
         torch.cuda.synchronize()
+    ticks, rounds = eng.decode_calls, eng.prefill_calls
+    drafted, accepted = eng.spec_drafted, eng.spec_accepted
+    caps = copy.deepcopy(eng.captures)
     reset_counts()
     t0 = time.perf_counter()
     for p in reqs:
-        eng.submit(p, max_new=MAX_NEW)
+        eng.submit(p, max_new=max_new or MAX_NEW)
     done = sorted(eng.run_all(), key=lambda r: r.uid)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return done, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    return {"done": done, "wall": wall, "ticks": eng.decode_calls - ticks,
+            "rounds": eng.prefill_calls - rounds, "launches": launches,
+            "spec_drafted": eng.spec_drafted - drafted,
+            "spec_accepted": eng.spec_accepted - accepted,
+            "plain": plain, "variants": read_variants(),
+            "captures_before": caps, "captures": copy.deepcopy(eng.captures)}
 
 
-def _spec_launch_gate(eng, cfg, dcfg, launches, plain, variants, rehearse):
+def _steady(eng, cfg, device, rehearse, names, ticks=STEADY_TICKS):
+    """A steady tick of ``eng`` with every slot active: 8 requests of 64
+    tokens admitted and two ticks run first, then the host ms of a tick
+    over ``ticks`` ticks (host clock, synchronised), then ``PROFILED_TICKS``
+    more under torch.profiler: the device ms of a tick by kernel and the
+    idle share of the card over them. On the card each kernel of ``names``
+    must show device time there: a run of replayed graphs (none captured in
+    the window) names by name the kernels it ran."""
+    import torch
+    from repro_torch.launch.profile_engine import device_ms_by_kernel
+    k1 = eng.spec_k + 1
+    for i in range(eng.slots):
+        eng.submit([(7 * i) % (cfg.vocab_size - 1) + 1] * 64,
+                   max_new=(2 * (ticks + PROFILED_TICKS) + 4) * k1)
+    eng.step()
+    eng.step()
+    eng.drain()
+    caps = dict(eng.graphs.captures)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    sync()
+    host_ms = (time.perf_counter() - t0) / ticks * 1e3
+    out = {"ticks": ticks, "tick_host_ms": host_ms}
+    if not rehearse:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_TICKS):
+                eng.step()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        by = device_ms_by_kernel(prof)
+        dev = sum(by.values())
+        out.update({"profiled_ticks": PROFILED_TICKS,
+                    "tick_device_ms": dev / PROFILED_TICKS,
+                    "tick_device_ms_by_kernel": {
+                        k: v / PROFILED_TICKS for k, v in by.items()},
+                    "profiled_tick_host_ms": wall / PROFILED_TICKS,
+                    "idle_share": 1.0 - dev / wall})
+        if eng.graphs.capture:
+            if eng.graphs.captures != caps:
+                fail(f"steady ticks captured a graph: {caps} -> "
+                     f"{eng.graphs.captures}")
+            missing = [k for k in names if not by[k] > 0]
+            if missing:
+                fail(f"the profiler saw no device time of {missing} in "
+                     f"{PROFILED_TICKS} replayed ticks: {by}")
+    eng.drain()
+    return out
+
+
+def _spec_launch_gate(eng, cfg, dcfg, run, rehearse):
     """The launches one run of the spec engine must have made, from the
     tick's structure: each tick verifies through the target's L layers
     (attn_prefill) after spec_k + 1 drafter steps (Ld attn_decode, 7 Ld
@@ -919,7 +1067,8 @@ def _spec_launch_gate(eng, cfg, dcfg, launches, plain, variants, rehearse):
     import torch
     from repro_torch.kernels.qmatvec import kernel as qmv_k
     from repro_torch.serving.engine import _MIN_BUCKET
-    ticks, rounds, t1 = eng.decode_calls, eng.prefill_calls, SPEC_K + 1
+    launches, plain, variants = run["launches"], run["plain"], run["variants"]
+    ticks, rounds, t1 = run["ticks"], run["rounds"], SPEC_K + 1
     big, small = cfg.num_layers, dcfg.num_layers
     want = {"attn_prefill": big * ticks + (big + small) * rounds,
             "attn_decode": small * t1 * ticks,
@@ -969,6 +1118,37 @@ def _first_mismatch_margin(master, cfg, policy, prompts, spec, plain):
             "top2_margin": float(top[0] - top[1])}
 
 
+def _fp32_engine_gates(master, cfg, dcfg, dparams, gp, greedy, device):
+    """The fp32 engines against greedy generate on the gate's prompts: the
+    captured spec engine must serve greedy's tokens, and the captured plain
+    engine its capture=False twin's (both also compared with greedy)."""
+    import torch
+    from repro_torch.core.precision import FLOAT
+    from repro_torch.serving.engine import ServingEngine
+    n, plen, new = (SPEC_GATE[k] for k in ("prompts", "prompt_len",
+                                           "max_new"))
+    want = greedy[:, plen:].tolist()
+    kw = dict(policy=FLOAT, slots=n, dtype=torch.float32, device=device)
+    outs = {}
+    for name, spec_k, capture in (("spec_captured", SPEC_K, None),
+                                  ("plain_captured", 0, None),
+                                  ("plain_eager", 0, False)):
+        eng = ServingEngine(master, cfg, max_len=plen + new + spec_k,
+                            spec_k=spec_k, draft_params=dparams,
+                            draft_cfg=dcfg, capture=capture, **kw)
+        for p in gp.tolist():
+            eng.submit(p, max_new=new)
+        outs[name] = [r.out for r in sorted(eng.run_all(),
+                                            key=lambda r: r.uid)]
+        del eng
+    res = {"fp32_spec_engine_captured_equals_greedy":
+           outs["spec_captured"] == want,
+           "fp32_plain_engine_captured_equals_eager":
+           outs["plain_captured"] == outs["plain_eager"],
+           "fp32_plain_engine_equals_greedy": outs["plain_eager"] == want}
+    return res
+
+
 def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
     """Self-speculative serving at full width: the float master is the
     target (FLOAT policy), its packed 3-bit export the drafter."""
@@ -983,50 +1163,58 @@ def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
     reqs = prompts(cfg.vocab_size)
     kw = dict(policy=FLOAT, slots=8, max_len=512, dtype=torch.bfloat16,
               device=device)
-    eng = _warmed(lambda: ServingEngine(
-        target, cfg, spec_k=SPEC_K, draft_params=dparams, draft_cfg=dcfg,
-        **kw), reqs)
-    done, wall = _serve(eng, reqs, device)
-    launches, plain = read_counts()
-    variants = read_variants()
+
+    def make(capture):
+        return ServingEngine(target, cfg, spec_k=SPEC_K, draft_params=dparams,
+                             draft_cfg=dcfg, capture=capture, **kw)
+    engines = {"captured": _warmed(make(None), reqs),
+               "eager": _warmed(make(False), reqs)}
+    runs = {name: _serve(e, reqs, device) for name, e in engines.items()}
+    eng, run = engines["captured"], runs["captured"]
+    done = run["done"]
     toks = sum(len(r.out) for r in done)
     if len(done) != len(reqs) or any(len(r.out) != MAX_NEW for r in done):
         fail(f"spec engine did not serve every request its {MAX_NEW} tokens")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
         fail("spec engine emitted a token id outside the vocabulary")
-    want = _spec_launch_gate(eng, cfg, dcfg, launches, plain, variants,
-                             rehearse)
+    _twin_gate(runs, "spec")
+    want = _spec_launch_gate(eng, cfg, dcfg, run, rehearse)
+    _spec_launch_gate(engines["eager"], cfg, dcfg, runs["eager"], rehearse)
     hist: dict = {}
     for r in done:
         for n, c in r.accept_hist.items():
             hist[n] = hist.get(n, 0) + c
-    eng0 = _warmed(lambda: ServingEngine(target, cfg, **kw), reqs)
-    base, base_wall = _serve(eng0, reqs, device)
-    same = sum(a.out == b.out for a, b in zip(done, base)) / len(done)
+    eng0 = _warmed(ServingEngine(target, cfg, **kw), reqs)
+    base = _serve(eng0, reqs, device)
+    del eng0
+    same = sum(a.out == b.out for a, b in zip(done, base["done"])) / len(done)
     slot_ticks = sum(r.ticks for r in done)
-    del target
+    steady = {name: _steady(e, cfg, device, rehearse, names=ENGINE_KERNELS)
+              for name, e in engines.items()}
+    del engines, eng, target
     out = {"phase": "spec", "target": "float master, FLOAT policy, bf16 "
                                       "weights (cast once)",
            "drafter": f"draft_of: qp export, {dcfg.num_layers} layers",
-           "spec_k": SPEC_K, "requests": len(done), "tokens": toks,
-           "ticks": eng.decode_calls, "prefill_calls": eng.prefill_calls,
-           "tokens_per_tick": toks / eng.decode_calls,
+           "spec_k": SPEC_K, "requests": len(done), **_run_line(run),
+           "eager_twin": _run_line(runs["eager"]),
+           "captured_eager_token_identical": True,
+           "tokens_per_tick": toks / run["ticks"],
            "tokens_per_slot_tick": sum(len(r.out) - 1 for r in done)
            / slot_ticks,
-           "spec_accept_rate": eng.spec_accept_rate,
-           "spec_drafted": eng.spec_drafted,
-           "spec_accepted": eng.spec_accepted,
+           "spec_accept_rate": run["spec_accepted"] / run["spec_drafted"],
+           "spec_drafted": run["spec_drafted"],
+           "spec_accepted": run["spec_accepted"],
            "accept_hist_tokens_per_tick": dict(sorted(hist.items())),
-           "wall_s": round(wall, 4), "tok_per_s": round(toks / wall, 2),
-           "plain_float_engine_tok_per_s": round(
-               sum(len(r.out) for r in base) / base_wall, 2),
-           "plain_float_engine_ticks": eng0.decode_calls,
+           "plain_float_engine_tok_per_s": _run_line(base)["tok_per_s"],
+           "plain_float_engine_ticks": base["ticks"],
            "qp_engine_tok_per_s": round(qp_tok_s, 2),
            "bf16_share_of_requests_matching_plain_engine": same,
-           "launches": launches, "launches_want": want,
-           "launches_by_variant": variants, "plain_calls": plain}
+           "launches": run["launches"], "launches_want": want,
+           "launches_by_variant": run["variants"],
+           "plain_calls": run["plain"], "steady": steady}
     # fp32 token identity: speculative and plain greedy generate on the
-    # fp32 master (TF32 off), every attn_prefill on the simt kernel
+    # fp32 master (TF32 off), every attn_prefill on the simt kernel; then
+    # the fp32 engines, captured, against greedy and their eager twin
     n, plen, new = (SPEC_GATE[k] for k in ("prompts", "prompt_len",
                                            "max_new"))
     gp = torch.tensor([r[:plen] for r in reqs[-n:]], dtype=torch.int32)
@@ -1047,10 +1235,16 @@ def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
         out["fp32_first_mismatch"] = _first_mismatch_margin(
             master, cfg, FLOAT, gp.to(device), spec.to(device),
             greedy.to(device))
+    out.update(_fp32_engine_gates(master, cfg, dcfg, dparams, gp, greedy,
+                                  device))
     emit(out)
     if not torch.equal(spec, greedy):
         fail(f"fp32 spec stream differs from greedy: "
              f"{out['fp32_first_mismatch']}")
+    if not out["fp32_spec_engine_captured_equals_greedy"]:
+        fail("the captured fp32 spec engine's tokens differ from greedy")
+    if not out["fp32_plain_engine_captured_equals_eager"]:
+        fail("the captured fp32 engine's tokens differ from its eager twin")
     if not rehearse:
         if max(plain32.values()) != 0:
             fail(f"a plain version ran on the fp32 spec path: {plain32}")
@@ -1058,7 +1252,49 @@ def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
                 == launches32["attn_prefill"]:
             fail(f"an fp32 verify or admission did not run the simt "
                  f"attn_prefill: {variants32}")
-    return launches, variants
+    return run["launches"], run["variants"]
+
+
+def quarantine_phase(cfg, params, device, rehearse):
+    """NaN logits in one slot of the captured qp engine: the FaultPlan
+    poisons slot 3 at tick 2 of 8 requests x 8 tokens. That request must
+    finish "poisoned" with the tokens it had, the other seven "ok" with all
+    theirs, poisoned_count 1, statuses and tokens equal to the eager
+    twin's under the same plan."""
+    import torch
+    from repro_torch.core.precision import W3A8
+    from repro_torch.launch.profile_engine import prompts
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.resilience import FaultPlan
+    reqs, new, plan = prompts(cfg.vocab_size)[:8], 8, FaultPlan([(2, 3)])
+    runs = {}
+    for name, capture in (("captured", None), ("eager", False)):
+        eng = ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
+                            dtype=torch.bfloat16, fault_plan=plan,
+                            capture=capture, device=device)
+        run = _serve(eng, reqs, device, max_new=new)
+        run["poisoned_count"] = eng.poisoned_count
+        runs[name] = run
+        del eng
+    run = runs["captured"]
+    statuses = [r.status for r in run["done"]]
+    out = {"phase": "quarantine", "fault_plan": "nan_logits {(tick 2, "
+                                                 "slot 3)}",
+           "requests": len(run["done"]), "statuses": statuses,
+           "tokens_by_request": [len(r.out) for r in run["done"]],
+           "poisoned_count": run["poisoned_count"],
+           "captures": run["captures"],
+           "eager_twin_statuses": [r.status for r in runs["eager"]["done"]]}
+    emit(out)
+    if statuses.count("poisoned") != 1 or run["poisoned_count"] != 1 \
+            or statuses.count("ok") != len(reqs) - 1:
+        fail(f"quarantine: statuses {statuses}, poisoned_count "
+             f"{run['poisoned_count']}")
+    bad = next(r for r in run["done"] if r.status == "poisoned")
+    if not 0 < len(bad.out) < new or any(
+            len(r.out) != new for r in run["done"] if r.status == "ok"):
+        fail(f"quarantine: tokens by request {out['tokens_by_request']}")
+    _twin_gate(runs, "quarantine", replay_only=False)
 
 
 # --- phase 6 ----------------------------------------------------------------------
@@ -1071,16 +1307,23 @@ def paper_phase(device, rehearse):
     from repro_torch.paper.pipeline import PaperRunConfig, run_paper_experiment
     hidden = (64, 64, 64) if rehearse else None        # None: 1022 x 3
     rc = PaperRunConfig(task="digit", hidden=hidden, **PAPER_EPOCHS)
+    log = lambda line: print(line, file=sys.stderr, flush=True)  # noqa: E731
+    # the eager twin first, then the captured run, whose counts are read
+    t0 = time.perf_counter()
+    eager = run_paper_experiment(rc, device=device, log=log, capture=False)
+    eager_wall = time.perf_counter() - t0
     reset_counts()
     t0 = time.perf_counter()
-    m = run_paper_experiment(
-        rc, device=device, log=lambda line: print(line, file=sys.stderr,
-                                                  flush=True))
+    m = run_paper_experiment(rc, device=device, log=log)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = read_counts()
     params = m.pop("params")
+    eager.pop("params")
+    same = {k: m[k] == eager[k] for k in ("float_mcr", "direct_quant_mcr",
+                                          "w3a8_mcr", "float_final_loss",
+                                          "retrain_final_loss")}
     ratio = m["weight_bytes_float"] / m["weight_bytes_packed"]
     emit({"phase": "paper", "task": "digit",
           "net": "784-" + "-".join(map(str, hidden or (1022,) * 3)) + "-10",
@@ -1089,8 +1332,18 @@ def paper_phase(device, rehearse):
                      f"{rc.float_epochs}, retrain {rc.retrain_epochs} "
                      "(paper: 50 / 100 / 100)",
           **m, "weight_ratio": ratio, "wall_s": round(wall, 3),
+          "eager_twin": {"wall_s": round(eager_wall, 3),
+                         "float_train_s": eager["float_train_s"],
+                         "retrain_s": eager["retrain_s"],
+                         "train_step_captures": eager["train_step_captures"]},
+          "captured_equals_eager": same,
           "w3a8_vs_direct": "reported, not gated at this epoch count",
           "launches": launches, "plain_calls": plain})
+    if not all(same.values()):
+        fail(f"the captured training steps differ from the eager ones: {same}")
+    if not rehearse and m["train_step_captures"] != 2:
+        fail(f"the float and retraining steps made "
+             f"{m['train_step_captures']} captures, want one each")
     losses = (m["float_final_loss"], m["retrain_final_loss"])
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite training loss: {losses}")
@@ -1322,6 +1575,7 @@ def main(argv=None) -> int:
                                                 args.rehearse)
     launches8, variants8, _ = engine_phase(cfg, params, device, 8,
                                            args.rehearse)
+    quarantine_phase(cfg, params, device, args.rehearse)
     path_phase(cfg, params, device)
     spec_launches, spec_variants = spec_phase(cfg, master, params, device,
                                               qp_tok_s, args.rehearse)

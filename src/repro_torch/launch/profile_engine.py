@@ -2,18 +2,22 @@
 the engine on the card, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine [--kv8]
-        [--steady-only] [--spec-k K]
+        [--steady-only] [--spec-k K] [--eager] [--quant w3|float]
 
 Serves the same 16 requests as ``chip_smoke.py`` (the launch/serve.py
 prompt mix plus eight 100-250-token prompts, 32 new tokens each, 8 slots,
-max_len 512, bf16) once to warm up, then again under the profiler, and
-then times steady-state decode ticks with all 8 slots active
-(``--steady-only``: the warm-up and the ticks only). Prints one
+max_len 512, bf16) once to warm up, then again, on the same engine, under
+the profiler, and then times steady-state decode ticks with all 8 slots
+active (``--steady-only``: the warm-up and the ticks only). The engine
+replays its tick and admissions as CUDA graphs, captured in the warm-up;
+``--eager`` runs it with ``capture=False``, so one call can time both, in
+turns, beside another tree's run of this script. Prints one
 JSON line: wall time and tokens of the profiled run, device time summed by
 kernel (the port's four CUDA kernels by name, everything else as
 ``other``; ``qmatvec``'s split by variant, ``decode`` and ``prefill``, from
 the names of its CUDA kernels), the device's idle share of the wall time,
-ms per steady decode tick, and the device ms of one steady tick by kernel
+host ms per steady decode tick, and the device ms of one steady tick by
+kernel and the card's idle share over those ticks
 (``STEADY_TICKS`` ticks under the profiler, every slot active: all of its
 ``qmatvec`` launches are decode launches). Device times are the self
 times of the profiler's CUDA-type rows (kernels, copies, sets): an operator's row also carries
@@ -169,25 +173,35 @@ def main(argv=None):
     ap.add_argument("--spec-k", type=int, default=0,
                     help="profile speculative serving: the float target "
                          "verifies K drafts of its 3-bit export a tick")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the engine eagerly (capture=False), not as "
+                         "replayed CUDA graphs")
+    ap.add_argument("--quant", choices=["w3", "float"], default=None,
+                    help="the served weights: the W3A8 qp export (default "
+                         "without --spec-k) or the float master cast to "
+                         "bf16 (default with it)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA card")
     dev = torch.device("cuda")
     cfg = get_config("qwen2-1.5b")
     spec_k = args.spec_k
+    quant = args.quant or ("float" if spec_k else "w3")
     params, policy, draft_cfg, draft_params = build_params(
-        cfg, quant="float" if spec_k else "w3", form="qp", seed=0,
-        device=dev, spec_k=spec_k)
+        cfg, quant=quant, form="qp", seed=0, device=dev, spec_k=spec_k)
     kw = dict(policy=policy, slots=8, max_len=512, dtype=torch.bfloat16,
               kv_bits=8 if args.kv8 else None, spec_k=spec_k,
-              draft_params=draft_params, draft_cfg=draft_cfg, device=dev)
-    _serve(ServingEngine(params, cfg, **kw), cfg.vocab_size)     # warm-up
+              draft_params=draft_params, draft_cfg=draft_cfg,
+              capture=not args.eager, device=dev)
+    eng = ServingEngine(params, cfg, **kw)
+    _serve(eng, cfg.vocab_size)                     # warm-up, captures
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {"card": card_line(), "kv": "int8" if args.kv8 else "bf16",
-           "spec_k": spec_k}
+           "quant": quant, "spec_k": spec_k, "captured": not args.eager}
     if not args.steady_only:
-        eng = ServingEngine(params, cfg, **kw)
+        r0, t0_ = eng.prefill_calls, eng.decode_calls
+        acc0, dr0 = eng.spec_accepted, eng.spec_drafted
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             toks, steps = _serve_by_step(eng, cfg.vocab_size)
@@ -196,8 +210,9 @@ def main(argv=None):
         busy = sum(by_kernel.values())
         out.update({
             "profiled_wall_s": wall, "tokens": toks,
-            "tok_per_s": toks / wall, "decode_calls": eng.decode_calls,
-            "prefill_calls": eng.prefill_calls,
+            "tok_per_s": toks / wall,
+            "decode_calls": eng.decode_calls - t0_,
+            "prefill_calls": eng.prefill_calls - r0,
             "device_ms_by_kernel": by_kernel,
             "qmatvec_device_ms_by_variant": qmatvec_ms_by_variant(prof),
             "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3)})
@@ -205,10 +220,10 @@ def main(argv=None):
             by_use = attn_prefill_ms_by_use(prof, launch_uses(
                 steps, cfg.num_layers, draft_cfg.num_layers))
             out.update({"attn_prefill_device_ms_by_use": by_use,
-                        "spec_accept_rate": eng.spec_accept_rate})
+                        "spec_accept_rate": (eng.spec_accepted - acc0)
+                        / (eng.spec_drafted - dr0)})
 
     # steady state: 8 long requests, then time ticks with every slot active
-    eng = ServingEngine(params, cfg, **kw)
     for i in range(8):
         eng.submit([i + 1] * 64, max_new=(2 * STEADY_TICKS + 4)
                    * (spec_k + 1) + 4)
@@ -225,16 +240,22 @@ def main(argv=None):
     # every slot emits its pending token plus the drafts accepted
     tok_per_tick = 8 + (eng.spec_accepted - acc0) / STEADY_TICKS
     with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         for _ in range(STEADY_TICKS):
             eng.step()
         torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / STEADY_TICKS * 1e3
     tick_dev = {k: v / STEADY_TICKS
                 for k, v in device_ms_by_kernel(prof).items()}
+    dev_ms = sum(tick_dev.values())
     out.update({"steady_tick_ms_8_slots": tick_ms,
                 "steady_tokens_per_tick": tok_per_tick,
                 "steady_tok_per_s_8_slots": tok_per_tick * 1e3 / tick_ms,
                 "steady_tick_device_ms_by_kernel": tick_dev,
-                "steady_tick_device_ms": sum(tick_dev.values())})
+                "steady_tick_device_ms": dev_ms,
+                "steady_profiled_tick_host_ms": prof_ms,
+                "steady_idle_share": 1.0 - dev_ms / prof_ms,
+                "captures": eng.captures})
     print(json.dumps(out))
 
 

@@ -9,7 +9,9 @@ The weights are a seeded init (the time does not depend on training). For
 each forward form it times ``FORWARDS`` forwards with the host clock (after
 a synchronize) and then again under the profiler; for each training form
 one epoch of ``STEPS`` SGD steps (``paper.pipeline.train_mlp`` on a
-``STEPS * 100``-example digit task). Prints one JSON line: per form the ms
+``STEPS * 100``-example digit task), its step replayed as a CUDA graph
+(the epoch's time includes the step's two warm-ups and its capture) and,
+``_eager``, with ``capture=False``. Prints one JSON line: per form the ms
 per forward or step, images per second, device time summed by kernel (the
 port's kernels by name, everything else as ``other``), device busy ms and
 the device's idle share of the profiled wall time. Device times are the
@@ -88,12 +90,14 @@ def main():
             out[f"forward_{name}"] = r
     kw = dict(epochs=1, batch=BATCH, lr=0.1, momentum=0.9)
     for name, policy in (("float", FLOAT), ("ste_w3a8", W3A8)):
-        r = _profiled(lambda: train_mlp(master, task, policy=policy, **kw), 1)
-        for k in ("ms", "profiled_ms", "device_busy_ms"):
-            r[k] /= STEPS
-        r["device_ms_by_kernel"] = {k: v / STEPS for k, v in
-                                    r["device_ms_by_kernel"].items()}
-        out[f"train_step_{name}"] = r
+        for tag, capture in (("", True), ("_eager", False)):
+            r = _profiled(lambda: train_mlp(master, task, policy=policy,
+                                            capture=capture, **kw), 1)
+            for k in ("ms", "profiled_ms", "device_busy_ms"):
+                r[k] /= STEPS
+            r["device_ms_by_kernel"] = {k: v / STEPS for k, v in
+                                        r["device_ms_by_kernel"].items()}
+            out[f"train_step_{name}{tag}"] = r
     print(json.dumps(out))
 
 

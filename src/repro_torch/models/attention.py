@@ -51,7 +51,7 @@ def resolve_attn_mode(mode: str, device=None) -> str:
 
 
 def _neg_inf(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(NEG_INF, dtype=torch.float32, device=like.device)
+    return torch.full((), NEG_INF, dtype=torch.float32, device=like.device)
 
 
 def _guarded_softmax(sc: torch.Tensor) -> torch.Tensor:

@@ -39,8 +39,9 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim//2,), fp32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a fill, not a copy from the host: capturable in a CUDA graph
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

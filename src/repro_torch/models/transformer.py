@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
+from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.models.attention import (decode_attention, prefill_attention,
                                           resolve_attn_mode, verify_attention)
@@ -207,7 +208,7 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
         padw = cs - ks.shape[2]
         ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, padw))
         vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, padw))
-    clen = (torch.tensor(s, dtype=torch.int32, device=h.device)
+    clen = (torch.full((), s, dtype=torch.int32, device=h.device)
             if lengths is None else lengths)
     if quantize_cache:
         qk, sk = _quantize_kv(ks)
@@ -394,22 +395,18 @@ def _kv_names(cache):
     return ("k", "v") + (("k_scale", "v_scale") if "k_scale" in cache else ())
 
 
-def _in_range(idx, nb: int, device):
-    """(kept positions, kept indices) of an index vector, entries >= nb
-    dropped. A host (list / numpy / CPU tensor) index is filtered on the
-    host, so admission and release never wait on the card."""
-    sm = torch.as_tensor(idx).long().reshape(-1)
-    keep = (sm < nb).nonzero()[:, 0]
-    return keep.to(device), sm[keep.to(sm.device)].to(device)
+def _slot_index(idx, device) -> torch.Tensor:
+    return torch.as_tensor(idx, device=device).long().reshape(-1)
 
 
 def free_slots(cache, slots):
     """Zero rows ``slots`` (N,) of a slot-major cache in place and reset
-    their ``len`` to 0. Entries ``>= batch`` are dropped."""
-    _, idx = _in_range(slots, cache["k"].shape[1], cache["k"].device)
+    their ``len`` to 0. Entries ``>= batch`` are dropped on the device
+    (``graphs.index_drop_``), so a fixed-length index never syncs."""
+    idx = _slot_index(slots, cache["k"].device)
     for name in _kv_names(cache):                # leaves (L, slots, ...)
-        cache[name][:, idx] = 0
-    cache["len"][idx] = 0
+        index_drop_(cache[name], idx, 0, dim=1)
+    index_drop_(cache["len"], idx, 0)
     return cache
 
 
@@ -427,13 +424,13 @@ def insert_prefill(cache, slot: int, src):
 def insert_prefill_many(cache, slot_map, src):
     """Scatter an N-row batched prefill cache into rows ``slot_map`` (N,) of
     a slot-major cache (per-slot ``len``), in place. Entries with
-    ``slot_map[i] >= slots`` are dropped — the engine points its padding
-    rows there."""
+    ``slot_map[i] >= slots`` are dropped on the device — the engine points
+    its padding rows there, in a (slots,) map of one shape whatever the
+    number of real rows, so the insert can be captured once per bucket."""
     n = src["k"].shape[1]
-    keep, dst = _in_range(slot_map, cache["k"].shape[1], cache["k"].device)
+    idx = _slot_index(slot_map, cache["k"].device)
     for name in _kv_names(cache):                # leaves (L, slots, ...)
-        cache[name][:, dst] = src[name][:, keep].to(cache[name].dtype)
+        index_drop_(cache[name], idx, src[name], dim=1)
     lens = torch.as_tensor(src["len"], device=cache["len"].device)
-    cache["len"][dst] = lens.reshape(-1).expand(n)[keep].to(
-        cache["len"].dtype)
+    index_drop_(cache["len"], idx, lens.reshape(-1).expand(n))
     return cache

@@ -1,23 +1,38 @@
 """Batched continuous-batching serving engine — port of the reference's
-``serving/engine.py`` with speculative decoding, without overload
-hardening or durability.
+``serving/engine.py`` with speculative decoding and the NaN quarantine,
+without the rest of overload hardening or durability.
 
   * ONE shared slot-major cache — ``(slots, ...)`` rows with per-slot
     length counters — allocated once at construction. The reference
     donates it to every jitted tick and admission; here the same effect is
     had by updating that one cache in place (``decode_step``,
-    ``insert_prefill_many``), so no call ever copies it.
+    ``insert_prefill_many``), so no call ever copies it. The per-slot
+    device state (pending token, active, emitted, budget), the ``poison``
+    input and the record a call leaves are fixed buffers too, updated in
+    place, so a captured graph reads and writes the same tensors on every
+    replay.
   * Admission is LENGTH-BUCKETED and batched: queued prompts are right-
     padded to power-of-two buckets (floor ``_MIN_BUCKET``, capped at the
     cache length) and every same-bucket request is prefilled in ONE call
     and inserted with ONE multi-slot scatter. The prefill batch is pinned
-    to ``slots``: dummy rows have length 1 and an out-of-range slot, so
-    the scatter drops them. ``prefill_calls`` counts these calls.
-  * ONE eager ``decode_step`` per tick advances every slot at once.
-    Sampling and termination (budget / EOS) are computed on the device as
-    masks; inactive slots are frozen there (token and length held), so a
-    tick never asks the host which slots are live. ``decode_calls`` counts
+    to ``slots``: dummy rows have length 1 and an out-of-range slot, which
+    the scatter drops on the device. ``prefill_calls`` counts these calls.
+  * ONE ``decode_step`` per tick advances every slot at once. Sampling and
+    termination (budget / EOS) are computed on the device as masks;
+    inactive slots are frozen there (token and length held), so a tick
+    never asks the host which slots are live. ``decode_calls`` counts
     ticks.
+  * COMPILED: on a CUDA device the tick is one CUDA graph, captured once
+    per engine, and each admission bucket one graph, captured at its first
+    use (``core.graphs``; ``captures`` counts them) — the reference's
+    ``jax.jit`` boundaries. ``capture=False`` runs the same work eagerly,
+    the counterpart of ``jax.disable_jit``; a CPU engine always does.
+  * HEALTH CHECK: ``poison`` (slots,) fp32, all zeros unless a
+    ``FaultPlan`` schedules NaN logits, is added to the logits before the
+    check; an active row whose logits are not all finite is flagged
+    ``bad``, frozen like an inactive row and deactivated. At the next sync
+    its request finishes ``"poisoned"``, ``poisoned_count`` rises and the
+    slot's cache rows are zeroed (``free_slots``) before it is reused.
   * Tokens cross to the host only in bulk at ``drain()`` — no per-token
     sync. With ``eos_id=None`` and no speculation lifetimes are
     host-predictable and admission needs no sync at all.
@@ -33,8 +48,7 @@ hardening or durability.
     are folded in at drain.
 
 A tick that fails raises: the reference's degradation ladder, preemption
-and quarantine are not ported (a row whose verify logits are not finite
-raises at the next sync).
+and deadlines are not ported.
 At T > 0 the sampled streams differ from the reference's (``torch``
 generator vs ``jax.random``); at T = 0 both are greedy.
 """
@@ -47,16 +61,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.graphs import Graphs, index_drop_, masked
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.core.quant_dense import MATMUL_MODES
 from repro_torch.models import api as model_api
 from repro_torch.models import get_model
 from repro_torch.models.attention import ATTN_MODES
-from repro_torch.serving.resilience import SubmitOutcome, SubmitRejected
-from repro_torch.serving.spec import emit_counts, spec_decode_tick
+from repro_torch.serving.resilience import (FaultPlan, SubmitOutcome,
+                                            SubmitRejected)
+from repro_torch.serving.spec import (categorical, emit_counts,
+                                      spec_decode_tick)
 
 __all__ = ["generate", "Request", "ServingEngine", "SubmitOutcome",
-           "SubmitRejected"]
+           "SubmitRejected", "FaultPlan"]
 
 # smallest admission bucket: prompts of length 1..8 share one shape
 _MIN_BUCKET = 8
@@ -67,7 +84,7 @@ def _sample(gen: torch.Generator, logits: torch.Tensor,
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+    return categorical(probs, gen)
 
 
 def _serve_kwargs(matmul_mode: str, attn_mode: str,
@@ -219,6 +236,9 @@ class Request:
     # speculation; the accept-length distribution with it)
     ticks: int = 0
     accept_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # terminal outcome, one of resilience.STATUS: "ok", or "poisoned" when
+    # its slot's logits went non-finite (its tokens up to then are kept)
+    status: str = "ok"
 
     @property
     def admit_prompt(self) -> List[int]:
@@ -241,6 +261,10 @@ class ServingEngine:
     request's bucket, and other same-bucket requests ride along. With
     ``spec_k >= 1`` a tick is one speculative tick (draft, verify, accept,
     rollback of both caches) and emits 1..spec_k+1 tokens per slot.
+
+    ``capture`` (default: on for a CUDA device) replays the tick and each
+    admission bucket as CUDA graphs; ``captures`` reports them.
+    ``fault_plan`` injects the ``FaultPlan``'s NaN logits.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, policy: QuantPolicy,
@@ -250,11 +274,21 @@ class ServingEngine:
                  matmul_mode: str = "auto", attn_mode: str = "auto",
                  kv_bits: Optional[int] = None, attn_chunk: int = 1024,
                  spec_k: int = 0, draft_params=None,
-                 draft_cfg: Optional[ModelConfig] = None, device="cuda"):
+                 draft_cfg: Optional[ModelConfig] = None,
+                 fault_plan: Optional[FaultPlan] = None,
+                 capture: Optional[bool] = None, device="cuda"):
         self._kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if fault_plan is not None and fault_plan.unported:
+            raise NotImplementedError(
+                f"FaultPlan {', '.join(fault_plan.unported)}: the port's "
+                f"engine injects nan_logits only (no degradation ladder, "
+                f"queue aging or durability yet)")
         self.device = torch.device(device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.graphs = Graphs(self.device, capture=capture,
+                             generator=self._gen)
         self.params = _to_device(params, self.device)
         self.cfg, self.policy, self.dtype = cfg, policy, dtype
         self.mod = get_model(cfg)
@@ -265,6 +299,7 @@ class ServingEngine:
         self.matmul_mode, self.attn_mode, self.kv_bits = (matmul_mode,
                                                           attn_mode, kv_bits)
         self.attn_chunk = attn_chunk
+        self.fault_plan = fault_plan
         # shared slot-major cache, allocated ONCE and updated in place
         self.cache = model_api.init_cache(cfg, slots, max_len, dtype,
                                           per_slot_len=True, kv_bits=kv_bits,
@@ -282,30 +317,54 @@ class ServingEngine:
             self.draft_cache = model_api.init_cache(
                 self.draft_cfg, slots, max_len, dtype, per_slot_len=True,
                 kv_bits=kv_bits, device=self.device)
-        # per-slot device state (replaced, never mutated: pending records
-        # keep references to earlier tensors)
+        # per-slot device state, fixed buffers updated in place (a captured
+        # graph reads and writes these very tensors on every replay)
         dev = self.device
         self._tokens = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
         self._active = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._emitted = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self._budget = torch.zeros((slots,), dtype=torch.int32, device=dev)
-        self._gen = torch.Generator(device=dev).manual_seed(seed)
+        # the logit bias of the health check: zeros unless a fault is due
+        self._poison = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._poisoned = False
+        # the record of the last tick or admission, (slots, w + 4) int32:
+        # tokens right-padded to w = spec_k + 1, counts, done, accepted
+        # drafts, non-finite flag; cloned into _pending after each call
+        self._rec = torch.zeros((slots, self.spec_k + 5), dtype=torch.int32,
+                                device=dev)
+        # admission inputs, filled from the host before each round: lengths,
+        # the (slots,) slot map (padding rows point at `slots`, dropped),
+        # budgets, and the right-padded tokens of each bucket
+        self._in_lens = torch.ones((slots,), dtype=torch.int32, device=dev)
+        self._in_map = torch.full((slots,), slots, dtype=torch.int64,
+                                  device=dev)
+        self._in_budget = torch.ones((slots,), dtype=torch.int32, device=dev)
+        self._in_toks: Dict[int, torch.Tensor] = {}
         # host-side bookkeeping
         self.queue: List[Request] = []
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._ticks_left = [0] * slots        # deterministic lifetime bound
-        # pending records, one per admission and per tick: (tokens (slots,
-        # w), emitted counts, done, accepted drafts, non-finite flag,
-        # owners, kind); w is 1 or spec_k + 1, and the last two are None
-        # for admissions and plain ticks
-        self._pending: List[Tuple] = []
+        # pending records, one per admission and per tick: (record clone,
+        # owners, kind)
+        self._pending: List[Tuple[torch.Tensor, Tuple, str]] = []
         self._finished: List[Request] = []    # synced but not yet returned
         self._uid = 0
         self.decode_calls = 0                 # ticks == decode_step calls
         self.prefill_calls = 0                # batched prefill invocations
+        self.poisoned_count = 0               # slots quarantined (non-finite)
         self._bucket_cap = self.mod.cache_len_for(cfg, max_len)
 
-    # --- device work --------------------------------------------------------
+    @property
+    def captures(self) -> Dict[str, Any]:
+        """CUDA graphs captured: ``{"tick": n, "admit": {bucket: n}}`` —
+        at most one tick and one graph per admission bucket (the
+        reference's compile count); zeros when the engine runs eagerly."""
+        c = self.graphs.captures
+        return {"tick": c.get("tick", 0),
+                "admit": {k[1]: v for k, v in sorted(
+                    (k, v) for k, v in c.items() if k != "tick")}}
+
+    # --- device work (each a graph body: fixed tensors in and out) ----------
 
     def _eos(self) -> int:
         return -1 if self.eos_id is None else int(self.eos_id)  # -1 never hits
@@ -317,68 +376,97 @@ class ServingEngine:
                                 attn_chunk=self.attn_chunk,
                                 **self._kw["prefill"])
 
+    def _record(self, toks, counts, done, accepted=None, bad=None):
+        """Write this call's record into the fixed ``_rec`` buffer."""
+        w, t = self.spec_k + 1, toks.shape[1]
+        self._rec[:, :t].copy_(toks)
+        if t < w:
+            self._rec[:, t:w].zero_()
+        for j, col in enumerate((counts, done, accepted, bad)):
+            if col is None:
+                self._rec[:, w + j].zero_()
+            else:
+                self._rec[:, w + j].copy_(col)
+
     def _spec_tick(self):
         """Advance every active slot by 1..spec_k+1 tokens: the shared
         ``spec_decode_tick`` core plus the budget / EOS cut of each window.
-        Inactive rows are frozen on the device (their writes fully
-        rewound, token and length held). Returns the emitted tokens
-        (slots, spec_k + 1), their counts, done, the accepted drafts and
-        the non-finite flag of each row."""
+        Inactive and non-finite rows are frozen on the device (their writes
+        fully rewound, token and length held)."""
         active = self._active
         mkw = dict(policy=self.policy, dtype=self.dtype)
-        self.cache, self.draft_cache, a, out, nxt, row_ok = spec_decode_tick(
+        cache, dcache, a, out, nxt, row_ok = spec_decode_tick(
             self.mod, self.dmod, self.params, self.draft_params, self.cfg,
             self.draft_cfg, self.cache, self.draft_cache, self._tokens,
             active, spec_k=self.spec_k, temperature=self.temperature,
             generator=self._gen, mkw=mkw, dmkw=mkw,
-            attn_kw=self._kw["decode"], dattn_kw=self._kw["decode"])
+            attn_kw=self._kw["decode"], dattn_kw=self._kw["decode"],
+            logit_bias=self._poison)
         bad = active & ~row_ok
         eff = active & row_ok
         n, done = emit_counts(out, a, active=eff, emitted=self._emitted,
                               budget=self._budget, eos_id=self._eos())
-        self._tokens, self._active = nxt, eff & ~done
-        self._emitted = self._emitted + n
-        return out, n, done, torch.where(eff, a, torch.zeros_like(a)), bad
+        self.cache["len"].copy_(cache["len"])
+        self.draft_cache["len"].copy_(dcache["len"])
+        self._record(out, n, done, torch.where(eff, a, torch.zeros_like(a)),
+                     bad)
+        self._tokens.copy_(nxt)
+        self._active.copy_(eff & ~done)
+        self._emitted.add_(n)
 
     def _tick(self):
         """Advance every active slot one token; masks computed on-device.
         K/V of inactive rows are written at their held position and
-        overwritten later, as in the reference; their length is held."""
+        overwritten later, as in the reference; their length is held. A row
+        whose logits (plus ``poison``) are not all finite is frozen the
+        same way and deactivated; its record flags it."""
         tokens, active = self._tokens, self._active
-        old_len = self.cache["len"]
         logits, new_cache = self.mod.decode_step(
             self.params, self.cache, tokens, self.cfg, policy=self.policy,
             dtype=self.dtype, **self._kw["decode"])
+        logits = logits + self._poison[:, None, None]
+        bad = active & ~torch.isfinite(logits).all(dim=2).all(dim=1)
+        ok = active & ~bad
         nxt = _sample(self._gen, logits[:, 0], self.temperature).to(torch.int32)
-        nxt = torch.where(active, nxt, tokens[:, 0])      # freeze inactive
-        emitted = self._emitted + active.to(torch.int32)
-        done = active & ((emitted >= self._budget) | (nxt == self._eos()))
-        new_cache["len"] = torch.where(active, new_cache["len"], old_len)
-        self.cache = new_cache
-        self._tokens, self._active = nxt[:, None], active & ~done
-        self._emitted = emitted
-        return done
+        nxt = torch.where(ok, nxt, tokens[:, 0])     # freeze inactive + bad
+        emitted = self._emitted + ok.to(torch.int32)
+        done = ok & ((emitted >= self._budget) | (nxt == self._eos()))
+        self.cache["len"].copy_(torch.where(ok, new_cache["len"],
+                                            self.cache["len"]))
+        # counts: the slots active before the tick (a bad one's tokens are
+        # skipped at sync, as in the reference)
+        self._record(nxt[:, None], active, done, None, bad)
+        self._tokens.copy_(nxt[:, None])
+        self._active.copy_(ok & ~done)
+        self._emitted.copy_(emitted)
 
-    def _admit_many(self, slot_map: np.ndarray, src, logits0,
-                    req_budget: np.ndarray):
-        """Insert an N-row batched prefill into slots ``slot_map`` and sample
-        every row's first token. Rows with ``slot_map[i] >= slots`` are
-        batch padding and are dropped; the filter runs on the host."""
-        self.cache = self.mod.insert_prefill_many(self.cache, slot_map, src)
-        dev = self.device
+    def _admit(self, toks: torch.Tensor):
+        """Prefill the admission buffers' rows (``toks``, one bucket), insert
+        them into slots ``_in_map`` and sample each row's first token; rows
+        whose slot is ``>= slots`` are batch padding, dropped on the device.
+        With speculation the drafter's prefill rides the same round."""
+        lens, slot_map, bud = self._in_lens, self._in_map, self._in_budget
+        logits0, src = self._prefill(toks, lens)
+        self.mod.insert_prefill_many(self.cache, slot_map, src)
         t0 = _sample(self._gen, logits0[:, 0], self.temperature).to(torch.int32)
-        rows_np = np.nonzero(slot_map < self.slots)[0]
-        rows = torch.as_tensor(rows_np, device=dev)
-        dst = torch.as_tensor(slot_map[rows_np], device=dev).long()
-        bud = torch.as_tensor(req_budget[rows_np], device=dev)
-        t0 = t0[rows]
         # the prefill sample already counts: a max_new == 1 request (or an
         # immediate EOS) never becomes active
         act0 = (bud > 1) & (t0 != self._eos())
-        self._tokens = self._tokens.index_put((dst,), t0[:, None])
-        self._active = self._active.index_put((dst,), act0)
-        self._emitted = self._emitted.index_put((dst,), torch.ones_like(t0))
-        self._budget = self._budget.index_put((dst,), bud.to(torch.int32))
+        index_drop_(self._tokens, slot_map, t0[:, None])
+        index_drop_(self._active, slot_map, act0)
+        index_drop_(self._emitted, slot_map, torch.ones_like(t0))
+        index_drop_(self._budget, slot_map, bud)
+        if self.spec_k:
+            # the drafter needs the prompt in ITS cache too (its logits are
+            # unused: the target samples every committed token)
+            _, dsrc = self.dmod.prefill(
+                self.draft_params, {"tokens": toks}, self.draft_cfg,
+                policy=self.policy, dtype=self.dtype, max_len=self.max_len,
+                lengths=lens, attn_chunk=self.attn_chunk,
+                **self._kw["prefill"])
+            self.dmod.insert_prefill_many(self.draft_cache, slot_map, dsrc)
+        admitted = index_drop_(torch.zeros_like(self._active), slot_map, True)
+        self._record(self._tokens, admitted, admitted & ~self._active)
 
     # --- public API ---------------------------------------------------------
 
@@ -454,7 +542,8 @@ class ServingEngine:
         """Prefill ``reqs`` (one length bucket) right-padded to ``bucket`` in
         a single call, then scatter them into ``slot_ids``. The batch is
         pinned to ``slots`` rows: dummy rows have length 1 and an
-        out-of-range slot."""
+        out-of-range slot. The host fills the admission buffers; the work
+        is the bucket's graph."""
         n = self.slots
         toks = np.zeros((n, bucket), np.int32)
         lens = np.ones((n,), np.int32)            # dummy rows: valid length 1
@@ -464,33 +553,38 @@ class ServingEngine:
             ap = r.admit_prompt
             toks[i, :len(ap)] = ap
             lens[i], slot_map[i], budgets[i] = len(ap), s, r.remaining
-        toks_d = torch.as_tensor(toks, device=self.device)
-        lens_d = torch.as_tensor(lens, device=self.device)
-        logits0, src = self._prefill(toks_d, lens_d)
+        buf = self._in_toks.get(bucket)
+        if buf is None:
+            buf = self._in_toks[bucket] = torch.zeros(
+                (n, bucket), dtype=torch.int32, device=self.device)
+        for dst, src in ((buf, toks), (self._in_lens, lens),
+                         (self._in_map, slot_map),
+                         (self._in_budget, budgets)):
+            dst.copy_(torch.from_numpy(src))
+        # warm-ups run with every row dropped, so they change no slot
+        self.graphs.run(("admit", bucket), lambda: self._admit(buf),
+                        idle=lambda: masked(self._in_map, self.slots))
         self.prefill_calls += 1
-        self._admit_many(slot_map, src, logits0, budgets)
-        if self.spec_k:
-            # the drafter needs the prompt in ITS cache too (its logits are
-            # unused: the target samples every committed token); it rides
-            # the same admission round
-            _, dsrc = self.dmod.prefill(
-                self.draft_params, {"tokens": toks_d}, self.draft_cfg,
-                policy=self.policy, dtype=self.dtype, max_len=self.max_len,
-                lengths=lens_d, attn_chunk=self.attn_chunk,
-                **self._kw["prefill"])
-            self.draft_cache = self.dmod.insert_prefill_many(
-                self.draft_cache, slot_map, dsrc)
-        mask_np = np.zeros((self.slots,), bool)
         for s, r in zip(slot_ids, reqs):
             self._slot_req[s] = r
             self._ticks_left[s] = r.remaining - 1
-            mask_np[s] = True
-        mask = torch.as_tensor(mask_np, device=self.device)
-        self._pending.append((self._tokens, mask, mask & ~self._active,
-                              None, None, tuple(self._slot_req), "admit"))
+        self._pending.append((self._rec.clone(), tuple(self._slot_req),
+                              "admit"))
         for s in slot_ids:
             if self._ticks_left[s] <= 0:
                 self._slot_req[s] = None
+
+    def _load_poison(self):
+        """The tick's ``poison``: NaN at the slots the fault plan poisons at
+        this tick, else zeros (written only when it changes)."""
+        fp = self.fault_plan
+        bad = [] if fp is None else [s for s in fp.nan_slots_at(
+            self.decode_calls) if s < self.slots]
+        if bad or self._poisoned:
+            v = np.zeros((self.slots,), np.float32)
+            v[bad] = np.nan
+            self._poison.copy_(torch.from_numpy(v))
+            self._poisoned = bool(bad)
 
     @torch.no_grad()
     def step(self):
@@ -500,15 +594,11 @@ class ServingEngine:
         if not self._occupied():
             return
         owners = tuple(self._slot_req)
-        if self.spec_k:
-            out, n, done, accepted, bad = self._spec_tick()
-            self._pending.append((out, n, done, accepted, bad, owners,
-                                  "tick"))
-        else:
-            emitted_mask = self._active              # who emits this tick
-            done = self._tick()
-            self._pending.append((self._tokens, emitted_mask, done, None,
-                                  None, owners, "tick"))
+        self._load_poison()
+        # warm-ups run with every slot inactive, so they change no slot
+        self.graphs.run("tick", self._spec_tick if self.spec_k else self._tick,
+                        idle=lambda: masked(self._active, False))
+        self._pending.append((self._rec.clone(), owners, "tick"))
         self.decode_calls += 1
         for s in range(self.slots):
             if self._slot_req[s] is not None:
@@ -517,45 +607,35 @@ class ServingEngine:
                 if self._ticks_left[s] <= 0:
                     self._slot_req[s] = None     # budget exhausted this tick
 
-    def _pack(self, toks, counts, done, accepted, bad):
-        """One record as a (slots, w + 2) int32 tensor — tokens right-padded
-        to w = spec_k + 1, counts, done — plus, with speculation, the
-        accepted drafts and the non-finite flag (zeros where None)."""
-        w = self.spec_k + 1
-        cols = [toks.to(torch.int32)]
-        if toks.shape[1] < w:
-            cols.append(toks.new_zeros((self.slots, w - toks.shape[1]),
-                                       dtype=torch.int32))
-        flags = (counts, done) + ((accepted, bad) if self.spec_k else ())
-        cols += [torch.zeros((self.slots, 1), dtype=torch.int32,
-                             device=self.device) if c is None
-                 else c.to(torch.int32)[:, None] for c in flags]
-        return torch.cat(cols, dim=1)
+    def _finish(self, req: Request, status: str):
+        req.status = status
+        req.done = True
+        self._finished.append(req)
+
+    def _release(self, s: int):
+        self._slot_req[s] = None
+        self._ticks_left[s] = 0
 
     def _sync(self):
-        """Bulk-sync everything emitted since the last sync (ONE device to
+        """Bulk-sync everything recorded since the last sync (ONE device to
         host copy) and attribute tokens to requests via the per-record owner
         snapshots; a record carries 1..spec_k+1 tokens per slot. Per-request
         ``ticks`` / ``accept_hist`` and the engine's ``spec_drafted`` /
-        ``spec_accepted`` are folded in here. Finished requests wait in
-        ``_finished`` for ``drain()``."""
+        ``spec_accepted`` are folded in here. A row flagged non-finite
+        contributes no token; its request finishes ``"poisoned"``, and a
+        slot it still holds is released with its cache rows zeroed.
+        Finished requests wait in ``_finished`` for ``drain()``."""
         if not self._pending:
             return
-        moved = torch.stack([self._pack(*rec[:5])
-                             for rec in self._pending]).cpu().numpy()
+        moved = torch.stack([rec for rec, _, _ in self._pending]).cpu().numpy()
         w = self.spec_k + 1
-        for rec, (*_, owners, kind) in zip(moved, self._pending):
+        quarantined: List[int] = []
+        for rec, (_, owners, kind) in zip(moved, self._pending):
             toks, counts, dn = rec[:, :w], rec[:, w], rec[:, w + 1]
-            if self.spec_k and rec[:, w + 3].any():
-                s = int(np.nonzero(rec[:, w + 3])[0][0])
-                uid = owners[s].uid if owners[s] is not None else None
-                self._pending.clear()
-                raise RuntimeError(
-                    f"non-finite verify logits in slot {s} (request {uid}); "
-                    f"quarantine is not ported, so the tick fails")
+            bad = rec[:, w + 3]
             for s in np.nonzero(counts)[0]:
                 req = owners[s]
-                if req is not None:
+                if req is not None and not bad[s]:
                     n = int(counts[s])
                     req.out.extend(int(x) for x in toks[s, :n])
                     if kind == "tick":
@@ -568,12 +648,24 @@ class ServingEngine:
             for s in np.nonzero(dn)[0]:
                 req = owners[s]
                 if req is not None and not req.done:
-                    req.done = True
-                    self._finished.append(req)
+                    self._finish(req, "ok")
                     if self._slot_req[s] is req:   # early EOS: free the slot
-                        self._slot_req[s] = None
-                        self._ticks_left[s] = 0
+                        self._release(s)
+            for s in np.nonzero(bad)[0]:
+                req = owners[s]
+                if req is not None and not req.done:
+                    self.poisoned_count += 1
+                    self._finish(req, "poisoned")
+                    if self._slot_req[s] is req:
+                        self._release(s)
+                        quarantined.append(s)
         self._pending.clear()
+        if quarantined:
+            # the tick already deactivated the rows; zeroing them keeps the
+            # contaminated state from the slot's next tenant
+            self.mod.free_slots(self.cache, quarantined)
+            if self.spec_k:
+                self.dmod.free_slots(self.draft_cache, quarantined)
 
     def drain(self) -> List[Request]:
         """Sync pending emissions and return every request that finished

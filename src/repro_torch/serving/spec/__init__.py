@@ -26,12 +26,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.serving.spec.accept import emit_counts, spec_accept
+from repro_torch.serving.spec.accept import (categorical, emit_counts,
+                                             spec_accept)
 from repro_torch.serving.spec.draft import draft_chain
 from repro_torch.serving.spec.verify import verify_tokens
 
 __all__ = ["draft_chain", "verify_tokens", "spec_accept", "emit_counts",
-           "spec_decode_tick"]
+           "categorical", "spec_decode_tick"]
 
 
 def spec_decode_tick(mod, dmod, params, dparams, cfg, dcfg, cache, dcache,

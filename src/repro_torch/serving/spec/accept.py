@@ -22,9 +22,21 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["spec_accept", "emit_counts"]
+__all__ = ["spec_accept", "emit_counts", "categorical"]
 
 _TINY = 1e-30
+
+
+def categorical(probs: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One draw per row of ``probs`` (B, V), unnormalised weights >= 0:
+    ``torch.multinomial(probs, 1, generator=generator)[:, 0]`` step for
+    step (exponential noise, argmax of the ratio), so the same stream, but
+    without its host-side check of the weights, which syncs and so cannot
+    be captured in a CUDA graph, and which raises on the NaN row of a
+    poisoned slot that the caller masks out anyway."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
 
 
 def spec_accept(draft_toks: torch.Tensor, draft_logits: torch.Tensor,
@@ -69,7 +81,7 @@ def spec_accept(draft_toks: torch.Tensor, draft_logits: torch.Tensor,
         # the p_t fallback only guards that impossible draw
         res = torch.where(rsum > 0, res / torch.clamp(rsum, min=_TINY), pt_a)
         dist = torch.where((a >= k)[:, None], pt_a, res)
-        extra = torch.multinomial(dist + _TINY, 1, generator=generator)[:, 0]
+        extra = categorical(dist + _TINY, generator)
     padded = torch.cat([draft_toks, extra[:, None]], dim=1)
     out = torch.where(steps[None, :] < a[:, None], padded, extra[:, None])
     return (a.to(torch.int32), out.to(torch.int32), extra.to(torch.int32))

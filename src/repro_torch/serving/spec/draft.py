@@ -9,6 +9,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.serving.spec.accept import categorical
+
 __all__ = ["draft_chain"]
 
 
@@ -37,7 +39,7 @@ def draft_chain(mod, draft_params, dcache, pending: torch.Tensor, dcfg, *,
             nxt = torch.argmax(lg, dim=-1)
         else:
             probs = torch.softmax(lg.float() / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            nxt = categorical(probs, generator)
         cur = nxt.to(torch.int32)[:, None]
         logits.append(lg)
         toks.append(cur[:, 0])

@@ -14,6 +14,7 @@ sigmoid and its gradient are bit-identical (every product is exact)."""
 import pytest
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.core.packing import pack_matrix
 from repro_torch.kernels.attn_decode import kernel as dec_k
 from repro_torch.kernels.attn_decode import ops as dec_ops
@@ -505,3 +506,145 @@ def test_spec_engine_on_card_matches_plain(cuda):
                   device=cuda).cpu() for k in (0, 4)]
     assert torch.equal(g[0], g[1])
     assert pf_k.launches_by_variant["simt"] > n0     # the fp32 verify
+
+
+# --- the engine's CUDA graphs -----------------------------------------------------
+
+def _engine_case(case):
+    """(cfg, params, engine kwargs) of a small qwen2-1.5b (head_dim 64, which
+    the bf16 attn_prefill takes) served on the card: the W3A8 qp export in
+    bf16 with a bf16 or an int8 KV cache, or the float master in fp32."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.models import get_model
+    cfg = reduced(get_config("qwen2-1.5b"), d_model=256, vocab=256)
+    master = get_model(cfg).init(_gen(16), cfg)
+    if case == "fp32":
+        return cfg, master, dict(policy=FLOAT, dtype=torch.float32)
+    return cfg, quant_dense.export_container(master, W3A8), dict(
+        policy=W3A8, dtype=torch.bfloat16,
+        kv_bits=8 if case == "qp-int8kv" else None)
+
+
+CARD_PROMPTS = [[1, 2, 3], list(range(5, 17)), [9] * 7, [4, 4], [7, 1, 7],
+                list(range(30, 50))]
+
+
+def _card_serve(eng, max_new=9):
+    uid = {int(eng.submit(p, max_new=max_new)): i
+           for i, p in enumerate(CARD_PROMPTS)}
+    return {uid[r.uid]: (r.status, r.out) for r in eng.run_all()}
+
+
+def _launch_counts():
+    return graphs.read_counters()
+
+
+@pytest.mark.parametrize("case", ["qp-bf16kv", "qp-int8kv", "fp32"])
+def test_captured_engine_matches_eager(cuda, case):
+    """The engine on the card captures its tick once and each admission
+    bucket once (buckets 8, 16, 32 here) and serves the tokens of the same
+    engine with capture=False, T = 0; a second serve is replay only (no
+    capture) and moves every launch counter, by kernel and variant, as far
+    as the eager engine's second serve moves it."""
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params, kw = _engine_case(case)
+    engines = [ServingEngine(params, cfg, slots=3, max_len=64, device=cuda,
+                             capture=c, **kw) for c in (True, False)]
+    first = [_card_serve(e) for e in engines]
+    assert first[0] == first[1]
+    assert engines[0].captures == {"tick": 1, "admit": {8: 1, 16: 1, 32: 1}}
+    assert engines[1].captures == {"tick": 0, "admit": {}}
+    moved = []
+    for e in engines:
+        before = _launch_counts()
+        assert _card_serve(e) == first[0]
+        torch.cuda.synchronize()
+        moved.append(graphs._diff(_launch_counts(), before))
+    assert moved[0] == moved[1]
+    assert engines[0].captures == {"tick": 1, "admit": {8: 1, 16: 1, 32: 1}}
+    assert any(v for k, v in moved[0].items() if k[1] == "launches")
+
+
+def test_captured_spec_engine_matches_greedy(cuda):
+    """The captured fp32 spec engine (spec_k = 4, the float master verifying
+    its 3-bit export) serves every request greedy generate's tokens and the
+    eager spec engine's, with one tick capture."""
+    from repro_torch.serving.engine import ServingEngine, generate
+    cfg, master, kw = _engine_case("fp32")
+    outs = []
+    for capture in (True, False):
+        eng = ServingEngine(master, cfg, slots=3, max_len=64, spec_k=4,
+                            device=cuda, capture=capture, **kw)
+        outs.append(_card_serve(eng))
+        assert eng.spec_drafted > 0
+        if capture:
+            assert eng.captures["tick"] == 1
+            assert set(eng.captures["admit"]) <= {8, 16, 32}
+    assert outs[0] == outs[1]
+    for i, p in enumerate(CARD_PROMPTS):
+        g = generate(master, [p], cfg, max_new_tokens=9, device=cuda,
+                     **kw).cpu()
+        assert outs[0][i] == ("ok", g[0, len(p):].tolist()), i
+
+
+@pytest.mark.parametrize("spec_k", [0, 4])
+def test_captured_quarantine_matches_eager(cuda, spec_k):
+    """A FaultPlan NaN in one slot under capture: that request finishes
+    "poisoned", the others are served, with the eager engine's statuses,
+    tokens and poisoned_count."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.resilience import FaultPlan
+    cfg, params, kw = _engine_case("fp32" if spec_k else "qp-bf16kv")
+    outs = []
+    for capture in (True, False):
+        eng = ServingEngine(params, cfg, slots=3, max_len=64, spec_k=spec_k,
+                            fault_plan=FaultPlan(nan_logits=[(1, 1)]),
+                            device=cuda, capture=capture, **kw)
+        outs.append((_card_serve(eng), eng.poisoned_count))
+    assert outs[0] == outs[1]
+    statuses = [s for s, _ in outs[0][0].values()]
+    assert statuses.count("poisoned") == 1 == outs[0][1]
+    assert statuses.count("ok") == len(CARD_PROMPTS) - 1
+
+
+@pytest.mark.parametrize("spec_k", [0, 4])
+def test_captured_sampling_matches_eager(cuda, spec_k):
+    """At T > 0 the captured engine (its generator registered with the
+    graphs, restored after the warm-ups) samples the eager engine's stream
+    from the same seed."""
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params, kw = _engine_case("fp32" if spec_k else "qp-bf16kv")
+    outs = [_card_serve(ServingEngine(
+        params, cfg, slots=3, max_len=64, spec_k=spec_k, temperature=0.9,
+        seed=5, device=cuda, capture=capture, **kw)) for capture in
+        (True, False)]
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("mode", ["float", "w3a8"])
+def test_captured_training_matches_eager(cuda, mode):
+    """The paper MLP's training step (forward, gradients, in-place momentum
+    update) and evaluation forward, each captured once for its batch shape,
+    train the eager step's parameters bit for bit, with its losses and
+    MCR; float and STE retraining with 8-bit signals."""
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.core.treeutil import flatten_with_path
+    from repro_torch.data import synthetic
+    from repro_torch.models import dnn
+    from repro_torch.paper import pipeline
+    task = synthetic.digit_task(n_train=1000, n_test=500)
+    init = dnn.init(torch.Generator(device=cuda).manual_seed(17), 784,
+                    (1022, 1022), 10, device=cuda)
+    policy = FLOAT if mode == "float" else W3A8
+    runs = [pipeline.train_mlp(init, task, policy=policy, epochs=2,
+                               batch=100, lr=0.1, momentum=0.9, capture=c)
+            for c in (True, False)]
+    (p1, s1), (p0, s0) = runs
+    assert (s1["captures"], s0["captures"]) == (1, 0)
+    assert s1["final_loss"] == s0["final_loss"]
+    for path, v in flatten_with_path(p0).items():
+        assert torch.equal(flatten_with_path(p1)[path], v), path
+    assert pipeline.evaluate(p1, task, policy=policy) == \
+        pipeline.evaluate(p1, task, policy=policy, capture=False)
