@@ -18,7 +18,12 @@ Phases, each printing one JSON line:
              ragged hi = valid, a row without a valid key; attn_decode
              also at B = 16 and S = 2048; qmatvec at M = 8, 512 and, for
              the d_ff shapes, 2048; qmatmul for the tied readout and both
-             MLP heads), each case naming the variant, layout or kernel it
+             MLP heads; for the dense family both attention kernels at
+             stablelm-3b's head_dim 80, MHA, B = 8, S = T = 256 / 512, in
+             bf16, int8 K/V and fp32, bf16 prefill at head_dim 32 and 256,
+             qmatvec at the widest decode projections and the untied 8-bit
+             heads of stablelm-3b, qwen2.5-14b and qwen3-32b stored
+             K-major), each case naming the variant, layout or kernel it
              took and gated that it is the one its plan gives (qmatvec:
              decode for M <= 16, else prefill; qmatmul: k_lanes / n_lanes;
              attn_prefill: wgmma for bf16 queries, simt for fp32), and
@@ -115,7 +120,21 @@ Phases, each printing one JSON line:
              >= 0.99 (8-bit signals off) and all but a few rows' argmax
              equal (on). Prints the deployed test MCR and images/s of the
              W3A8 kernel forward and of the float net, batch 100.
-8. kernels   the per-kernel summary line (one entry per TPU kernel; qmatvec,
+8. dense     the rest of the dense family at full width: stablelm-3b at
+             full depth (32 layers, head_dim 80, MHA, untied head),
+             qwen2.5-14b (G = 5, QKV bias) and qwen3-32b (qk-norm) cut to
+             8 layers (the fp32 master the export is made from must fit
+             the card), each from a seeded generator, exported to W3A8
+             containers, served for 8 requests (prompts 3-16 and
+             100-250) x 16 new tokens by ServingEngine(slots=8,
+             max_len=512, bf16) captured and as its capture=False twin:
+             identical tokens, the timed serve replay only, every kernel
+             launched in the variant its plan gives (the untied head's
+             readout in qmatmul's k_lanes layout, every admission the
+             wgmma attn_prefill), the same launches in both twins; each
+             twin's steady tick; then the path check of phase 4 on the
+             model. Each model is freed before the next.
+9. kernels   the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path), then the card line as
              nvidia-smi prints it, then the result line
@@ -167,6 +186,15 @@ VARIANTS = {
                       "simt": "src/repro_torch/csrc/attn_prefill.cu"}),
 }
 PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
+# the dense phase: (arch, layers kept on the card or None for all, the CPU
+# rehearsal's reduced() sizes); the depth cut keeps the fp32 master and its
+# stacked copy within the card's 80 GB (qwen3-32b's 8 layers: 15.6 GB, plus
+# 6.2 GB of embedding and head)
+DENSE = (("stablelm-3b", None, dict(d_model=320)),
+         ("qwen2.5-14b", 8, {}),
+         ("qwen3-32b", 8, {}))
+DENSE_PROMPTS = (0, 3, 4, 5, 8, 9, 10, 11)   # prompts 4, 12, 3, 16, 100-250
+DENSE_NEW = 16
 SPEC_K = 4                                  # drafts a speculative tick
 SPEC_GATE = dict(prompts=8, prompt_len=16, max_new=16)   # fp32 identity gate
 WARM_NEW = 2 * (SPEC_K + 1)     # new tokens a request of a warm-up serve
@@ -341,13 +369,6 @@ def card_phase(device, rehearse: bool):
 def _kernel_cases(cfg, device, clock):
     """Yield one dict per (kernel, shape, dtype) case."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.attn_decode import kernel as dec_k
-    from repro_torch.kernels.attn_decode import ops as dec_ops
-    from repro_torch.kernels.attn_decode.ref import attn_decode_ref
-    from repro_torch.kernels.attn_prefill import ops as pf_ops
-    from repro_torch.kernels.attn_prefill.ref import attn_prefill_ref
-    from repro_torch.kernels.attn_decode.ref import scale_q
     from repro_torch.kernels.qmatmul import ops as qmm_ops
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
@@ -397,7 +418,6 @@ def _kernel_cases(cfg, device, clock):
 
     # attn_decode: 8 slots, S = 512, ragged lengths with one empty row, in
     # every cache form; then 16 slots, and a 2048-token cache
-    grp = h // kvh
     decode_cases = [(8, 512, kvn, dn, dt_) for kvn, dn, dt_ in (
         ("bf16", "bfloat16", torch.bfloat16),
         ("int8", "bfloat16", torch.bfloat16),
@@ -406,122 +426,23 @@ def _kernel_cases(cfg, device, clock):
     decode_cases += [(16, 512, "bf16", "bfloat16", torch.bfloat16),
                      (8, 2048, "bf16", "bfloat16", torch.bfloat16)]
     for b, s, kvname, dname, dt in decode_cases:
-        base = [0, 1, 37, 128, 200, 333, s - 1, s]
-        lens = torch.tensor([min(base[i % 8] + 64 * (i // 8), s)
-                             for i in range(b)], dtype=torch.int32,
-                            device=device)
-        q = randn(b, 1, h, hd, dtype=dt)
-        if kvname == "int8":
-            kc = torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
-                               device=device, dtype=torch.int8)
-            vc = torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
-                               device=device, dtype=torch.int8)
-            ks = torch.rand((b, s), generator=g, device=device) * 0.02
-            vs = torch.rand((b, s), generator=g, device=device) * 0.02
-            kl = (kc.float() * ks[..., None, None]).to(dt)
-            vl = (vc.float() * vs[..., None, None]).to(dt)
-        else:
-            kc, vc, ks, vs = randn(b, s, kvh, hd, dtype=dt), \
-                randn(b, s, kvh, hd, dtype=dt), None, None
-            kl, vl = kc, vc
-        what = f"attn_decode B={b} S={s} {dname} kv-{kvname}"
-        got = same_bits(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs),
-                        what)
-        ref = attn_decode_ref(q, kc, vc, lens, ks, vs)
-        if bool((got[lens == 0] != 0).any()):
-            fail(f"{what}: an empty row is not exactly zero")
-        # library yardstick: SDPA over the (dequantized) cache, KV heads
-        # expanded to the query heads beforehand
-        qs = q.transpose(1, 2)
-        kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
-        vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
-        mask = (torch.arange(s, device=device)[None, :]
-                < lens[:, None])[:, None, None, :]
-        tot = int(lens.sum())
-        eb = kc.element_size()
-        nbytes = (2 * b * h * hd * q.element_size() + 2 * tot * kvh * hd * eb
-                  + (2 * tot * 4 if ks is not None else 0) + b * 4)
-        yield dict(
-            name="attn_decode", shape=f"B={b} S={s} KV={kvh} G={grp} D={hd} "
-                                      f"lens ragged (one 0)",
-            dtype=f"{dname}/kv-{kvname}",
-            splits=dec_k.plan(b, s, kvh, grp, hd, kc.dtype).splits,
-            err=compare(got, ref, dname, what),
-            run=(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs)),
-            plain=(lambda: attn_decode_ref(q, kc, vc, lens, ks, vs)),
-            library=(lambda: F.scaled_dot_product_attention(
-                qs, kh, vh, attn_mask=mask)),
-            bound=bound_ms(nbytes, 4 * hd * h * tot, dname),
-            headline=(b == 8 and s == 512 and kvname == "bf16"
-                      and dname == "bfloat16"))
+        yield _decode_case(g, device, b, s, h, kvh, hd, kvname, dname, dt,
+                           headline=(b == 8 and s == 512 and kvname == "bf16"
+                                     and dname == "bfloat16"))
 
     # attn_prefill: B = 8, T = S in {16, 64, 256} (the smallest bucket, a
     # middle one, the largest the engine admits), ragged lengths,
     # hi = min(t + 1, len); bf16 and fp32 q with a K/V of their dtype, and
     # bf16 q with an int8 K/V (the library yardstick then attends over the
     # dequantized K/V, as for attn_decode)
-    b = 8
     for t in (16, 64, 256):
-        plen = torch.tensor([1, t, t // 2, 3, t - 1, min(17, t), t // 4,
-                             min(9, t)], dtype=torch.int32, device=device)
-        pos = torch.arange(t, dtype=torch.int32, device=device)
-        hi = torch.minimum(pos[None, :] + 1, plen[:, None])
-        lo = torch.zeros_like(hi)
         kinds = [("bf16", "bfloat16", torch.bfloat16),
                  ("fp32", "float32", torch.float32)]
         if t >= 64:
             kinds.append(("int8", "bfloat16", torch.bfloat16))
         for kvname, dname, dt in kinds:
-            q = randn(b, t, h, hd, dtype=dt)
-            if kvname == "int8":
-                k_ = torch.randint(-127, 128, (b, t, kvh, hd), generator=g,
-                                   device=device, dtype=torch.int8)
-                v_ = torch.randint(-127, 128, (b, t, kvh, hd), generator=g,
-                                   device=device, dtype=torch.int8)
-                ks = torch.rand((b, t), generator=g, device=device) * 0.02
-                vs = torch.rand((b, t), generator=g, device=device) * 0.02
-                kl = (k_.float() * ks[..., None, None]).to(dt)
-                vl = (v_.float() * vs[..., None, None]).to(dt)
-            else:
-                k_, v_ = randn(b, t, kvh, hd, dtype=dt), randn(b, t, kvh, hd,
-                                                               dtype=dt)
-                ks = vs = None
-                kl, vl = k_, v_
-            got, variant = launched_variant("attn_prefill", lambda: (
-                pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks, v_scale=vs)),
-                "wgmma" if dt == torch.bfloat16 else "simt")
-            qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
-            ref = attn_prefill_ref(qg, k_, v_, lo, hi, ks,
-                                   vs).reshape(b, t, h, hd)
-            empty_rows = hi <= lo
-            if bool((got[empty_rows] != 0).any()):
-                fail(f"attn_prefill T={t} {dname} kv-{kvname}: a row with "
-                     f"an empty window is not exactly zero")
-            qs = q.transpose(1, 2)
-            kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
-            vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
-            mask = (pos[None, None, :] < hi[:, :, None])[:, None]
-            qb, kb = q.element_size(), k_.element_size()
-            nbytes = (2 * b * t * h * hd * qb
-                      + 2 * int(plen.sum()) * kvh * hd * kb
-                      + (2 * int(plen.sum()) * 4 if ks is not None else 0)
-                      + 2 * b * t * 4)
-            ops = 4 * hd * h * int((hi - lo).sum())
-            yield dict(
-                name="attn_prefill", shape=f"B={b} T=S={t} KV={kvh} G={grp} "
-                                           f"D={hd} lens ragged",
-                dtype=f"{dname}/kv-{kvname}", variant=variant,
-                err=compare(got, ref, dname,
-                            f"attn_prefill T={t} {dname} kv-{kvname}",
-                            row_dims=2),
-                run=(lambda: pf_ops.attn_prefill(q, k_, v_, hi,
-                                                     k_scale=ks, v_scale=vs)),
-                plain=(lambda: attn_prefill_ref(qg, k_, v_, lo, hi,
-                                                        ks, vs)),
-                library=(lambda: F.scaled_dot_product_attention(
-                    qs, kh, vh, attn_mask=mask)),
-                bound=bound_ms(nbytes, ops, dname),
-                headline=(t == 256 and kvname == "bf16"))
+            yield _prefill_case(g, device, t, h, kvh, hd, kvname, dname, dt,
+                                headline=(t == 256 and kvname == "bf16"))
 
     # attn_prefill at the speculative verify shape: T = spec_k + 1 = 5
     # queries of each of 8 slots against the whole 512-entry decode cache,
@@ -531,6 +452,180 @@ def _kernel_cases(cfg, device, clock):
                               ("int8", "bfloat16", torch.bfloat16),
                               ("fp32", "float32", torch.float32)):
         yield _verify_case(g, device, cfg, kvname, dname, dt)
+
+
+def _kv(g, device, b, s, kvh, hd, kvname, dt):
+    """A (b, s, kvh, hd) K and V in ``dt``, or int8 with per-token scales;
+    and the K/V in ``dt`` that the library yardstick attends over."""
+    import torch
+    if kvname == "int8":
+        k_ = torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
+                           device=device, dtype=torch.int8)
+        v_ = torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
+                           device=device, dtype=torch.int8)
+        ks = torch.rand((b, s), generator=g, device=device) * 0.02
+        vs = torch.rand((b, s), generator=g, device=device) * 0.02
+        return (k_, v_, ks, vs, (k_.float() * ks[..., None, None]).to(dt),
+                (v_.float() * vs[..., None, None]).to(dt))
+    k_ = torch.randn((b, s, kvh, hd), generator=g, device=device).to(dt)
+    v_ = torch.randn((b, s, kvh, hd), generator=g, device=device).to(dt)
+    return k_, v_, None, None, k_, v_
+
+
+def _decode_case(g, device, b, s, h, kvh, hd, kvname, dname, dt,
+                 headline=False):
+    """attn_decode of b slots against an s-entry cache, ragged lengths with
+    one empty row (exact zeros), two runs the same bits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn_decode import kernel as dec_k
+    from repro_torch.kernels.attn_decode import ops as dec_ops
+    from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+    grp = h // kvh
+    base = [0, 1, 37, 128, 200, 333, s - 1, s]
+    lens = torch.tensor([min(base[i % 8] + 64 * (i // 8), s)
+                         for i in range(b)], dtype=torch.int32,
+                        device=device)
+    q = torch.randn((b, 1, h, hd), generator=g, device=device).to(dt)
+    kc, vc, ks, vs, kl, vl = _kv(g, device, b, s, kvh, hd, kvname, dt)
+    what = f"attn_decode B={b} S={s} KV={kvh} D={hd} {dname} kv-{kvname}"
+    got = same_bits(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs),
+                    what)
+    ref = attn_decode_ref(q, kc, vc, lens, ks, vs)
+    if bool((got[lens == 0] != 0).any()):
+        fail(f"{what}: an empty row is not exactly zero")
+    # library yardstick: SDPA over the (dequantized) cache, KV heads
+    # expanded to the query heads beforehand
+    qs = q.transpose(1, 2)
+    kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    mask = (torch.arange(s, device=device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    tot = int(lens.sum())
+    eb = kc.element_size()
+    nbytes = (2 * b * h * hd * q.element_size() + 2 * tot * kvh * hd * eb
+              + (2 * tot * 4 if ks is not None else 0) + b * 4)
+    return dict(
+        name="attn_decode", shape=f"B={b} S={s} KV={kvh} G={grp} D={hd} "
+                                  f"lens ragged (one 0)",
+        dtype=f"{dname}/kv-{kvname}",
+        splits=dec_k.plan(b, s, kvh, grp, hd, kc.dtype).splits,
+        err=compare(got, ref, dname, what),
+        run=(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs)),
+        plain=(lambda: attn_decode_ref(q, kc, vc, lens, ks, vs)),
+        library=(lambda: F.scaled_dot_product_attention(
+            qs, kh, vh, attn_mask=mask)),
+        bound=bound_ms(nbytes, 4 * hd * h * tot, dname), headline=headline)
+
+
+def _prefill_case(g, device, t, h, kvh, hd, kvname, dname, dt, b=8,
+                  headline=False):
+    """attn_prefill of a T-token bucket (T = S), ragged lengths,
+    hi = min(t + 1, len); rows with an empty window exact zeros."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn_decode.ref import scale_q
+    from repro_torch.kernels.attn_prefill import ops as pf_ops
+    from repro_torch.kernels.attn_prefill.ref import attn_prefill_ref
+    grp = h // kvh
+    plen = torch.tensor([1, t, t // 2, 3, t - 1, min(17, t), t // 4,
+                         min(9, t)], dtype=torch.int32, device=device)[:b]
+    pos = torch.arange(t, dtype=torch.int32, device=device)
+    hi = torch.minimum(pos[None, :] + 1, plen[:, None])
+    lo = torch.zeros_like(hi)
+    q = torch.randn((b, t, h, hd), generator=g, device=device).to(dt)
+    k_, v_, ks, vs, kl, vl = _kv(g, device, b, t, kvh, hd, kvname, dt)
+    what = f"attn_prefill T={t} KV={kvh} D={hd} {dname} kv-{kvname}"
+    got, variant = launched_variant("attn_prefill", lambda: (
+        pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks, v_scale=vs)),
+        "wgmma" if dt == torch.bfloat16 else "simt")
+    qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
+    ref = attn_prefill_ref(qg, k_, v_, lo, hi, ks, vs).reshape(b, t, h, hd)
+    if bool((got[hi <= lo] != 0).any()):
+        fail(f"{what}: a row with an empty window is not exactly zero")
+    qs = q.transpose(1, 2)
+    kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    mask = (pos[None, None, :] < hi[:, :, None])[:, None]
+    qb, kb = q.element_size(), k_.element_size()
+    nbytes = (2 * b * t * h * hd * qb + 2 * int(plen.sum()) * kvh * hd * kb
+              + (2 * int(plen.sum()) * 4 if ks is not None else 0)
+              + 2 * b * t * 4)
+    return dict(
+        name="attn_prefill", shape=f"B={b} T=S={t} KV={kvh} G={grp} "
+                                   f"D={hd} lens ragged",
+        dtype=f"{dname}/kv-{kvname}", variant=variant,
+        err=compare(got, ref, dname, what, row_dims=2),
+        run=(lambda: pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks,
+                                         v_scale=vs)),
+        plain=(lambda: attn_prefill_ref(qg, k_, v_, lo, hi, ks, vs)),
+        library=(lambda: F.scaled_dot_product_attention(
+            qs, kh, vh, attn_mask=mask)),
+        bound=bound_ms(nbytes, 4 * hd * h * int((hi - lo).sum()), dname),
+        headline=headline)
+
+
+def _dense_cases(device, clock, rehearse):
+    """The dense family's new shapes: both attention kernels at
+    stablelm-3b's head_dim 80 (MHA: 32 query heads over 32 KV heads) in
+    every cache form, bf16 prefill at head_dim 32 and 256, qmatvec at the
+    widest decode projections, and each untied 8-bit head through the
+    qmatmul layout its plan picks for the container export's K-major
+    levels. The CPU rehearsal shrinks the qmatvec and head shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    g = torch.Generator(device=device).manual_seed(5678)
+    lm = get_config("stablelm-3b")
+    h, kvh, hd = lm.num_heads, lm.num_kv_heads, lm.head_dim
+    for kvname, dname, dt in (("bf16", "bfloat16", torch.bfloat16),
+                              ("int8", "bfloat16", torch.bfloat16),
+                              ("fp32", "float32", torch.float32)):
+        yield _decode_case(g, device, 8, 512, h, kvh, hd, kvname, dname, dt)
+    for kvname, dname, dt in (("bf16", "bfloat16", torch.bfloat16),
+                              ("int8", "bfloat16", torch.bfloat16),
+                              ("fp32", "float32", torch.float32)):
+        yield _prefill_case(g, device, 256, h, kvh, hd, kvname, dname, dt)
+    for d in (32, 256):
+        yield _prefill_case(g, device, 256, 12, 2, d, "bf16", "bfloat16",
+                            torch.bfloat16)
+    cut = 16 if rehearse else 1
+    for k, n in ((2560, 6912), (6912, 2560), (5120, 25600), (25600, 5120)):
+        yield _qmatvec_case(g, device, clock, 8, k // cut, n // cut,
+                            "bfloat16", torch.bfloat16)
+    for arch in ("stablelm-3b", "qwen2.5-14b", "qwen3-32b"):
+        c = get_config(arch)
+        yield _untied_head_case(g, device, 8, c.d_model, c.vocab_size // cut,
+                                arch)
+
+
+def _untied_head_case(g, device, m, k, n, arch):
+    """An untied 8-bit head as the container export stores it: (K, N)
+    int8 levels K-contiguous, per-channel delta, bf16 x; the library call
+    is ``matmul`` on the dequantized bf16 head."""
+    import torch
+    from repro_torch.kernels.qmatmul import kernel as qmm_k
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    w = torch.randint(-127, 128, (n, k), generator=g, device=device,
+                      dtype=torch.int8).T
+    delta = torch.rand(n, generator=g, device=device) * 0.01
+    x = torch.randn((m, k), generator=g, device=device).to(torch.bfloat16)
+    want = qmm_k.plan(m, k, n, *w.stride(), x.dtype).layout
+    got, layout = launched_variant(
+        "qmatmul", lambda: qmm_ops.qmatmul(x, w, delta), want)
+    ref = qmatmul_ref(x, w, delta)
+    wdq = (w.float() * delta).to(torch.bfloat16).contiguous()
+    nbytes = m * k * 2 + w.numel() + n * 4 + m * n * 2
+    return dict(
+        name="qmatmul", shape=f"M={m} K={k} N={n} ({arch} untied head, "
+                              f"K-major)",
+        dtype="bfloat16", variant=layout,
+        err=compare(got, ref, "bfloat16", f"qmatmul {arch} head"),
+        run=(lambda: qmm_ops.qmatmul(x, w, delta)),
+        plain=(lambda: qmatmul_ref(x, w, delta)),
+        library=(lambda: torch.matmul(x, wdq)),
+        library_call="matmul on the dequantized bf16 head",
+        bound=bound_ms(nbytes, 2 * m * k * n, "bfloat16"), headline=False)
 
 
 def _verify_case(g, device, cfg, kvname, dname, dt, b=8, t=SPEC_K + 1,
@@ -711,6 +806,7 @@ def parity_phase(cfg, device, rehearse):
     clock = Clock(device, reps=3 if rehearse else 20)
     cases = []
     for c in itertools.chain(_kernel_cases(cfg, device, clock),
+                             _dense_cases(device, clock, rehearse),
                              _mlp_cases(device, clock, rehearse)):
         c["bound_ms"], c["bound_by"] = c.pop("bound")
         run, plain, library = c.pop("run"), c.pop("plain"), c.pop("library")
@@ -909,7 +1005,11 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
 
 # --- phase 4 ----------------------------------------------------------------------
 
-def path_phase(cfg, params, device):
+def _path_check(cfg, params, device):
+    """Prefill + 4 decode steps in fp32 activations, no activation quant,
+    through the kernels and through the plain versions on the same
+    weights: the logits must agree within 2e-3 x max|logit|. Returns the
+    record."""
     import dataclasses
 
     import torch
@@ -945,15 +1045,20 @@ def path_phase(cfg, params, device):
     err = float((a - b).abs().max())
     scale = float(b.abs().max())
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    emit({"phase": "path", "activations": "float32", "act_bits": None,
-          "steps": "prefill + 4 decode", "max_abs_logit_diff": err,
-          "max_abs_logit": scale, "tolerance": "2e-3 x max|logit|",
-          "greedy_agreement": agree})
+    rec = {"activations": "float32", "act_bits": None,
+           "steps": "prefill + 4 decode", "max_abs_logit_diff": err,
+           "max_abs_logit": scale, "tolerance": "2e-3 x max|logit|",
+           "greedy_agreement": agree}
     if not (a.isfinite().all() and b.isfinite().all()):
-        fail("non-finite logits on the path-parity run")
+        fail(f"{cfg.name}: non-finite logits on the path-parity run")
     if not err <= 2e-3 * scale:
-        fail(f"kernel path vs plain path logits differ by {err} "
+        fail(f"{cfg.name}: kernel path vs plain path logits differ by {err} "
              f"(> 2e-3 x {scale})")
+    return rec
+
+
+def path_phase(cfg, params, device):
+    emit({"phase": "path", **_path_check(cfg, params, device)})
 
 
 # --- phase 5 ----------------------------------------------------------------------
@@ -1545,6 +1650,109 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
 
 # --- main -------------------------------------------------------------------------
 
+# --- phase 8 ----------------------------------------------------------------------
+
+def dense_phase(device, seed, rehearse):
+    """The rest of the dense family: each model of DENSE built from a
+    seeded generator on the card, exported to W3A8 containers (the fp32
+    master freed after the export), served for DENSE_REQUESTS requests x
+    DENSE_NEW tokens by ServingEngine(slots=8, max_len=512, bf16 KV)
+    captured and as its capture=False twin, gated as the engine phase
+    gates (identical tokens, replay only, every kernel launched in the
+    variant its plan gives, every readout of the untied head in qmatmul's
+    k_lanes layout), then the path check and each twin's steady tick.
+    Returns the summed launches and variants of the captured runs."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.precision import W3A8
+    from repro_torch.launch.profile_engine import prompts
+    from repro_torch.serving.engine import ServingEngine
+    launches, variants = None, None
+    models = []
+    for arch, layers, small in DENSE:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        full = cfg.num_layers
+        if rehearse:
+            cfg = reduced(cfg, **small)
+        elif layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        master, params, build_s = build_model(cfg, device, seed)
+        del master
+        gc.collect()
+        reqs = [p for i, p in enumerate(prompts(cfg.vocab_size))
+                if i in DENSE_PROMPTS]
+        what = f"dense {arch}"
+
+        def make(capture):
+            return ServingEngine(params, cfg, policy=W3A8, slots=8,
+                                 max_len=512, dtype=torch.bfloat16,
+                                 capture=capture, device=device)
+        engines = {"captured": _warmed(make(None), reqs),
+                   "eager": _warmed(make(False), reqs)}
+        runs = {name: _serve(eng, reqs, device, max_new=DENSE_NEW)
+                for name, eng in engines.items()}
+        run = runs["captured"]
+        done = run["done"]
+        if len(done) != len(reqs) or any(len(r.out) != DENSE_NEW
+                                         for r in done):
+            fail(f"{what}: not every request got its {DENSE_NEW} tokens")
+        _twin_gate(runs, what)
+        if not rehearse:
+            for name, eng in engines.items():
+                _engine_launch_gate(eng, cfg, runs[name], f"{what} {name}")
+            if runs["eager"]["launches"] != run["launches"] \
+                    or runs["eager"]["variants"] != run["variants"]:
+                fail(f"{what}: replayed launches {run['variants']} differ "
+                     f"from the eager twin's {runs['eager']['variants']}")
+        cut = (f"depth {cfg.num_layers} of {full}; widths as published"
+               if cfg.num_layers < full else "none")
+        if rehearse:
+            cut = f"CPU rehearsal: reduced({small})"
+        rec = {"arch": arch, "layers": cfg.num_layers, "full_layers": full,
+               "cut": cut,
+               "d_model": cfg.d_model, "heads": cfg.num_heads,
+               "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+               "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+               "qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
+               "tie_embeddings": cfg.tie_embeddings,
+               "init_export_s": round(build_s, 3),
+               "requests": len(done), **_run_line(run),
+               "eager_twin": _run_line(runs["eager"]),
+               "captured_eager_token_identical": True,
+               "launches": run["launches"],
+               "launches_by_variant": run["variants"],
+               "plain_calls": run["plain"]}
+        rec["steady"] = {name: _steady(e, cfg, device, rehearse,
+                                       names=("qmatvec", "qmatmul",
+                                              "attn_decode"))
+                         for name, e in engines.items()}
+        del engines, runs
+        rec["path"] = _path_check(cfg, params, device)
+        if device.type == "cuda":
+            rec["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+        models.append(rec)
+        if launches is None:
+            launches, variants = run["launches"], run["variants"]
+        else:
+            launches = {k: launches[k] + v for k, v in run["launches"].items()}
+            variants = {n: {k: variants[n][k] + c for k, c in d.items()}
+                        for n, d in run["variants"].items()}
+        del params, run
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "dense", "engine": "ServingEngine(slots=8, max_len=512, "
+          "bf16, kv bf16), W3A8 qp export of a seeded fp32 master",
+          "requests": f"{len(DENSE_PROMPTS)} x {DENSE_NEW} new tokens",
+          "models": models})
+    return launches, variants
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -1585,6 +1793,8 @@ def main(argv=None) -> int:
     digit, metrics, paper_launches = paper_phase(device, args.rehearse)
     deploy_launches, deploy_variants = deploy_phase(
         digit, metrics["w3a8_mcr"], device, args.seed, args.rehearse)
+    dense_launches, dense_variants = dense_phase(device, args.seed,
+                                                 args.rehearse)
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
@@ -1593,7 +1803,8 @@ def main(argv=None) -> int:
         if name in ENGINE_KERNELS:
             by_path["spec"] = spec_launches[name]
         by_path.update(paper=paper_launches[name],
-                       deploy=deploy_launches[name])
+                       deploy=deploy_launches[name],
+                       dense=dense_launches[name])
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1611,7 +1822,8 @@ def main(argv=None) -> int:
                 launches_by_variant={"engine_bf16_kv": variants[name],
                                      "engine_int8_kv": variants8[name],
                                      "spec": spec_variants[name],
-                                     "deploy": deploy_variants[name]})
+                                     "deploy": deploy_variants[name],
+                                     "dense": dense_variants[name]})
         kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -6,7 +6,9 @@ parameters with the JAX package, hand them over as numpy
 (``jax.device_get``) and bridge them here. int32 container words and int8
 levels copy bit-exactly; bfloat16 leaves (numpy's ``ml_dtypes.bfloat16``,
 which torch cannot read) go through a ``uint16`` view and come back as
-``torch.bfloat16`` with the same bits.
+``torch.bfloat16`` with the same bits. A JAX container export's untied
+8-bit head is stored K-contiguous once, as the port's own export stores it
+(``quant_dense.k_major_head``); its values and shape are unchanged.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.core.quant_dense import k_major_head
 
 __all__ = ["to_torch"]
 
@@ -26,11 +30,15 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def to_torch(tree: Any, device="cpu") -> Any:
-    """Nested dict of numpy arrays (or scalars) -> the same dict of torch
-    tensors on ``device``, bit for bit."""
+def _to_torch(tree: Any, device) -> Any:
     if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
+        return {k: _to_torch(v, device) for k, v in tree.items()}
     if tree is None:
         return None
     return _leaf_to_torch(tree, device)
+
+
+def to_torch(tree: Any, device="cpu") -> Any:
+    """Nested dict of numpy arrays (or scalars) -> the same dict of torch
+    tensors on ``device``, bit for bit."""
+    return k_major_head(_to_torch(tree, device))

@@ -172,6 +172,9 @@ ARCH_IDS = (
 
 _MODULE_FOR = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen3-32b": "qwen3_32b",
+    "stablelm-3b": "stablelm_3b",
     "digit": "digit",
     "phoneme": "phoneme",
 }

@@ -9,10 +9,12 @@ reference's.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["fields_per_word", "packed_words", "pack_int32", "unpack_int32",
-           "pack_matrix", "unpack_matrix"]
+__all__ = ["fields_per_word", "packed_words", "packed_nbytes", "pack_int32",
+           "unpack_int32", "pack_matrix", "unpack_matrix"]
 
 
 def fields_per_word(bits: int) -> int:
@@ -25,6 +27,11 @@ def fields_per_word(bits: int) -> int:
 def packed_words(n: int, bits: int) -> int:
     f = fields_per_word(bits)
     return (n + f - 1) // f
+
+
+def packed_nbytes(shape, bits: int) -> int:
+    """Device bytes for a packed tensor of logical ``shape``."""
+    return packed_words(math.prod(shape), bits) * 4
 
 
 def _check_levels(q: torch.Tensor, bits: int) -> None:

@@ -11,7 +11,7 @@ from typing import Dict, Optional
 
 from repro_torch.core.quantizer import QuantSpec
 
-__all__ = ["QuantPolicy", "FLOAT", "W3A8"]
+__all__ = ["QuantPolicy", "FLOAT", "W3A8", "W4A8", "W8", "TERNARY"]
 
 _NOQUANT_ROLES = ("norm", "bias", "ssm", "scale")
 
@@ -41,3 +41,7 @@ class QuantPolicy:
 FLOAT = QuantPolicy(mode="float")
 # The paper's deployed configuration: 3-bit hidden, 8-bit output, 8-bit signals.
 W3A8 = QuantPolicy(mode="fake", bits={"hidden": 3, "output": 8, "embed": 8, "router": 8}, act_bits=8)
+W4A8 = QuantPolicy(mode="fake", bits={"hidden": 4, "output": 8, "embed": 8, "router": 8}, act_bits=8)
+W8 = QuantPolicy(mode="fake", bits={"hidden": 8, "output": 8, "embed": 8, "router": 8})
+# Hwang & Sung 2014 ternary (+1, 0, -1) — the paper's reference [14].
+TERNARY = QuantPolicy(mode="fake", bits={"hidden": 2, "output": 8, "embed": 8, "router": 8}, act_bits=8)

@@ -12,7 +12,11 @@ A weight leaf takes one of three forms:
                                K (10 wt/word, the ``qmatvec`` format)
 
 ``export_levels`` / ``export_container`` turn a float tree into the serve
-forms (per-output-channel deltas; stacked layer dims handled);
+forms (per-output-channel deltas; stacked layer dims handled). In the
+container export the untied 8-bit head keeps its logical (K, N) levels but
+stores them K-contiguous, a ``.T`` view of an (N, K) tensor
+(:func:`k_major_head`), as the tied readout's table already is: ``qmatmul``
+then reads it in its ``k_lanes`` layout;
 ``fit_deltas`` / ``export_packed`` / ``packed_apply`` are the paper MLP's
 per-tensor quantization step and its packed deployment check.
 
@@ -45,7 +49,7 @@ from repro_torch.kernels.qmatvec.ref import qmatvec_ref
 __all__ = ["init", "apply", "serve_apply", "tied_logits",
            "resolve_matmul_mode", "MATMUL_MODES", "effective_weight",
            "fit_deltas", "export_levels", "export_container", "export_packed",
-           "packed_apply", "is_serve_form"]
+           "packed_apply", "is_serve_form", "k_major_head"]
 
 MATMUL_MODES = ("auto", "kernel", "dequant")
 
@@ -174,6 +178,20 @@ def is_serve_form(params: Any) -> bool:
                for p in flatten_with_path(params) for n in ("q", "qp"))
 
 
+def k_major_head(params: Any) -> Any:
+    """``params`` with the untied 8-bit head of a container export
+    ({"head": {"q": (K, N) int8}} beside "qp" leaves) stored K-contiguous:
+    the same (K, N) levels as a ``.T`` view of an (N, K) tensor, which
+    ``qmatmul`` reads with lanes along K (``k_lanes``; a row-major (K, N)
+    head would take the slower ``n_lanes``). Any other tree, the ``q``
+    form's among them, comes back as it is."""
+    head = params.get("head") if isinstance(params, dict) else None
+    if not (isinstance(head, dict) and "q" in head
+            and any(p.endswith("qp") for p in flatten_with_path(params))):
+        return params
+    return {**params, "head": {**head, "q": head["q"].T.contiguous().T}}
+
+
 def _is_weight(path: str) -> bool:
     return path.endswith("/w") or path == "w"
 
@@ -267,7 +285,7 @@ def export_container(params: Any, policy: QuantPolicy) -> Any:
         else:
             out[base + "q"] = q
             out[base + "delta"] = d
-    return unflatten(out)
+    return k_major_head(unflatten(out))
 
 
 def export_packed(params: Any, policy: QuantPolicy) -> Any:

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 __all__ = ["QuantSpec", "max_level", "optimal_uniform_delta",
-           "quantize_levels", "dequantize", "quantize"]
+           "quantize_levels", "dequantize", "quantize", "quantization_mse"]
 
 
 def max_level(bits: int) -> int:
@@ -101,3 +101,9 @@ def quantize(w: torch.Tensor, spec: QuantSpec):
     """Full pipeline: fit delta, assign levels. Returns (q_int8, delta)."""
     delta = optimal_uniform_delta(w, spec)
     return quantize_levels(w, delta, spec), delta
+
+
+def quantization_mse(w: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Mean squared quantization error of the L2-optimal quantizer on ``w``."""
+    q, delta = quantize(w, spec)
+    return torch.mean((w - dequantize(q, delta, spec, w.dtype)) ** 2)

@@ -4,7 +4,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
-__all__ = ["map_with_path", "flatten_with_path", "unflatten", "role_of"]
+import torch
+
+__all__ = ["map_with_path", "flatten_with_path", "unflatten", "role_of",
+           "tree_size", "tree_nbytes", "any_nan"]
 
 
 def map_with_path(fn: Callable[[str, Any], Any], tree: Any, _prefix: str = "") -> Any:
@@ -41,6 +44,16 @@ def unflatten(flat: Dict[str, Any]) -> Any:
     return tree
 
 
+def tree_size(tree: Any) -> int:
+    """Total number of elements across all tensor leaves."""
+    return sum(x.numel() for x in flatten_with_path(tree).values())
+
+
+def tree_nbytes(tree: Any) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in flatten_with_path(tree).values())
+
+
 # --- role inference from parameter path (see precision.py role table) --------
 
 _OUTPUT_MARKERS = ("head", "unembed", "logits", "w_out_layer", "output_layer")
@@ -64,3 +77,9 @@ def role_of(path: str) -> str:
     if any(m in p for m in _EMBED_MARKERS):
         return "embed"
     return "hidden"
+
+
+def any_nan(tree: Any) -> bool:
+    return any(bool(torch.isnan(x).any())
+               for x in flatten_with_path(tree).values()
+               if x.is_floating_point())

@@ -41,7 +41,9 @@
 // its K row against q in shared memory (broadcast); then one warp max and
 // one warp sum per key block and head, never one per key. P goes to the
 // warp's own shared memory row, and P.V runs with lanes over D: each lane
-// reads D / 32 values of a V row and multiplies them by every head's p.
+// reads D / 32 contiguous values of a V row (where D is not a multiple of
+// 32, pairs of values 64 apart, the lanes past D idle in the last group)
+// and multiplies them by every head's p. D is any multiple of 16 up to 256.
 #include "common.cuh"
 
 namespace {
@@ -116,6 +118,20 @@ struct Smem {
   }
 };
 
+// P.V's lanes over D: lane l holds W contiguous values at W * l + 32 W e of
+// each of NE groups e, where that start is below D.
+template <int D>
+struct PV {
+  static constexpr int W = D % 32 == 0 ? D / 32 : 2;
+  static constexpr int NE = (D + 32 * W - 1) / (32 * W);
+  static __device__ __forceinline__ int at(int lane, int e) {
+    return W * lane + 32 * W * e;
+  }
+  static __device__ __forceinline__ bool in(int lane, int e) {
+    return D % (32 * W) == 0 || at(lane, e) < D;
+  }
+};
+
 template <typename T, typename TKV, int D>
 __global__ void __launch_bounds__(WARPS * 32)
 attn_decode_kernel_split(const T* __restrict__ q, const TKV* __restrict__ k,
@@ -127,7 +143,8 @@ attn_decode_kernel_split(const T* __restrict__ q, const TKV* __restrict__ k,
                          float* __restrict__ pacc, float scale, int S,
                          int KV, int G, int split_len) {
   constexpr bool QUANT = sizeof(TKV) == 1;
-  constexpr int EPT = D / 32;                 // P.V: values of a row a lane
+  using P = PV<D>;
+  constexpr int EPT = P::NE * P::W;           // P.V: values of a row a lane
   constexpr int CH = 16 / sizeof(TKV);        // elements per 16-byte chunk
   constexpr int CPR = D / CH;                 // 16-byte chunks per row
   using SM = Smem<TKV, D>;
@@ -280,8 +297,19 @@ attn_decode_kernel_split(const T* __restrict__ q, const TKV* __restrict__ k,
     const int nk = min(BK, k1 - (k0 + j * BK));
     for (int r = 0; r < nk; ++r) {
       float vf[EPT];
-      load_f<TKV, EPT>(reinterpret_cast<const TKV*>(vt + r * SM::ROW) +
-                           lane * EPT, vf);
+      const TKV* vrow = reinterpret_cast<const TKV*>(vt + r * SM::ROW);
+#pragma unroll
+      for (int e = 0; e < P::NE; ++e) {
+        float t[P::W];
+        if (P::in(lane, e)) {
+          load_f<TKV, P::W>(vrow + P::at(lane, e), t);
+        } else {
+#pragma unroll
+          for (int w = 0; w < P::W; ++w) t[w] = 0.f;
+        }
+#pragma unroll
+        for (int w = 0; w < P::W; ++w) vf[e * P::W + w] = t[w];
+      }
 #pragma unroll
       for (int hh = 0; hh < HPW; ++hh) {
         if (warp + WARPS * hh < G) {
@@ -302,13 +330,19 @@ attn_decode_kernel_split(const T* __restrict__ q, const TKV* __restrict__ k,
       pm[part * G + g] = m_run[hh];
       pl[part * G + g] = l_run[hh];
     }
-    float* dst = pacc + (part * G + g) * D + lane * EPT;
+    float* dst = pacc + (part * G + g) * D;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) dst[e] = acc[hh][e];
+    for (int e = 0; e < P::NE; ++e) {
+      if (!P::in(lane, e)) continue;
+#pragma unroll
+      for (int w = 0; w < P::W; ++w)
+        dst[P::at(lane, e) + w] = acc[hh][e * P::W + w];
+    }
   }
 }
 
-// One block per (b, kv head, head g of the group), one thread per d:
+// One block per (b, kv head, head g of the group), one thread per d (at
+// least a warp: warp 0 computes the weights):
 // out[g][d] merges the splits in order. Warp 0 turns the splits' m and l
 // into weights w = e^(m - M) (0 for an empty split) and the denominator
 // sum l w, in shared memory; then each thread sums acc w over the splits in
@@ -317,7 +351,7 @@ attn_decode_kernel_split(const T* __restrict__ q, const TKV* __restrict__ k,
 constexpr int MAX_SPLITS = 1024;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(D)
+__global__ void __launch_bounds__(D < 32 ? 32 : D)
 attn_decode_kernel_combine(const float* __restrict__ pm,
                            const float* __restrict__ pl,
                            const float* __restrict__ pacc,
@@ -348,6 +382,7 @@ attn_decode_kernel_combine(const float* __restrict__ pm,
     if (lane == 0) den = dsum;
   }
   __syncthreads();
+  if (d >= D) return;
   float num = 0.f;
 #pragma unroll 8
   for (int sp = 0; sp < nsplit; ++sp) {
@@ -382,8 +417,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       split_len);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_decode_kernel_combine<T, D><<<dim3(B * KV, G), D, 0, st>>>(
-      pm, pl, pacc, (T*)out, G, nsplit);
+  attn_decode_kernel_combine<T, D>
+      <<<dim3(B * KV, G), D < 32 ? 32 : D, 0, st>>>(pm, pl, pacc, (T*)out, G,
+                                                    nsplit);
   return 0;
 }
 
@@ -399,7 +435,9 @@ int launch_d(int D, const void* q, const void* k, const void* v,
                               scale, B, S, KV, G, split_len, nsplit, smem,  \
                               st);
   switch (D) {
-    RT_CASE(32) RT_CASE(64) RT_CASE(128) RT_CASE(256)
+    RT_CASE(16) RT_CASE(32) RT_CASE(48) RT_CASE(64) RT_CASE(80) RT_CASE(96)
+    RT_CASE(112) RT_CASE(128) RT_CASE(144) RT_CASE(160) RT_CASE(176)
+    RT_CASE(192) RT_CASE(208) RT_CASE(224) RT_CASE(240) RT_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RT_CASE
@@ -409,9 +447,10 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 
 // scale multiplies q in q's dtype (the wrapper passes 1/sqrt(D) rounded to
 // it). q_dtype: 0 fp32, 1 bf16; kv_dtype: the same code as q, or 2 for int8
-// (then k_scale and v_scale are required). D must be 32, 64, 128 or 256 and
-// G <= 32. split_len (a multiple of 32) and nsplit (nsplit * split_len >=
-// S) come from the wrapper's plan, with smem, the dynamic shared memory;
+// (then k_scale and v_scale are required). D must be a multiple of 16 from
+// 16 to 256 and G <= 32. split_len (a multiple of 32) and nsplit
+// (nsplit * split_len >= S) come from the wrapper's plan, with smem, the
+// dynamic shared memory;
 // pm, pl, pacc are its fp32 scratch. Launches the split kernel and the
 // merge on the stream. Returns the CUDA error code (0 on success).
 extern "C" int attn_decode_launch(const void* q, const void* k, const void* v,

@@ -26,8 +26,10 @@
 //
 // What the design does about it: one block per (b, tile of QT = 8 queries,
 // kv head), one warp per query head of the group, each warp carrying its
-// 8 query rows in registers. The block walks the key positions
-// [min lo, max hi) of its tile in chunks of KB, staging each chunk of K and
+// 8 query rows in registers; lane l holds elements l, l + 32, ... of a
+// row (D / 32 rounded up; where D is not a multiple of 32 the lanes past D
+// in the last group hold zeros and store nothing). The block walks the key
+// positions [min lo, max hi) of its tile in chunks of KB, staging each chunk of K and
 // V in shared memory once for all G x QT rows; each row then visits only
 // the keys of the chunk inside its own [lo, hi), so the causal upper
 // triangle and the padded tail of a row are neither read nor computed.
@@ -37,7 +39,7 @@ namespace {
 
 constexpr int QT = 8;                 // queries per block
 
-template <typename TKV, int EPT>
+template <typename TKV, int D>
 __global__ void attn_prefill_kernel(const float* __restrict__ q,
                                     const TKV* __restrict__ k,
                                     const TKV* __restrict__ v,
@@ -48,8 +50,12 @@ __global__ void attn_prefill_kernel(const float* __restrict__ q,
                                     float* __restrict__ out, int Tq, int S,
                                     int KV, int G) {
   constexpr bool QUANT = sizeof(TKV) == 1;
-  constexpr int D = EPT * 32;
+  constexpr int EPT = (D + 31) / 32;  // elements of a row a lane
   constexpr int KB = 4096 / D;        // keys per staged chunk (32 KB of smem)
+  // element e of this lane lies inside the row (always, for D % 32 == 0)
+  auto in_row = [&](int e) {
+    return D % 32 == 0 || (int)threadIdx.x % 32 + 32 * e < D;
+  };
   __shared__ float ksm[KB][D];
   __shared__ float vsm[KB][D];
   __shared__ float kss[KB];
@@ -92,7 +98,7 @@ __global__ void attn_prefill_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < EPT; ++e) {
       acc[r][e] = 0.f;
-      qr[r][e] = (live && t < Tq)
+      qr[r][e] = (live && t < Tq && in_row(e))
           ? q[((((size_t)b * Tq + t) * KV + h) * G + g) * D + lane + 32 * e]
           : 0.f;
     }
@@ -123,7 +129,8 @@ __global__ void attn_prefill_kernel(const float* __restrict__ q,
         const int j = p - c0;
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPT; ++e) s = fmaf(qr[r][e], ksm[j][lane + 32 * e], s);
+        for (int e = 0; e < EPT; ++e)
+          if (in_row(e)) s = fmaf(qr[r][e], ksm[j][lane + 32 * e], s);
         s = rt::warp_sum(s);
         if constexpr (QUANT) s *= kss[j];
         const float m_new = fmaxf(m[r], s);
@@ -134,7 +141,8 @@ __global__ void attn_prefill_kernel(const float* __restrict__ q,
         if constexpr (QUANT) pc *= vss[j];
 #pragma unroll
         for (int e = 0; e < EPT; ++e)
-          acc[r][e] = fmaf(pc, vsm[j][lane + 32 * e], acc[r][e] * corr);
+          if (in_row(e))
+            acc[r][e] = fmaf(pc, vsm[j][lane + 32 * e], acc[r][e] * corr);
         m[r] = m_new;
       }
     }
@@ -147,7 +155,8 @@ __global__ void attn_prefill_kernel(const float* __restrict__ q,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     const size_t ooff = ((((size_t)b * Tq + t) * KV + h) * G + g) * D;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) out[ooff + lane + 32 * e] = acc[r][e] * inv;
+    for (int e = 0; e < EPT; ++e)
+      if (in_row(e)) out[ooff + lane + 32 * e] = acc[r][e] * inv;
   }
 }
 
@@ -156,15 +165,17 @@ int launch_d(int D, const void* q, const void* k, const void* v,
              const void* ks, const void* vs, const void* lo, const void* hi,
              void* out, int B, int Tq, int S, int KV, int G, cudaStream_t st) {
   dim3 grid(B * ((Tq + QT - 1) / QT) * KV), block(G * 32);
-#define RT_CASE(E)                                                          \
-  case E * 32:                                                              \
-    attn_prefill_kernel<TKV, E><<<grid, block, 0, st>>>(                    \
+#define RT_CASE(DD)                                                         \
+  case DD:                                                                  \
+    attn_prefill_kernel<TKV, DD><<<grid, block, 0, st>>>(                   \
         (const float*)q, (const TKV*)k, (const TKV*)v, (const float*)ks,    \
         (const float*)vs, (const int32_t*)lo, (const int32_t*)hi,           \
         (float*)out, Tq, S, KV, G);                                         \
     break;
   switch (D) {
-    RT_CASE(1) RT_CASE(2) RT_CASE(4) RT_CASE(8)
+    RT_CASE(16) RT_CASE(32) RT_CASE(48) RT_CASE(64) RT_CASE(80) RT_CASE(96)
+    RT_CASE(112) RT_CASE(128) RT_CASE(144) RT_CASE(160) RT_CASE(176)
+    RT_CASE(192) RT_CASE(208) RT_CASE(224) RT_CASE(240) RT_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RT_CASE
@@ -174,7 +185,8 @@ int launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q and out fp32; kv_dtype: 0 fp32, or 2 for int8 (then k_scale and
-// v_scale are required). D must be 32, 64, 128 or 256 and G * 32 <= 1024.
+// v_scale are required). D must be a multiple of 16 from 16 to 256 and
+// G * 32 <= 1024.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int attn_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,

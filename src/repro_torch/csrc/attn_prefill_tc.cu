@@ -11,7 +11,7 @@
 // (B, S, KV, D) bf16, or int8 with per-token fp32 scales k_scale, v_scale
 // (B, S). lo, hi (B, T) int32: query t of row b sees the key positions
 // lo[b, t] <= p < hi[b, t] (lo may be null, for all zeros). out
-// (B, T, KV, G, D) bf16. D is 64 or 128.
+// (B, T, KV, G, D) bf16. D is a multiple of 16 from 16 to 256.
 //
 // Numerics, as the reference, per block of BK keys (the TPU kernel's are
 // 128): fp32 scores; int8 k_scale per key column after Q.K; an online
@@ -32,10 +32,14 @@
 // flattened as r = t * G + g, so each staged K/V block serves all G heads
 // of the group. S = Q.K^T is a wgmma m64n64k16 chain with Q and the K
 // block in shared memory (both K-major); P, converted to bf16 in
-// registers, is the A operand of O += P.V (wgmma m64nDk16), whose B is the
-// V block in its natural (key, D) layout read through the descriptor's
-// transpose bit. K/V blocks (and int8 scales) are staged by cp.async, two
-// buffers deep, so block j + 1 loads while block j is multiplied; int8
+// registers, is the A operand of O += P.V, whose B is the V block in its
+// natural (key, D) layout read through the descriptor's transpose bit. P.V
+// covers D in column chunks of 128, 64, 32 and 16 (D = 80: m64n64k16 and
+// m64n16k16 on the same P fragment), each chunk a slice of the accumulator
+// registers and of the V block's 8-column core matrices, so every D that
+// is a multiple of 16 runs with the wgmma shapes of its binary digits.
+// K/V blocks (and int8 scales) are staged by cp.async, two buffers deep,
+// so block j + 1 loads while block j is multiplied; int8
 // blocks are widened to bf16 in shared memory. A block walks only the keys
 // [min lo, max hi) of its 64 rows and runs no key block at all when every
 // row's window is empty; blocks start with the last tile of rows (the
@@ -64,11 +68,39 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 64, fp32) += A (64 x 16, registers) . B (16 x 64, smem,
-// MN-major: the transpose bit).
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t db) {
+// D (64 x N, fp32) += A (64 x 16, registers) . B (16 x N, smem, MN-major:
+// the transpose bit), for N = 16, 32, 64, 128; d is N / 2 accumulator
+// registers of this thread.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -80,11 +112,9 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 128, fp32) += A (64 x 16, registers) . B (16 x 128, smem,
-// MN-major: the transpose bit).
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t db) {
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t (&a)[4],
+                                              uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -129,6 +159,22 @@ template <int N>
 __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// O += P . V over the D columns of the accumulator, in chunks of the
+// largest of 128, 64, 32, 16 columns that fit: the chunk from column C0
+// holds accumulator registers C0 / 2 .. and starts C0 / 8 core matrices
+// (of 128 bytes) into the V block's k-step. lbo: bytes between the two
+// 8-key halves of the k-step.
+template <int D, int C0 = 0>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint32_t v_kk) {
+  if constexpr (C0 < D) {
+    constexpr int R = D - C0;
+    constexpr int N = R >= 128 ? 128 : R >= 64 ? 64 : R >= 32 ? 32 : 16;
+    wgmma_rs<N>(o + C0 / 2, a, make_desc(v_kk + (C0 / 8) * 128, D * 16, 128));
+    wgmma_pv<D, C0 + N>(o, a, v_kk);
+  }
 }
 // Generic-proxy writes to shared memory (cp.async, st.shared) before
 // async-proxy reads (wgmma).
@@ -419,11 +465,8 @@ attn_prefill_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
     pin(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = make_desc(v_addr + kk * 2 * D * 16, D * 16, 128);
-      if constexpr (D == 128) wgmma_rs_m64n128k16(o, pa[kk], dv);
-      else wgmma_rs_m64n64k16(o, pa[kk], dv);
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_pv<D>(o, pa[kk], v_addr + kk * 2 * D * 16);
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -475,9 +518,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 }  // namespace
 
 // q bf16; kv_dtype: 1 bf16 or 2 int8 (then k_scale and v_scale are
-// required); D 64 or 128. smem: the dynamic shared memory bytes of the
-// launch, as the wrapper's plan computed them. Returns the CUDA error code
-// of the launch (0 on success).
+// required); D a multiple of 16 from 16 to 256. smem: the dynamic shared
+// memory bytes of the launch, as the wrapper's plan computed them. Returns
+// the CUDA error code of the launch (0 on success).
 extern "C" int attn_prefill_tc_launch(const void* q, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, const void* lo,
@@ -486,16 +529,22 @@ extern "C" int attn_prefill_tc_launch(const void* q, const void* k,
                                       int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if (kv_dtype == 1 && D == 128)
-    rc = launch<__nv_bfloat16, 128>(q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, smem, st);
-  else if (kv_dtype == 1 && D == 64)
-    rc = launch<__nv_bfloat16, 64>(q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, smem, st);
-  else if (kv_dtype == 2 && D == 128)
-    rc = launch<int8_t, 128>(q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, smem, st);
-  else if (kv_dtype == 2 && D == 64)
-    rc = launch<int8_t, 64>(q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, KV, G, smem, st);
-  else
-    return (int)cudaErrorInvalidValue;
+#define RT_CASE(DD)                                                            \
+  case DD:                                                                     \
+    rc = kv_dtype == 1                                                         \
+        ? launch<__nv_bfloat16, DD>(q, k, v, k_scale, v_scale, lo, hi, out, B, \
+                                    Tq, S, KV, G, smem, st)                    \
+        : launch<int8_t, DD>(q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, \
+                             KV, G, smem, st);                                 \
+    break;
+  if (kv_dtype != 1 && kv_dtype != 2) return (int)cudaErrorInvalidValue;
+  switch (D) {
+    RT_CASE(16) RT_CASE(32) RT_CASE(48) RT_CASE(64) RT_CASE(80) RT_CASE(96)
+    RT_CASE(112) RT_CASE(128) RT_CASE(144) RT_CASE(160) RT_CASE(176)
+    RT_CASE(192) RT_CASE(208) RT_CASE(224) RT_CASE(240) RT_CASE(256)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RT_CASE
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

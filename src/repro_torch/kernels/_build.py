@@ -72,18 +72,29 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        # the compiler's output goes to a file, not a pipe: a pipe that
+        # fills would stall nvcc until it is read
+        logf = open(out.with_suffix(f".log{os.getpid()}"), "w+")
+        procs[name] = (subprocess.Popen(cmd, stdout=logf,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+                       logf, tmp, out, time.perf_counter())
     errors = []
-    for name, (p, tmp, out, t0) in procs.items():
-        log, _ = p.communicate()
-        secs[name] = time.perf_counter() - t0
-        build_log[name] = log
-        if p.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu (rc {p.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    while procs:
+        for name, (p, logf, tmp, out, t0) in list(procs.items()):
+            if p.poll() is None:
+                continue
+            secs[name] = time.perf_counter() - t0
+            del procs[name]
+            logf.seek(0)
+            build_log[name] = logf.read()
+            logf.close()
+            os.remove(logf.name)
+            if p.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu (rc {p.returncode}):"
+                              f"\n{build_log[name]}")
+                continue
+            os.replace(tmp, out)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs

@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["attn_decode_cuda", "check_kv", "launches", "plan", "Plan",
-           "split_softmax"]
+__all__ = ["attn_decode_cuda", "check_head", "check_kv", "launches", "plan",
+           "Plan", "split_softmax"]
 
 launches = 0
 
@@ -106,17 +106,25 @@ def split_softmax(scores: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
         den > 0, den, torch.ones(()))[..., None], torch.zeros(()))
 
 
+def check_head(g: int, d: int, what: str) -> None:
+    """The head shapes every attention kernel takes: head_dim a multiple of
+    16 from 16 to 256 (a wgmma k-step, and 16-byte rows of an int8 cache),
+    and at most 32 query heads per KV head."""
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"{what}: head_dim {d} is not a multiple of 16 "
+                         f"from 16 to 256")
+    if not 1 <= g <= 32:
+        raise ValueError(f"{what}: {g} query heads per KV head, need 1..32")
+
+
 def check_kv(q, k, v, k_scale, v_scale, kv_shape, what: str) -> bool:
-    """Shared checks of the attention kernels: q fp32/bf16, head_dim in
-    32/64/128/256, a group of at most 32 heads per KV head, K/V of
-    ``kv_shape`` in q's dtype — or int8 with (B, S) fp32 scales, both or
-    neither. Returns whether the cache is int8."""
+    """Shared checks of the attention kernels: q fp32/bf16, the head shape
+    of :func:`check_head`, K/V of ``kv_shape`` in q's dtype — or int8 with
+    (B, S) fp32 scales, both or neither. Returns whether the cache is
+    int8."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what} q: need fp32/bf16, got {q.dtype}")
-    g, d = q.shape[-2], q.shape[-1]
-    if d not in (32, 64, 128, 256) or g * 32 > 1024:
-        raise ValueError(f"{what}: head_dim {d} / group {g} not supported "
-                         f"(D in 32/64/128/256, G <= 32)")
+    check_head(q.shape[-2], q.shape[-1], what)
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{what}: pass both k_scale and v_scale, or neither")
     quantized = k_scale is not None

@@ -3,11 +3,13 @@
 Two kernels, chosen by the queries' dtype in :func:`plan` (pure Python, so
 the CPU tests reach it), neither a fallback for the other:
 - ``wgmma`` (``csrc/attn_prefill_tc.cu``): bf16 queries with a bf16 or int8
-  K/V and head_dim 64 or 128, on the tensor cores;
+  K/V, on the tensor cores;
 - ``simt`` (``csrc/attn_prefill.cu``): fp32 queries with an fp32 or int8
   K/V, on the CUDA cores in fp32, as the fp32 parity gates require.
-Any other combination raises. ``launches`` counts launches and
-``launches_by_variant`` splits them by kernel; nothing else touches either.
+Both take every head_dim that is a multiple of 16 from 16 to 256
+(``attn_decode.kernel.check_head``). Any other combination raises.
+``launches`` counts launches and ``launches_by_variant`` splits them by
+kernel; nothing else touches either.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.attn_decode.kernel import check_kv
+from repro_torch.kernels.attn_decode.kernel import check_head, check_kv
 
 __all__ = ["attn_prefill_cuda", "plan", "Plan", "launches",
            "launches_by_variant", "VARIANTS"]
@@ -27,8 +29,7 @@ launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 # wgmma: 64 flattened (t, g) query rows and key blocks of 64 per block
-_TC_ROWS, _TC_BK, _TC_HEAD_DIMS = 64, 64, (64, 128)
-_SIMT_HEAD_DIMS = (32, 64, 128, 256)
+_TC_ROWS, _TC_BK = 64, 64
 
 # the launch functions: 8 pointers, 8 ints (wgmma) or 7 (simt), the stream
 _TC_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -47,10 +48,8 @@ def plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int,
     """The kernel for queries of ``q_dtype`` (G heads per KV head, head_dim
     D) against a K/V of ``kv_dtype``. Raises for a combination no kernel
     takes."""
+    check_head(g, d, "attn_prefill")
     if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
-        if d not in _TC_HEAD_DIMS:
-            raise ValueError(f"attn_prefill: bf16 queries need head_dim in "
-                             f"{_TC_HEAD_DIMS}, got {d}")
         tile = _TC_BK * d * 2
         if kv_dtype == torch.int8:      # bf16 blocks, 2 int8 buffers, scales
             kv_bytes = 2 * tile + 4 * _TC_BK * d + 4 * _TC_BK * 4
@@ -58,9 +57,6 @@ def plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int,
             kv_bytes = 4 * tile
         return Plan("wgmma", _TC_ROWS * d * 2 + kv_bytes)
     if q_dtype == torch.float32 and kv_dtype in (torch.float32, torch.int8):
-        if d not in _SIMT_HEAD_DIMS or g * 32 > 1024:
-            raise ValueError(f"attn_prefill: fp32 queries need head_dim in "
-                             f"{_SIMT_HEAD_DIMS} and G <= 32, got {d}, {g}")
         return Plan("simt", 0)
     raise ValueError(f"attn_prefill: no kernel takes {q_dtype} queries with "
                      f"a {kv_dtype} K/V (bf16 with bf16/int8, fp32 with "

@@ -1,7 +1,16 @@
-"""Times ``qmatvec`` and ``attn_decode`` at the serving path's shapes, through
-their public wrappers, on the card.
+"""Times ``qmatvec``, ``attn_decode`` and the untied 8-bit head's
+``qmatmul`` at the serving path's shapes, through their public wrappers, on
+the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_kernels [--tag T]
+        [--groups qwen,dense,head]
+
+Groups: ``qwen`` (the default) qwen2-1.5b's projections and decode
+attention and the paper MLP's layers; ``dense`` qmatvec at the decode
+projections of stablelm-3b, qwen2.5-14b and qwen3-32b (M = 8); ``head``
+their untied heads (M = 8) in both of qmatmul's layouts for a (K, N)
+head: row-major (``n_lanes``) and stored K-contiguous (a ``.T`` view,
+``k_lanes``), beside ``matmul`` on the dequantized bf16 head.
 
 Uses only the wrappers (``kernels/qmatvec/ops.py::qmatvec``,
 ``kernels/attn_decode/ops.py::attn_decode``), their plain versions and
@@ -26,6 +35,9 @@ import torch.nn.functional as F
 from repro_torch.core.packing import pack_matrix, unpack_matrix
 from repro_torch.kernels.attn_decode import ops as dec_ops
 from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+from repro_torch.kernels.qmatmul import kernel as qmm_k
+from repro_torch.kernels.qmatmul import ops as qmm_ops
+from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.kernels.qmatvec import ops as qmv_ops
 from repro_torch.kernels.qmatvec.ref import qmatvec_ref
 
@@ -40,6 +52,13 @@ QMATVEC_CASES = ([(8, k, n, torch.bfloat16) for k, n in QWEN]
 # (B, S, cache): the engine's 8 slots at max_len 512, then B = 16, S = 2048
 DECODE_CASES = [(8, 512, "bf16"), (8, 512, "int8"), (16, 512, "bf16"),
                 (8, 2048, "bf16")]
+# the decode projections (K, N) of stablelm-3b, qwen2.5-14b and qwen3-32b:
+# q/k/v/o, up/gate, down (K = 6912, 13824 are not multiples of 80)
+DENSE_PROJ = ((2560, 2560), (2560, 6912), (6912, 2560),
+              (5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120),
+              (5120, 8192), (8192, 5120), (5120, 25600), (25600, 5120))
+# their untied heads: (K = d_model, N = vocab)
+HEAD_CASES = ((2560, 50304), (5120, 152064), (5120, 151936))
 
 
 def _event_ms(fn):
@@ -94,8 +113,11 @@ def qmatvec_case(g, m, k, n, dtype):
     lib = lambda: torch.addmm(bx, x, wdq)
     err = _err(run(), qmatvec_ref(x, w, delta, k, bias=bias), dtype,
                f"qmatvec {m}x{k}x{n}")
+    xb = x.element_size()
+    nbytes = m * k * xb + w.numel() * 4 + 2 * n * 4 + m * n * xb
     return {"kernel": "qmatvec", "shape": f"M={m} K={k} N={n}",
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+            "bound_ms": nbytes / 3.35e9,
             "ms": _event_ms(run), "device_ms": _device_ms(run),
             "library": "addmm", "library_device_ms": _device_ms(lib)}
 
@@ -137,22 +159,57 @@ def decode_case(g, b, s, cache):
             "library": "SDPA", "library_device_ms": _device_ms(lib)}
 
 
+def head_case(g, m, k, n, layout):
+    """The untied 8-bit head (K, N) at M slots: int8 levels, per-channel
+    delta, bf16 x. ``layout`` n_lanes: row-major levels; k_lanes: the same
+    levels stored K-contiguous, as the container export stores them."""
+    dev = torch.device("cuda")
+    lv = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    w = lv if layout == "n_lanes" else lv.T.contiguous().T
+    del lv
+    delta = torch.rand(n, generator=g, device=dev) * 0.01
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    if qmm_k.plan(m, k, n, *w.stride(), x.dtype).layout != layout:
+        raise SystemExit(f"bench_kernels: head {k}x{n} did not plan {layout}")
+    wdq = (w.float() * delta).to(torch.bfloat16).contiguous()
+    run = lambda: qmm_ops.qmatmul(x, w, delta)
+    lib = lambda: torch.matmul(x, wdq)
+    err = _err(run(), qmatmul_ref(x, w, delta), torch.bfloat16,
+               f"qmatmul head {k}x{n} {layout}")
+    return {"kernel": "qmatmul", "variant": layout,
+            "shape": f"M={m} K={k} N={n} (untied head)",
+            "dtype": "bfloat16", "max_abs_err": err,
+            "bound_ms": (m * k * 2 + k * n + n * 4 + m * n * 2) / 3.35e9,
+            "ms": _event_ms(run), "device_ms": _device_ms(run),
+            "library": "matmul on the dequantized bf16 head",
+            "library_ms": _event_ms(lib), "library_device_ms": _device_ms(lib)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="", help="a label printed on each line")
+    ap.add_argument("--groups", default="qwen",
+                    help="comma-separated: qwen, dense, head")
     args = ap.parse_args(argv)
+    groups = set(args.groups.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("bench_kernels needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(1234)
-    for m, k, n, dt in QMATVEC_CASES:
-        print(json.dumps({"tag": args.tag,
-                          **qmatvec_case(g, m, k, n, dt)}),
-              flush=True)
-    for b, s, cache in DECODE_CASES:
-        print(json.dumps({"tag": args.tag,
-                          **decode_case(g, b, s, cache)}),
-              flush=True)
+    cases = []
+    if "qwen" in groups:
+        cases += [lambda c=c: qmatvec_case(g, *c) for c in QMATVEC_CASES]
+        cases += [lambda c=c: decode_case(g, *c) for c in DECODE_CASES]
+    if "dense" in groups:
+        cases += [lambda c=c: qmatvec_case(g, 8, *c, torch.bfloat16)
+                  for c in DENSE_PROJ]
+    if "head" in groups:
+        cases += [lambda c=c, lay=lay: head_case(g, 8, *c, lay)
+                  for c in HEAD_CASES for lay in ("n_lanes", "k_lanes")]
+    for case in cases:
+        print(json.dumps({"tag": args.tag, **case()}), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

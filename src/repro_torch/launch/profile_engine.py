@@ -1,8 +1,11 @@
-"""Where the serving time goes: full-width W3A8 ``qp`` qwen2-1.5b served by
-the engine on the card, under ``torch.profiler``.
+"""Where the serving time goes: a full-width W3A8 ``qp`` model (qwen2-1.5b
+unless ``--arch`` names another ported dense config, ``--layers`` cutting
+its depth as ``launch/serve.py`` does) served by the engine on the card,
+under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine [--kv8]
         [--steady-only] [--spec-k K] [--eager] [--quant w3|float]
+        [--arch A] [--layers N]
 
 Serves the same 16 requests as ``chip_smoke.py`` (the launch/serve.py
 prompt mix plus eight 100-250-token prompts, 32 new tokens each, 8 slots,
@@ -48,8 +51,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
-from repro_torch.launch.serve import build_params
+from repro_torch.launch.serve import build_params, config_for
 from repro_torch.serving.engine import ServingEngine
 
 # launch/serve.py's prompt mix, then 100-250-token prompts that reach the
@@ -166,6 +168,11 @@ def attn_prefill_ms_by_use(prof, uses):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-1.5b",
+                    help="any ported dense config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (full width), as "
+                         "launch/serve.py --layers")
     ap.add_argument("--kv8", action="store_true")
     ap.add_argument("--steady-only", action="store_true",
                     help="skip the profiled run of the 16 requests; time "
@@ -184,7 +191,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA card")
     dev = torch.device("cuda")
-    cfg = get_config("qwen2-1.5b")
+    cfg = config_for(args.arch, layers=args.layers)
     spec_k = args.spec_k
     quant = args.quant or ("float" if spec_k else "w3")
     params, policy, draft_cfg, draft_params = build_params(

@@ -4,8 +4,12 @@ card (one decode call per tick, all slots at once).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --requests 8 --slots 4 --max-new 16
 
-``--reduced`` shrinks the model for a rehearsal; ``--device cpu`` runs the
-kernels' plain versions on the CPU. ``--spec-k K`` serves speculatively:
+Any ported dense config serves (``--arch`` qwen2-1.5b, stablelm-3b,
+qwen2.5-14b, qwen3-32b). ``--reduced`` shrinks the model for a rehearsal;
+``--device cpu`` runs the kernels' plain versions on the CPU. ``--layers N``
+keeps the first N layers at full width: the export is made from an fp32
+master on the card, and qwen2.5-14b's (59 GB) and qwen3-32b's (131 GB) do
+not fit one 80 GB card at full depth. ``--spec-k K`` serves speculatively:
 the packed 3-bit export of the same master weights drafts K tokens a tick
 (``--draft-depth`` keeps a leading share of its layers) and the target
 verifies them. The same flags as the reference's ``launch/serve.py`` for
@@ -14,6 +18,7 @@ what the port supports (no overload or durability flags yet).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -33,6 +38,17 @@ def cast_weights(tree, dtype):
     return {k: (cast_weights(v, dtype) if isinstance(v, dict)
                 else v.to(dtype) if k in ("w", "b") else v)
             for k, v in tree.items()}
+
+
+def config_for(arch: str, *, small: bool = False, layers=None):
+    """The config of ``arch``, ``reduced`` for a rehearsal (``small``), or
+    cut to its first ``layers`` layers at full width."""
+    cfg = get_config(arch)
+    if small:
+        cfg = reduced(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
 
 
 def build_params(cfg, *, quant: str, form: str, seed: int, device,
@@ -63,6 +79,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (full width)")
     ap.add_argument("--quant", default="w3", choices=["float", "w3"])
     ap.add_argument("--form", default="qp", choices=["w", "q", "qp"],
                     help="weight form for --quant w3: levels (q) or packed "
@@ -91,9 +109,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    cfg = config_for(args.arch, small=args.reduced, layers=args.layers)
     params, policy, draft_cfg, draft_params = build_params(
         cfg, quant=args.quant, form=args.form, seed=args.seed,
         device=args.device, spec_k=args.spec_k, draft_depth=args.draft_depth)

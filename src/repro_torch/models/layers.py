@@ -15,8 +15,8 @@ import torch.nn.functional as F
 from repro_torch.core import qat, quant_dense
 from repro_torch.core.precision import QuantPolicy
 
-__all__ = ["rmsnorm_init", "rmsnorm", "rope_freqs", "apply_rope",
-           "mlp_init", "mlp_apply", "embed_init", "embed_lookup",
+__all__ = ["rmsnorm_init", "rmsnorm", "head_rmsnorm", "rope_freqs",
+           "apply_rope", "mlp_init", "mlp_apply", "embed_init", "embed_lookup",
            "embed_logits", "logits_readout", "act_fn"]
 
 
@@ -31,6 +31,12 @@ def rmsnorm(params: Dict[str, Any], x: torch.Tensor, eps: float = 1e-5) -> torch
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * params["scale"]
     return y.to(x.dtype)
+
+
+def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """qk-norm: RMSNorm over the head_dim of (..., H, D) tensors."""
+    return rmsnorm({"scale": scale}, x, eps)
 
 
 # --- rotary embeddings ----------------------------------------------------------

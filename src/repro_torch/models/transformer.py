@@ -1,6 +1,6 @@
 """Decoder-only transformer backbone, dense family — port of the reference's
-``models/transformer.py`` serve path (GQA, QKV bias, RoPE, tied
-embeddings, SwiGLU).
+``models/transformer.py`` serve path (GQA or MHA, QKV bias, qk-norm, RoPE,
+tied embeddings or an untied head, SwiGLU).
 
 Parameters keep the reference's tree and its stacked layout: every leaf
 under ``layers`` has a leading (L,) axis, and a Python loop over layers
@@ -21,7 +21,7 @@ rewinds rows to their committed lengths, zeroing the wiped entries, in
 place.
 
 Not ported yet: sliding-window rings (``cfg.sliding_window > 0`` raises),
-qk-norm, MoE and the training ``forward``.
+MoE and the training ``forward``.
 """
 from __future__ import annotations
 
@@ -36,8 +36,9 @@ from repro_torch.core.precision import QuantPolicy
 from repro_torch.models.attention import (decode_attention, prefill_attention,
                                           resolve_attn_mode, verify_attention)
 from repro_torch.models.layers import (apply_rope, embed_init, embed_lookup,
-                                       logits_readout, mlp_apply, mlp_init,
-                                       rmsnorm, rmsnorm_init, rope_freqs)
+                                       head_rmsnorm, logits_readout, mlp_apply,
+                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       rope_freqs)
 
 __all__ = ["init", "cache_len_for", "init_cache", "prefill", "decode_step",
            "verify_step", "spec_state_snapshot", "rollback_cache",
@@ -47,9 +48,9 @@ __all__ = ["init", "cache_len_for", "init_cache", "prefill", "decode_step",
 def _check_supported(cfg: ModelConfig):
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window KV rings are not ported yet")
-    if cfg.qk_norm or cfg.family != "dense":
-        raise NotImplementedError(f"only the dense family without qk-norm is "
-                                  f"ported; got {cfg.name} ({cfg.family})")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"only the dense family is ported; got "
+                                  f"{cfg.name} ({cfg.family})")
 
 
 # --- init -----------------------------------------------------------------------
@@ -63,6 +64,9 @@ def _layer_init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
         "wv": quant_dense.init(gen, d, kv * hd, bias=cfg.qkv_bias, **kw),
         "wo": quant_dense.init(gen, h * hd, d, bias=False, **kw),
     }
+    if cfg.qk_norm:
+        attn["q_norm"] = rmsnorm_init(hd, device)
+        attn["k_norm"] = rmsnorm_init(hd, device)
     return {"ln1": rmsnorm_init(d, device), "ln2": rmsnorm_init(d, device),
             "attn": attn,
             "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, **kw)}
@@ -110,6 +114,9 @@ def _qkv(lp, h, cfg: ModelConfig, policy, positions, inv_freq, mm: str):
     q = q.reshape(b, s, cfg.num_heads, hd)
     k = k.reshape(b, s, cfg.num_kv_heads, hd)
     v = v.reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(a["q_norm"]["scale"], q, cfg.norm_eps)
+        k = head_rmsnorm(a["k_norm"]["scale"], k, cfg.norm_eps)
     return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
 
 

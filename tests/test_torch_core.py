@@ -205,3 +205,58 @@ def test_bridge_bit_exact_roundtrip():
     np.testing.assert_array_equal(t["qp"].numpy(), tree["qp"])
     np.testing.assert_array_equal(t["q"].numpy(), tree["q"])
     assert int(t["len"]) == 7
+
+
+@pytest.mark.parametrize("bits,per_channel", [(3, None), (3, -1), (8, None),
+                                              (2, None)])
+def test_quantization_mse_matches(bits, per_channel):
+    rng = np.random.default_rng(bits)
+    w = rng.standard_normal((33, 17)).astype(np.float32)
+    ref = float(jqz.quantization_mse(jnp.asarray(w),
+                                     jqz.QuantSpec(bits, per_channel)))
+    got = float(qz.quantization_mse(torch.from_numpy(w),
+                                    qz.QuantSpec(bits, per_channel)))
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,bits", [((10, 7), 3), ((1022, 61), 3),
+                                        ((5,), 8), ((3, 4, 5), 2),
+                                        ((9, 9), 4)])
+def test_packed_nbytes_matches(shape, bits):
+    assert packing.packed_nbytes(shape, bits) == \
+        jpacking.packed_nbytes(shape, bits)
+
+
+def test_tree_sizes_and_any_nan_match():
+    from repro.core import treeutil as jtu
+    from repro_torch.core import treeutil as tu
+    rng = np.random.default_rng(3)
+    tree = {"a": {"w": rng.standard_normal((3, 4)).astype(np.float32),
+                  "q": rng.integers(-4, 4, (5, 2)).astype(np.int8)},
+            "b": np.arange(6, dtype=np.int32), "n": None}
+    jtree = {"a": {k: jnp.asarray(v) for k, v in tree["a"].items()},
+             "b": jnp.asarray(tree["b"])}
+    ttree = bridge.to_torch(tree)
+    assert tu.tree_size(ttree) == jtu.tree_size(jtree) == 12 + 10 + 6
+    assert tu.tree_nbytes(ttree) == jtu.tree_nbytes(jtree) == 48 + 10 + 24
+    assert tu.any_nan(ttree) is jtu.any_nan(jtree) is False
+    tree["a"]["w"][1, 2] = np.nan
+    assert tu.any_nan(bridge.to_torch(tree)) is True
+    assert jtu.any_nan({"w": jnp.asarray(tree["a"]["w"])}) is True
+    assert tu.any_nan({"q": torch.zeros(3, dtype=torch.int8)}) is False
+
+
+def test_core_reexports_match():
+    """The port's ``repro_torch.core`` re-exports the names of the
+    reference's ``repro.core``, and its policies equal the reference's."""
+    import repro.core as jcore
+    import repro_torch.core as core
+    assert core.__all__ == jcore.__all__
+    for name in core.__all__:
+        assert getattr(core, name) is not None, name
+    for name in ("FLOAT", "W3A8", "W4A8", "W8", "TERNARY"):
+        a, b = getattr(core, name), getattr(jcore, name)
+        assert (a.mode, a.bits, a.act_bits, a.per_channel) == \
+            (b.mode, b.bits, b.act_bits, b.per_channel), name
+    assert core.max_level(3) == jcore.max_level(3)
+    assert core.fields_per_word(3) == jcore.fields_per_word(3)

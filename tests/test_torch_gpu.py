@@ -164,10 +164,12 @@ def test_sigmoid_pw_rejects_what_the_kernel_does_not_take(cuda):
                                    (128, 1022, 61), (1, 1536, 4099),
                                    (9, 1536, 4099), (100, 1536, 1000),
                                    (8, 1000, 300), (8, 1022, 777),
-                                   (37, 23, 64), (9, 100, 65)])
+                                   (37, 23, 64), (9, 100, 65),
+                                   (8, 2560, 50304)])
 def test_qmatmul(cuda, dtype, transposed, m, k, n):
-    """The tied readout (8, 1536, V-like N) and the paper MLP's 8-bit
-    heads; row-major and the transposed view, through the layout the plan
+    """The tied readout (8, 1536, V-like N), stablelm-3b's untied head
+    (8, 2560, 50304) and the paper MLP's 8-bit heads; row-major and the
+    transposed view (the container export's head), through the layout the plan
     picks (lanes along K for the view and for N <= 64, else along N). Edges:
     M = 1, 8, 9 and 100 (one, two and four 8-row tiles, and a grid over
     them), N not a multiple of any column tile, K not a multiple of 16, and
@@ -227,11 +229,18 @@ def _decode_lens(b, s, split_len):
                                           (128, 2, 6, 8, 512),
                                           (64, 2, 6, 4, 2048),
                                           (256, 1, 4, 3, 77),
-                                          (32, 2, 32, 2, 100)])
+                                          (32, 2, 32, 2, 100),
+                                          (80, 32, 1, 8, 512),
+                                          (80, 8, 5, 4, 300),
+                                          (48, 2, 6, 3, 100),
+                                          (16, 2, 3, 3, 77),
+                                          (240, 1, 8, 2, 90)])
 def test_attn_decode(cuda, dtype, quantized, d, kv, grp, b, s):
     """The split kernel and its merge: S not a multiple of the split
     length, S = 1, B = 1 and 16, lengths on split boundaries, an empty row
-    (exact zeros); two runs give the same bits."""
+    (exact zeros); head dims that are not multiples of 32 (16, 48, 80,
+    240: lanes past D idle), stablelm-3b's MHA (D = 80, G = 1) and D = 80
+    at G = 5; two runs give the same bits."""
     g = _gen(2)
     q = torch.randn((b, 1, kv * grp, d), generator=g).to(dtype)
     k, v, ks, vs = _cache(g, b, s, kv, d, dtype, quantized)
@@ -260,14 +269,16 @@ def test_attn_decode_all_rows_empty(cuda, quantized):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("t", [1, 8, 16, 70, 256])
-@pytest.mark.parametrize("d", [128, 64])
-def test_attn_prefill(cuda, dtype, quantized, t, d):
+@pytest.mark.parametrize("d,kv,grp", [(128, 2, 6), (64, 2, 6), (80, 4, 1),
+                                      (80, 2, 5)])
+def test_attn_prefill(cuda, dtype, quantized, t, d, kv, grp):
     """bf16 queries on the tensor-core kernel, fp32 on the CUDA-core one,
     with bf16/fp32 or int8 K/V and random [lo, hi) windows; batch row 0 has
     only empty windows (its tiles run no key block) and row 1 some: their
-    outputs are exact zeros."""
+    outputs are exact zeros. D = 80 as stablelm-3b (MHA, G = 1) and at
+    G = 5."""
     g = _gen(3)
-    b, kv, grp = 3, 2, 6
+    b = 3
     q = torch.randn((b, t, kv * grp, d), generator=g).to(dtype)
     k, v, ks, vs = _cache(g, b, t, kv, d, dtype, quantized)
     lo = torch.randint(0, t, (b, t), generator=g, dtype=torch.int32)
@@ -318,18 +329,58 @@ def test_attn_prefill_verify_shape(cuda, dtype, quantized):
 
 
 def test_attn_prefill_refuses_what_no_kernel_takes(cuda):
+    """Mixed bf16 / fp32, fp16 and a head_dim that is not a multiple of 16
+    raise before a launch; bf16 queries at head_dim 32, which the
+    tensor-core kernel once refused, agree with the plain version."""
     q = torch.zeros((1, 4, 2, 128), dtype=torch.bfloat16, device=cuda)
     kv32 = torch.zeros((1, 4, 1, 128), device=cuda)
     hi = torch.ones((1, 4), dtype=torch.int32, device=cuda)
     n0 = pf_k.launches
     with pytest.raises(ValueError):      # bf16 queries, fp32 K/V
         pf_ops.attn_prefill(q, kv32, kv32, hi)
-    with pytest.raises(ValueError):      # bf16 queries, head_dim 32
-        pf_ops.attn_prefill(q[..., :32].contiguous(),
-                            *(kv32[..., :32].to(torch.bfloat16),) * 2, hi)
     with pytest.raises(ValueError):      # fp16
         pf_ops.attn_prefill(q.half(), kv32.half(), kv32.half(), hi)
+    with pytest.raises(ValueError):      # head_dim 72: not a multiple of 16
+        pf_ops.attn_prefill(q[..., :72].contiguous(),
+                            *(kv32[..., :72].to(torch.bfloat16),) * 2, hi)
     assert pf_k.launches == n0
+    g = _gen(14)
+    q32 = torch.randn((2, 40, 4, 32), generator=g).to(torch.bfloat16)
+    k, v, _, _ = _cache(g, 2, 40, 2, 32, torch.bfloat16, False)
+    hi = torch.minimum(torch.arange(40, dtype=torch.int32)[None] + 1,
+                       torch.tensor([[40], [13]], dtype=torch.int32))
+    _check(pf_ops.attn_prefill(*_on(cuda, q32, k, v, hi)),
+           pf_ops.attn_prefill(q32, k, v, hi), torch.bfloat16)
+    assert pf_k.launches_by_variant["wgmma"] >= 1
+
+
+@pytest.mark.parametrize("dtype,quantized", [(torch.bfloat16, False),
+                                             (torch.bfloat16, True),
+                                             (torch.float32, False),
+                                             (torch.float32, True)])
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_attention_every_head_dim(cuda, d, dtype, quantized):
+    """Every head_dim that is a multiple of 16 up to 256 runs both
+    attention kernels (prefill: wgmma for bf16, simt for fp32; decode: the
+    split and the merge) within the tolerance of the plain versions, with
+    ragged windows and an empty row."""
+    g = _gen(d)
+    b, t, kv, grp = 3, 70, 2, 3
+    q = torch.randn((b, t, kv * grp, d), generator=g).to(dtype)
+    k, v, ks, vs = _cache(g, b, t, kv, d, dtype, quantized)
+    lens = torch.tensor([t, 0, 33], dtype=torch.int32)
+    hi = torch.minimum(torch.arange(t, dtype=torch.int32)[None] + 1,
+                       lens[:, None])
+    scales = dict(k_scale=None if ks is None else ks.to(cuda),
+                  v_scale=None if vs is None else vs.to(cuda))
+    got = pf_ops.attn_prefill(*_on(cuda, q, k, v, hi), **scales)
+    ref = pf_ops.attn_prefill(q, k, v, hi, k_scale=ks, v_scale=vs)
+    _check(got, ref, dtype)
+    assert (got.cpu()[1] == 0).all()
+    q1 = q[:, :1].contiguous()
+    got = dec_ops.attn_decode(*_on(cuda, q1, k, v, lens, ks, vs))
+    _check(got, dec_ops.attn_decode(q1, k, v, lens, ks, vs), dtype)
+    assert (got.cpu()[1] == 0).all()
 
 
 def test_bucketed_prefill_mask(cuda):
@@ -353,14 +404,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):      # delta on the wrong device
         qmv_k.qmatvec_cuda(x, torch.zeros((2, 4), dtype=torch.int32,
                                           device=cuda), torch.ones(4))
-    with pytest.raises(ValueError):      # head_dim 48 not supported
+    with pytest.raises(ValueError):      # head_dim 72 not a multiple of 16
         dec_k.attn_decode_cuda(
-            torch.zeros((1, 1, 2, 48), device=cuda),
-            torch.zeros((1, 4, 1, 48), device=cuda),
-            torch.zeros((1, 4, 1, 48), device=cuda),
+            torch.zeros((1, 1, 2, 72), device=cuda),
+            torch.zeros((1, 4, 1, 72), device=cuda),
+            torch.zeros((1, 4, 1, 72), device=cuda),
             torch.ones(1, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):      # CPU tensors never reach a kernel
         pf_k.attn_prefill_cuda(*(torch.zeros(1),) * 5)
+    # head_dim 48, which the decode kernel once refused, agrees with the
+    # plain version
+    g = _gen(15)
+    q = torch.randn((3, 1, 4, 48), generator=g)
+    k, v, _, _ = _cache(g, 3, 40, 2, 48, torch.float32, False)
+    lens = torch.tensor([40, 0, 7], dtype=torch.int32)
+    _check(dec_ops.attn_decode(*_on(cuda, q, k, v, lens)),
+           dec_ops.attn_decode(q, k, v, lens), torch.float32)
 
 
 @pytest.mark.parametrize("kv_bits", [None, 8])

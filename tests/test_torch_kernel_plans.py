@@ -4,9 +4,11 @@ Which kernel and layout each call takes is decided in pure Python (``plan``
 in ``kernels/{qmatvec,qmatmul,attn_decode,attn_prefill}/kernel.py``) before
 anything is launched, so these tests pin the dispatch that the card runs:
 the qmatvec variant and tiles by M, and its split of K; the qmatmul layout
-for the tied readout's transposed view, the paper MLP's 8-bit heads and a
-wide row-major W; the attn_decode split of S; the attn_prefill kernel for
-each query / K-V dtype, and the refusal of what no kernel takes; and the
+for the tied readout's transposed view, the untied head of each export
+form, the paper MLP's 8-bit heads and a wide row-major W; the attn_decode
+split of S; the attn_prefill kernel for each query / K-V dtype and every
+head_dim that is a multiple of 16 to 256, and the refusal of what no
+kernel takes; and the
 dynamic shared memory each launch asks for, within the H100's 232 448
 bytes a block. Also the exact arithmetic the tensor-core kernels rest on:
 an int8 or 3-bit level is a bf16 exactly, an fp32 x is the sum of its
@@ -120,28 +122,53 @@ def test_attn_prefill_kernel_by_dtype(q_dtype, kv_dtype, variant, d):
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 def test_attn_prefill_wgmma_smem_fits_two_blocks_per_sm(kv_dtype, d):
     """The tensor-core kernel holds its 64-row Q tile and two buffers of
     K/V blocks (double buffering: the next block loads while this one is
-    multiplied), and fits twice in an SM, so a second block's loads overlap
-    the first's products."""
+    multiplied), and fits twice in an SM up to D = 128, so a second block's
+    loads overlap the first's products."""
     p = pf_k.plan(torch.bfloat16, kv_dtype, 6, d)
     kv_block = 64 * d * torch.tensor([], dtype=kv_dtype).element_size()
     assert p.dynamic_smem >= 64 * d * 2 + 2 * 2 * kv_block
     assert 2 * p.dynamic_smem <= SMEM
 
 
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_attention_plans_take_every_head_dim(kv_dtype, d):
+    """Every head_dim that is a multiple of 16 from 16 to 256 (a wgmma
+    k-step; stablelm-3b's 80 among them) has a plan in both attention
+    kernels, within one block's shared memory."""
+    p = pf_k.plan(torch.bfloat16, kv_dtype, 8, d)
+    assert p.variant == "wgmma" and p.dynamic_smem <= SMEM
+    fp = torch.float32 if kv_dtype == torch.bfloat16 else torch.int8
+    assert pf_k.plan(torch.float32, fp, 8, d).variant == "simt"
+    for dt in (kv_dtype, fp):
+        assert dec_k.plan(8, 512, 32, 1, d, dt).dynamic_smem <= SMEM
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype,d", [
     (torch.bfloat16, torch.float32, 128),   # no mixed bf16 / fp32 kernel
     (torch.float32, torch.bfloat16, 128),
     (torch.float16, torch.float16, 128),    # no fp16 kernel
-    (torch.bfloat16, torch.bfloat16, 32),   # the tensor-core kernel: D 64/128
-    (torch.bfloat16, torch.int8, 256),
-    (torch.float32, torch.float32, 48)])
+    (torch.bfloat16, torch.bfloat16, 72),   # head_dim not a multiple of 16
+    (torch.bfloat16, torch.int8, 272),      # past 256
+    (torch.float32, torch.float32, 8)])
 def test_attn_prefill_refuses_what_no_kernel_takes(q_dtype, kv_dtype, d):
     with pytest.raises(ValueError):
         pf_k.plan(q_dtype, kv_dtype, 6, d)
+
+
+@pytest.mark.parametrize("g,d", [(6, 72), (6, 40), (33, 128), (1, 264)])
+def test_attention_refuses_head_shapes_no_kernel_takes(g, d):
+    """A head_dim that is not a multiple of 16 (stablelm-style 80 is; 72
+    and 40 are not), past 256, or more than 32 query heads per KV head:
+    both attention kernels raise, with the reason."""
+    for fn in (lambda: pf_k.plan(torch.bfloat16, torch.bfloat16, g, d),
+               lambda: dec_k.check_head(g, d, "attn_decode")):
+        with pytest.raises(ValueError, match="head_dim|query heads"):
+            fn()
 
 
 def test_attn_prefill_wrapper_refuses_cpu_tensors():
@@ -322,7 +349,7 @@ def test_attn_decode_grid_fills_the_card_at_the_engine_shape():
         assert p.splits * b * kvh >= 132
 
 
-@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("g", [1, 6, 32])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
                                       torch.int8])
@@ -361,3 +388,26 @@ def test_qmatvec_launch_counters_name_each_variant():
     variants = {qmv_k.plan(m, 1536, 8960, torch.bfloat16).variant
                 for m in (1, 8, 16, 17, 2048)}
     assert variants == set(qmv_k.launches_by_variant)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen2.5-14b", "qwen3-32b"])
+def test_untied_head_layout_by_form(arch):
+    """The container export (qp) stores the untied 8-bit head's (K, N)
+    levels K-contiguous, so its readout plans k_lanes; the q form keeps a
+    row-major head, n_lanes (N > 64). The full-width head shapes plan the
+    same way, with x staged in shared memory within the card."""
+    from repro_torch.configs import reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.models import api
+    full = get_config(arch)
+    cfg = reduced(full)
+    master = api.get_model(cfg).init(torch.Generator().manual_seed(0), cfg)
+    for export, layout in ((quant_dense.export_container, "k_lanes"),
+                           (quant_dense.export_levels, "n_lanes")):
+        q = export(master, W3A8)["head"]["q"]
+        assert q.shape == (cfg.d_model, cfg.vocab_size)
+        assert qmm_k.plan(8, *q.shape, *q.stride(),
+                          torch.bfloat16).layout == layout
+    p = _qplan(8, full.d_model, full.vocab_size, True)
+    assert p.layout == "k_lanes" and 2 * p.dynamic_smem <= SMEM
