@@ -134,7 +134,43 @@ Phases, each printing one JSON line:
              wgmma attn_prefill), the same launches in both twins; each
              twin's steady tick; then the path check of phase 4 on the
              model. Each model is freed before the next.
-9. kernels   the per-kernel summary line (one entry per TPU kernel; qmatvec,
+9. resilience overload hardening and durability on the full-width
+             qwen2-1.5b of phases 3 and 5 (its qp export and fp32 master,
+             parked on the host during phases 6-8), every engine
+             ServingEngine(slots=8, max_len=512), every case captured and
+             as its capture=False twin under the same FaultPlan, the twins
+             gated equal in tokens, statuses, counters, fallback_events and
+             launches net of the graphs' warm-ups; no degradation-ladder
+             step outside the ladder case, no plain version outside it.
+             (1) bounded admission: 24 requests in two waves into
+             queue_limit=8, "reject" and "drop_oldest": outcomes, shed
+             uids, shed_count, queue_peak as the host predicts them;
+             (2) deadlines and preemption, qp bf16 (default_deadline 40,
+             preempt_after 8, admission delayed at ticks 8 and 9: "ok" and
+             "deadline" both, counters matching), and the fp32 master
+             (preempt_after 4: the tokens of the undisturbed engine);
+             (3) the ladder: the fp32 spec engine (spec_k 4) failing at
+             ticks 2 and 5 walks spec -> plain -> plain versions, the
+             graphs captured again (tick captures 2, then 3), the four
+             serving kernels before tick 5 and only plain versions after,
+             tokens equal to greedy generate (top-2 margin on a mismatch);
+             (4) the watchdog: run_all(max_ticks=3) on 16 requests raises
+             WatchdogExpired naming the queue and the slots, the finished
+             requests drain; (5) durability: qp bf16 snapshot_every=8 and
+             a journal, a fresh engine restored from the tick-8 snapshot
+             continues as the uninterrupted run (snapshot bytes and ms,
+             restore ms); the fp32 master crashed at ticks 5 and 11 and
+             recovered on a fresh engine: the drains before the crash and
+             the recovered output make the uncrashed run, shed, deadline
+             and poisoned requests staying dead; (6) integrity: a flipped
+             sign bit of a served 3-bit field (layer 0's down projection)
+             at tick 6, integrity_every=4 and golden_dir: one heal at tick
+             8, the manifest clean, every request served; on the fp32
+             master (a mantissa bit) the clean run's tokens; with no probe
+             the flip changes the K/V that the next replayed tick writes
+             (layers 1 and up) against a clean engine's; the probe's ms
+             beside its bound.
+10. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path), then the card line as
              nvidia-smi prints it, then the result line
@@ -814,6 +850,11 @@ def parity_phase(cfg, device, rehearse):
         c["plain_ms"] = clock(plain)
         c["library_ms"] = clock(library)
         c["library_device_ms"] = clock.device_ms(library)
+        if c["name"] == "attn_prefill" and "kv-int8" in c["dtype"]:
+            # measured again in profiler runs of their own: one run once
+            # recorded 0.0014 ms for SDPA here, against 0.0276 in bf16
+            c["library_device_ms_again"] = [clock.device_ms(library)
+                                            for _ in range(3)]
         if "bytes_moved" in c:
             c["GB_per_s"] = round(c.pop("bytes_moved") / c["ms"] / 1e6, 1)
         cases.append(c)
@@ -936,6 +977,9 @@ def _twin_gate(runs, what, replay_only=True):
     replayed only: its graphs (one tick, one per admission bucket) were all
     captured before the timed serve."""
     a, b = runs["captured"], runs["eager"]
+    if a["fallback_events"] or b["fallback_events"]:
+        fail(f"{what}: a degradation-ladder step with no injected fault: "
+             f"{a['fallback_events']} / {b['fallback_events']}")
     outs = [[(r.status, r.out) for r in run["done"]] for run in (a, b)]
     if outs[0] != outs[1]:
         i = next(i for i, (x, y) in enumerate(zip(*outs)) if x != y)
@@ -1098,6 +1142,7 @@ def _serve(eng, reqs, device, max_new=None):
     wall = time.perf_counter() - t0
     launches, plain = read_counts()
     return {"done": done, "wall": wall, "ticks": eng.decode_calls - ticks,
+            "fallback_events": list(eng.fallback_events),
             "rounds": eng.prefill_calls - rounds, "launches": launches,
             "spec_drafted": eng.spec_drafted - drafted,
             "spec_accepted": eng.spec_accepted - accepted,
@@ -1245,6 +1290,9 @@ def _fp32_engine_gates(master, cfg, dcfg, dparams, gp, greedy, device):
             eng.submit(p, max_new=new)
         outs[name] = [r.out for r in sorted(eng.run_all(),
                                             key=lambda r: r.uid)]
+        if eng.fallback_events:
+            fail(f"fp32 {name} engine: a degradation-ladder step with no "
+                 f"injected fault: {eng.fallback_events}")
         del eng
     res = {"fp32_spec_engine_captured_equals_greedy":
            outs["spec_captured"] == want,
@@ -1753,6 +1801,673 @@ def dense_phase(device, seed, rehearse):
     return launches, variants
 
 
+# --- phase 9 ----------------------------------------------------------------------
+
+RES_COUNTERS = ("decode_calls", "prefill_calls", "shed_count",
+                "deadline_miss_count", "preempt_count", "poisoned_count",
+                "queue_peak", "spec_drafted", "spec_accepted",
+                "snapshots_written", "journal_events", "replayed_events",
+                "integrity_probes", "heal_count")
+LADDER_STEPS = ("spec->plain", "kernel->fallback", "retry")
+RES_FLIP = "layers/mlp/down/qp"       # the container leaf the flips hit
+
+
+def _res_prompts(vocab, n, lens=(3, 4, 5, 6, 7, 8)):
+    """``n`` short prompts (bucket 8), token ids in [1, vocab)."""
+    return [[(7 * i + 3 * j) % (vocab - 1) + 1
+             for j in range(lens[i % len(lens)])] for i in range(n)]
+
+
+def _outcome(o):
+    return (bool(o), o.uid, o.reason, tuple(o.shed))
+
+
+def _res_record(eng, done):
+    """What the captured engine and its eager twin must agree on."""
+    return {"requests": sorted((r.uid, r.status, list(r.out), r.preemptions)
+                               for r in done),
+            "fallback_events": [list(e) for e in eng.fallback_events],
+            **{k: getattr(eng, k) for k in RES_COUNTERS}}
+
+
+def _by_kernel(counters, name):
+    """{kernel: count} of the counters named ``name`` ("launches" of the
+    kernels, "calls" of their plain versions) in a ``graphs`` counter
+    dict."""
+    return {mod.split(".")[2]: v for (mod, n), v in counters.items()
+            if n == name}
+
+
+def _res_run(make, drive, capture, device):
+    """Counters zeroed, then ``drive(mk)`` with ``mk()`` building engines
+    (``make(capture)``); counters read after. Returns the drive's result
+    and the launches and plain calls, raw and net of the warm-ups (which
+    launch for real but only in the captured twin)."""
+    import gc
+
+    import torch
+    made = []
+
+    def mk(**kw):
+        eng = make(capture, **kw)
+        made.append(eng)
+        return eng
+    reset_counts()
+    out = drive(mk)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches, plain = read_counts()
+    variants = read_variants()
+    warm_l, warm_p = {}, {}
+    for eng in made:
+        for k, v in _by_kernel(eng.graphs.warmup_launches,
+                               "launches").items():
+            warm_l[k] = warm_l.get(k, 0) + v
+        for k, v in _by_kernel(eng.graphs.warmup_launches, "calls").items():
+            warm_p[k] = warm_p.get(k, 0) + v
+    caps = [dict(e.captures) for e in made]
+    del made
+    gc.collect()
+    return {"out": out, "launches": launches, "plain": plain,
+            "variants": variants, "captures": caps,
+            "net": {k: v - warm_l.get(k, 0) for k, v in launches.items()},
+            "net_plain": {k: v - warm_p.get(k, 0) for k, v in plain.items()}}
+
+
+def _res_twins(what, make, drive, device, rehearse, *, ladder=False):
+    """The case captured and as its capture=False twin: the same tokens,
+    statuses, counters and fallback_events (everything the drive returns
+    but its "_"-keys), the same launches and plain calls net of the
+    warm-ups; no capture in the eager twin; no ladder step unless the case
+    injects tick failures; on the card no plain version outside the
+    ladder case."""
+    runs = {name: _res_run(make, drive, capture, device)
+            for name, capture in (("captured", None), ("eager", False))}
+    a, b = runs["captured"], runs["eager"]
+    pub = [{k: v for k, v in r["out"].items() if not k.startswith("_")}
+           for r in (a, b)]
+    if pub[0] != pub[1]:
+        diff = [k for k in pub[0] if pub[0][k] != pub[1].get(k)]
+        fail(f"resilience {what}: captured and eager twins differ in "
+             f"{diff}: {[pub[0][k] for k in diff]} vs "
+             f"{[pub[1][k] for k in diff]}")
+    if (a["net"], a["net_plain"]) != (b["net"], b["net_plain"]):
+        fail(f"resilience {what}: launches net of warm-ups "
+             f"{a['net']} / plain {a['net_plain']} differ from the eager "
+             f"twin's {b['net']} / {b['net_plain']}")
+    if any(c["tick"] or c["admit"] for c in b["captures"]):
+        fail(f"resilience {what}: the eager twin captured {b['captures']}")
+    for r in (a, b):
+        events = [e for rec in _records(r["out"])
+                  for e in rec["fallback_events"]]
+        if not ladder and any(e[1] in LADDER_STEPS for e in events):
+            fail(f"resilience {what}: a ladder step without an injected "
+                 f"tick failure: {events}")
+        if not rehearse and not ladder and max(r["plain"].values()):
+            fail(f"resilience {what}: a plain version ran: {r['plain']}")
+    return runs
+
+
+def _records(out):
+    """Every engine record a drive returned."""
+    return [v for k, v in sorted(out.items())
+            if isinstance(v, dict) and "fallback_events" in v]
+
+
+def _predict_shed(policy, waves, limit, slots):
+    """The host's prediction of bounded admission for submits in
+    ``waves`` with one step between waves (which admits up to ``slots``
+    queued requests, one bucket): each submit's outcome, the shed uids,
+    shed_count and queue_peak."""
+    queue, outcomes, shed = [], [], []
+    uid = count = peak = 0
+    for i, n in enumerate(waves):
+        if i:
+            del queue[:slots]
+        for _ in range(n):
+            evicted = ()
+            if len(queue) >= limit:
+                count += 1
+                if policy == "reject":
+                    outcomes.append((False, None, "queue_full", ()))
+                    continue
+                evicted = (queue.pop(0),)
+                shed.extend(evicted)
+            uid += 1
+            queue.append(uid)
+            peak = max(peak, len(queue))
+            outcomes.append((True, uid, None, evicted))
+    return outcomes, shed, count, peak
+
+
+def _res_admission(cfg, make_qp, device, rehearse):
+    """Case 1: 24 requests in two waves of 12 (a step between) into
+    queue_limit=8, "reject" and "drop_oldest": outcomes, shed uids,
+    shed_count and queue_peak as the host predicts them."""
+    reqs = _res_prompts(cfg.vocab_size, 24)
+    rec, runs_all = {}, []
+    for policy in ("reject", "drop_oldest"):
+        def drive(mk):
+            eng = mk(queue_limit=8, shed_policy=policy)
+            outs = [_outcome(eng.submit(p, max_new=4)) for p in reqs[:12]]
+            eng.step()
+            outs += [_outcome(eng.submit(p, max_new=4)) for p in reqs[12:]]
+            return {"run": _res_record(eng, eng.run_all(max_ticks=100)),
+                    "outcomes": outs}
+        runs = _res_twins(f"admission {policy}", make_qp, drive, device,
+                          rehearse)
+        runs_all.append(runs["captured"])
+        got = runs["captured"]["out"]
+        outcomes, shed, count, peak = _predict_shed(policy, (12, 12), 8, 8)
+        run = got["run"]
+        shed_got = [u for u, s, *_ in run["requests"] if s == "shed"]
+        if (got["outcomes"] != outcomes or shed_got != shed or run["shed_count"] != count
+                or run["queue_peak"] != peak):
+            fail(f"resilience admission {policy}: outcomes "
+                 f"{got['outcomes']}, shed {shed_got}, shed_count "
+                 f"{run['shed_count']}, queue_peak {run['queue_peak']}; "
+                 f"predicted {outcomes}, {shed}, {count}, {peak}")
+        if any(s == "ok" and len(out) != 4
+               for _, s, out, _ in run["requests"]):
+            fail(f"resilience admission {policy}: an ok request lacks "
+                 f"tokens: {run['requests']}")
+        rec[policy] = {"accepted": sum(o[0] for o in outcomes),
+                       "shed_count": count, "shed_uids": shed,
+                       "queue_peak": peak, "ticks": run["decode_calls"]}
+    return rec, runs_all
+
+
+def _res_deadlines(cfg, make_qp, make_fp32, device, rehearse):
+    """Case 2: qp bf16 with default_deadline=40 and preempt_after=8 under
+    delay_admission at ticks 8 and 9 (16 requests x 24 tokens, 8 slots):
+    "ok" and "deadline" both occur, the counters match the statuses. Then
+    the fp32 master with preempt_after=4 (12 requests x 12 tokens): every
+    request finishes "ok" with the tokens of the same engine undisturbed.
+    Returns (record, captured runs, the undisturbed fp32 output)."""
+    from repro_torch.serving.resilience import FaultPlan
+    reqs = _res_prompts(cfg.vocab_size, 16)
+
+    def drive(mk):
+        eng = mk(default_deadline=40, preempt_after=8,
+                 fault_plan=FaultPlan(delay_admission=[8, 9]))
+        for p in reqs:
+            eng.submit(p, max_new=24)
+        return {"run": _res_record(eng, eng.run_all(max_ticks=200))}
+    runs = _res_twins("deadlines qp bf16", make_qp, drive, device, rehearse)
+    run = runs["captured"]["out"]["run"]
+    statuses = [s for _, s, _, _ in run["requests"]]
+    if (set(statuses) != {"ok", "deadline"}
+            or run["deadline_miss_count"] != statuses.count("deadline")
+            or not 0 < run["preempt_count"]
+            == sum(p for *_, p in run["requests"])
+            or any(len(o) != 24 for _, s, o, _ in run["requests"]
+                   if s == "ok")
+            or any(len(o) >= 24 for _, s, o, _ in run["requests"]
+                   if s == "deadline")):
+        fail(f"resilience deadlines: {run}")
+    rec = {"qp_bf16": {"statuses": {s: statuses.count(s)
+                                    for s in sorted(set(statuses))},
+                       "deadline_miss_count": run["deadline_miss_count"],
+                       "preempt_count": run["preempt_count"],
+                       "ticks": run["decode_calls"]}}
+    caps = [runs["captured"]]
+    reqs32 = _res_prompts(cfg.vocab_size, 12)
+
+    def drive32(mk, preempt=4):
+        eng = mk(preempt_after=preempt)
+        for p in reqs32:
+            eng.submit(p, max_new=12)
+        return {"run": _res_record(eng, eng.run_all(max_ticks=200))}
+    runs = _res_twins("preemption fp32", make_fp32, drive32, device,
+                      rehearse)
+    calm = _res_run(make_fp32, lambda mk: drive32(mk, None), None, device)
+    caps += [runs["captured"], calm]
+    got = runs["captured"]["out"]["run"]["requests"]
+    want = calm["out"]["run"]["requests"]
+    same = [g[2] == w[2] for g, w in zip(got, want)]
+    rec["fp32"] = {"preempt_count":
+                   runs["captured"]["out"]["run"]["preempt_count"],
+                   "requests_matching_undisturbed": f"{sum(same)}/"
+                                                    f"{len(same)}"}
+    if (not all(s == "ok" for _, s, _, _ in got) or not all(same)
+            or not rec["fp32"]["preempt_count"]):
+        fail(f"resilience preemption fp32: tokens differ from the "
+             f"undisturbed engine's: {got} vs {want}")
+    return rec, caps, {u: o for u, _, o, _ in want}
+
+
+def _res_ladder(cfg, master, params, device, rehearse):
+    """Case 3: the fp32 spec engine (spec_k 4, the qp export drafting)
+    with tick failures at 2 and 5: spec -> plain, then kernels -> plain
+    versions; the graphs captured again after each step; the four serving
+    kernels launched before tick 5 and no plain version; after it plain
+    versions only; tokens equal greedy generate."""
+    import torch
+    from repro_torch.core.precision import FLOAT
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine, generate
+    from repro_torch.serving.resilience import FaultPlan
+    dcfg, dparams = api.draft_of(cfg, params)
+    reqs = _res_prompts(cfg.vocab_size, 8, lens=(6,))
+
+    def make(capture):
+        return ServingEngine(master, cfg, policy=FLOAT, slots=8,
+                             max_len=512, dtype=torch.float32,
+                             spec_k=SPEC_K, draft_params=dparams,
+                             draft_cfg=dcfg,
+                             fault_plan=FaultPlan(fail_ticks=[2, 5]),
+                             capture=capture, device=device)
+
+    def drive(mk):
+        eng = mk()
+        for p in reqs:
+            eng.submit(p, max_new=12)
+        done = []
+        while eng.decode_calls < 5 and (eng.queue or eng._occupied()):
+            eng.step()
+            done += eng.drain()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        at_t2 = read_counts()
+        caps = dict(eng.captures)
+        done += eng.run_all(max_ticks=100)
+        return {"run": _res_record(eng, done), "_at_t2": at_t2,
+                "_caps_at_t2": caps}
+    runs = _res_twins("ladder", lambda c: make(c), drive, device, rehearse,
+                      ladder=True)
+    a = runs["captured"]
+    run = a["out"]["run"]
+    want = [[2, "spec->plain"], [5, "kernel->fallback"]]
+    if run["fallback_events"] != want:
+        fail(f"resilience ladder: fallback_events {run['fallback_events']}")
+    gp = torch.tensor(reqs, dtype=torch.int32)
+    greedy = generate(master, gp, cfg, policy=FLOAT, max_new_tokens=12,
+                      dtype=torch.float32, device=device).cpu()
+    outs = torch.tensor([o for _, _, o, _ in run["requests"]])
+    rec = {"fallback_events": want,
+           "tokens_equal_greedy": bool(torch.equal(outs, greedy[:, 6:]))}
+    for name, r in runs.items():
+        (l2, p2), (l9, p9) = r["out"]["_at_t2"], (r["launches"], r["plain"])
+        rec[f"{name}_launches_before_t2"] = {k: l2[k] for k in ENGINE_KERNELS}
+        rec[f"{name}_plain_after_t2"] = {k: p9[k] - p2[k] for k in p9}
+        if not rehearse:
+            if min(l2[k] for k in ENGINE_KERNELS) <= 0 or max(p2.values()):
+                fail(f"resilience ladder {name}: before tick 5 launches "
+                     f"{l2}, plain calls {p2}")
+            if any(l9[k] != l2[k] for k in l9) \
+                    or p9["attn_decode"] <= p2["attn_decode"]:
+                fail(f"resilience ladder {name}: after tick 5 launches "
+                     f"{l9} (at 5: {l2}), plain {p9} (at 5: {p2})")
+    caps = a["captures"][0]
+    rec["captures"] = {"at_tick_5": a["out"]["_caps_at_t2"], "end": caps}
+    if device.type == "cuda" and (a["out"]["_caps_at_t2"]["tick"] != 2
+                                  or caps["tick"] != 3):
+        fail(f"resilience ladder: tick captures {rec['captures']}, want 2 "
+             f"after spec -> plain and 3 after kernel -> fallback")
+    if not rec["tokens_equal_greedy"]:
+        full = torch.cat([gp, outs], dim=1)
+        rec["first_mismatch"] = _first_mismatch_margin(
+            master, cfg, FLOAT, gp.to(device), full.to(device),
+            greedy.to(device))
+        emit({"phase": "resilience", "ladder": rec})
+        fail(f"resilience ladder: the fp32 tokens differ from greedy: "
+             f"{rec['first_mismatch']}")
+    return rec, [a]
+
+
+def _res_watchdog(cfg, make_qp, device, rehearse):
+    """Case 4: run_all(max_ticks=3) on 16 requests (4 of 2 tokens, 12 of
+    16) raises WatchdogExpired naming the queue depth and the slots; the 4
+    finished requests still drain."""
+    from repro_torch.serving.resilience import WatchdogExpired
+    reqs = _res_prompts(cfg.vocab_size, 16)
+
+    def drive(mk):
+        eng = mk()
+        for i, p in enumerate(reqs):
+            eng.submit(p, max_new=2 if i < 4 else 16)
+        try:
+            eng.run_all(max_ticks=3)
+        except WatchdogExpired as e:
+            diag = e.diagnostics
+        else:
+            fail("resilience watchdog: run_all(max_ticks=3) returned")
+        return {"run": _res_record(eng, eng.drain()),
+                "diagnostics": {k: diag[k] for k in (
+                    "queue_depth", "queued_uids", "active_slots", "slots",
+                    "decode_calls")}}
+    runs = _res_twins("watchdog", make_qp, drive, device, rehearse)
+    out = runs["captured"]["out"]
+    diag, run = out["diagnostics"], out["run"]
+    if (diag["queue_depth"] != 4 or diag["queued_uids"] != [13, 14, 15, 16]
+            or diag["active_slots"] != list(range(8))
+            or [s["uid"] for s in diag["slots"]] != [9, 10, 11, 12, 5, 6,
+                                                     7, 8]
+            or [(u, s, len(o)) for u, s, o, _ in run["requests"]]
+            != [(u, "ok", 2) for u in (1, 2, 3, 4)]):
+        fail(f"resilience watchdog: diagnostics {diag}, drained "
+             f"{run['requests']}")
+    return {"diagnostics": diag, "drained": [u for u, *_ in
+                                             run["requests"]]}, \
+        [runs["captured"]]
+
+
+def _res_snapshot(cfg, make_qp, device, rehearse, tmp):
+    """Case 5a: qp bf16 with snapshot_every=8 and a journal; at tick 12 a
+    timed explicit snapshot; a fresh engine (captured in the captured twin)
+    restored from the tick-8 snapshot continues bit-identical to the
+    uninterrupted run."""
+    import os
+    import torch
+    reqs = _res_prompts(cfg.vocab_size, 8)
+
+    def drive(mk):
+        tag = f"{len(os.listdir(tmp))}"
+        snaps, jpath = f"{tmp}/snap{tag}", f"{tmp}/wal{tag}.jsonl"
+        eng = mk(snapshot_dir=snaps, snapshot_every=8, journal=jpath)
+        for p in reqs:
+            eng.submit(p, max_new=24)
+        while eng.decode_calls < 12:
+            eng.step()
+        sync = torch.cuda.synchronize if device.type == "cuda" \
+            else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        path = eng.snapshot(f"{tmp}/explicit{tag}")
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+        donor = _res_record(eng, eng.drain() + eng.run_all(max_ticks=100))
+        fresh = mk()
+        sync()
+        t0 = time.perf_counter()
+        fresh.restore(snaps, step=8)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if fresh.decode_calls != 8:
+            fail(f"resilience snapshot: restored at tick "
+                 f"{fresh.decode_calls}, not 8")
+        restored = _res_record(fresh, fresh.run_all(max_ticks=100))
+        return {"donor": donor, "tokens": donor["requests"],
+                "restored_tokens": restored["requests"],
+                "_ms": {"snapshot_ms": snap_ms, "snapshot_bytes": nbytes,
+                        "restore_ms": restore_ms}}
+    runs = _res_twins("snapshot", make_qp, drive, device, rehearse)
+    out = runs["captured"]["out"]
+    if out["restored_tokens"] != out["tokens"]:
+        fail(f"resilience snapshot: the restored engine's tokens "
+             f"{out['restored_tokens']} differ from the uninterrupted "
+             f"run's {out['tokens']}")
+    return {"restored_equals_uninterrupted": True,
+            "captured": runs["captured"]["out"]["_ms"],
+            "eager": runs["eager"]["out"]["_ms"]}, [runs["captured"]]
+
+
+def _res_crash(cfg, make_fp32, device, rehearse, tmp):
+    """Case 5b: the fp32 master, 12 requests x 12 tokens into
+    queue_limit=10 (drop_oldest sheds 2), one with a 3-tick deadline, NaN
+    in slot 2 at tick 3; snapshot_every=4 and a journal. A crash at tick 5
+    and at tick 11, each recovered on a fresh engine: the union of the
+    drains before the crash and the recovered output is the uncrashed
+    run; shed, deadline and poisoned requests stay dead."""
+    import os
+    from repro_torch.serving.resilience import FaultPlan, InjectedCrash
+    reqs = _res_prompts(cfg.vocab_size, 12)
+    nan = [(3, 2)]
+
+    def submit(eng):
+        for i, p in enumerate(reqs):
+            eng.submit(p, max_new=12, deadline_ticks=3 if i == 2 else None)
+
+    def outputs(done):
+        return {r.uid: [r.status, list(r.out)] for r in done}
+
+    def ref_drive(mk):
+        eng = mk(queue_limit=10, shed_policy="drop_oldest",
+                 fault_plan=FaultPlan(nan_logits=nan))
+        submit(eng)
+        return {"ref": outputs(eng.run_all(max_ticks=100)),
+                "run": _res_record(eng, [])}
+    ref = _res_twins("crash reference", make_fp32, ref_drive, device,
+                     rehearse)
+    want = ref["captured"]["out"]["ref"]
+    if sorted(s for s, _ in want.values()) != sorted(
+            ["deadline", "poisoned", "shed", "shed"] + ["ok"] * 8):
+        fail(f"resilience crash: the uncrashed run's statuses {want}")
+    rec, caps = {}, [ref["captured"]]
+    for crash in (5, 11):
+        def drive(mk):
+            tag = f"{len(os.listdir(tmp))}"
+            snaps, jpath = f"{tmp}/crash{tag}", f"{tmp}/crash{tag}.jsonl"
+            eng = mk(queue_limit=10, shed_policy="drop_oldest",
+                     snapshot_dir=snaps, snapshot_every=4, journal=jpath,
+                     fault_plan=FaultPlan(nan_logits=nan,
+                                          crash_at_tick=crash))
+            submit(eng)
+            delivered = {}
+            try:
+                while eng.queue or eng._occupied():
+                    eng.step()
+                    delivered.update(outputs(eng.drain()))
+            except InjectedCrash:
+                pass
+            else:
+                fail(f"resilience crash: no crash at tick {crash}")
+            fresh = mk(queue_limit=10, shed_policy="drop_oldest",
+                       snapshot_dir=snaps, journal=jpath,
+                       fault_plan=FaultPlan(nan_logits=nan))
+            stats = fresh.recover()
+            recovered = outputs(fresh.run_all(max_ticks=100))
+            return {"delivered": delivered, "stats": stats,
+                    "recovered": recovered,
+                    "run": _res_record(fresh, [])}
+        runs = _res_twins(f"crash at {crash}", make_fp32, drive, device,
+                          rehearse)
+        caps.append(runs["captured"])
+        out = runs["captured"]["out"]
+        d, r = out["delivered"], out["recovered"]
+        if ({**d, **r} != want
+                or any(d[u] != r[u] for u in set(d) & set(r))):
+            fail(f"resilience crash at {crash}: delivered {d}, recovered "
+                 f"{r}, uncrashed {want}")
+        rec[f"crash_at_{crash}"] = {
+            **out["stats"], "delivered_before_crash": len(d),
+            "recovered": len(r), "delivered_twice": len(set(d) & set(r))}
+    rec["uncrashed_statuses"] = {s: sum(v[0] == s for v in want.values())
+                                 for s in ("ok", "shed", "deadline",
+                                           "poisoned")}
+    return rec, caps
+
+
+def _flip_bit_index(leaf, elem, within):
+    """The bit index, in the leaf's logical C order, of bit ``within`` of
+    element ``elem`` (a tuple index)."""
+    import numpy as np
+    flat = int(np.ravel_multi_index(elem, tuple(leaf.shape)))
+    return flat * 8 * leaf.element_size() + within
+
+
+def _on(tree, device):
+    """``tree`` with every tensor on ``device`` (the K-major head keeps its
+    layout)."""
+    return {k: _on(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _res_integrity(cfg, params, master, make_qp, make_fp32, calm32, device,
+                   rehearse, tmp, clock):
+    """Case 6: a bit flipped at tick 6 in a served 3-bit field of layer 0's
+    down-projection container (qp bf16, integrity_every=4, golden_dir): the
+    probe at tick 8 finds it, the heal reloads the leaf in place, the
+    manifest is clean, every request finishes; on the fp32 master (a
+    mantissa bit of the same projection) the tokens equal the clean run's;
+    with no probe the flip changes the K/V that the next replayed tick
+    writes against a clean engine's. Prints the probe's ms beside its
+    bound."""
+    import os
+
+    import torch
+    from repro_torch.checkpoint import integrity
+    from repro_torch.core.treeutil import tree_get
+    from repro_torch.serving.resilience import FaultPlan
+    reqs = _res_prompts(cfg.vocab_size, 8)
+    leaf = tree_get(params, RES_FLIP)
+    kp, n = leaf.shape[1:]
+    # the sign bit of field 4 of a word in layer 0: a served level moves
+    bit = _flip_bit_index(leaf, (0, kp // 2, n // 3), 4 * 3 + 2)
+    rec, caps = {"leaf": RES_FLIP, "bit": bit}, []
+    probe_ms = {}
+
+    def drive(mk):
+        eng = mk(integrity_every=4,
+                 golden_dir=f"{tmp}/golden{len(os.listdir(tmp))}",
+                 fault_plan=FaultPlan(flip_bits=[(6, RES_FLIP, bit)]))
+        for p in reqs:
+            eng.submit(p, max_new=16)
+        run = _res_record(eng, eng.run_all(max_ticks=100))
+        clean = integrity.verify_manifest(eng.params, eng._manifest) == []
+        if eng.graphs.capture or device.type != "cuda":
+            work = lambda: eng.graphs.run("probe", eng._probe_work)  # noqa
+            probe_ms.update(ms=clock(work), device_ms=clock.device_ms(work))
+        probe_ms["bytes"] = sum(tree_get(eng.params, p).numel()
+                                * tree_get(eng.params, p).element_size()
+                                for p in eng._probe_paths)
+        return {"run": run, "manifest_clean": clean}
+    runs = _res_twins("integrity qp", make_qp, drive, device, rehearse)
+    caps.append(runs["captured"])
+    run = runs["captured"]["out"]["run"]
+    if (run["heal_count"] != 1
+            or run["fallback_events"] != [[8, f"heal:{RES_FLIP}"]]
+            or not runs["captured"]["out"]["manifest_clean"]
+            or any(s != "ok" or len(o) != 16
+                   for _, s, o, _ in run["requests"])):
+        fail(f"resilience integrity qp: {run}")
+    rec["qp_bf16"] = {"heal_count": 1, "integrity_probes":
+                      run["integrity_probes"],
+                      "fallback_events": run["fallback_events"],
+                      "manifest_clean_after_heal": True}
+    bound, _ = bound_ms(probe_ms["bytes"], 0, "bfloat16")
+    rec["probe"] = {"protected_bytes": probe_ms["bytes"],
+                    "ms": probe_ms.get("ms"),
+                    "device_ms": probe_ms.get("device_ms"),
+                    "bound_ms": bound, "bound_by": "bytes"}
+    # the fp32 master: a mantissa bit of the same projection's weight
+    w = tree_get(master, "layers/mlp/down/w")
+    bit32 = _flip_bit_index(w, (0, w.shape[1] // 2, w.shape[2] // 3), 22)
+    reqs32 = _res_prompts(cfg.vocab_size, 12)
+
+    def drive32(mk):
+        eng = mk(integrity_every=4,
+                 fault_plan=FaultPlan(flip_bits=[(6, "layers/mlp/down/w",
+                                                   bit32)]))
+        for p in reqs32:
+            eng.submit(p, max_new=12)
+        return {"run": _res_record(eng, eng.run_all(max_ticks=100))}
+    runs = _res_twins("integrity fp32", make_fp32, drive32, device,
+                      rehearse)
+    caps.append(runs["captured"])
+    run = runs["captured"]["out"]["run"]
+    got = {u: o for u, _, o, _ in run["requests"]}
+    if run["heal_count"] != 1 or got != calm32:
+        fail(f"resilience integrity fp32: heal_count {run['heal_count']}, "
+             f"tokens {got} vs the clean run's {calm32}")
+    rec["fp32"] = {"heal_count": 1, "tokens_equal_clean_run": True}
+    # no probe: the flip reaches the K/V the next replayed tick writes.
+    # Layer 0's down projection runs after its attention, so layer 0's K/V
+    # stay equal; every later layer reads the flipped output
+    for name, capture in (("captured", None), ("eager", False)):
+        engines = [make_qp(capture, fault_plan=plan)
+                   for plan in (None, FaultPlan(
+                       flip_bits=[(3, RES_FLIP, bit)]))]
+        for eng in engines:
+            for p in reqs:
+                eng.submit(p, max_new=16)
+        diffs, layers = [], []
+        for _ in range(4):
+            for eng in engines:
+                eng.step()
+            a, b = (torch.stack([e.cache["k"], e.cache["v"]]).float()
+                    for e in engines)
+            d = (a - b).abs().flatten(2).amax(dim=(0, 2))     # per layer
+            diffs.append(float(d.max()))
+            layers.append(d.nonzero().flatten().tolist())
+        rec[f"no_probe_{name}"] = {
+            "max_abs_kv_change_by_tick": diffs,
+            "kv_layers_changed_at_tick_3": layers[3]}
+        if any(diffs[:3]) or not diffs[3] > 0:
+            fail(f"resilience integrity: with no probe the flip did not "
+                 f"reach the {name} tick's K/V: {rec[f'no_probe_{name}']}")
+        del engines, a, b
+    return rec, caps
+
+
+def resilience_phase(cfg, master, params, device, rehearse):
+    """Overload hardening and durability on the full-width qwen2-1.5b:
+    every case captured and as its capture=False twin, under the same
+    FaultPlan. Returns the captured runs' summed launches and variants."""
+    import gc
+    import tempfile
+
+    import torch
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.serving.engine import ServingEngine
+    clock = Clock(device, reps=3 if rehearse else 20)
+    t_start = time.perf_counter()
+
+    def make_qp(capture, **kw):
+        return ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
+                             dtype=torch.bfloat16, capture=capture,
+                             device=device, **kw)
+
+    def make_fp32(capture, **kw):
+        return ServingEngine(master, cfg, policy=FLOAT, slots=8,
+                             max_len=512, dtype=torch.float32,
+                             capture=capture, device=device, **kw)
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = {"phase": "resilience",
+           "engines": "ServingEngine(slots=8, max_len=512): W3A8 qp export "
+                      "in bf16 (bf16 KV), the fp32 master (FLOAT); each "
+                      "case captured and as its capture=False twin"}
+    runs, timing = [], {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, case in (
+                ("admission", lambda: _res_admission(
+                    cfg, make_qp, device, rehearse)),
+                ("deadlines_preemption", lambda: _res_deadlines(
+                    cfg, make_qp, make_fp32, device, rehearse)),
+                ("ladder", lambda: _res_ladder(cfg, master, params, device,
+                                               rehearse)),
+                ("watchdog", lambda: _res_watchdog(cfg, make_qp, device,
+                                                   rehearse)),
+                ("snapshot", lambda: _res_snapshot(cfg, make_qp, device,
+                                                   rehearse, tmp)),
+                ("crash_recovery", lambda: _res_crash(
+                    cfg, make_fp32, device, rehearse, tmp)),
+                ("integrity", lambda: _res_integrity(
+                    cfg, params, master, make_qp, make_fp32, calm32, device,
+                    rehearse, tmp, clock))):
+            t0 = time.perf_counter()
+            res = case()
+            if name == "deadlines_preemption":
+                rec, got, calm32 = res
+            else:
+                rec, got = res
+            out[name] = rec
+            runs += got
+            timing[name] = round(time.perf_counter() - t0, 2)
+            gc.collect()
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    variants = {n: {v: sum(r["variants"][n][v] for r in runs)
+                    for v in d} for n, d in runs[0]["variants"].items()}
+    out.update(launches=launches, launches_by_variant=variants,
+               seconds_by_case=timing,
+               seconds=round(time.perf_counter() - t_start, 2))
+    emit(out)
+    if not rehearse and min(launches[k] for k in ENGINE_KERNELS) <= 0:
+        fail(f"resilience: a serving kernel never launched: {launches}")
+    return launches, variants
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -1787,7 +2502,9 @@ def main(argv=None) -> int:
     path_phase(cfg, params, device)
     spec_launches, spec_variants = spec_phase(cfg, master, params, device,
                                               qp_tok_s, args.rehearse)
-    del params, master
+    # parked on the host while the paper, deploy and dense phases hold the
+    # card, back for the resilience phase
+    master, params = _on(master, "cpu"), _on(params, "cpu")
     if device.type == "cuda":
         torch.cuda.empty_cache()
     digit, metrics, paper_launches = paper_phase(device, args.rehearse)
@@ -1795,6 +2512,10 @@ def main(argv=None) -> int:
         digit, metrics["w3a8_mcr"], device, args.seed, args.rehearse)
     dense_launches, dense_variants = dense_phase(device, args.seed,
                                                  args.rehearse)
+    master, params = _on(master, device), _on(params, device)
+    res_launches, res_variants = resilience_phase(cfg, master, params,
+                                                  device, args.rehearse)
+    del master, params
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
@@ -1804,7 +2525,8 @@ def main(argv=None) -> int:
             by_path["spec"] = spec_launches[name]
         by_path.update(paper=paper_launches[name],
                        deploy=deploy_launches[name],
-                       dense=dense_launches[name])
+                       dense=dense_launches[name],
+                       resilience=res_launches[name])
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1823,7 +2545,8 @@ def main(argv=None) -> int:
                                      "engine_int8_kv": variants8[name],
                                      "spec": spec_variants[name],
                                      "deploy": deploy_variants[name],
-                                     "dense": dense_variants[name]})
+                                     "dense": dense_variants[name],
+                                     "resilience": res_variants[name]})
         kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)

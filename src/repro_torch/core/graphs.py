@@ -21,9 +21,15 @@ nothing. Every replay adds them, so the counters read after a replayed call
 what they read after an eager one. ``Graphs.captures`` counts captures by
 key, the counterpart of the reference's ``_cache_size()``.
 
+``Graphs.warmup_launches`` holds what the warm-ups launched (they do run
+the kernels), so a captured run's counters less it equal an eager run's.
+
 ``capture=False`` runs every work eagerly (the counterpart of
 ``jax.disable_jit``). A capture or replay that fails raises; nothing falls
-back to eager.
+back to eager. :meth:`Graphs.reset` drops every graph (the engine's
+degradation ladder changes what the work launches, as the reference
+re-jits); the next call of each key captures it again, and ``captures``
+keeps counting.
 
 :func:`index_drop_` is the reference's ``.at[idx].set(mode="drop")`` without
 a host sync, so a fixed-length index whose padding points past the end
@@ -98,6 +104,17 @@ def _diff(after: Counters, before: Counters) -> Counters:
     return out
 
 
+def _merge(into: Counters, delta: Counters) -> None:
+    """Add the counters ``delta`` to ``into``, in place."""
+    for key, v in delta.items():
+        if isinstance(v, dict):
+            split = into.setdefault(key, {})
+            for k, n in v.items():
+                split[k] = split.get(k, 0) + n
+        else:
+            into[key] = into.get(key, 0) + v
+
+
 class _Graph:
     """One captured CUDA graph and the launches its capture recorded."""
 
@@ -156,7 +173,18 @@ class Graphs:
             else capture
         self.generator = generator       # drawn from by the work: registered
         self.captures: Dict[Hashable, int] = {}
+        self.warmup_launches: Counters = {}
         self._graphs: Dict[Hashable, _Graph] = {}
+        self._pool = None
+
+    def reset(self) -> None:
+        """Drop every captured graph and its memory pool; each key is
+        captured again at its next call. On the card the stream drains
+        first, so no replay still running reads memory the pool gives
+        back."""
+        if self._graphs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
         self._pool = None
 
     def run(self, key: Hashable, fn: Callable[[], None],
@@ -174,6 +202,7 @@ class Graphs:
 
     def _capture(self, key, fn, idle) -> _Graph:
         gen = self.generator
+        before = read_counters()
         with idle():
             rng = None if gen is None else gen.get_state()
             if self.device.type == "cuda":
@@ -189,6 +218,7 @@ class Graphs:
                     fn()
             if rng is not None:          # warm-ups draw nothing for real
                 gen.set_state(rng)
+        _merge(self.warmup_launches, _diff(read_counters(), before))
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = self._graphs[key] = _Graph(fn, self._pool, gen)

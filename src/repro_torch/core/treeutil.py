@@ -6,8 +6,9 @@ from typing import Any, Callable, Dict
 
 import torch
 
-__all__ = ["map_with_path", "flatten_with_path", "unflatten", "role_of",
-           "tree_size", "tree_nbytes", "any_nan"]
+__all__ = ["map_with_path", "flatten_with_path", "unflatten", "tree_get",
+           "tree_set", "tree_write_", "role_of", "tree_size", "tree_nbytes",
+           "any_nan"]
 
 
 def map_with_path(fn: Callable[[str, Any], Any], tree: Any, _prefix: str = "") -> Any:
@@ -42,6 +43,48 @@ def unflatten(flat: Dict[str, Any]) -> Any:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
     return tree
+
+
+def tree_get(tree: Any, path: str) -> Any:
+    """Leaf at a ``flatten_with_path``-style '/'-joined path. KeyError names
+    the missing path segment."""
+    node = tree
+    for p in path.split("/"):
+        if not isinstance(node, dict) or p not in node:
+            raise KeyError(f"no leaf at {path!r} (missing {p!r})")
+        node = node[p]
+    return node
+
+
+def tree_set(tree: Any, path: str, value: Any) -> Any:
+    """Functional single-leaf update: a new tree with ``path`` replaced by
+    ``value``. Only the dicts along the path are copied (siblings shared).
+    The path must already exist (this repairs leaves, it does not grow
+    trees)."""
+    parts = path.split("/")
+    tree_get(tree, path)                      # validate before copying
+    out = dict(tree)
+    node = out
+    for p in parts[:-1]:
+        node[p] = dict(node[p])
+        node = node[p]
+    node[parts[-1]] = value
+    return out
+
+
+def tree_write_(tree: Any, path: str, value: Any) -> torch.Tensor:
+    """In-place single-leaf update: ``value`` is copied into the storage of
+    the tensor at ``path`` (same shape, in its logical order, whatever its
+    strides), so code that holds that tensor by address — a captured CUDA
+    graph — reads the new contents. Returns the leaf."""
+    leaf = tree_get(tree, path)
+    value = torch.as_tensor(value)
+    if tuple(value.shape) != tuple(leaf.shape):
+        raise ValueError(f"tree_write_ {path!r}: shape {tuple(value.shape)} "
+                         f"!= leaf shape {tuple(leaf.shape)}")
+    with torch.no_grad():
+        leaf.copy_(value)
+    return leaf
 
 
 def tree_size(tree: Any) -> int:

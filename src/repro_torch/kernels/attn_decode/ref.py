@@ -22,8 +22,10 @@ calls = 0
 
 def scale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     """q * scale in q's dtype, the scalar rounded to that dtype first (JAX's
-    weakly typed scalar multiply)."""
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    weakly typed scalar multiply). The scalar is rounded on the host: a
+    scalar tensor copied to the card would synchronise the stream, which no
+    captured graph may do."""
+    return q * torch.tensor(scale, dtype=q.dtype).item()
 
 
 def attn_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -19,7 +19,10 @@ def qmatmul_ref(x: torch.Tensor, w_q: torch.Tensor, delta,
     calls += 1
     out_dtype = out_dtype or x.dtype
     acc = torch.matmul(x.to(torch.float32), w_q.to(torch.float32))
-    acc = acc * torch.as_tensor(delta, dtype=torch.float32, device=x.device)
+    # a Python scalar multiplies as one: copied to the card as a tensor it
+    # would synchronise the stream, which no captured graph may do
+    acc = acc * (delta if isinstance(delta, (int, float)) else
+                 torch.as_tensor(delta, dtype=torch.float32, device=x.device))
     if bias is not None:
         acc = acc + bias.to(torch.float32)
     return acc.to(out_dtype)

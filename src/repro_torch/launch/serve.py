@@ -12,8 +12,18 @@ master on the card, and qwen2.5-14b's (59 GB) and qwen3-32b's (131 GB) do
 not fit one 80 GB card at full depth. ``--spec-k K`` serves speculatively:
 the packed 3-bit export of the same master weights drafts K tokens a tick
 (``--draft-depth`` keeps a leading share of its layers) and the target
-verifies them. The same flags as the reference's ``launch/serve.py`` for
-what the port supports (no overload or durability flags yet).
+verifies them. The same flags as the reference's ``launch/serve.py``,
+the overload and durability ones among them:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --requests 16 --slots 2 --queue-limit 8 --shed-policy drop_oldest \
+        --deadline 48 --preempt 8 --max-ticks 512
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+        --requests 8 --slots 4 --snapshot-dir snaps --snapshot-every 16 \
+        --journal serve.jsonl --integrity-every 32 [--resume]
+
+The counters print after the run as the reference prints them.
 """
 from __future__ import annotations
 
@@ -105,6 +115,45 @@ def main(argv=None):
                          "proposes this many tokens a tick (0 = off)")
     ap.add_argument("--draft-depth", type=float, default=1.0,
                     help="share of the layers the drafter keeps")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="bounded admission: queued requests past this "
+                         "depth are shed per --shed-policy")
+    ap.add_argument("--shed-policy", default="reject",
+                    choices=["reject", "drop_oldest"],
+                    help="what bounded admission sheds when the queue is "
+                         "full: the new request, or the oldest queued one")
+    ap.add_argument("--deadline", type=int, default=None,
+                    help="default per-request deadline in decode ticks; "
+                         "expired requests are cancelled mid-stream "
+                         "(partial output, status='deadline')")
+    ap.add_argument("--preempt", type=int, default=None,
+                    help="preempt a slot held this many ticks when the "
+                         "queue has waiters; the request requeues with its "
+                         "committed tokens")
+    ap.add_argument("--max-ticks", type=int, default=None,
+                    help="watchdog: abort run_all with a diagnostic dump "
+                         "after this many step() calls")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="durability: persist atomic engine snapshots here "
+                         "(device caches, host bookkeeping, generator state)")
+    ap.add_argument("--snapshot-every", type=int, default=None,
+                    help="snapshot every N decode ticks (needs "
+                         "--snapshot-dir)")
+    ap.add_argument("--journal", default=None,
+                    help="write-ahead JSONL journal of submit/admit/commit/"
+                         "finish/shed events (the replay tail for --resume)")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover before serving: restore the latest "
+                         "snapshot under --snapshot-dir and resubmit the "
+                         "journal tail (then also submit this run's "
+                         "requests)")
+    ap.add_argument("--integrity-every", type=int, default=None,
+                    help="run the weight-store fingerprint probe every N "
+                         "ticks; detected corruption is healed from the "
+                         "golden copy")
+    ap.add_argument("--golden-dir", default=None,
+                    help="also persist the golden weight copy + CRC "
+                         "manifest here (checkpoint.integrity)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -120,7 +169,22 @@ def main(argv=None):
                         attn_mode=args.attn_mode,
                         kv_bits=8 if args.kv8 else None, seed=args.seed,
                         spec_k=args.spec_k, draft_params=draft_params,
-                        draft_cfg=draft_cfg, device=args.device)
+                        draft_cfg=draft_cfg,
+                        queue_limit=args.queue_limit,
+                        shed_policy=args.shed_policy,
+                        default_deadline=args.deadline,
+                        preempt_after=args.preempt,
+                        max_ticks=args.max_ticks,
+                        snapshot_dir=args.snapshot_dir,
+                        snapshot_every=args.snapshot_every,
+                        journal=args.journal,
+                        integrity_every=args.integrity_every,
+                        golden_dir=args.golden_dir, device=args.device)
+    if args.resume:
+        stats = eng.recover()
+        print(f"recovered: snapshot step {stats['restored_step']}, "
+              f"{stats['replayed_events']} journal events replayed, "
+              f"{stats['resubmitted']} requests resubmitted")
     # mixed prompt lengths: exercises the length-bucketed batched admission
     lens = [4, 8, 5, 12, 3, 16, 7, 9]
     t0 = time.time()
@@ -139,6 +203,24 @@ def main(argv=None):
           f"({toks / max(eng.decode_calls, 1):.2f} tok/tick), "
           f"{eng.prefill_calls} bucketed prefill calls "
           f"({len(done) / max(eng.prefill_calls, 1):.2f} req/prefill)")
+    if (args.queue_limit is not None or args.deadline is not None
+            or args.preempt is not None):
+        by_status: dict = {}
+        for r in done:
+            by_status[r.status] = by_status.get(r.status, 0) + 1
+        print(f"resilience: statuses {by_status}, "
+              f"shed {eng.shed_count}, "
+              f"deadline misses {eng.deadline_miss_count}, "
+              f"preemptions {eng.preempt_count}, "
+              f"poisoned {eng.poisoned_count}, "
+              f"queue peak {eng.queue_peak}")
+    if (args.snapshot_dir is not None or args.journal is not None
+            or args.integrity_every is not None):
+        print(f"durability: snapshots written {eng.snapshots_written}, "
+              f"journal events {eng.journal_events}, "
+              f"replayed {eng.replayed_events}, "
+              f"integrity probes {eng.integrity_probes}, "
+              f"heals {eng.heal_count}")
     if args.spec_k:
         print(f"spec accept rate {eng.spec_accept_rate:.3f} "
               f"({eng.spec_accepted}/{eng.spec_drafted} drafts, "

@@ -9,6 +9,7 @@ the families the port serves (dense).
     draft_of(cfg, params, depth_fraction=)               -> (draft_cfg, qp params)
     init_cache(cfg, batch, max_len, ...)                 -> cache
     insert_prefill / insert_prefill_many / free_slots    -> cache (in place)
+    cache_to_host(cfg, cache) / cache_from_host(cfg, host, like=)
 
 ``matmul_mode="auto"|"kernel"|"dequant"`` and ``attn_mode="auto"|"kernel"|
 "ref"`` select the CUDA kernels or their plain versions; 'auto' takes the
@@ -26,11 +27,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.precision import W3A8
+from repro_torch.core.treeutil import flatten_with_path, unflatten
 from repro_torch.models import transformer
 
 __all__ = ["get_model", "init_cache", "prefill", "decode_step",
            "verify_step", "rollback_cache", "spec_state_snapshot", "draft_of",
-           "insert_prefill", "insert_prefill_many", "free_slots"]
+           "insert_prefill", "insert_prefill_many", "free_slots",
+           "cache_to_host", "cache_from_host"]
 
 _FAMILY_MODULE = {"dense": transformer}
 
@@ -123,3 +126,52 @@ def insert_prefill(cfg: ModelConfig, cache, slot, src):
 
 def insert_prefill_many(cfg: ModelConfig, cache, slot_map, src):
     return get_model(cfg).insert_prefill_many(cache, slot_map, src)
+
+
+def cache_to_host(cfg: ModelConfig, cache):
+    """A device cache (or any tree of tensors) on the host, dtype- and
+    structure-preserving, with ONE device-to-host copy for the whole tree:
+    the leaves' bytes are gathered into one buffer on the device, copied,
+    and cut back into leaves on the host. Bit-identical round trip through
+    :func:`cache_from_host`: bf16 or int8 K/V, the int8 scales and the
+    per-slot ``len``."""
+    del cfg                        # every family is a tree of tensors
+    flat = flatten_with_path(cache)
+    if not flat:
+        return unflatten({})
+    parts = [v.detach().contiguous().reshape(-1).view(torch.uint8)
+             for v in flat.values()]
+    host = torch.cat(parts).cpu() if len(parts) > 1 else parts[0].cpu()
+    out, at = {}, 0
+    for (path, v), part in zip(flat.items(), parts):
+        n = part.numel()
+        out[path] = host[at:at + n].clone().view(v.dtype).reshape(v.shape)
+        at += n
+    return unflatten(out)
+
+
+def cache_from_host(cfg: ModelConfig, host_cache, *, like=None, device=None):
+    """A :func:`cache_to_host` snapshot back on ``device`` (default: the
+    device of ``like``, else the card). ``like`` (the engine's live cache)
+    makes it validating: the paths, shapes and dtypes must match it
+    exactly, so a snapshot of another engine config fails here and not in
+    decode later."""
+    flat_h = flatten_with_path(host_cache)
+    if like is not None:
+        flat_l = flatten_with_path(like)
+        if sorted(flat_h) != sorted(flat_l):
+            raise ValueError(
+                f"cache snapshot structure mismatch for {cfg.name}: "
+                f"snapshot has {sorted(flat_h)}, engine expects "
+                f"{sorted(flat_l)}")
+        for p, h in flat_h.items():
+            ref = flat_l[p]
+            if tuple(h.shape) != tuple(ref.shape) or h.dtype != ref.dtype:
+                raise ValueError(
+                    f"cache snapshot leaf {p} is {tuple(h.shape)}/{h.dtype}, "
+                    f"engine expects {tuple(ref.shape)}/{ref.dtype} — the "
+                    f"snapshot was taken under another engine config")
+        device = device or next(iter(flat_l.values())).device
+    device = device or "cuda"
+    return unflatten({p: torch.as_tensor(h).to(device)
+                      for p, h in flat_h.items()})

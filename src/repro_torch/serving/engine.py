@@ -1,6 +1,6 @@
 """Batched continuous-batching serving engine — port of the reference's
-``serving/engine.py`` with speculative decoding and the NaN quarantine,
-without the rest of overload hardening or durability.
+``serving/engine.py``: speculative decoding, the NaN quarantine, overload
+hardening and durability.
 
   * ONE shared slot-major cache — ``(slots, ...)`` rows with per-slot
     length counters — allocated once at construction. The reference
@@ -47,14 +47,50 @@ without the rest of overload hardening or durability.
     ``spec_accept_rate`` and each request's ``ticks`` and ``accept_hist``
     are folded in at drain.
 
-A tick that fails raises: the reference's degradation ladder, preemption
-and deadlines are not ported.
-At T > 0 the sampled streams differ from the reference's (``torch``
-generator vs ``jax.random``); at T = 0 both are greedy.
+Overload hardening (``serving.resilience``): admission is BOUNDED
+(``queue_limit``, ``shed_policy`` "reject" / "drop_oldest", ``shed_count``,
+``queue_peak``); per-request DEADLINES (``submit(deadline_ticks=)``,
+``default_deadline``) cancel a request in the queue or mid-stream
+(``status == "deadline"``, partial output kept); PREEMPTION
+(``preempt_after``) frees a slot held that long while the queue has
+waiters and requeues its request through bucketed admission with its
+committed tokens. A slot released outside the tick is deactivated and its
+cache rows zeroed by fixed-length, in-place device writes between calls
+(``index_drop_``, ``free_slots``), never inside a graph. A failed tick
+walks the DEGRADATION LADDER (spec -> plain tick, kernels -> their plain
+versions); each step drops the captured graphs, which the next call
+captures again in the new mode (``captures`` counts both), and is recorded
+in ``fallback_events`` and logged. On a CUDA device only an injected
+``FaultPlan`` failure walks it: any other failure raises.
+``run_all(max_ticks=)`` is a WATCHDOG raising ``WatchdogExpired`` with a
+diagnostic dump.
+
+Durability (``serving.durability``, ``checkpoint.integrity``): SNAPSHOTS
+(``snapshot_dir`` / ``snapshot_every`` or ``snapshot()``) persist the
+device state — caches, per-slot vectors, the sampling generator's state —
+and all host bookkeeping; ``restore()`` writes them back IN PLACE, into
+the tensors the captured graphs read. A WRITE-AHEAD JOURNAL (``journal=``)
+logs submit / admit / commit / finish / shed events, so ``recover()`` on a
+fresh engine restores the latest snapshot and resubmits the journal tail.
+The WEIGHT-INTEGRITY probe (``integrity_every``, optional ``golden_dir``)
+fingerprints the protected leaves every N ticks (a graph of its own on the
+card); a mismatch reloads the corrupt leaf from its golden copy IN PLACE
+and rewinds the requests that could have read it. ``FaultPlan``'s
+``flip_bits`` also write in place, into the engine's own copy of each leaf
+the plan names, so an injected flip reaches the captured tick, the heal
+repairs what it reads, and the caller's tensors stay clean.
+
+Token parity across preemption, crash recovery and spec -> plain holds in
+fp32 without activation quantization, as in the reference; in bf16
+prefill and decode round in different orders. At T > 0 the sampled
+streams differ from the reference's (``torch`` generator vs
+``jax.random``); at T = 0 both are greedy.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -64,19 +100,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.graphs import Graphs, index_drop_, masked
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.core.quant_dense import MATMUL_MODES
+from repro_torch.core.treeutil import (tree_get, tree_set, tree_write_,
+                                      unflatten)
 from repro_torch.models import api as model_api
 from repro_torch.models import get_model
 from repro_torch.models.attention import ATTN_MODES
+from repro_torch.serving import resilience
 from repro_torch.serving.resilience import (FaultPlan, SubmitOutcome,
-                                            SubmitRejected)
+                                            SubmitRejected, WatchdogExpired)
 from repro_torch.serving.spec import (categorical, emit_counts,
                                       spec_decode_tick)
 
-__all__ = ["generate", "Request", "ServingEngine", "SubmitOutcome",
-           "SubmitRejected", "FaultPlan"]
+__all__ = ["generate", "Request", "ServingEngine", "FaultPlan",
+           "SubmitOutcome", "SubmitRejected", "WatchdogExpired"]
 
 # smallest admission bucket: prompts of length 1..8 share one shape
 _MIN_BUCKET = 8
+
+_log = logging.getLogger(__name__)
 
 
 def _sample(gen: torch.Generator, logits: torch.Tensor,
@@ -236,13 +277,19 @@ class Request:
     # speculation; the accept-length distribution with it)
     ticks: int = 0
     accept_hist: Dict[int, int] = dataclasses.field(default_factory=dict)
-    # terminal outcome, one of resilience.STATUS: "ok", or "poisoned" when
-    # its slot's logits went non-finite (its tokens up to then are kept)
+    # terminal outcome, one of resilience.STATUS ("ok" unless cancelled,
+    # shed or quarantined), absolute expiry in decode ticks (None: no
+    # deadline), times preempted, host clock stamps of submit and finish
     status: str = "ok"
+    deadline_at: Optional[int] = None
+    preemptions: int = 0
+    submit_time: float = 0.0
+    finish_time: float = 0.0
 
     @property
     def admit_prompt(self) -> List[int]:
-        """What admission prefills: the prompt plus every committed token."""
+        """What admission prefills: the prompt plus every committed token
+        (a preempted or healed request re-enters with its progress)."""
         return self.prompt + self.out
 
     @property
@@ -254,17 +301,22 @@ class Request:
 class ServingEngine:
     """Slot-based continuous batching: one decode call per tick, all slots.
 
-    ``step()`` = admit + one batched tick (asynchronous — tokens stay on the
-    device); ``drain()`` = bulk host transfer of everything emitted since
-    the last drain; ``run_all()`` = drive until queue and slots are empty.
-    Admission is FIFO by bucket: each round serves the oldest queued
-    request's bucket, and other same-bucket requests ride along. With
-    ``spec_k >= 1`` a tick is one speculative tick (draft, verify, accept,
-    rollback of both caches) and emits 1..spec_k+1 tokens per slot.
+    ``step()`` = durability hooks + deadlines + admit + one batched tick
+    (asynchronous — tokens stay on the device); ``drain()`` = bulk host
+    transfer of everything emitted since the last drain; ``run_all()`` =
+    drive until queue and slots are empty. Admission is FIFO by bucket:
+    each round serves the oldest queued request's bucket, and other
+    same-bucket requests ride along. With ``spec_k >= 1`` a tick is one
+    speculative tick (draft, verify, accept, rollback of both caches) and
+    emits 1..spec_k+1 tokens per slot.
 
-    ``capture`` (default: on for a CUDA device) replays the tick and each
-    admission bucket as CUDA graphs; ``captures`` reports them.
-    ``fault_plan`` injects the ``FaultPlan``'s NaN logits.
+    ``capture`` (default: on for a CUDA device) replays the tick, each
+    admission bucket and the integrity probe as CUDA graphs; ``captures``
+    reports them. ``fault_plan`` injects a ``resilience.FaultPlan``. The
+    overload and durability knobs are the reference's: ``queue_limit`` /
+    ``shed_policy``, ``default_deadline``, ``preempt_after``,
+    ``max_ticks``, ``degrade``, ``snapshot_dir`` / ``snapshot_every``,
+    ``journal``, ``integrity_every`` / ``golden_dir``.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, policy: QuantPolicy,
@@ -275,21 +327,47 @@ class ServingEngine:
                  kv_bits: Optional[int] = None, attn_chunk: int = 1024,
                  spec_k: int = 0, draft_params=None,
                  draft_cfg: Optional[ModelConfig] = None,
+                 queue_limit: Optional[int] = None,
+                 shed_policy: str = "reject",
+                 default_deadline: Optional[int] = None,
+                 preempt_after: Optional[int] = None,
+                 max_ticks: Optional[int] = None, degrade: bool = True,
                  fault_plan: Optional[FaultPlan] = None,
+                 snapshot_dir: Optional[str] = None,
+                 snapshot_every: Optional[int] = None,
+                 journal=None,
+                 integrity_every: Optional[int] = None,
+                 golden_dir: Optional[str] = None,
                  capture: Optional[bool] = None, device="cuda"):
         self._kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-        if fault_plan is not None and fault_plan.unported:
-            raise NotImplementedError(
-                f"FaultPlan {', '.join(fault_plan.unported)}: the port's "
-                f"engine injects nan_logits only (no degradation ladder, "
-                f"queue aging or durability yet)")
+        if shed_policy not in resilience.SHED_POLICIES:
+            raise ValueError(f"shed_policy must be one of "
+                             f"{resilience.SHED_POLICIES}, got {shed_policy!r}")
+        for name, val in (("queue_limit", queue_limit),
+                          ("default_deadline", default_deadline),
+                          ("preempt_after", preempt_after),
+                          ("max_ticks", max_ticks),
+                          ("snapshot_every", snapshot_every),
+                          ("integrity_every", integrity_every)):
+            if val is not None and val < 1:
+                raise ValueError(f"{name} must be >= 1 or None, got {val}")
         self.device = torch.device(device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.graphs = Graphs(self.device, capture=capture,
                              generator=self._gen)
         self.params = _to_device(params, self.device)
+        if fault_plan is not None:
+            # a flip (and its heal) writes in place: into the engine's own
+            # copy of each leaf the plan names, never the caller's tensor. A
+            # path that names no leaf raises at its tick, as in the reference
+            for path in sorted({p for _, p, _ in fault_plan.flip_bits}):
+                try:
+                    leaf = tree_get(self.params, path)
+                except KeyError:
+                    continue
+                self.params = tree_set(self.params, path, leaf.clone())
         self.cfg, self.policy, self.dtype = cfg, policy, dtype
         self.mod = get_model(cfg)
         self.slots, self.max_len = slots, max_len
@@ -309,6 +387,8 @@ class ServingEngine:
         self.spec_k = int(spec_k)
         self.spec_drafted = 0                 # draft proposals scored
         self.spec_accepted = 0                # proposals the target kept
+        self._was_spec = False                # degraded out of spec mode
+        self.draft_cache = None
         if self.spec_k:
             draft_params, self.draft_cfg = _spec_models(
                 params, cfg, draft_params, draft_cfg)
@@ -327,11 +407,9 @@ class ServingEngine:
         # the logit bias of the health check: zeros unless a fault is due
         self._poison = torch.zeros((slots,), dtype=torch.float32, device=dev)
         self._poisoned = False
-        # the record of the last tick or admission, (slots, w + 4) int32:
-        # tokens right-padded to w = spec_k + 1, counts, done, accepted
-        # drafts, non-finite flag; cloned into _pending after each call
-        self._rec = torch.zeros((slots, self.spec_k + 5), dtype=torch.int32,
-                                device=dev)
+        # the record of the last tick or admission (see _new_rec), cloned
+        # into _pending after each call
+        self._rec = self._new_rec()
         # admission inputs, filled from the host before each round: lengths,
         # the (slots,) slot map (padding rows point at `slots`, dropped),
         # budgets, and the right-padded tokens of each bucket
@@ -340,10 +418,14 @@ class ServingEngine:
                                   device=dev)
         self._in_budget = torch.ones((slots,), dtype=torch.int32, device=dev)
         self._in_toks: Dict[int, torch.Tensor] = {}
+        # the slots a release deactivates and zeroes, padded with `slots`
+        self._free_idx = torch.full((slots,), slots, dtype=torch.int64,
+                                    device=dev)
         # host-side bookkeeping
         self.queue: List[Request] = []
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._ticks_left = [0] * slots        # deterministic lifetime bound
+        self._slot_ticks = [0] * slots        # ticks the current owner held
         # pending records, one per admission and per tick: (record clone,
         # owners, kind)
         self._pending: List[Tuple[torch.Tensor, Tuple, str]] = []
@@ -351,18 +433,65 @@ class ServingEngine:
         self._uid = 0
         self.decode_calls = 0                 # ticks == decode_step calls
         self.prefill_calls = 0                # batched prefill invocations
+        # resilience knobs and counters
+        self.queue_limit = queue_limit
+        self.shed_policy = shed_policy
+        self.default_deadline = default_deadline
+        self.preempt_after = preempt_after
+        self.max_ticks = max_ticks
+        self.degrade = degrade
+        self._failed_ticks: set = set()       # one-shot fail_ticks consumed
+        self.shed_count = 0                   # requests refused or evicted
+        self.deadline_miss_count = 0          # requests expired past deadline
+        self.preempt_count = 0                # slot evictions (requeued)
         self.poisoned_count = 0               # slots quarantined (non-finite)
+        self.fallback_events: List[Tuple[int, str]] = []  # (tick, step)
+        self.queue_peak = 0                   # high-water queue depth
+        # durability: snapshots, the write-ahead journal
+        # (serving.durability), the weight-integrity probe and self-heal
+        # (checkpoint.integrity)
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_every = snapshot_every
+        self.integrity_every = integrity_every
+        self.golden_dir = golden_dir
+        self.snapshots_written = 0            # snapshot() completions
+        self.journal_events = 0               # events appended to the journal
+        self.replayed_events = 0              # journal events replayed in
+        self.integrity_probes = 0             # canary passes run
+        self.heal_count = 0                   # leaves reloaded from golden
+        self._last_snapshot_tick = -1         # don't re-snapshot a tick
+        self._crashed_ticks: set = set()      # one-shot crash_at_tick consumed
+        self._flipped_ticks: set = set()      # one-shot flip_bits consumed
+        if journal is not None and not hasattr(journal, "append"):
+            from repro_torch.serving.durability import Journal
+            journal = Journal(journal)
+        self._journal = journal
+        self._probe_paths: Optional[List[str]] = None
+        if integrity_every is not None:
+            self._init_integrity()
         self._bucket_cap = self.mod.cache_len_for(cfg, max_len)
+
+    def _new_rec(self) -> torch.Tensor:
+        """The record buffer, (slots, w + 4) int32 with w = spec_k + 1:
+        tokens right-padded to w, counts, done, accepted drafts, non-finite
+        flag. Its width changes with spec_k (the ladder's spec -> plain);
+        each pending record is read at the width it was written with."""
+        return torch.zeros((self.slots, self.spec_k + 5), dtype=torch.int32,
+                           device=self.device)
 
     @property
     def captures(self) -> Dict[str, Any]:
-        """CUDA graphs captured: ``{"tick": n, "admit": {bucket: n}}`` —
-        at most one tick and one graph per admission bucket (the
-        reference's compile count); zeros when the engine runs eagerly."""
+        """CUDA graphs captured: ``{"tick": n, "admit": {bucket: n}}`` (and
+        ``"probe": n`` with the integrity probe on) — one tick, one graph
+        per admission bucket, again after each ladder step; zeros when the
+        engine runs eagerly."""
         c = self.graphs.captures
-        return {"tick": c.get("tick", 0),
-                "admit": {k[1]: v for k, v in sorted(
-                    (k, v) for k, v in c.items() if k != "tick")}}
+        out = {"tick": c.get("tick", 0),
+               "admit": {k[1]: v for k, v in sorted(
+                   (k, v) for k, v in c.items() if isinstance(k, tuple))}}
+        if self._probe_paths is not None:
+            out["probe"] = c.get("probe", 0)
+        return out
 
     # --- device work (each a graph body: fixed tensors in and out) ----------
 
@@ -468,12 +597,175 @@ class ServingEngine:
         admitted = index_drop_(torch.zeros_like(self._active), slot_map, True)
         self._record(self._tokens, admitted, admitted & ~self._active)
 
+    def _probe_work(self):
+        """One canary pass over the protected weight leaves into the fixed
+        ``_probe_out`` (a graph of its own on the card)."""
+        self._probe_out.copy_(self._probe_fn(self.params))
+
+    # --- degradation ladder (called through resilience.degrade_step) -------
+
+    def _disable_spec(self):
+        """Ladder step 1, spec -> plain: abandon the drafter and its cache
+        and drop the graphs; the next tick captures the plain tick. The
+        target stream is unaffected (spec is exact): ``_tokens`` holds the
+        last committed, not yet fed token in both modes. ``_ticks_left``
+        stays an upper bound, and ``_was_spec`` keeps ``_spin_up`` syncing
+        so early finishes still free slots. Records still pending keep the
+        width they were written with."""
+        self.spec_k = 0
+        self._was_spec = True
+        self.draft_cache = None
+        self._rec = self._new_rec()
+        self.graphs.reset()
+
+    def _fallback_modes(self):
+        """Ladder step 2, kernels -> plain versions: every quantized matmul
+        through the dequant path, every attention through the reference
+        path — the oracles the kernels are held against."""
+        self._set_modes("dequant", "ref")
+
+    def _set_modes(self, matmul_mode: str, attn_mode: str):
+        """Serve with these modes from now on: the graphs captured with the
+        old ones are dropped."""
+        self._kw = _serve_kwargs(matmul_mode, attn_mode, self.kv_bits)
+        self.matmul_mode, self.attn_mode = matmul_mode, attn_mode
+        self.graphs.reset()
+
+    # --- durability: snapshots, write-ahead journal, weight integrity -------
+
+    def _log_event(self, event: Dict[str, Any]):
+        """Append one event to the write-ahead journal (no-op without
+        one). Every event carries the current tick."""
+        if self._journal is not None:
+            self._journal.append(dict(event, tick=self.decode_calls))
+            self.journal_events += 1
+
+    def snapshot(self, snapshot_dir: Optional[str] = None) -> str:
+        """Persist the complete engine state (device tensors and host
+        bookkeeping) as an atomic restore point; see
+        ``serving.durability``."""
+        from repro_torch.serving import durability
+        d = snapshot_dir or self.snapshot_dir
+        if d is None:
+            raise ValueError("no snapshot_dir: pass one here or at "
+                             "construction")
+        return durability.snapshot_engine(self, d)
+
+    def restore(self, snapshot_dir: Optional[str] = None,
+                step: Optional[int] = None) -> Dict[str, Any]:
+        """Load a snapshot into this engine, written in place into the
+        tensors its graphs read, and resume where it was taken —
+        token-identical at T = 0, the same stream at T > 0."""
+        from repro_torch.serving import durability
+        d = snapshot_dir or self.snapshot_dir
+        if d is None:
+            raise ValueError("no snapshot_dir: pass one here or at "
+                             "construction")
+        return durability.restore_engine(self, d, step)
+
+    def recover(self, snapshot_dir: Optional[str] = None,
+                journal: Optional[str] = None) -> Dict[str, Any]:
+        """Crash recovery: the latest snapshot (if any) plus the journal
+        tail. Defaults to the construction-time snapshot dir and journal."""
+        from repro_torch.serving import durability
+        jpath = journal or (self._journal.path if self._journal is not None
+                            else None)
+        return durability.recover(
+            self, snapshot_dir=snapshot_dir or self.snapshot_dir,
+            journal=jpath)
+
+    def _init_integrity(self):
+        """The weight-integrity machinery: the protected paths (``qp`` /
+        ``q`` / ``delta`` of a serve form, every leaf of a float master),
+        the canary probe and its fixed output, the golden fingerprints, a
+        host golden copy and CRC manifest to heal from; ``golden_dir`` also
+        persists the golden store (``checkpoint.integrity.save_golden``)."""
+        from repro_torch.checkpoint import integrity
+        paths = integrity.protected_paths(self.params)
+        self._probe_paths, self._probe_fn = integrity.make_probe(self.params,
+                                                                 paths)
+        self._probe_out = torch.zeros((len(paths),), dtype=torch.int64,
+                                      device=self.device)
+        self._golden = {p: tree_get(self.params, p).detach().to(
+            "cpu", copy=True) for p in paths}
+        # the manifest from the host copy: one device-to-host pass
+        self._manifest = integrity.build_manifest(unflatten(self._golden),
+                                                  paths)
+        self._golden_fp = self._run_probe()
+        if self.golden_dir is not None:
+            integrity.save_golden(self.golden_dir, self.params, paths)
+        self._next_probe = 0
+
+    @torch.no_grad()
+    def _run_probe(self) -> np.ndarray:
+        """The (P,) fingerprints of the resident store, on the host."""
+        self.graphs.run("probe", self._probe_work)
+        return self._probe_out.cpu().numpy().copy()
+
+    def _flip_bit(self, path: str, bit: int):
+        """Fault injection: one bit of the params leaf at ``path`` flipped
+        in place (``checkpoint.integrity.flip_bit_``) — a soft error in the
+        resident store that the captured tick then reads."""
+        from repro_torch.checkpoint import integrity
+        integrity.flip_bit_(self.params, path, bit)
+
+    def _integrity_probe(self):
+        """One canary pass: fingerprints against golden. A mismatch names
+        the corrupt leaves and triggers the self-heal."""
+        self.integrity_probes += 1
+        fps = self._run_probe()
+        bad = [self._probe_paths[i]
+               for i in np.nonzero(fps != self._golden_fp)[0]]
+        if bad:
+            self._heal(bad)
+
+    def _heal(self, bad_paths: List[str]):
+        """Reload each corrupt leaf from the golden copy, in place, confirm
+        the probe matches golden again, then REWIND every request whose
+        tokens could have been computed against the corrupt store: resident
+        unfinished requests and ok-finished but undrained ones go back to
+        their prompt and are requeued through normal admission. Requests
+        drained between the last clean probe and detection are the
+        caller-visible at-risk window."""
+        self._sync()
+        for p in bad_paths:
+            tree_write_(self.params, p, self._golden[p])
+            self.heal_count += 1
+            self.fallback_events.append((self.decode_calls, f"heal:{p}"))
+        if not np.array_equal(self._run_probe(), self._golden_fp):
+            raise RuntimeError(
+                f"integrity heal failed: {bad_paths} still mismatch the "
+                f"golden fingerprints after reload — golden copy corrupt?")
+        self._log_event({"e": "heal", "paths": list(bad_paths)})
+        victims = [s for s in range(self.slots)
+                   if (r := self._slot_req[s]) is not None and not r.done]
+        resurrect = [r for r in self._finished if r.status == "ok"]
+        self._finished = [r for r in self._finished if r.status != "ok"]
+        requeue = [self._slot_req[s] for s in victims] + resurrect
+        for s in victims:
+            self._release_slot(s)
+        for r in sorted(requeue, key=lambda r: r.uid):
+            r.out.clear()
+            r.done = False
+            r.status = "ok"
+            r.ticks = 0
+            r.accept_hist = {}
+            r.finish_time = 0.0
+            self.queue.append(r)
+        if victims:
+            self._deactivate(victims)
+            self._free_rows(victims)
+
     # --- public API ---------------------------------------------------------
 
-    def submit(self, prompt: List[int], max_new: int = 16) -> SubmitOutcome:
+    def submit(self, prompt: List[int], max_new: int = 16,
+               deadline_ticks: Optional[int] = None) -> SubmitOutcome:
         """Enqueue a request. Malformed requests raise ``SubmitRejected``
-        with a machine-readable ``reason``; accepted ones return a
-        ``SubmitOutcome`` whose int value is the uid."""
+        with a machine-readable ``reason``; well-formed ones return a
+        ``SubmitOutcome``: the uid when accepted, falsy with
+        ``reason='queue_full'`` when bounded admission sheds it.
+        ``deadline_ticks`` (or ``default_deadline``) sets the absolute
+        expiry ``decode_calls + deadline_ticks``."""
         if len(prompt) == 0:
             raise SubmitRejected("empty_prompt",
                                  "prompt must contain at least one token")
@@ -489,9 +781,38 @@ class ServingEngine:
                      else f"prompt+max_new ({total})")
             raise SubmitRejected(
                 "too_long", f"{label} exceeds engine max_len {self.max_len}")
+        if deadline_ticks is not None and deadline_ticks < 1:
+            raise SubmitRejected(
+                "bad_deadline",
+                f"deadline_ticks must be >= 1, got {deadline_ticks}")
+        shed: Tuple[int, ...] = ()
+        if self.queue_limit is not None and len(self.queue) >= self.queue_limit:
+            self.shed_count += 1
+            if self.shed_policy == "reject":
+                self._log_event({"e": "shed", "uid": None,
+                                 "reason": "queue_full"})
+                return SubmitOutcome(0, accepted=False, reason="queue_full")
+            victim = self.queue.pop(0)               # drop_oldest
+            self._log_event({"e": "shed", "uid": victim.uid,
+                             "reason": "queue_full"})
+            self._finish(victim, "shed")
+            shed = (victim.uid,)
         self._uid += 1
-        self.queue.append(Request(self._uid, list(prompt), max_new))
-        return SubmitOutcome(self._uid, accepted=True)
+        dl = deadline_ticks if deadline_ticks is not None \
+            else self.default_deadline
+        req = Request(self._uid, list(prompt), max_new,
+                      deadline_at=(self.decode_calls + dl) if dl else None,
+                      submit_time=time.perf_counter())
+        # write-ahead: the acceptance is durable before the queue sees it
+        self._log_event({"e": "submit", "uid": req.uid, "prompt": req.prompt,
+                         "max_new": max_new, "deadline_at": req.deadline_at})
+        self.queue.append(req)
+        self.queue_peak = max(self.queue_peak, len(self.queue))
+        return SubmitOutcome(self._uid, accepted=True, shed=shed)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
 
     @property
     def spec_accept_rate(self) -> float:
@@ -514,15 +835,30 @@ class ServingEngine:
     def _spin_up(self):
         """Admit queued requests into free slots, one length bucket at a
         time: every same-bucket queued request enters through ONE batched
-        prefill + ONE multi-slot insert."""
+        prefill + ONE multi-slot insert. When the queue has waiters and no
+        slot is free, ``preempt_after`` lets a slot held that many ticks be
+        preempted (its request requeued at the back, re-entering here with
+        its committed tokens folded into the prompt)."""
+        fp = self.fault_plan
+        if fp is not None and fp.delays_admission_at(self.decode_calls):
+            return                            # injected admission stall
         if not self.queue:
             return
         free = self._free_slots()
-        if not free and (self.eos_id is not None or self.spec_k):
+        if not free and (self.eos_id is not None or self.spec_k
+                         or self._was_spec):
             # an EOS — or, with speculation, a multi-token burst through
             # the budget — may have freed a slot we haven't observed yet
             self._sync()
             free = self._free_slots()
+        if not free and self.preempt_after is not None:
+            victims = [s for s in range(self.slots)
+                       if self._slot_req[s] is not None
+                       and self._slot_ticks[s] >= self.preempt_after]
+            if victims:
+                # never preempt more slots than there are waiters
+                self._preempt(victims[:len(self.queue)])
+                free = self._free_slots()
         while self.queue and free:
             bucket = self._bucket_len(len(self.queue[0].admit_prompt))
             batch: List[Request] = []
@@ -565,9 +901,12 @@ class ServingEngine:
         self.graphs.run(("admit", bucket), lambda: self._admit(buf),
                         idle=lambda: masked(self._in_map, self.slots))
         self.prefill_calls += 1
+        self._log_event({"e": "admit", "uids": [r.uid for r in reqs],
+                         "slots": list(slot_ids)})
         for s, r in zip(slot_ids, reqs):
             self._slot_req[s] = r
             self._ticks_left[s] = r.remaining - 1
+            self._slot_ticks[s] = 0
         self._pending.append((self._rec.clone(), tuple(self._slot_req),
                               "admit"))
         for s in slot_ids:
@@ -588,49 +927,240 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self):
-        """Admit, then advance ALL active slots with ONE decode call.
-        Asynchronous: emitted tokens stay on device until ``drain()``."""
+        """Durability hooks, deadlines, admission, then ONE tick for every
+        active slot; a failed tick walks the degradation ladder (spec ->
+        plain, kernels -> plain versions) before the failure propagates.
+        Asynchronous: emitted tokens stay on the device until ``drain()``.
+
+        An injected ``crash_at_tick`` raises ``InjectedCrash`` first (a
+        killed process does nothing else); injected ``flip_bits`` then
+        corrupt the resident weights in place, the integrity probe gets its
+        chance to detect and heal, and a completed tick lands a periodic
+        snapshot (``snapshot_every``)."""
+        fp = self.fault_plan
+        tick = self.decode_calls
+        if (fp is not None and fp.crashes_at(tick)
+                and tick not in self._crashed_ticks):
+            self._crashed_ticks.add(tick)
+            raise resilience.InjectedCrash(
+                f"injected process kill at decode tick {tick}")
+        if fp is not None and tick not in self._flipped_ticks:
+            flips = fp.flips_at(tick)
+            if flips:
+                self._flipped_ticks.add(tick)
+                for path, bit in flips:
+                    self._flip_bit(path, bit)
+        if self._probe_paths is not None and tick >= self._next_probe:
+            self._next_probe = tick + self.integrity_every
+            self._integrity_probe()
+        self._expire_deadlines()
         self._spin_up()
         if not self._occupied():
             return
         owners = tuple(self._slot_req)
         self._load_poison()
-        # warm-ups run with every slot inactive, so they change no slot
-        self.graphs.run("tick", self._spec_tick if self.spec_k else self._tick,
-                        idle=lambda: masked(self._active, False))
+        self._dispatch_tick()
         self._pending.append((self._rec.clone(), owners, "tick"))
         self.decode_calls += 1
         for s in range(self.slots):
             if self._slot_req[s] is not None:
+                self._slot_ticks[s] += 1
                 # with speculation an upper bound: a tick emits >= 1 token
                 self._ticks_left[s] -= 1
                 if self._ticks_left[s] <= 0:
-                    self._slot_req[s] = None     # budget exhausted this tick
+                    self._release_slot(s)    # budget exhausted this tick
+        if (self.snapshot_dir is not None and self.snapshot_every is not None
+                and self.decode_calls % self.snapshot_every == 0
+                and self.decode_calls != self._last_snapshot_tick):
+            self.snapshot()
+
+    def _call_tick(self):
+        """One tick on the CURRENT graph (spec or plain). The fault plan's
+        injected failure is raised in place of the call, before it touches
+        a fixed buffer; each fires once."""
+        fp = self.fault_plan
+        if (fp is not None and fp.fails_at(self.decode_calls)
+                and self.decode_calls not in self._failed_ticks):
+            self._failed_ticks.add(self.decode_calls)
+            raise resilience.InjectedFault(
+                f"injected tick failure at decode tick {self.decode_calls}")
+        # warm-ups run with every slot inactive, so they change no slot
+        self.graphs.run("tick", self._spec_tick if self.spec_k else self._tick,
+                        idle=lambda: masked(self._active, False))
+
+    def _dispatch_tick(self):
+        """Run one tick, walking the degradation ladder on failure, as the
+        reference does: each retry first applies
+        ``resilience.degrade_step``; with the ladder exhausted an injected
+        (transient) fault earns a same-graph retry, and anything else
+        propagates. Every step is appended to ``fallback_events`` and
+        logged, a real failure with its traceback. On a CUDA device only
+        an injected fault walks the ladder; any other failure raises at
+        once, so a kernel that fails to build or launch is never hidden
+        behind its plain version (the reference catches every
+        exception)."""
+        attempts = 0
+        while True:
+            try:
+                self._call_tick()
+                return
+            except Exception as e:
+                injected = isinstance(e, resilience.InjectedFault)
+                if not injected and self.device.type == "cuda":
+                    # on the card only an injected fault walks the ladder: a
+                    # kernel that fails raises, never served by a plain version
+                    raise
+                attempts += 1
+                label = resilience.degrade_step(self) if self.degrade \
+                    else None
+                if label is None and attempts < 3 and injected:
+                    label = "retry"
+                if label is None or attempts >= 4:
+                    raise
+                self.fallback_events.append((self.decode_calls, label))
+                # an injected fault is expected: its message is enough
+                _log.warning("tick %d failed (%s); degradation ladder: %s",
+                             self.decode_calls, e, label,
+                             exc_info=None if injected else e)
+
+    # --- slot release and resilience helpers --------------------------------
 
     def _finish(self, req: Request, status: str):
+        """Terminal bookkeeping shared by every way a request ends."""
         req.status = status
         req.done = True
+        req.finish_time = time.perf_counter()
+        self._log_event({"e": "finish", "uid": req.uid, "status": status,
+                         "n_out": len(req.out)})
         self._finished.append(req)
 
-    def _release(self, s: int):
+    def _release_slot(self, s: int):
         self._slot_req[s] = None
         self._ticks_left[s] = 0
+        self._slot_ticks[s] = 0
+
+    def _load_free_idx(self, slot_list: List[int]):
+        """``_free_idx`` := ``slot_list`` padded with ``slots`` (dropped):
+        one fixed-length index, whatever the number of slots released."""
+        idx = np.full((self.slots,), self.slots, np.int64)
+        idx[:len(slot_list)] = slot_list
+        self._free_idx.copy_(torch.from_numpy(idx))
+
+    def _deactivate(self, slot_list: List[int]):
+        """Deactivate rows outside the tick, in place on the device."""
+        self._load_free_idx(slot_list)
+        index_drop_(self._active, self._free_idx, False)
+
+    def _free_rows(self, slot_list: List[int]):
+        """Zero the cache rows of released slots (and the drafter's), in
+        place, so stale or NaN state never reaches the slot's next tenant."""
+        self._load_free_idx(slot_list)
+        self.mod.free_slots(self.cache, self._free_idx)
+        if self.spec_k:
+            self.dmod.free_slots(self.draft_cache, self._free_idx)
+
+    def _preempt(self, victims: List[int]):
+        """Preempt ``victims``: sync so every committed token is attributed,
+        requeue each request at the BACK of the queue (waiters at the front
+        get the freed slots), and deactivate and zero the rows. The request
+        re-enters through bucketed admission with its committed tokens
+        folded into the prompt — token-identical at T = 0 in fp32 without
+        activation quantization."""
+        self._sync()
+        live: List[int] = []
+        for s in victims:
+            req = self._slot_req[s]
+            if req is None or req.done:       # sync finished it already
+                continue
+            live.append(s)
+            req.preemptions += 1
+            self.preempt_count += 1
+            self._release_slot(s)
+            self.queue.append(req)
+        if live:
+            self._deactivate(live)
+            self._free_rows(live)
+
+    def _expire_deadlines(self):
+        """Cancel every request past its deadline: queued ones before they
+        ever hold a slot; resident ones after a sync (their partial output
+        is attributed and returned), mid-stream — row deactivated and
+        zeroed."""
+        now = self.decode_calls
+        q_exp = [r for r in self.queue
+                 if r.deadline_at is not None and now >= r.deadline_at]
+        s_exp = [s for s in range(self.slots)
+                 if (r := self._slot_req[s]) is not None
+                 and r.deadline_at is not None and now >= r.deadline_at]
+        if not q_exp and not s_exp:
+            return
+        self._sync()          # attribute partial output before cancelling
+        for r in q_exp:
+            self.queue.remove(r)
+            self.deadline_miss_count += 1
+            self._finish(r, "deadline")
+        cancelled: List[int] = []
+        for s in s_exp:
+            r = self._slot_req[s]
+            if r is None or r.done:           # sync finished or freed it
+                continue
+            cancelled.append(s)
+            self.deadline_miss_count += 1
+            self._finish(r, "deadline")
+            self._release_slot(s)
+        if cancelled:
+            self._deactivate(cancelled)
+            self._free_rows(cancelled)
+
+    def _diagnostics(self) -> Dict[str, Any]:
+        """The watchdog's dump: what is queued, who holds which slot and
+        for how much longer, and every resilience counter."""
+        return {
+            "queue_depth": len(self.queue),
+            "queued_uids": [r.uid for r in self.queue],
+            "active_slots": [s for s in range(self.slots)
+                             if self._slot_req[s] is not None],
+            "slots": [{"slot": s, "uid": r.uid,
+                       "ticks_left": self._ticks_left[s],
+                       "held_ticks": self._slot_ticks[s]}
+                      for s in range(self.slots)
+                      if (r := self._slot_req[s]) is not None],
+            "decode_calls": self.decode_calls,
+            "prefill_calls": self.prefill_calls,
+            "shed_count": self.shed_count,
+            "deadline_miss_count": self.deadline_miss_count,
+            "preempt_count": self.preempt_count,
+            "poisoned_count": self.poisoned_count,
+            "fallback_events": list(self.fallback_events),
+            "snapshots_written": self.snapshots_written,
+            "journal_events": self.journal_events,
+            "replayed_events": self.replayed_events,
+            "integrity_probes": self.integrity_probes,
+            "heal_count": self.heal_count,
+        }
 
     def _sync(self):
         """Bulk-sync everything recorded since the last sync (ONE device to
         host copy) and attribute tokens to requests via the per-record owner
-        snapshots; a record carries 1..spec_k+1 tokens per slot. Per-request
+        snapshots; a record carries 1..w tokens per slot, w its own width
+        (records written before a spec -> plain step are wider). Per-request
         ``ticks`` / ``accept_hist`` and the engine's ``spec_drafted`` /
-        ``spec_accepted`` are folded in here. A row flagged non-finite
-        contributes no token; its request finishes ``"poisoned"``, and a
-        slot it still holds is released with its cache rows zeroed.
-        Finished requests wait in ``_finished`` for ``drain()``."""
+        ``spec_accepted`` are folded in here, and a ``commit`` journal event
+        per request. A row flagged non-finite contributes no token; its
+        request finishes ``"poisoned"``, and a slot it still holds is
+        released with its cache rows zeroed. Finished requests wait in
+        ``_finished`` for ``drain()``."""
         if not self._pending:
             return
-        moved = torch.stack([rec for rec, _, _ in self._pending]).cpu().numpy()
-        w = self.spec_k + 1
+        flat = torch.cat([rec.reshape(-1) for rec, _, _ in self._pending])
+        flat = flat.cpu().numpy()
         quarantined: List[int] = []
-        for rec, (_, owners, kind) in zip(moved, self._pending):
+        committed: Dict[int, int] = {}        # uid -> tokens attributed now
+        at = 0
+        for rec_t, owners, kind in self._pending:
+            rec = flat[at:at + rec_t.numel()].reshape(rec_t.shape)
+            at += rec_t.numel()
+            w = rec.shape[1] - 4
             toks, counts, dn = rec[:, :w], rec[:, w], rec[:, w + 1]
             bad = rec[:, w + 3]
             for s in np.nonzero(counts)[0]:
@@ -638,34 +1168,37 @@ class ServingEngine:
                 if req is not None and not bad[s]:
                     n = int(counts[s])
                     req.out.extend(int(x) for x in toks[s, :n])
+                    committed[req.uid] = committed.get(req.uid, 0) + n
                     if kind == "tick":
                         req.ticks += 1
                         req.accept_hist[n] = req.accept_hist.get(n, 0) + 1
-            if kind == "tick" and self.spec_k:
+            if kind == "tick" and w > 1:              # a speculative tick
                 live = counts > 0
-                self.spec_drafted += int(self.spec_k * live.sum())
+                self.spec_drafted += int((w - 1) * live.sum())
                 self.spec_accepted += int(rec[live, w + 2].sum())
             for s in np.nonzero(dn)[0]:
                 req = owners[s]
                 if req is not None and not req.done:
                     self._finish(req, "ok")
                     if self._slot_req[s] is req:   # early EOS: free the slot
-                        self._release(s)
+                        self._release_slot(s)
             for s in np.nonzero(bad)[0]:
                 req = owners[s]
                 if req is not None and not req.done:
                     self.poisoned_count += 1
                     self._finish(req, "poisoned")
                     if self._slot_req[s] is req:
-                        self._release(s)
+                        self._release_slot(s)
                         quarantined.append(s)
         self._pending.clear()
+        if self._journal is not None:
+            for uid in sorted(committed):
+                self._log_event({"e": "commit", "uid": uid,
+                                 "n": committed[uid]})
         if quarantined:
             # the tick already deactivated the rows; zeroing them keeps the
             # contaminated state from the slot's next tenant
-            self.mod.free_slots(self.cache, quarantined)
-            if self.spec_k:
-                self.dmod.free_slots(self.draft_cache, quarantined)
+            self._free_rows(sorted(set(quarantined)))
 
     def drain(self) -> List[Request]:
         """Sync pending emissions and return every request that finished
@@ -674,12 +1207,30 @@ class ServingEngine:
         out, self._finished = self._finished, []
         return out
 
-    def run_all(self) -> List[Request]:
+    def run_all(self, max_ticks: Optional[int] = None) -> List[Request]:
         """Drive until queue and slots are empty; drains every
-        ``drain_every`` ticks."""
+        ``drain_every`` ticks. ``max_ticks`` (default: the engine's; None =
+        no watchdog) bounds the number of ``step()`` calls: a wedged engine
+        raises ``WatchdogExpired`` with a diagnostic dump instead of
+        spinning forever. Requests already finished stay drainable after
+        the raise."""
+        if max_ticks is None:
+            max_ticks = self.max_ticks
         done: List[Request] = []
+        iters = 0
         while self.queue or self._occupied():
+            if max_ticks is not None and iters >= max_ticks:
+                self._sync()
+                # hand the already-finished work back through drain()
+                self._finished = done + self._finished
+                diag = self._diagnostics()
+                raise WatchdogExpired(
+                    f"run_all exceeded max_ticks={max_ticks} with work "
+                    f"still pending: queue depth {diag['queue_depth']}, "
+                    f"active slots {diag['active_slots']}, per-slot state "
+                    f"{diag['slots']}", diag)
             self.step()
+            iters += 1
             if self.decode_calls % self.drain_every == 0:
                 done.extend(self.drain())
         done.extend(self.drain())

@@ -23,6 +23,7 @@ from repro.core.precision import FLOAT as JFLOAT, W3A8 as JW3A8
 from repro.models import api as japi
 from repro.models import get_model as jget_model
 from repro.serving.engine import ServingEngine as JServingEngine
+from repro.serving.resilience import FaultPlan as JFaultPlan
 
 from repro_torch import bridge
 from repro_torch.configs import get_config, reduced
@@ -182,6 +183,59 @@ def test_replayed_sampling_matches_eager(models, stand_in, spec_k):
     assert replayed == eager
     greedy = _staggered(ServingEngine(tp, cfg, **dict(kw, temperature=0.0)))
     assert replayed != greedy                   # it did sample
+
+
+def test_replayed_ladder_recaptures(models, stand_in):
+    """The degradation ladder through replayed work: tick failures at 1 and
+    3 walk a spec engine to the plain tick and then to the plain versions;
+    each step drops the graphs and the next call captures again (three
+    tick captures), the warm-ups' launches are booked apart, and the tokens
+    and fallback_events equal the eager engine's and the JAX engine's."""
+    jcfg, cfg, jp, tp, _, _ = models
+    _, jdp = japi.draft_of(jcfg, jp)
+    kw = dict(slots=3, max_len=40, spec_k=2)
+    jeng = JServingEngine(jp, jcfg, policy=JFLOAT, dtype=jnp.float32,
+                          draft_params=jdp, draft_cfg=jcfg,
+                          fault_plan=JFaultPlan(fail_ticks=[1, 3]), **kw)
+    engines = [ServingEngine(tp, cfg, policy=FLOAT, dtype=torch.float32,
+                             draft_params=bridge.to_torch(
+                                 jax.device_get(jdp)), draft_cfg=cfg,
+                             fault_plan=FaultPlan(fail_ticks=[1, 3]),
+                             device="cpu", **kw) for _ in range(2)]
+    stand_in(engines[1])
+    ref = _staggered(jeng)
+    for eng in engines:
+        assert _staggered(eng) == ref
+        assert eng.fallback_events == jeng.fallback_events == \
+            [(1, "spec->plain"), (3, "kernel->fallback")]
+    assert engines[1].captures["tick"] == 3
+    assert engines[0].captures == {"tick": 0, "admit": {}}
+    assert engines[1].graphs.warmup_launches and \
+        not engines[0].graphs.warmup_launches
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_restore_into_replayed_engine(models, stand_in, tmp_path,
+                                      temperature):
+    """A snapshot restored into an engine whose work is already captured
+    continues as the donor did, at T = 0 and T > 0 (the generator state
+    restored in place)."""
+    _, cfg, _, tp, _, _ = models
+    kw = dict(policy=FLOAT, slots=3, max_len=40, dtype=torch.float32,
+              temperature=temperature, seed=5, device="cpu")
+    donor = ServingEngine(tp, cfg, **kw)
+    for p in PROMPTS:
+        donor.submit(p, max_new=8)
+    for _ in range(3):
+        donor.step()
+    donor.snapshot(str(tmp_path / "s"))
+    mid = {r.uid: r.out for r in donor.drain()}
+    want = {**mid, **{r.uid: r.out for r in donor.run_all()}}
+    fresh = stand_in(ServingEngine(tp, cfg, **kw))
+    _staggered(fresh)
+    fresh.restore(str(tmp_path / "s"))
+    assert {**mid, **{r.uid: r.out for r in fresh.run_all()}} == want
+    assert fresh.captures["tick"] == 1
 
 
 def test_counter_bookkeeping():

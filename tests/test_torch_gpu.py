@@ -707,3 +707,126 @@ def test_captured_training_matches_eager(cuda, mode):
         assert torch.equal(flatten_with_path(p1)[path], v), path
     assert pipeline.evaluate(p1, task, policy=policy) == \
         pipeline.evaluate(p1, task, policy=policy, capture=False)
+
+
+# --- overload hardening and durability under capture ------------------------------
+
+def _tick_state(eng):
+    """Every tensor a tick writes (restored after a replay under kept())."""
+    return [eng._tokens, eng._active, eng._emitted, eng._budget, eng._rec,
+            *eng.cache.values()]
+
+
+def test_flip_and_heal_reach_the_captured_tick(cuda):
+    """A bit flipped in place in a qp container reaches the replayed tick:
+    the same replay on the same state writes other K/V after the flip (in
+    layer 1, which reads layer 0's flipped down projection), the probe
+    names the leaf, and after the in-place heal from the golden copy the
+    replay writes the clean K/V bit for bit — with the tick captured
+    once."""
+    from repro_torch.core.treeutil import tree_write_
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params, kw = _engine_case("qp-bf16kv")
+    eng = ServingEngine(params, cfg, slots=3, max_len=64, device=cuda,
+                        capture=True, integrity_every=10_000, **kw)
+    for p in CARD_PROMPTS[:3]:
+        eng.submit(p, max_new=20)
+    for _ in range(3):
+        eng.step()
+    path = "layers/mlp/down/qp"
+    kp, n = eng.params["layers"]["mlp"]["down"]["qp"].shape[1:]
+    bit = ((0 * kp + 5) * n + 7) * 32 + 3 * 3 + 2   # a field's sign bit
+
+    def replay():
+        with graphs.kept(*_tick_state(eng)):
+            eng._call_tick()
+            return torch.stack([eng.cache["k"], eng.cache["v"]])
+    clean = replay()
+    assert torch.equal(replay(), clean)
+    eng._flip_bit(path, bit)
+    flipped = replay()
+    assert torch.equal(flipped[:, 0], clean[:, 0])      # layer 0's K/V
+    assert not torch.equal(flipped, clean)
+    bad = eng._run_probe() != eng._golden_fp
+    assert [p for p, b in zip(eng._probe_paths, bad) if b] == [path]
+    tree_write_(eng.params, path, eng._golden[path])
+    assert torch.equal(replay(), clean)
+    assert (eng._run_probe() == eng._golden_fp).all()
+    assert eng.captures["tick"] == 1 and eng.captures["probe"] == 1
+
+
+def test_ladder_recaptures_on_card(cuda):
+    """FaultPlan tick failures walk the fp32 spec engine down the ladder on
+    the card: spec -> plain at tick 2, kernels -> plain versions at tick 5.
+    Each step drops the graphs and the next call captures again; the four
+    serving kernels launched before tick 5 and no plain version did; after
+    it only plain versions run. Tokens equal the eager twin's and greedy's,
+    with the same fallback_events."""
+    from repro_torch.serving.engine import ServingEngine, generate
+    from repro_torch.serving.resilience import FaultPlan
+    cfg, master, kw = _engine_case("fp32")
+    outs = []
+    for capture in (True, False):
+        eng = ServingEngine(master, cfg, slots=3, max_len=64, spec_k=4,
+                            fault_plan=FaultPlan(fail_ticks=[2, 5]),
+                            device=cuda, capture=capture, **kw)
+        uid = {int(eng.submit(p, max_new=9)): i
+               for i, p in enumerate(CARD_PROMPTS)}
+        before = _launch_counts()
+        done = []
+        while eng.decode_calls < 5:
+            eng.step()
+            done += eng.drain()
+        torch.cuda.synchronize()
+        at_step = _launch_counts()
+        caps = dict(eng.captures)
+        done += eng.run_all()
+        torch.cuda.synchronize()
+        outs.append(({uid[r.uid]: (r.status, r.out) for r in done},
+                     eng.fallback_events))
+        early = graphs._diff(at_step, before)
+        kernels = {k[0].split(".")[2] for k in early if k[1] == "launches"}
+        assert kernels == {"qmatvec", "qmatmul", "attn_decode",
+                           "attn_prefill"}
+        assert not [k for k in early if k[1] == "calls"], early
+        late = graphs._diff(_launch_counts(), at_step)
+        assert late and all(k[1] == "calls" for k in late), late
+        if capture:
+            assert caps["tick"] == 2 and eng.captures["tick"] == 3
+    assert outs[0] == outs[1]
+    assert outs[0][1] == [(2, "spec->plain"), (5, "kernel->fallback")]
+    for i, p in enumerate(CARD_PROMPTS):
+        g = generate(master, [p], cfg, max_new_tokens=9, device=cuda,
+                     **kw).cpu()
+        assert outs[0][0][i] == ("ok", g[0, len(p):].tolist()), i
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_snapshot_restores_into_a_captured_engine(cuda, tmp_path,
+                                                  temperature):
+    """A snapshot restored into a captured engine whose graphs are already
+    captured (its generator registered with them) continues as the donor
+    did, at T = 0 and at T > 0: the caches, the per-slot vectors and the
+    generator state are written in place, where the graphs read them."""
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params, kw = _engine_case("qp-bf16kv")
+
+    def make():
+        return ServingEngine(params, cfg, slots=3, max_len=64, device=cuda,
+                             capture=True, temperature=temperature, seed=3,
+                             **kw)
+    donor = make()
+    for p in CARD_PROMPTS:
+        donor.submit(p, max_new=12)
+    for _ in range(4):
+        donor.step()
+    donor.snapshot(str(tmp_path / "s"))
+    mid = {r.uid: r.out for r in donor.drain()}
+    want = {**mid, **{r.uid: r.out for r in donor.run_all()}}
+    fresh = make()
+    _card_serve(fresh)                       # graphs captured, generator used
+    caps = dict(fresh.captures)
+    fresh.restore(str(tmp_path / "s"))
+    got = {**mid, **{r.uid: r.out for r in fresh.run_all()}}
+    assert got == want
+    assert fresh.captures["tick"] == caps["tick"] == 1

@@ -31,7 +31,8 @@ from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import FLOAT
 from repro_torch.models import api
 from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.resilience import STATUS, FaultPlan
+from repro_torch.serving.resilience import (STATUS, FaultPlan,
+                                            InjectedCrash, WatchdogExpired)
 
 
 @pytest.fixture(scope="module")
@@ -146,15 +147,47 @@ def test_poisoned_row_is_frozen_like_an_inactive_one(models, spec_k):
                                          ("crash_at_tick", 3),
                                          ("flip_bits", [(0, "embed/w", 1)])])
 def test_fault_plan_without_a_port_raises(models, field, value):
-    """A plan with a fault whose handling is not ported yet is refused at
-    construction, not ignored."""
+    """Every FaultPlan field is served now (the engine refused all but
+    ``nan_logits`` before the overload and durability port): the plan is
+    accepted and its fault fires — a ladder step, a simulated crash, a
+    flipped bit, an admission stall that the watchdog reports. What no port can serve still raises
+    where the reference raises: a flip at a path that names no leaf
+    (``KeyError``, the reference's ``tree_get``)."""
     _, cfg, _, tp, _, _ = models
     plan = FaultPlan(**{field: value})
-    assert plan.unported == (field,)
-    with pytest.raises(NotImplementedError, match=field):
-        ServingEngine(tp, cfg, policy=FLOAT, slots=2, max_len=32,
-                      fault_plan=plan, device="cpu")
-    assert FaultPlan(nan_logits=[(0, 1)]).unported == ()
+    assert not hasattr(plan, "unported") and not plan.empty
+    params = {k: (dict(v) if isinstance(v, dict) else v)
+              for k, v in tp.items()}
+    params["embed"] = {"w": tp["embed"]["w"].clone()}
+    eng = ServingEngine(params, cfg, policy=FLOAT, slots=2, max_len=32,
+                        dtype=torch.float32, fault_plan=plan, device="cpu")
+    eng.submit([1, 2, 3], max_new=6)
+    if field == "crash_at_tick":
+        with pytest.raises(InjectedCrash):
+            eng.run_all()
+        assert eng.decode_calls == 3
+        return
+    if field == "delay_admission":
+        # an admission stall at tick 0 with nothing resident wedges the
+        # engine at tick 0: the watchdog raises with the queue named
+        with pytest.raises(WatchdogExpired) as ei:
+            eng.run_all(max_ticks=5)
+        assert ei.value.diagnostics["queued_uids"] == [1]
+        return
+    done = eng.run_all()
+    assert [r.status for r in done] == ["ok"]
+    if field == "fail_ticks":
+        assert eng.fallback_events == [(1, "kernel->fallback")]
+    else:
+        diff = eng.params["embed"]["w"] != tp["embed"]["w"]
+        assert diff.sum() == 1 and bool(diff[0, 0])
+    bad = ServingEngine(tp, cfg, policy=FLOAT, slots=2, max_len=32,
+                        fault_plan=FaultPlan(flip_bits=[(0, "embed/nope",
+                                                         1)]),
+                        device="cpu")
+    bad.submit([1, 2, 3], max_new=2)
+    with pytest.raises(KeyError, match="nope"):
+        bad.step()
 
 
 @pytest.mark.parametrize("kv_bits", [None, 8])
