@@ -15,10 +15,15 @@ Phases, each printing one JSON line:
              main paths' shapes, in bf16 and fp32 (int8 KV for attention;
              attn_prefill at the buckets T = 16, 64 and 256 and at the
              speculative verify shape T = 5 against a 512-entry cache with
-             ragged hi = valid, a row without a valid key; attn_decode
-             also at B = 16 and S = 2048; qmatvec at M = 8, 512 and, for
-             the d_ff shapes, 2048; qmatmul for the tied readout and both
-             MLP heads; for the dense family both attention kernels at
+             ragged hi = valid, a row without a valid key, the fp32
+             kernel with fp32 and int8 K/V; attn_decode also at B = 16 and
+             S = 2048; qmatvec at M = 8, 512 and, for the d_ff shapes,
+             2048; qmatmul for the tied readout, both MLP heads and the q
+             form's four projections (row-major int8 levels, the QKV bias
+             on wq / wk / wv) at M = 8, 512 and 2048 in bf16 and fp32 x,
+             each gated to n_lanes in the variant its plan gives (decode
+             for M <= 16, else prefill), against addmm on the dequantized
+             matrix; for the dense family both attention kernels at
              stablelm-3b's head_dim 80, MHA, B = 8, S = T = 256 / 512, in
              bf16, int8 K/V and fp32, bf16 prefill at head_dim 32 and 256,
              qmatvec at the widest decode projections and the untied 8-bit
@@ -27,7 +32,8 @@ Phases, each printing one JSON line:
              took and gated that it is the one its plan gives (qmatvec:
              decode for M <= 16, else prefill; qmatmul: k_lanes / n_lanes;
              attn_prefill: wgmma for bf16 queries, simt for fp32), and
-             qmatvec and attn_decode run twice for the same bits:
+             qmatvec, attn_decode, the q-form qmatmul and the fp32
+             attn_prefill run twice for the same bits:
              max abs error against the tolerance, held row by row (fp32:
              1e-4 x the row's max|ref|; bf16: 2e-2 x the row's max|ref|, the
              sums run in another order; a row is one output vector of a
@@ -62,6 +68,18 @@ Phases, each printing one JSON line:
              kernel and the card's idle share over PROFILED_TICKS more under
              torch.profiler, which must name qmatvec, qmatmul and attn_decode
              in the captured engine's replayed ticks.
+   q engine  the same fp32 master's export_levels (int8 levels at full
+             shape, 1.31 GB of projections and the 233 MB embedding, made
+             on the card) served by ServingEngine(slots=8, max_len=512,
+             bf16, bf16 KV) captured and as its capture=False twin on the
+             engine phase's requests: identical tokens, the timed serve
+             replay only, the same launches in both twins; every
+             projection in qmatmul's n_lanes layout in the variant its
+             plan gives (ticks decode, admissions prefill), every readout
+             k_lanes, every admission the wgmma attn_prefill, no qmatvec
+             and no plain version; each twin's steady tick, the profiler
+             naming qmatmul and attn_decode; then phase 4's path check on
+             the q export. The export is freed before the next phase.
    quarantine the captured qp engine and its eager twin under a FaultPlan
              putting NaN in slot 3's logits at tick 2 (8 requests x 8
              tokens): one request "poisoned" with the tokens it had, seven
@@ -172,7 +190,11 @@ Phases, each printing one JSON line:
              beside its bound.
 10. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
-             layout / kernel on each path), then the card line as
+             layout / kernel on each path; then one entry for each of
+             qmatmul's n_lanes and the fp32 attn_prefill, with their
+             launches on the q engine and in the resilience phase's fp32
+             engines and every shape the parity phase held them at),
+             then the card line as
              nvidia-smi prints it, then the result line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -221,6 +243,20 @@ VARIANTS = {
                      {"wgmma": "src/repro_torch/csrc/attn_prefill_tc.cu",
                       "simt": "src/repro_torch/csrc/attn_prefill.cu"}),
 }
+# qmatmul's n_lanes launches by variant (decode for M <= 16, prefill above),
+# read beside its layouts as "qmatmul/n_lanes"
+N_LANES = "qmatmul/n_lanes"
+# the fp32 attn_prefill's second kernel (the merge of a split of S), read
+# as "attn_prefill/merge": {"merge": launches}
+SIMT_MERGE = "attn_prefill/merge"
+# kernel routes with an entry of their own in the kernels summary, beside
+# their kernel's headline entry (n_lanes at M = 8, N = d_ff, bf16; simt at
+# the largest bucket, fp32 K/V): (kernel, variant, source)
+ROUTES = (("qmatmul", "n_lanes", "src/repro_torch/csrc/qmatmul.cu"),
+          ("attn_prefill", "simt", "src/repro_torch/csrc/attn_prefill.cu"))
+# the M at which the parity phase holds the q form's projections: decode,
+# an admission (8 slots x bucket 64) and the largest admission
+Q_MS = (8, 512, 2048)
 PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
 # the dense phase: (arch, layers kept on the card or None for all, the CPU
 # rehearsal's reduced() sizes); the depth cut keeps the fp32 master and its
@@ -307,6 +343,15 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / PEAK_OPS[dtype] * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def tc_bound_ms(nbytes: float, ops: float, dtype: str):
+    """The bound of a kernel whose products run on the tensor cores in
+    bf16 (qmatvec, qmatmul's n_lanes and K-contiguous k_lanes): fp32 x
+    enters as three bf16 planes, so it does three times the products at
+    the bf16 tensor-core peak, never fp32 CUDA-core work."""
+    return bound_ms(nbytes, ops * (3 if dtype == "float32" else 1),
+                    "bfloat16")
 
 
 def compare(got, ref, dtype: str, what: str, row_dims: int = 1) -> float:
@@ -448,9 +493,22 @@ def _kernel_cases(cfg, device, clock):
             run=(lambda: qmm_ops.qmatmul(hs, table.T, 1.0)),
             plain=(lambda: qmatmul_ref(hs, table.T, 1.0)),
             library=(lambda: torch.matmul(hs, tdq.T)),
-            bound=bound_ms(nbytes, 2 * 8 * d * cfg.vocab_size, dname),
+            bound=tc_bound_ms(nbytes, 2 * 8 * d * cfg.vocab_size, dname),
             headline=dname == "bfloat16")
     del table
+
+    # qmatmul n_lanes: the q form's projections (row-major int8 levels;
+    # qwen2's QKV bias on wq / wk / wv) at decode M, an admission's M and
+    # the largest admission, in bf16 and fp32 x
+    qproj = ((d, h * hd, cfg.qkv_bias), (d, kvh * hd, cfg.qkv_bias),
+             (d, cfg.d_ff, False), (cfg.d_ff, d, False))
+    for m in Q_MS:
+        for k, n, bias in qproj:
+            for dname, dt in dts:
+                c = _q_proj_case(g, device, m, k, n, bias, dname, dt)
+                c["summary_headline"] = (m == 8 and n == cfg.d_ff
+                                         and dname == "bfloat16")
+                yield c
 
     # attn_decode: 8 slots, S = 512, ragged lengths with one empty row, in
     # every cache form; then 16 slots, and a 2048-token cache
@@ -476,9 +534,13 @@ def _kernel_cases(cfg, device, clock):
                  ("fp32", "float32", torch.float32)]
         if t >= 64:
             kinds.append(("int8", "bfloat16", torch.bfloat16))
+        if t == 256:                     # the simt kernel's int8 K/V
+            kinds.append(("int8", "float32", torch.float32))
         for kvname, dname, dt in kinds:
-            yield _prefill_case(g, device, t, h, kvh, hd, kvname, dname, dt,
-                                headline=(t == 256 and kvname == "bf16"))
+            c = _prefill_case(g, device, t, h, kvh, hd, kvname, dname, dt,
+                              headline=(t == 256 and kvname == "bf16"))
+            c["summary_headline"] = t == 256 and kvname == "fp32"
+            yield c
 
     # attn_prefill at the speculative verify shape: T = spec_k + 1 = 5
     # queries of each of 8 slots against the whole 512-entry decode cache,
@@ -486,7 +548,8 @@ def _kernel_cases(cfg, device, clock):
     # has no valid key at all and must come out as exact zeros
     for kvname, dname, dt in (("bf16", "bfloat16", torch.bfloat16),
                               ("int8", "bfloat16", torch.bfloat16),
-                              ("fp32", "float32", torch.float32)):
+                              ("fp32", "float32", torch.float32),
+                              ("int8", "float32", torch.float32)):
         yield _verify_case(g, device, cfg, kvname, dname, dt)
 
 
@@ -572,9 +635,12 @@ def _prefill_case(g, device, t, h, kvh, hd, kvname, dname, dt, b=8,
     q = torch.randn((b, t, h, hd), generator=g, device=device).to(dt)
     k_, v_, ks, vs, kl, vl = _kv(g, device, b, t, kvh, hd, kvname, dt)
     what = f"attn_prefill T={t} KV={kvh} D={hd} {dname} kv-{kvname}"
-    got, variant = launched_variant("attn_prefill", lambda: (
-        pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks, v_scale=vs)),
-        "wgmma" if dt == torch.bfloat16 else "simt")
+    simt = dt == torch.float32
+    got, variant = launched_variant("attn_prefill", lambda: same_bits(
+        lambda: pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks, v_scale=vs),
+        what) if simt else pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks,
+                                                v_scale=vs),
+        "simt" if simt else "wgmma")
     qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
     ref = attn_prefill_ref(qg, k_, v_, lo, hi, ks, vs).reshape(b, t, h, hd)
     if bool((got[hi <= lo] != 0).any()):
@@ -598,7 +664,7 @@ def _prefill_case(g, device, t, h, kvh, hd, kvname, dname, dt, b=8,
         library=(lambda: F.scaled_dot_product_attention(
             qs, kh, vh, attn_mask=mask)),
         bound=bound_ms(nbytes, 4 * hd * h * int((hi - lo).sum()), dname),
-        headline=headline)
+        summary="simt" if simt else None, headline=headline)
 
 
 def _dense_cases(device, clock, rehearse):
@@ -694,9 +760,12 @@ def _verify_case(g, device, cfg, kvname, dname, dt, b=8, t=SPEC_K + 1,
         ks = vs = None
         kl, vl = k_, v_
     what = f"attn_prefill verify T={t} S={s} {dname} kv-{kvname}"
-    got, variant = launched_variant("attn_prefill", lambda: (
-        pf_ops.attn_prefill(q, k_, v_, valid, k_scale=ks, v_scale=vs)),
-        "wgmma" if dt == torch.bfloat16 else "simt")
+    simt = dt == torch.float32
+    got, variant = launched_variant("attn_prefill", lambda: same_bits(
+        lambda: pf_ops.attn_prefill(q, k_, v_, valid, k_scale=ks,
+                                    v_scale=vs), what) if simt else
+        pf_ops.attn_prefill(q, k_, v_, valid, k_scale=ks, v_scale=vs),
+        "simt" if simt else "wgmma")
     qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
     lo = torch.zeros_like(valid)
     ref = attn_prefill_ref(qg, k_, v_, lo, valid, ks, vs).reshape(b, t, h, hd)
@@ -724,7 +793,7 @@ def _verify_case(g, device, cfg, kvname, dname, dt, b=8, t=SPEC_K + 1,
             qs, kh, vh, attn_mask=mask)),
         library_call="SDPA with the (B, H, T, S) mask of valid",
         bound=bound_ms(nbytes, 4 * hd * h * int(valid.sum()), dname),
-        headline=False)
+        summary="simt" if simt else None, headline=False)
 
 
 def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
@@ -755,7 +824,50 @@ def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
         run=(lambda: qmv_ops.qmatvec(x, w, delta, k=k, bias=bias)),
         plain=(lambda: qmatvec_ref(x, w, delta, k, bias=bias)),
         library=(lambda: torch.addmm(bx, x, wdq)),
-        bound=bound_ms(nbytes, 2 * m * k * n, dname), headline=headline)
+        bound=tc_bound_ms(nbytes, 2 * m * k * n, dname), headline=headline)
+
+
+def _q_proj_case(g, device, m, k, n, bias, dname, dt):
+    """A q-form projection: (K, N) row-major int8 levels, per-channel
+    delta, the QKV bias where qwen2 has it; run twice for the same bits,
+    gated to launch qmatmul's n_lanes layout in the variant its plan gives
+    for M. The library call is ``addmm`` on the dequantized matrix."""
+    import torch
+    from repro_torch.kernels.qmatmul import kernel as qmm_k
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    w = torch.randint(-127, 128, (k, n), generator=g, device=device,
+                      dtype=torch.int8)
+    delta = torch.rand(n, generator=g, device=device) * 0.01
+    b = torch.randn(n, generator=g, device=device) if bias else None
+    x = torch.randn((m, k), generator=g, device=device).to(dt)
+    want = qmm_k.plan(m, k, n, *w.stride(), dt)
+    what = f"qmatmul q form {m}x{k}x{n} {dname}"
+    run = lambda: qmm_ops.qmatmul(x, w, delta, bias=b)
+    before = read_variants()
+    got = same_bits(run, what)
+    after = read_variants()
+    ran = {key: [v for v in after[key] if after[key][v] != before[key][v]]
+           for key in ("qmatmul", N_LANES)}
+    if got.is_cuda and (ran["qmatmul"] != ["n_lanes"]
+                        or ran[N_LANES] != [want.variant]):
+        fail(f"{what}: launched {ran}, expected n_lanes {want.variant}")
+    ref = qmatmul_ref(x, w, delta, bias=b)
+    wdq = (w.float() * delta).to(dt)
+    bx = (b if bias else torch.zeros(n, device=device)).to(dt)
+    xb = x.element_size()
+    nbytes = m * k * xb + w.numel() + n * 4 * (2 if bias else 1) \
+        + m * n * xb
+    return dict(
+        name="qmatmul", shape=f"M={m} K={k} N={n} (q form"
+                              f"{', bias' if bias else ''})",
+        dtype=dname, variant=f"n_lanes/{want.variant}", ksplit=want.ksplit,
+        err=compare(got, ref, dname, what), run=run,
+        plain=(lambda: qmatmul_ref(x, w, delta, bias=b)),
+        library=(lambda: torch.addmm(bx, x, wdq)),
+        library_call="addmm on the dequantized matrix",
+        bound=tc_bound_ms(nbytes, 2 * m * k * n, dname), summary="n_lanes",
+        headline=False)
 
 
 def _qmatmul_head_case(g, device, clock, m, k, n, dname, dt):
@@ -861,9 +973,14 @@ def parity_phase(cfg, device, rehearse):
     emit({"phase": "parity", "tolerance": TOL,
           "timing": "median ms, CUDA events" if not rehearse
           else "median ms, host clock (CPU rehearsal, not device times)",
-          "cases": [{k: v for k, v in c.items() if k != "headline"}
+          "cases": [{k: v for k, v in c.items()
+                     if k not in ("headline", "summary", "summary_headline")}
                     for c in cases]})
-    return {c["name"]: c for c in cases if c["headline"]}
+    routes = {}
+    for c in cases:
+        if c.get("summary"):
+            routes.setdefault(c["summary"], []).append(c)
+    return {c["name"]: c for c in cases if c["headline"]}, routes
 
 
 # --- phase 3 ----------------------------------------------------------------------
@@ -888,6 +1005,9 @@ def reset_counts():
         split = getattr(c[name][0], attr)
         for key in split:
             split[key] = 0
+    for key in c["qmatmul"][0].launches_by_variant:
+        c["qmatmul"][0].launches_by_variant[key] = 0
+    c["attn_prefill"][0].merges = 0
 
 
 def read_counts():
@@ -897,10 +1017,15 @@ def read_counts():
 
 
 def read_variants():
-    """Launches by layout (qmatmul) and by kernel (attn_prefill)."""
+    """Launches by variant (qmatvec, attn_prefill), by layout (qmatmul),
+    qmatmul's n_lanes launches by variant (N_LANES) and the fp32
+    attn_prefill's merges (SIMT_MERGE)."""
     c = _counters()
-    return {name: dict(getattr(c[name][0], attr))
-            for name, (attr, _) in VARIANTS.items()}
+    out = {name: dict(getattr(c[name][0], attr))
+           for name, (attr, _) in VARIANTS.items()}
+    out[N_LANES] = dict(c["qmatmul"][0].launches_by_variant)
+    out[SIMT_MERGE] = {"merge": c["attn_prefill"][0].merges}
+    return out
 
 
 def launched_variant(name, fn, expect):
@@ -1044,6 +1169,113 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
                      for name, e in engines.items()}
     emit(out)
     del engines
+    return run["launches"], run["variants"], out["tok_per_s"]
+
+
+def _q_launch_gate(eng, cfg, run, what):
+    """The q engine's launch gates over one serve: every projection (7 a
+    layer a forward) in qmatmul's n_lanes layout, in the variant its plan
+    gives for its M (ticks decode, admissions prefill), every readout in
+    k_lanes, every admission the wgmma attn_prefill, attn_decode launched,
+    no qmatvec and no plain version."""
+    import torch
+    from repro_torch.kernels.qmatmul import kernel as qmm_k
+    from repro_torch.serving.engine import _MIN_BUCKET
+    launches, plain, variants = run["launches"], run["plain"], run["variants"]
+    ticks, rounds, layers = run["ticks"], run["rounds"], cfg.num_layers
+    if max(plain.values()) != 0:
+        fail(f"{what}: a plain version ran: {plain}")
+    if launches["qmatvec"] != 0 or launches["attn_decode"] <= 0:
+        fail(f"{what}: launches {launches}")
+    want = {"n_lanes": 7 * layers * (ticks + rounds),
+            "k_lanes": ticks + rounds}
+    by_m = {"decode": 7 * layers * ticks, "prefill": 7 * layers * rounds}
+    d = cfg.d_model
+    if (variants["qmatmul"] != want or variants[N_LANES] != by_m
+            or launches["qmatmul"] != sum(want.values())
+            or qmm_k.plan(eng.slots, d, d, d, 1, torch.bfloat16).variant
+            != "decode"
+            or qmm_k.plan(eng.slots * _MIN_BUCKET, d, d, d, 1,
+                          torch.bfloat16).variant != "prefill"):
+        fail(f"{what}: qmatmul launches by layout {variants['qmatmul']} and "
+             f"n_lanes variant {variants[N_LANES]}, want {want} and {by_m} "
+             f"({ticks} ticks, {rounds} rounds)")
+    if not 0 < variants["attn_prefill"]["wgmma"] == launches["attn_prefill"]:
+        fail(f"{what}: an admission did not run the wgmma attn_prefill: "
+             f"{variants}")
+
+
+def q_engine_phase(cfg, master, device, rehearse):
+    """The q form served: the fp32 master's export_levels (int8 levels at
+    full shape, made on the card), ServingEngine(slots=8, max_len=512,
+    bf16, bf16 KV) captured and as its capture=False twin on the engine
+    phase's requests, gated as the engine phase is (identical tokens, the
+    timed serve replay only, the same launches in both twins) and by
+    _q_launch_gate; each twin's steady tick; then the path check on the
+    export. The export is freed before the next phase. Returns the
+    captured run's launches and variants."""
+    import gc
+
+    import torch
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.core.treeutil import flatten_with_path
+    from repro_torch.launch.profile_engine import MAX_NEW, prompts
+    from repro_torch.serving.engine import ServingEngine
+    t0 = time.perf_counter()
+    qparams = quant_dense.export_levels(master, W3A8)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    leaves = flatten_with_path(qparams)
+    int8_gb = sum(v.numel() for k, v in leaves.items()
+                  if v.dtype == torch.int8) / 1e9
+    if any(k.endswith("qp") for k in leaves):
+        fail("q export holds packed containers")
+    reqs = prompts(cfg.vocab_size)
+    what = "q engine"
+
+    def make(capture):
+        return ServingEngine(qparams, cfg, policy=W3A8, slots=8, max_len=512,
+                             dtype=torch.bfloat16, capture=capture,
+                             device=device)
+    engines = {"captured": _warmed(make(None), reqs),
+               "eager": _warmed(make(False), reqs)}
+    runs = {name: _serve(eng, reqs, device) for name, eng in engines.items()}
+    run = runs["captured"]
+    done = run["done"]
+    if len(done) != len(reqs) or any(len(r.out) != MAX_NEW for r in done):
+        fail(f"{what} did not serve every request its {MAX_NEW} tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+        fail(f"{what} emitted a token id outside the vocabulary")
+    _twin_gate(runs, what)
+    if not rehearse:
+        for name, eng in engines.items():
+            _q_launch_gate(eng, cfg, runs[name], f"{what} {name}")
+        if runs["eager"]["launches"] != run["launches"] \
+                or runs["eager"]["variants"] != run["variants"]:
+            fail(f"{what}: replayed launches {run['variants']} differ from "
+                 f"the eager twin's {runs['eager']['variants']}")
+    out = {"phase": "q_engine", "form": "q (W3A8 export_levels: int8 "
+           "levels, qmatmul n_lanes)", "export_s": round(export_s, 3),
+           "int8_gb": round(int8_gb, 4), "kv": "bf16",
+           "requests": len(done), **_run_line(run),
+           "eager_twin": _run_line(runs["eager"]),
+           "captured_eager_token_identical": True,
+           "launches": run["launches"], "launches_by_variant": run["variants"],
+           "plain_calls": run["plain"],
+           "eager_twin_launches": runs["eager"]["launches"]}
+    out["steady"] = {name: _steady(e, cfg, device, rehearse,
+                                   names=("qmatmul", "attn_decode"))
+                     for name, e in engines.items()}
+    del engines
+    gc.collect()
+    out["path"] = _path_check(cfg, qparams, device)
+    emit(out)
+    del qparams, leaves
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return run["launches"], run["variants"], out["tok_per_s"]
 
 
@@ -1383,7 +1615,8 @@ def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
                              f"generate, {n} prompts x {new} new tokens, "
                              "fp32 activations, TF32 off",
                 "fp32_token_identical": bool(torch.equal(spec, greedy)),
-                "fp32_attn_prefill_by_variant": variants32["attn_prefill"]})
+                "fp32_attn_prefill_by_variant": variants32["attn_prefill"],
+                "fp32_attn_prefill_merges": variants32[SIMT_MERGE]["merge"]})
     if not torch.equal(spec, greedy):
         out["fp32_first_mismatch"] = _first_mismatch_margin(
             master, cfg, FLOAT, gp.to(device), spec.to(device),
@@ -2488,7 +2721,7 @@ def main(argv=None) -> int:
     if args.rehearse:
         cfg = reduced(cfg)
     smi = card_phase(device, args.rehearse)
-    headline = parity_phase(cfg, device, args.rehearse)
+    headline, routes = parity_phase(cfg, device, args.rehearse)
     master, params, build_s = build_model(cfg, device, args.seed)
     emit({"phase": "model", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -2498,6 +2731,8 @@ def main(argv=None) -> int:
                                                 args.rehearse)
     launches8, variants8, _ = engine_phase(cfg, params, device, 8,
                                            args.rehearse)
+    q_launches, q_variants, _ = q_engine_phase(cfg, master, device,
+                                               args.rehearse)
     quarantine_phase(cfg, params, device, args.rehearse)
     path_phase(cfg, params, device)
     spec_launches, spec_variants = spec_phase(cfg, master, params, device,
@@ -2520,7 +2755,8 @@ def main(argv=None) -> int:
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
         by_path = {"engine_bf16_kv": launches[name],
-                   "engine_int8_kv": launches8[name]}
+                   "engine_int8_kv": launches8[name],
+                   "q_engine": q_launches[name]}
         if name in ENGINE_KERNELS:
             by_path["spec"] = spec_launches[name]
         by_path.update(paper=paper_launches[name],
@@ -2543,11 +2779,41 @@ def main(argv=None) -> int:
                 variant=c["variant"], variant_sources=VARIANTS[name][1],
                 launches_by_variant={"engine_bf16_kv": variants[name],
                                      "engine_int8_kv": variants8[name],
+                                     "q_engine": q_variants[name],
                                      "spec": spec_variants[name],
                                      "deploy": deploy_variants[name],
                                      "dense": dense_variants[name],
                                      "resilience": res_variants[name]})
         kernels.append(entry)
+    # the redesigned routes: their headline case, their launches on the
+    # path that runs them (n_lanes: the q engine; simt: the fp32 engines of
+    # the resilience phase), and every shape the parity phase held
+    route_paths = {"n_lanes": ("q_engine", q_variants[N_LANES],
+                               q_variants["qmatmul"]["n_lanes"]),
+                   "simt": ("resilience", {
+                       "simt": res_variants["attn_prefill"]["simt"],
+                       "merge": res_variants[SIMT_MERGE]["merge"]},
+                       res_variants["attn_prefill"]["simt"])}
+    for name, variant, src in ROUTES:
+        cases = routes[variant]
+        c = next(c for c in cases if c.get("summary_headline"))
+        path, split, count = route_paths[variant]
+        if not args.rehearse and count <= 0:
+            fail(f"{name} {variant}: no launch on the {path} path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": KERNEL_META[name][1], "variant": variant,
+            "launches": count, "launches_path": path,
+            "launches_by_variant": split,
+            "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"], "device_ms": c["device_ms"],
+            "library_device_ms": c["library_device_ms"], "shape": c["shape"],
+            "dtype": c["dtype"],
+            "cases": [{k: c_[k] for k in (
+                "shape", "dtype", "variant", "err", "ms", "device_ms",
+                "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                "bound_by") if k in c_} for c_ in cases]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     if args.rehearse:

@@ -5,12 +5,17 @@ readout's ``q.T``) is read in place, never copied. :func:`plan` picks the
 kernel's layout from the strides and N (pure Python, so the CPU tests reach
 it): ``k_lanes`` (lanes along K) for a K-contiguous W (the readout) and for
 a row-major W of at most 64 columns (the paper MLP's heads), ``n_lanes``
-(lanes along N) for any other. ``launches`` counts launches and
-``launches_by_layout`` splits them by layout; nothing else touches either.
+(lanes along N) for any other (the ``q`` form's projections), and for
+``n_lanes`` its variant by M, ``decode`` (M <= 16) or ``prefill``, and its
+split of K. ``launches`` counts launches (one a call, a K split's second
+kernel included), ``launches_by_layout`` splits them by layout and
+``launches_by_variant`` the ``n_lanes`` ones by variant; nothing else
+touches them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -18,11 +23,14 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["qmatmul_cuda", "plan", "Plan", "launches", "launches_by_layout",
-           "LAYOUTS"]
+           "launches_by_variant", "LAYOUTS", "N_LANES_VARIANTS",
+           "decode_tile_row"]
 
 LAYOUTS = ("n_lanes", "k_lanes")
+N_LANES_VARIANTS = ("decode", "prefill")
 launches = 0
 launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+launches_by_variant = dict.fromkeys(N_LANES_VARIANTS, 0)   # n_lanes only
 
 # k_lanes, K-contiguous W: 128 K values a step; x staged in K chunks of a
 # multiple of the step (padded by 8 bf16 per row), in bf16 planes
@@ -30,31 +38,103 @@ _KL_STEP, _KL_PAD = 128, 8
 _KL_X_BYTES = 96 * 1024      # staged x per block: leaves room for 2 blocks/SM
 _KN_MAX_N = 64               # k_lanes, row-major W: N <= 64
 
+# n_lanes, as csrc/qmatmul.cu: K in chunks (decode) or steps (prefill) of
+# 64; decode blocks of 64 columns, each warp two int8 stages of a chunk and
+# a (64, 64 + 8) bf16 tile; prefill blocks of 128 x 128 outputs, three
+# cp.async stages of raw x and int8 W, a bf16 W tile (rows padded by 8)
+_NL_K, _ND_COLS = 64, 64
+_ND_WARP_BYTES = 2 * 64 * 64 + 64 * 72 * 2      # 2 int8 stages, a bf16 tile
+_ND_TARGET_BLOCKS = 2 * 132  # decode: two blocks of 4 warps on every SM
+_ND_MAX_BLOCKS = 3 * 132     # ... and no more than fit at once (one wave)
+_NP_BM, _NP_BN, _NP_X_ROW, _NP_W_ROW = 128, 128, 72, 136
+_NP_STAGES = 3               # prefill: cp.async stages of x and W
+_DECODE_MAX_M = 16
+_TARGET_BLOCKS = 132         # one block for each SM of the H100
+_MAX_KSPLIT = 16
+_NP_MIN_STEPS = 4            # prefill: K steps a slice, at least
+
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
 class Plan(NamedTuple):
-    """One launch: the layout, its two parameters (for a K-contiguous W in
-    k_lanes: 8-row tiles of x per block and K values staged per chunk;
-    otherwise 0) and the dynamic shared memory it asks for (bytes). The
-    launcher sizes the grid."""
+    """One launch: the layout, its two parameters, the dynamic shared
+    memory it asks for (bytes), the n_lanes variant and the slices of K
+    across blocks. k_lanes with a K-contiguous W: p0 = 8-row tiles of x a
+    block, p1 = K values staged a chunk; with a row-major W: 0, 0. n_lanes:
+    p0 = warps a block (decode; 0 for prefill), p1 = 64-K chunks a
+    slice.
+    The launcher sizes the grid: decode ceil(N / 64) x ksplit, prefill
+    ceil(N / 128) x ceil(M / 128) x ksplit."""
     layout: str
     p0: int
     p1: int
     dynamic_smem: int
+    variant: str = ""
+    ksplit: int = 1
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _slices(nch: int, ks: int) -> tuple:
+    """(chunks a slice, slices) for about ``ks`` slices of ``nch`` chunks,
+    none of them empty."""
+    cps = _cdiv(nch, ks)
+    return cps, _cdiv(nch, cps)
+
+
+def _n_lanes_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> Plan:
+    """decode for m <= 16: blocks of 64 columns, each with as many warps
+    (1, 2 or 4) as its slice of K has chunks; K split across blocks until
+    there are two blocks for each SM, short of a second wave (three blocks
+    fit an SM) and of 16 slices: a warp's chunk is a latency chain, so the
+    card needs warps more than bytes in flight. prefill above: 128 x 128
+    tiles, K split across blocks while the grid has fewer blocks than SMs
+    and every slice keeps at least 4 steps of K."""
+    nch = _cdiv(max(k, 1), _NL_K)
+    if m <= _DECODE_MAX_M:
+        cols = _cdiv(max(n, 1), _ND_COLS)
+        cps, ks = nch, 1
+        for want in range(2, min(_MAX_KSPLIT, nch) + 1):
+            if cols * ks >= _ND_TARGET_BLOCKS:
+                break
+            c, k_ = _slices(nch, want)
+            if cols * k_ > _ND_MAX_BLOCKS:           # past one wave
+                break
+            cps, ks = c, k_
+        kw = max(w for w in (1, 2, 4) if w <= cps)
+        return Plan("n_lanes", kw, cps, kw * _ND_WARP_BYTES, "decode", ks)
+    tiles = _cdiv(max(n, 1), _NP_BN) * _cdiv(m, _NP_BM)
+    cps, ks = nch, 1
+    for want in range(2, _MAX_KSPLIT + 1):
+        if tiles * ks >= _TARGET_BLOCKS or _cdiv(nch, want) < _NP_MIN_STEPS:
+            break
+        cps, ks = _slices(nch, want)
+    return Plan("n_lanes", 0, cps, _np_smem(x_dtype), "prefill", ks)
+
+
+def _np_smem(x_dtype: torch.dtype) -> int:
+    """n_lanes prefill's shared memory (csrc/qmatmul.cu, ``NpSmem``):
+    three cp.async stages of the raw x tile (rows padded by 16 bytes) and
+    the raw int8 W tile, the bf16 W tile and, for fp32 x, its three bf16
+    planes."""
+    fp32 = x_dtype == torch.float32
+    xb = 4 if fp32 else 2
+    stage = _NP_BM * (_NL_K + 16 // xb) * xb + _NL_K * _NP_BN
+    return (_NP_STAGES * stage + _NL_K * _NP_W_ROW * 2
+            + (3 * _NP_BM * _NP_X_ROW * 2 if fp32 else 0))
+
+
+@functools.lru_cache(maxsize=None)
 def plan(m: int, k: int, n: int, stride_k: int, stride_n: int,
          x_dtype: torch.dtype) -> Plan:
     """The launch for an (m, k) x (k, n) product with W's element strides:
     k_lanes for a K-contiguous W (``stride_k == 1``) or a row-major W of
-    ``n <= 64`` columns, n_lanes for anything else."""
+    ``n <= 64`` columns, n_lanes for anything else, in the variant and
+    split of :func:`_n_lanes_plan`."""
     if stride_k == 1:
         planes = 3 if x_dtype == torch.float32 else 1
         nt = 1 if m <= 8 else 2 if m <= 16 else 4
@@ -64,7 +144,16 @@ def plan(m: int, k: int, n: int, stride_k: int, stride_n: int,
         return Plan("k_lanes", nt, kc, per_k * (kc + _KL_PAD))
     if stride_n == 1 and n <= _KN_MAX_N:
         return Plan("k_lanes", 0, 0, 0)
-    return Plan("n_lanes", 0, 0, 0)
+    return _n_lanes_plan(m, k, n, x_dtype)
+
+
+def decode_tile_row(r: int) -> int:
+    """csrc/qmatmul.cu's ``nd_tile_row``: the bf16 tile row that row r of
+    a 64-row chunk of W goes to in n_lanes decode. r = 16 t + 4 s + q lands
+    in k16 step s at A slot 2 t + q (q < 2) or 8 + 2 t + q - 2, so lane t's
+    B slots over the chunk's four steps are x[16 t .. 16 t + 16)."""
+    t, s, q = r >> 4, (r >> 2) & 3, r & 3
+    return 16 * s + (2 * t + q if q < 2 else 8 + 2 * t + q - 2)
 
 
 def qmatmul_cuda(x: torch.Tensor, w_q: torch.Tensor, delta: torch.Tensor,
@@ -97,14 +186,20 @@ def qmatmul_cuda(x: torch.Tensor, w_q: torch.Tensor, delta: torch.Tensor,
         return out
     sk, sn = w_q.stride()
     p = plan(m, k, n, sk, sn, x.dtype)
+    part = (torch.empty((p.ksplit, m, n), dtype=torch.float32, device=dev)
+            if p.ksplit > 1 else None)
     with torch.cuda.device(dev):
         rc = _build.function("qmatmul", _ARGTYPES)(
             x.data_ptr(), w_q.data_ptr(), sk, sn, delta.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            m, k, n, _build.dtype_code(x.dtype), _build.dtype_code(out_dtype),
-            LAYOUTS.index(p.layout), p.p0, p.p1, p.dynamic_smem,
-            _build.stream_ptr(dev))
-    _build.check(rc, "qmatmul")
+            None if part is None else part.data_ptr(), m, k, n,
+            _build.dtype_code(x.dtype), _build.dtype_code(out_dtype),
+            LAYOUTS.index(p.layout),
+            N_LANES_VARIANTS.index(p.variant) if p.variant else 0, p.p0,
+            p.p1, p.ksplit, p.dynamic_smem, _build.stream_ptr(dev))
+    _build.check(rc, f"qmatmul {p.layout} {p.variant}".strip())
     launches += 1
     launches_by_layout[p.layout] += 1
+    if p.variant:
+        launches_by_variant[p.variant] += 1
     return out

@@ -1,19 +1,26 @@
-"""Times ``qmatvec``, ``attn_decode`` and the untied 8-bit head's
-``qmatmul`` at the serving path's shapes, through their public wrappers, on
-the card.
+"""Times ``qmatvec``, ``attn_decode``, ``qmatmul`` (the untied 8-bit head,
+the ``q`` form's projections) and the fp32 ``attn_prefill`` at the serving
+path's shapes, through their public wrappers, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_kernels [--tag T]
-        [--groups qwen,dense,head]
+        [--groups qwen,dense,head,q,prefill32]
 
 Groups: ``qwen`` (the default) qwen2-1.5b's projections and decode
 attention and the paper MLP's layers; ``dense`` qmatvec at the decode
 projections of stablelm-3b, qwen2.5-14b and qwen3-32b (M = 8); ``head``
 their untied heads (M = 8) in both of qmatmul's layouts for a (K, N)
 head: row-major (``n_lanes``) and stored K-contiguous (a ``.T`` view,
-``k_lanes``), beside ``matmul`` on the dequantized bf16 head.
+``k_lanes``), beside ``matmul`` on the dequantized bf16 head; ``q``
+qwen2-1.5b's projections in the ``q`` form (row-major int8 levels,
+``n_lanes``) at decode (M = 8) and prefill M (512, 2048), bf16 and fp32
+x, with the QKV bias where qwen2 has it, beside ``addmm`` on the
+dequantized matrix in x's dtype (TF32 off), and the plain version;
+``prefill32`` the fp32 ``attn_prefill`` (fp32 and int8 K/V) at the
+largest bucket (T = S = 256) of qwen2-1.5b and stablelm-3b and at the
+speculative verify shape (T = 5, S = 512), beside SDPA over the
+(dequantized) K/V in fp32, and the plain version.
 
-Uses only the wrappers (``kernels/qmatvec/ops.py::qmatvec``,
-``kernels/attn_decode/ops.py::attn_decode``), their plain versions and
+Uses only the wrappers (``kernels/*/ops.py``), their plain versions and
 ``core/packing.py``, so the same file times two trees of the port in one
 call: run it with ``PYTHONPATH`` pointing at each tree's ``src`` in turn
 (parent, change, change, parent). Each case is held against its plain
@@ -21,7 +28,12 @@ version first (1e-4 x max|ref| in fp32, 2e-2 x max|ref| in bf16). Prints one
 JSON line per case: the median CUDA-event ms of one call, the profiler's
 device ms of one call (every kernel it launched), the library call's device
 ms (``addmm`` on the dequantized W; SDPA over the cache with its KV heads
-expanded) and the max abs error.
+expanded), the bound (the larger of bytes at 3.35 TB/s and operations:
+qmatvec's and qmatmul's products at the 989 TFLOP/s bf16 tensor-core peak,
+three times over for fp32 x, which they split into three bf16 planes; the
+fp32 attn_prefill's at the 67 TFLOP/s of fp32 on the CUDA cores) and the
+max abs error; the ``q`` and ``prefill32`` cases also the plain version's
+and the library call's CUDA-event ms, and the launch counters' variant.
 """
 from __future__ import annotations
 
@@ -34,7 +46,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.packing import pack_matrix, unpack_matrix
 from repro_torch.kernels.attn_decode import ops as dec_ops
-from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+from repro_torch.kernels.attn_decode.ref import attn_decode_ref, scale_q
+from repro_torch.kernels.attn_prefill import kernel as pf_k
+from repro_torch.kernels.attn_prefill import ops as pf_ops
+from repro_torch.kernels.attn_prefill.ref import attn_prefill_ref
 from repro_torch.kernels.qmatmul import kernel as qmm_k
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
@@ -59,6 +74,16 @@ DENSE_PROJ = ((2560, 2560), (2560, 6912), (6912, 2560),
               (5120, 8192), (8192, 5120), (5120, 25600), (25600, 5120))
 # their untied heads: (K = d_model, N = vocab)
 HEAD_CASES = ((2560, 50304), (5120, 152064), (5120, 151936))
+# the q form's projections (K, N, QKV bias) at decode and prefill M, in
+# bf16 x (the q engine) and fp32 x (the fp32 path check)
+Q_CASES = [(m, k, n, bias, dtype) for dtype in (torch.bfloat16, torch.float32)
+           for m in (8, 512, 2048)
+           for k, n, bias in ((1536, 1536, True), (1536, 256, True),
+                              (1536, 8960, False), (8960, 1536, False))]
+# fp32 attn_prefill: (B, T, S, KV, G, D, K/V): qwen2-1.5b's and
+# stablelm-3b's largest bucket, and the speculative verify shape
+PREFILL32_CASES = [(8, 256, 256, 2, 6, 128), (8, 256, 256, 32, 1, 80),
+                   (8, 5, 512, 2, 6, 128)]
 
 
 def _event_ms(fn):
@@ -91,6 +116,12 @@ def _device_ms(fn):
     return us / 1e3 / REPS
 
 
+def _planes(dtype):
+    """bf16 planes a tensor-core kernel splits x into (qmatvec, qmatmul):
+    fp32 x runs as three, each product at the bf16 tensor-core peak."""
+    return 3 if dtype == torch.float32 else 1
+
+
 def _err(got, ref, dtype, what):
     got, ref = got.float(), ref.float()
     err = float((got - ref).abs().max())
@@ -117,7 +148,8 @@ def qmatvec_case(g, m, k, n, dtype):
     nbytes = m * k * xb + w.numel() * 4 + 2 * n * 4 + m * n * xb
     return {"kernel": "qmatvec", "shape": f"M={m} K={k} N={n}",
             "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-            "bound_ms": nbytes / 3.35e9,
+            "bound_ms": max(nbytes / 3.35e9, _planes(dtype) * 2 * m * k * n
+                            / 989e9),
             "ms": _event_ms(run), "device_ms": _device_ms(run),
             "library": "addmm", "library_device_ms": _device_ms(lib)}
 
@@ -186,11 +218,124 @@ def head_case(g, m, k, n, layout):
             "library_ms": _event_ms(lib), "library_device_ms": _device_ms(lib)}
 
 
+def _counted(fn, mod, attr):
+    """Run ``fn`` once and return the keys of ``mod.<attr>`` (a launch
+    counter by variant) that it moved; [] where the tree has no such
+    counter."""
+    split = getattr(mod, attr, None)
+    if split is None:
+        return []
+    before = dict(split)
+    fn()
+    return [k for k in split if split[k] != before[k]]
+
+
+def _merges(fn):
+    """The fp32 attn_prefill's split merges one call of ``fn`` launched;
+    None where the tree does not count them."""
+    before = getattr(pf_k, "merges", None)
+    if before is None:
+        return None
+    fn()
+    return pf_k.merges - before
+
+
+def q_case(g, m, k, n, bias, dtype):
+    """The q form's projection: (K, N) row-major int8 levels, per-channel
+    delta, optional bias, x in ``dtype``."""
+    dev = torch.device("cuda")
+    w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    delta = torch.rand(n, generator=g, device=dev) * 0.01
+    b = torch.randn(n, generator=g, device=dev) if bias else None
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    wdq = (w.float() * delta).to(dtype)
+    bx = (b if bias else torch.zeros(n, device=dev)).to(dtype)
+    run = lambda: qmm_ops.qmatmul(x, w, delta, bias=b)
+    plain = lambda: qmatmul_ref(x, w, delta, bias=b)
+    lib = lambda: torch.addmm(bx, x, wdq)
+    name = str(dtype).split(".")[-1]
+    err = _err(run(), plain(), dtype, f"qmatmul q {m}x{k}x{n} {name}")
+    xb = x.element_size()
+    nbytes = m * k * xb + k * n + n * 4 * (2 if bias else 1) + m * n * xb
+    return {"kernel": "qmatmul", "layout": _counted(
+                run, qmm_k, "launches_by_layout"),
+            "variant": _counted(run, qmm_k, "launches_by_variant"),
+            "shape": f"M={m} K={k} N={n} (q form{', bias' if bias else ''})",
+            "dtype": name, "max_abs_err": err,
+            "bound_ms": max(nbytes / 3.35e9,
+                            _planes(dtype) * 2 * m * k * n / 989e9),
+            "ms": _event_ms(run), "device_ms": _device_ms(run),
+            "plain_ms": _event_ms(plain),
+            "library": f"addmm on the dequantized {name} matrix",
+            "library_ms": _event_ms(lib), "library_device_ms": _device_ms(lib)}
+
+
+def prefill32_case(g, b, t, s, kvh, grp, hd, cache):
+    """The fp32 attn_prefill: ragged lengths and hi = min(t + 1, len) for a
+    bucket (T = S), or hi = valid against an S-entry cache (T = 5, one row
+    without a valid key); SDPA over the dequantized K/V in fp32."""
+    dev = torch.device("cuda")
+    q = torch.randn((b, t, kvh * grp, hd), generator=g, device=dev)
+    if cache == "int8":
+        kc, vc = (torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand((b, s), generator=g, device=dev) * 0.02
+                  for _ in range(2))
+        kl, vl = kc.float() * ks[..., None, None], vc.float() * vs[..., None, None]
+    else:
+        kc, vc = (torch.randn((b, s, kvh, hd), generator=g, device=dev)
+                  for _ in range(2))
+        ks = vs = None
+        kl, vl = kc, vc
+    if t == s:
+        plen = torch.tensor([1, t, t // 2, 3, t - 1, min(17, t), t // 4,
+                             min(9, t)], dtype=torch.int32, device=dev)[:b]
+        hi = torch.minimum(torch.arange(t, dtype=torch.int32, device=dev)[None]
+                           + 1, plen[:, None])
+        work = int(hi.sum())
+    else:
+        lens = torch.tensor([0, 1, 37, 128, 200, 333, 480, s - t],
+                            dtype=torch.int32, device=dev)[:b]
+        hi = torch.clamp(lens[:, None] + torch.arange(
+            1, t + 1, dtype=torch.int32, device=dev)[None], max=s)
+        hi[1] = 0
+        work = int(hi.sum())
+    lo = torch.zeros_like(hi)
+    run = lambda: pf_ops.attn_prefill(q, kc, vc, hi, k_scale=ks, v_scale=vs)
+    qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
+    plain = lambda: attn_prefill_ref(qg, kc, vc, lo, hi, ks, vs)
+    qs = q.transpose(1, 2)
+    kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    mask = (torch.arange(s, device=dev)[None, None, :]
+            < hi[:, :, None])[:, None]
+    lib = lambda: F.scaled_dot_product_attention(qs, kh, vh, attn_mask=mask)
+    err = _err(run(), plain().reshape(b, t, -1, hd), torch.float32,
+               f"attn_prefill fp32 T={t} S={s} D={hd} {cache}")
+    keys = int(hi.amax(1).sum())
+    eb = kc.element_size()
+    nbytes = (2 * b * t * kvh * grp * hd * 4 + 2 * keys * kvh * hd * eb
+              + (2 * keys * 4 if ks is not None else 0) + b * t * 4)
+    return {"kernel": "attn_prefill", "variant": _counted(
+                run, pf_k, "launches_by_variant"), "merges": _merges(run),
+            "shape": f"B={b} T={t} S={s} KV={kvh} G={grp} D={hd}"
+                     + (" (verify, hi = valid)" if t != s else " lens ragged"),
+            "dtype": f"float32/kv-{cache}", "max_abs_err": err,
+            "bound_ms": max(nbytes / 3.35e9,
+                            4 * hd * kvh * grp * work / 67e9),
+            "ms": _event_ms(run), "device_ms": _device_ms(run),
+            "plain_ms": _event_ms(plain),
+            "library": "SDPA (fp32, dequantized K/V, KV heads expanded)",
+            "library_ms": _event_ms(lib), "library_device_ms": _device_ms(lib)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="", help="a label printed on each line")
     ap.add_argument("--groups", default="qwen",
-                    help="comma-separated: qwen, dense, head")
+                    help="comma-separated: qwen, dense, head, q, prefill32")
     args = ap.parse_args(argv)
     groups = set(args.groups.split(","))
     if not torch.cuda.is_available():
@@ -207,6 +352,11 @@ def main(argv=None):
     if "head" in groups:
         cases += [lambda c=c, lay=lay: head_case(g, 8, *c, lay)
                   for c in HEAD_CASES for lay in ("n_lanes", "k_lanes")]
+    if "q" in groups:
+        cases += [lambda c=c: q_case(g, *c) for c in Q_CASES]
+    if "prefill32" in groups:
+        cases += [lambda c=c, kv=kv: prefill32_case(g, *c, kv)
+                  for c in PREFILL32_CASES for kv in ("fp32", "int8")]
     for case in cases:
         print(json.dumps({"tag": args.tag, **case()}), flush=True)
         torch.cuda.empty_cache()

@@ -1,11 +1,12 @@
 """Where the serving time goes: a full-width W3A8 ``qp`` model (qwen2-1.5b
 unless ``--arch`` names another ported dense config, ``--layers`` cutting
-its depth as ``launch/serve.py`` does) served by the engine on the card,
-under ``torch.profiler``.
+its depth as ``launch/serve.py`` does; ``--form q`` the int8-level export
+instead, every projection through qmatmul's ``n_lanes``) served by the
+engine on the card, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine [--kv8]
         [--steady-only] [--spec-k K] [--eager] [--quant w3|float]
-        [--arch A] [--layers N]
+        [--form qp|q] [--fp32] [--arch A] [--layers N]
 
 Serves the same 16 requests as ``chip_smoke.py`` (the launch/serve.py
 prompt mix plus eight 100-250-token prompts, 32 new tokens each, 8 slots,
@@ -41,6 +42,13 @@ drafter, a tick once a target layer, and one stream runs the kernels in
 launch order, so the i-th ``attn_prefill`` kernel of the trace (by start)
 is the i-th launch of that sequence (the counts must match). A steady
 tick's ``attn_prefill`` is all verify.
+
+``--fp32`` serves the seeded fp32 master itself (FLOAT policy, fp32
+activations and K/V; with ``--spec-k`` its qp export drafts), as
+``chip_smoke.py``'s fp32 gates and resilience phase do: every
+``attn_prefill`` then runs the fp32 kernel. It builds the model from the
+port's ``models`` and ``api.draft_of``, which every tree of the port has,
+so the file can time another tree's ``src`` (``PYTHONPATH``).
 """
 from __future__ import annotations
 
@@ -51,7 +59,10 @@ import time
 
 import torch
 
+from repro_torch.core.precision import FLOAT
 from repro_torch.launch.serve import build_params, config_for
+from repro_torch.models import api as model_api
+from repro_torch.models import get_model
 from repro_torch.serving.engine import ServingEngine
 
 # launch/serve.py's prompt mix, then 100-250-token prompts that reach the
@@ -150,19 +161,32 @@ def attn_prefill_ms_by_use(prof, uses):
     """Device ms and launches of the ``attn_prefill`` kernels by use:
     ``uses`` holds the use of every launch in order; the kernels of the
     trace, sorted by start, are those launches in that order (one
-    stream)."""
+    stream). The fp32 kernel's split merge (``attn_prefill_kernel_merge``)
+    belongs to the launch before it: its time is added to that launch's
+    use and it is counted apart, as ``merges``."""
     evs = sorted((e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and "attn_prefill_kernel" in e.name),
                  key=lambda e: e.time_range.start)
-    if len(evs) != len(uses):
-        raise RuntimeError(f"{len(evs)} attn_prefill kernels in the trace, "
+    ms = []                       # [device ms, merges] of each launch
+    for e in evs:
+        t = (e.time_range.end - e.time_range.start) / 1e3
+        if "attn_prefill_kernel_merge" in e.name:
+            if not ms:
+                raise RuntimeError("an attn_prefill merge before any launch")
+            ms[-1][0] += t
+            ms[-1][1] += 1
+        else:
+            ms.append([t, 0])
+    if len(ms) != len(uses):
+        raise RuntimeError(f"{len(ms)} attn_prefill kernels in the trace, "
                            f"{len(uses)} launches")
     out = {"verify": 0.0, "admission": 0.0}
-    for e, use in zip(evs, uses):
-        out[use] += (e.time_range.end - e.time_range.start) / 1e3
+    for (t, _), use in zip(ms, uses):
+        out[use] += t
     out["verify_launches"] = uses.count("verify")
     out["admission_launches"] = uses.count("admission")
+    out["merges"] = sum(n for _, n in ms)
     return out
 
 
@@ -187,16 +211,32 @@ def main(argv=None):
                     help="the served weights: the W3A8 qp export (default "
                          "without --spec-k) or the float master cast to "
                          "bf16 (default with it)")
+    ap.add_argument("--form", choices=["qp", "q"], default="qp",
+                    help="the W3A8 export: packed containers (qp, qmatvec) "
+                         "or int8 levels (q, qmatmul n_lanes)")
+    ap.add_argument("--fp32", action="store_true",
+                    help="serve the fp32 master in fp32 (FLOAT policy), "
+                         "not an export or a bf16 cast")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_engine needs a CUDA card")
     dev = torch.device("cuda")
     cfg = config_for(args.arch, layers=args.layers)
     spec_k = args.spec_k
-    quant = args.quant or ("float" if spec_k else "w3")
-    params, policy, draft_cfg, draft_params = build_params(
-        cfg, quant=quant, form="qp", seed=0, device=dev, spec_k=spec_k)
-    kw = dict(policy=policy, slots=8, max_len=512, dtype=torch.bfloat16,
+    dtype = torch.float32 if args.fp32 else torch.bfloat16
+    if args.fp32:
+        quant = "float32"
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = get_model(cfg).init(gen, cfg, device=dev)
+        policy, draft_cfg, draft_params = FLOAT, None, None
+        if spec_k:
+            draft_cfg, draft_params = model_api.draft_of(cfg, params)
+    else:
+        quant = args.quant or ("float" if spec_k else "w3")
+        params, policy, draft_cfg, draft_params = build_params(
+            cfg, quant=quant, form=args.form, seed=0, device=dev,
+            spec_k=spec_k)
+    kw = dict(policy=policy, slots=8, max_len=512, dtype=dtype,
               kv_bits=8 if args.kv8 else None, spec_k=spec_k,
               draft_params=draft_params, draft_cfg=draft_cfg,
               capture=not args.eager, device=dev)
@@ -205,7 +245,8 @@ def main(argv=None):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = {"card": card_line(), "kv": "int8" if args.kv8 else "bf16",
-           "quant": quant, "spec_k": spec_k, "captured": not args.eager}
+           "quant": quant, "form": args.form if quant == "w3" else None,
+           "spec_k": spec_k, "captured": not args.eager}
     if not args.steady_only:
         r0, t0_ = eng.prefill_calls, eng.decode_calls
         acc0, dr0 = eng.spec_accepted, eng.spec_drafted

@@ -3,10 +3,12 @@ on one warmed, captured engine, in both K/V forms: the spread a parent and
 a change are compared within.
 
     PYTHONPATH=src python -m repro_torch.launch.time_serve [--serves N]
-        [--kv bf16,int8]
+        [--kv bf16,int8] [--form qp|q]
 
-Builds the full-width W3A8 ``qp`` qwen2-1.5b from seed 0
-(``serve.build_params``), and for each K/V form a captured
+Builds the full-width W3A8 qwen2-1.5b from seed 0 (``serve.build_params``)
+in the ``--form`` export (``qp``: packed containers, the engine phase;
+``q``: int8 levels, chip_smoke.py's q engine), and for each K/V form a
+captured
 ``ServingEngine(slots=8, max_len=512)`` in bf16. The engine is warmed as
 ``chip_smoke.py`` warms it (the 16 prompts of ``profile_engine.prompts``,
 10 new tokens each), then serves the same prompts ``MAX_NEW`` (32) new
@@ -52,15 +54,18 @@ def main(argv=None):
     ap.add_argument("--serves", type=int, default=5)
     ap.add_argument("--kv", default="bf16,int8",
                     help="comma-separated K/V forms: bf16, int8")
+    ap.add_argument("--form", default="qp", choices=["qp", "q"],
+                    help="the W3A8 export served: qp or q")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_serve needs a CUDA card")
     dev = torch.device("cuda")
     cfg = config_for("qwen2-1.5b")
-    params, policy, _, _ = build_params(cfg, quant="w3", form="qp", seed=0,
-                                        device=dev)
+    params, policy, _, _ = build_params(cfg, quant="w3", form=args.form,
+                                        seed=0, device=dev)
     reqs = prompts(cfg.vocab_size)
-    out = {"card": card_line(), "tree": repro_torch.__file__}
+    out = {"card": card_line(), "tree": repro_torch.__file__,
+           "form": args.form}
     for kv in args.kv.split(","):
         eng = ServingEngine(params, cfg, policy=policy, slots=8, max_len=512,
                             dtype=torch.bfloat16,

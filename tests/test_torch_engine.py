@@ -1,7 +1,8 @@
 """The port's ServingEngine against the JAX ServingEngine on the CPU:
 reduced qwen2-1.5b, fp32, the 3-bit policy without activation quant, the
-``qp`` form, T = 0, staggered mixed-length admission — token-identical
-output and equal decode/prefill call counts. Also the bucketed-admission
+``qp`` form and the ``q`` form (int8 levels, qmatmul's n_lanes on the
+card), T = 0, staggered mixed-length admission — token-identical output
+and equal decode/prefill call counts. Also the bucketed-admission
 invariant and the submit() reason codes."""
 import dataclasses
 
@@ -45,6 +46,15 @@ def qp_models():
     return jcfg, cfg, jp, bridge.to_torch(jax.device_get(jp))
 
 
+@pytest.fixture(scope="module")
+def q_models():
+    jcfg = jreduced(jget_config("qwen2-1.5b"))
+    cfg = reduced(get_config("qwen2-1.5b"))
+    jp = jqd.export_levels(jget_model(jcfg).init(jax.random.PRNGKey(0),
+                                                 jcfg), JW3)
+    return jcfg, cfg, jp, bridge.to_torch(jax.device_get(jp))
+
+
 def _staggered(eng, max_new=5):
     uid_to_prompt = {}
     for p in PROMPTS[:3]:                        # first wave fills all slots
@@ -59,6 +69,25 @@ def _staggered(eng, max_new=5):
 @pytest.mark.parametrize("kv_bits", [None, 8])
 def test_engine_token_identical_to_jax(qp_models, kv_bits):
     jcfg, cfg, jp, tp = qp_models
+    jeng = JServingEngine(jp, jcfg, policy=JW3, slots=3, max_len=32,
+                          dtype=jnp.float32, kv_bits=kv_bits)
+    eng = ServingEngine(tp, cfg, policy=W3, slots=3, max_len=32,
+                        dtype=torch.float32, kv_bits=kv_bits, device="cpu")
+    ref, got = _staggered(jeng), _staggered(eng)
+    assert got == ref and len(got) == len(PROMPTS)
+    assert all(len(v) == 5 for v in got.values())
+    assert eng.decode_calls == jeng.decode_calls
+    assert eng.prefill_calls == jeng.prefill_calls
+
+
+@pytest.mark.parametrize("kv_bits", [None, 8])
+def test_q_form_engine_token_identical_to_jax(q_models, kv_bits):
+    """The ``q`` serve form (export_levels: int8 levels at full shape, every
+    projection through qmatmul) served by both engines from the same
+    weights: the same tokens and the same decode and prefill calls."""
+    jcfg, cfg, jp, tp = q_models
+    assert "q" in tp["layers"]["attn"]["wq"] and "qp" not in \
+        tp["layers"]["attn"]["wq"]
     jeng = JServingEngine(jp, jcfg, policy=JW3, slots=3, max_len=32,
                           dtype=jnp.float32, kv_bits=kv_bits)
     eng = ServingEngine(tp, cfg, policy=W3, slots=3, max_len=32,

@@ -383,6 +383,128 @@ def test_attention_every_head_dim(cuda, d, dtype, quantized):
     assert (got.cpu()[1] == 0).all()
 
 
+def _replayed(fn):
+    """fn() recorded in a CUDA graph (after an eager warm-up on a side
+    stream) and replayed once: the output tensor the graph writes."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+# the q form's projections of qwen2-1.5b: (K, N, QKV bias)
+Q_PROJ = [(1536, 1536, True), (1536, 256, True), (1536, 8960, False),
+          (8960, 1536, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n,has_bias", Q_PROJ)
+@pytest.mark.parametrize("m", [8, 16, 512, 2048])
+def test_qmatmul_n_lanes_q_form(cuda, m, k, n, has_bias, dtype):
+    """qmatmul's n_lanes at the q form's shapes: decode (M = 8, 16) and the
+    prefill GEMM (512, 2048 rows), bf16 x and fp32 x (three bf16 planes),
+    with and without the QKV bias, against the plain
+    version; the variant is the one the plan gives, a rerun gives the same
+    bits, and a replayed CUDA graph of the call gives them too (the K
+    split's scratch comes from the graph's pool)."""
+    g = _gen(m + k + n)
+    x = torch.randn((m, k), generator=g).to(dtype)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    d = torch.rand(n, generator=g) * 0.01
+    b = torch.randn(n, generator=g) if has_bias else None
+    variant = "decode" if m <= 16 else "prefill"
+    p = qmm_k.plan(m, k, n, n, 1, dtype)
+    assert (p.layout, p.variant) == ("n_lanes", variant)
+    xc, wc, dc, bc = _on(cuda, x, w, d, b)
+    for bias, bias_c in ((b, bc), (None, None)):
+        ref = qmm_ops.qmatmul(x, w, d, bias=bias)
+        n0, v0 = qmm_k.launches, qmm_k.launches_by_variant[variant]
+        got = qmm_ops.qmatmul(xc, wc, dc, bias=bias_c)
+        assert qmm_k.launches == n0 + 1
+        assert qmm_k.launches_by_variant[variant] == v0 + 1
+        _check(got, ref, dtype)
+        assert torch.equal(got, qmm_ops.qmatmul(xc, wc, dc, bias=bias_c))
+        assert torch.equal(got, _replayed(
+            lambda: qmm_ops.qmatmul(xc, wc, dc, bias=bias_c)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(8, 1000, 300), (17, 23, 100),
+                                   (300, 1022, 777), (64, 1536, 4100),
+                                   (9, 1536, 777), (130, 1001, 272)])
+def test_qmatmul_n_lanes_unaligned(cuda, m, k, n, dtype):
+    """n_lanes where W's rows or x's rows are not 16-byte aligned (K = 23,
+    1001, 1022; N = 300, 777, 4100; odd N for the paired stores), or N and
+    K end inside a tile (N = 272, K = 1001), in bf16 and fp32 x: the
+    cp.async copies zero-fill a partial 16 bytes at the edge, and what
+    they cannot copy (a strided W view, unaligned x rows) is read with
+    plain loads."""
+    g = _gen(k)
+    x = torch.randn((m, k), generator=g).to(dtype)
+    w = torch.randint(-127, 128, (k, 2 * n), generator=g, dtype=torch.int8)
+    d = torch.rand(n, generator=g) * 0.01
+    for wv in (w[:, :n].contiguous(), w[:, ::2]):
+        assert qmm_k.plan(m, k, n, *wv.stride(), dtype).layout == "n_lanes"
+        got = qmm_ops.qmatmul(x.to(cuda), wv.to(cuda) if wv.is_contiguous()
+                              else w.to(cuda)[:, ::2], d.to(cuda))
+        _check(got, qmm_ops.qmatmul(x, wv, d), dtype)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", range(16, 257, 16))
+@pytest.mark.parametrize("shape", ["T16", "T64", "T256", "verify"])
+def test_attn_prefill_fp32_tiled(cuda, shape, d, quantized):
+    """The fp32 attn_prefill (simt) at the buckets T = S = 16, 64, 256
+    with ragged lengths and at the verify shape (T = 5 against 512 keys,
+    hi = valid, one row without a valid key) for every head_dim and fp32 /
+    int8 K/V, S split across blocks wherever the plan finds too few (here
+    every shape but T = 16): within 1e-4 x max|plain|, rows
+    with an empty window exact zeros, a rerun the same bits, and a
+    replayed CUDA graph of the call the same bits (the split's scratch
+    comes from the graph's pool)."""
+    g = _gen(d + len(shape))
+    kv, grp = 2, 3
+    if shape == "verify":
+        b, t, s = 4, 5, 512
+        lens = torch.tensor([0, 37, 480, s - t], dtype=torch.int32)
+        hi = torch.clamp(lens[:, None] + torch.arange(1, t + 1,
+                                                      dtype=torch.int32),
+                         max=s)
+        hi[1] = 0
+    else:
+        b, t = 3, int(shape[1:])
+        s = t
+        lens = torch.tensor([t, 1, t // 2 + 1], dtype=torch.int32)
+        hi = torch.minimum(torch.arange(t, dtype=torch.int32)[None] + 1,
+                           lens[:, None])
+    q = torch.randn((b, t, kv * grp, d), generator=g)
+    k, v, ks, vs = _cache(g, b, s, kv, d, torch.float32, quantized)
+    p = pf_k.plan(torch.float32, k.dtype, grp, d, b, t, kv, s)
+    blocks = b * kv * -(-(t * grp) // 64)
+    assert p.variant == "simt"
+    assert (p.splits > 1) == (blocks < 132 and s > p.key_block)
+    ref = pf_ops.attn_prefill(q, k, v, hi, k_scale=ks, v_scale=vs)
+    args = _on(cuda, q, k, v, hi)
+    scales = dict(k_scale=None if ks is None else ks.to(cuda),
+                  v_scale=None if vs is None else vs.to(cuda))
+    v0, m0 = pf_k.launches_by_variant["simt"], pf_k.merges
+    got = pf_ops.attn_prefill(*args, **scales)
+    assert pf_k.launches_by_variant["simt"] == v0 + 1
+    assert pf_k.merges == m0 + (p.splits > 1)
+    _check(got, ref, torch.float32)
+    assert (got.cpu()[hi <= 0] == 0).all()
+    assert torch.equal(got, pf_ops.attn_prefill(*args, **scales))
+    assert torch.equal(got, _replayed(
+        lambda: pf_ops.attn_prefill(*args, **scales)))
+
+
 def test_bucketed_prefill_mask(cuda):
     g = _gen(4)
     b, t = 4, 256
@@ -572,7 +694,8 @@ def test_spec_engine_on_card_matches_plain(cuda):
 def _engine_case(case):
     """(cfg, params, engine kwargs) of a small qwen2-1.5b (head_dim 64, which
     the bf16 attn_prefill takes) served on the card: the W3A8 qp export in
-    bf16 with a bf16 or an int8 KV cache, or the float master in fp32."""
+    bf16 with a bf16 or an int8 KV cache, its q export (int8 levels) in
+    bf16, or the float master in fp32."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import quant_dense
     from repro_torch.core.precision import FLOAT, W3A8
@@ -581,6 +704,9 @@ def _engine_case(case):
     master = get_model(cfg).init(_gen(16), cfg)
     if case == "fp32":
         return cfg, master, dict(policy=FLOAT, dtype=torch.float32)
+    if case == "q-bf16kv":           # int8 levels: qmatmul n_lanes
+        return cfg, quant_dense.export_levels(master, W3A8), dict(
+            policy=W3A8, dtype=torch.bfloat16)
     return cfg, quant_dense.export_container(master, W3A8), dict(
         policy=W3A8, dtype=torch.bfloat16,
         kv_bits=8 if case == "qp-int8kv" else None)
@@ -600,7 +726,8 @@ def _launch_counts():
     return graphs.read_counters()
 
 
-@pytest.mark.parametrize("case", ["qp-bf16kv", "qp-int8kv", "fp32"])
+@pytest.mark.parametrize("case", ["qp-bf16kv", "qp-int8kv", "q-bf16kv",
+                                  "fp32"])
 def test_captured_engine_matches_eager(cuda, case):
     """The engine on the card captures its tick once and each admission
     bucket once (buckets 8, 16, 32 here) and serves the tokens of the same

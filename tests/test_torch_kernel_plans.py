@@ -13,8 +13,9 @@ dynamic shared memory each launch asks for, within the H100's 232 448
 bytes a block. Also the exact arithmetic the tensor-core kernels rest on:
 an int8 or 3-bit level is a bf16 exactly, an fp32 x is the sum of its
 three bf16 planes, qmatvec's permuted K order gives x . W exactly, and
-attn_decode's split-and-merge softmax equals one softmax. Imports no
-JAX."""
+attn_decode's split-and-merge softmax equals one softmax; and how
+``launch/profile_engine.py`` books attn_prefill's split merges. Imports
+no JAX."""
 import numpy as np
 import pytest
 import torch
@@ -72,9 +73,19 @@ def test_mlp_heads_take_k_lanes(m, k, n, dtype):
                                    (8, 8960, 1536), (3, 23, 65)])
 def test_wide_row_major_keeps_n_lanes(m, k, n):
     """A row-major W wider than 64 columns (the ``q`` form's projections)
-    keeps lanes along N, whose reads are already coalesced."""
+    keeps lanes along N, whose 16-byte loads are already coalesced, in the
+    variant its M gives: decode stages two int8 chunks and one (64, 64 + 8)
+    bf16 tile per warp, prefill three cp.async stages of its raw 128-row x
+    tile (rows padded to 72 bf16) and (64, 128) int8 W tile, and one
+    widened (64, 128 + 8) bf16 W tile."""
     p = _qplan(m, k, n, False)
-    assert p.layout == "n_lanes" and p.dynamic_smem == 0
+    assert p.layout == "n_lanes"
+    if m <= 16:
+        assert p.variant == "decode"
+        assert p.dynamic_smem == p.p0 * (2 * 64 * 64 + 64 * 72 * 2)
+    else:
+        assert p.variant == "prefill"
+        assert p.dynamic_smem == 3 * (128 * 72 * 2 + 64 * 128) + 64 * 136 * 2
 
 
 @pytest.mark.parametrize("m,nt", [(1, 1), (8, 1), (9, 2), (16, 2), (17, 4),
@@ -99,8 +110,9 @@ def test_qmatmul_smem_within_the_card(m, k, dtype):
     per_k = (3 if dtype == torch.float32 else 1) * 8 * p.p0 * 2
     assert p.p1 >= k or per_k * (p.p1 + 128 + 8) > 96 * 1024  # chunk is full
     assert p.dynamic_smem <= 96 * 1024 and 2 * p.dynamic_smem <= SMEM
-    for n in (10, 61, 4099):                         # row-major: static only
+    for n in (10, 61):                    # row-major, narrow: static only
         assert _qplan(m, k, n, False, dtype).dynamic_smem == 0
+    assert 0 < _qplan(m, k, 4099, False, dtype).dynamic_smem <= SMEM
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype,variant", [
@@ -116,9 +128,11 @@ def test_attn_prefill_kernel_by_dtype(q_dtype, kv_dtype, variant, d):
     g = QWEN.num_heads // QWEN.num_kv_heads
     p = pf_k.plan(q_dtype, kv_dtype, g, d)
     assert p.variant == variant
-    assert 2 * p.dynamic_smem <= SMEM
-    if variant == "simt":
-        assert p.dynamic_smem == 0
+    if variant == "simt":            # the 64-row Q tile and a key block
+        assert 64 * d * 4 + 2 * p.key_block * d * 4 <= p.dynamic_smem
+        assert p.dynamic_smem <= SMEM
+    else:
+        assert 2 * p.dynamic_smem <= SMEM
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
@@ -411,3 +425,277 @@ def test_untied_head_layout_by_form(arch):
                           torch.bfloat16).layout == layout
     p = _qplan(8, full.d_model, full.vocab_size, True)
     assert p.layout == "k_lanes" and 2 * p.dynamic_smem <= SMEM
+
+
+# --- qmatmul n_lanes: the variant by M, the grid, the K permutation --------
+
+# the q form's projections of qwen2-1.5b (K, N): wq / wo, wk / wv, up /
+# gate, down
+_Q_PROJ = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
+
+
+@pytest.mark.parametrize("m,variant", [(1, "decode"), (8, "decode"),
+                                       (9, "decode"), (16, "decode"),
+                                       (17, "prefill"), (64, "prefill"),
+                                       (512, "prefill"), (2048, "prefill")])
+def test_n_lanes_variant_by_m(m, variant):
+    """M <= 16 (a decode tick's slots) takes n_lanes decode, anything larger
+    (admission's slots x bucket) the prefill GEMM, at every q-form shape
+    and for both x dtypes; each variant has its launch counter."""
+    for k, n in _Q_PROJ:
+        for dtype in _FLOATS:
+            p = _qplan(m, k, n, False, dtype)
+            assert (p.layout, p.variant) == ("n_lanes", variant)
+    assert set(qmm_k.launches_by_variant) == {"decode", "prefill"}
+
+
+def _slices_after(k, p):
+    """The number of K slices of the next finer split than ``p``'s."""
+    nch = -(-k // 64)
+    for want in range(p.ksplit + 1, nch + 1):
+        cps = -(-nch // want)
+        if -(-nch // cps) > p.ksplit:
+            return -(-nch // cps)
+    return p.ksplit
+
+
+@pytest.mark.parametrize("m", [8, 16, 512, 2048])
+@pytest.mark.parametrize("k,n", _Q_PROJ + [(4096, 14336), (5120, 25600)])
+def test_n_lanes_grid_and_k_split(m, k, n):
+    """The grid fills the H100's 132 SMs: decode (64-column blocks) splits
+    K across blocks until there are two blocks for each SM, or until every
+    warp walks one 64-row chunk (N = 256: 4 column blocks of 24 chunks);
+    prefill (128 x 128 tiles) splits K while the tiles are fewer than the
+    SMs, keeping at least 4 steps of K a slice. The slices cover K, none
+    empty; a decode block has as many warps as its slice has chunks, up
+    to 4 (three blocks fit an SM: one wave, which only N / 64 above 396
+    column blocks, qwen3-32b's 25600, oversteps, unsplit); prefill does not
+    split where its tiles already fill the card (N = 8960)."""
+    p = _qplan(m, k, n, False)
+    nch = -(-k // 64)
+    assert p.ksplit * p.p1 >= nch > (p.ksplit - 1) * p.p1
+    assert 1 <= p.ksplit <= 16
+    if p.variant == "decode":
+        blocks = -(-n // 64) * p.ksplit
+        assert p.p0 in (1, 2, 4) and p.p0 <= p.p1
+        assert p.p0 == 4 or 2 * p.p0 > p.p1
+        assert blocks <= 3 * 132 or p.ksplit == 1       # one wave
+        finer = _slices_after(k, p)
+        assert blocks >= 2 * 132 or p.p0 == p.p1 or p.ksplit == 16 \
+            or -(-n // 64) * finer > 3 * 132
+    else:
+        blocks = -(-n // 128) * -(-m // 128) * p.ksplit
+        assert blocks >= 132 or p.p1 <= 4 or nch < 8     # no finer slices
+        assert p.p1 >= 4 or p.ksplit == 1
+    if n == 8960 and p.variant == "prefill":
+        assert p.ksplit == 1
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 512, 2048])
+@pytest.mark.parametrize("k,n", _Q_PROJ + [(23, 65), (1022, 777)])
+@pytest.mark.parametrize("dtype", _FLOATS)
+def test_n_lanes_smem_fits_the_card(m, k, n, dtype):
+    """Decode: two int8 chunk stages and a (64, 72) bf16 tile per warp,
+    which the KW partial sums reuse after the walk; prefill: three
+    cp.async stages of raw x (bf16 rows of 72, fp32 rows of 68) and int8
+    W, the widened W tile, and for fp32 x its three bf16 planes. All
+    within one block's 232 448 bytes, decode leaving room for three
+    blocks an SM and bf16 prefill for two."""
+    p = _qplan(m, k, n, False, dtype)
+    if p.variant == "decode":
+        nt = 1 if m <= 8 else 2
+        assert p.dynamic_smem == p.p0 * (2 * 64 * 64 + 64 * 72 * 2)
+        assert p.dynamic_smem >= p.p0 * 32 * 4 * nt * 4 * 4
+        assert 3 * p.dynamic_smem <= SMEM
+    else:
+        fp32 = dtype == torch.float32
+        raw_x = 128 * 68 * 4 if fp32 else 128 * 72 * 2
+        planes = 3 * 128 * 72 * 2 if fp32 else 0
+        assert p.dynamic_smem == (3 * (raw_x + 64 * 128) + 64 * 136 * 2
+                                  + planes)
+        assert p.dynamic_smem <= SMEM
+        if not fp32:
+            assert 2 * p.dynamic_smem <= SMEM    # two blocks an SM
+
+
+def test_n_lanes_decode_permutation_feeds_each_lane_its_x():
+    """n_lanes decode writes chunk row r of W to tile row
+    decode_tile_row(r), a permutation of the 64 rows; ldmatrix then reads
+    tile row 16 s + j as A slot j of k16 step s, and lane t's B slots
+    (2t, 2t+1, 2t+8, 2t+9) of every step are the chunk rows 16 t + 4 s +
+    (0, 1, 2, 3): 16 consecutive K values of x over the chunk, so the
+    products pair each level with its own x value."""
+    rows = [qmm_k.decode_tile_row(r) for r in range(64)]
+    assert sorted(rows) == list(range(64))
+    inv = {tr: r for r, tr in enumerate(rows)}
+    for s in range(4):
+        for t in range(4):
+            slots = (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)
+            assert [inv[16 * s + j] for j in slots] == \
+                [16 * t + 4 * s + q for q in range(4)]
+
+
+# --- attn_prefill simt: shared memory, the split of S, the softmax --------
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("d", range(16, 257, 16))
+def test_attn_prefill_simt_smem_every_head_dim(kv_dtype, d):
+    """The fp32 kernel's Q tile, two buffers of K/V (fp32, or int8 bytes
+    widened into one fp32 tile) and P fit one block's 232 448 bytes for
+    every head_dim: 64-key blocks where they fit, else 32 (fp32 K/V from
+    D = 176, int8 from D = 208); the shared memory the plan asks for is
+    the kernel's layout exactly."""
+    p = pf_k.plan(torch.float32, kv_dtype, 6, d)
+    assert p.variant == "simt" and p.dynamic_smem <= SMEM
+    quant = kv_dtype == torch.int8
+    want = 4 * (64 * (d + 4) + (2 if quant else 4) * p.key_block * (d + 4)
+                + 64 * (p.key_block + 4) + 128
+                + (2 * (2 * p.key_block * d // 4 + 2 * p.key_block)
+                   if quant else 0))
+    assert p.dynamic_smem == want
+    bigger = pf_k._simt_smem(d, 64, quant)
+    assert p.key_block == (64 if bigger <= SMEM else 32)
+
+
+@pytest.mark.parametrize("b,t,kv,g,s,splits", [
+    (8, 5, 2, 6, 512, 8),          # speculative verify: 16 blocks alone
+    (8, 256, 2, 6, 256, 1),        # the largest bucket: 384 blocks
+    (8, 64, 2, 6, 64, 1),          # 96 blocks, one key block: nothing to split
+    (8, 256, 32, 1, 256, 1),       # stablelm-3b's MHA
+    (8, 16, 2, 6, 16, 1),
+    (1, 5, 2, 6, 2048, 32)])
+def test_attn_prefill_simt_splits_s_only_where_blocks_are_few(b, t, kv, g,
+                                                              s, splits):
+    """S is split across blocks (whole key blocks a split, a second kernel
+    merging) where B * KV * ceil(T G / 64) blocks leave SMs idle: at the
+    verify shape T = 5 (16 blocks, 8 splits of 64 keys), not at T = 256."""
+    p = pf_k.plan(torch.float32, torch.float32, g, 128, b, t, kv, s)
+    assert p.splits == splits
+    assert p.split_len % p.key_block == 0
+    assert p.splits * p.split_len >= s > (p.splits - 1) * p.split_len
+    blocks = b * kv * -(-(t * g) // 64)
+    if splits > 1:
+        assert blocks * (splits - 1) < 132 <= blocks * splits \
+            or p.split_len == p.key_block
+
+
+def _tiled_softmax(scores: torch.Tensor, v: torch.Tensor,
+                   lo: torch.Tensor, hi: torch.Tensor, key_block: int,
+                   split_len: int) -> torch.Tensor:
+    """The simt kernel's (csrc/attn_prefill.cu) softmax-weighted sum in
+    fp32 torch: (R, S) scores
+    of R query rows against (S, D) values, row r seeing the key positions
+    lo[r] <= p < hi[r]. Each split of ``split_len`` positions walks the
+    keys [min lo, max hi) of all rows inside it in blocks of ``key_block``
+    from the first, keeping per row a max m, a sum l and an accumulator,
+    rescaled once per block; a split no row's window reaches gives l = 0.
+    The merge takes sum acc e^(m - M) / sum l e^(m - M) over the splits
+    with l > 0 in order (M their largest m); a row none reached gives
+    zeros, as one split dividing by l does."""
+    r, s = scores.shape
+    live = hi > lo
+    kmin = int(lo[live].min()) if bool(live.any()) else s
+    kmax = int(hi[live].max()) if bool(live.any()) else 0
+    nsplit = -(-max(s, 1) // split_len)
+    ms, ls, accs = [], [], []
+    for sp in range(nsplit):
+        a, e = max(kmin, sp * split_len), min(kmax, (sp + 1) * split_len)
+        m = torch.full((r,), -1e30)
+        l = torch.zeros((r,))
+        acc = torch.zeros((r, v.shape[-1]))
+        for k0 in range(a, e, key_block):
+            pos = torch.arange(k0, min(k0 + key_block, e))
+            valid = (pos[None, :] >= lo[:, None]) & (pos[None, :] < hi[:, None])
+            sv = scores[:, pos]
+            mx = torch.where(valid, sv, torch.tensor(-1e30)).amax(-1)
+            m_new = torch.maximum(m, mx)
+            corr = torch.exp(m - m_new)
+            p = torch.where(valid, torch.exp(sv - m_new[:, None]),
+                            torch.zeros(()))
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[:, None] + p @ v[pos]
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    if nsplit == 1:
+        return accs[0] / torch.clamp(ls[0], min=1e-30)[:, None]
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    big = torch.where(l > 0, m, torch.tensor(-1e30)).amax(0)
+    num = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for i in range(nsplit):
+        w = torch.where(l[i] > 0, torch.exp(m[i] - big), torch.zeros(()))
+        num = num + acc[i] * w[:, None]
+        den = den + l[i] * w
+    return torch.where(den[:, None] > 0,
+                       num / torch.where(den > 0, den, torch.ones(()))[:, None],
+                       torch.zeros(()))
+
+
+@pytest.mark.parametrize("key_block,split_len", [(64, 512), (64, 64),
+                                                 (32, 96), (32, 32)])
+@pytest.mark.parametrize("shape", ["prefill", "verify"])
+def test_attn_prefill_tiled_softmax_matches_one_pass(key_block, split_len,
+                                                     shape):
+    """The simt kernel's per-key-block online softmax over its rows'
+    [min lo, max hi), each split of S kept apart and merged in order,
+    equals one softmax over each row's window within 1e-6 (fp32
+    rounding); rows with an empty window give zeros, never NaN."""
+    g = torch.Generator().manual_seed(key_block + split_len)
+    s, d = 300, 16
+    if shape == "prefill":
+        r = 64
+        hi = torch.minimum(torch.arange(r) + 1, torch.tensor(250))
+        lo = torch.zeros(r, dtype=torch.int64)
+        hi[5] = 0                                # an empty window
+    else:
+        r = 30                                   # T = 5, G = 6
+        hi = (torch.arange(r) // 6 + 1 + 200).clamp(max=s)
+        lo = torch.zeros(r, dtype=torch.int64)
+        lo[7] = hi[7]                            # an empty window
+    sc = torch.randn((r, s), generator=g) * 4
+    v = torch.randn((s, d), generator=g)
+    got = _tiled_softmax(sc, v, lo, hi, key_block, split_len)
+    pos = torch.arange(s)
+    valid = (pos[None] >= lo[:, None]) & (pos[None] < hi[:, None])
+    p = torch.softmax(torch.where(valid, sc.double(),
+                                  torch.tensor(float("-inf"),
+                                               dtype=torch.float64)), -1)
+    want = torch.nan_to_num(p) @ v.double()
+    assert torch.isfinite(got).all()
+    empty = ~valid.any(-1)
+    assert bool(empty.any()) and torch.equal(got[empty],
+                                             torch.zeros_like(got[empty]))
+    assert torch.allclose(got.double(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_profile_attn_prefill_by_use_folds_each_merge_into_its_launch():
+    """profile_engine's attribution of attn_prefill device time to
+    admissions and verify: the fp32 kernel's split merge
+    (``attn_prefill_kernel_merge``) is no launch of its own; its time goes
+    to the launch before it, and it is counted apart."""
+    from types import SimpleNamespace as NS
+
+    from repro_torch.launch.profile_engine import (attn_prefill_ms_by_use,
+                                                   launch_uses)
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def ev(name, start, us):
+        return NS(device_type=cuda, name=name,
+                  time_range=NS(start=start, end=start + us))
+    split = "void (anonymous namespace)::attn_prefill_kernel<float>(...)"
+    merge = "(anonymous namespace)::attn_prefill_kernel_merge(...)"
+    evs = [ev(split, 0, 100), ev(split, 200, 50), ev(merge, 260, 10),
+           ev("qmatvec_kernel_decode", 270, 5), ev(split, 300, 40),
+           ev(merge, 350, 4)]
+    prof = NS(events=lambda: list(reversed(evs)))
+    uses = launch_uses([(1, 0), (0, 1)], layers=1, draft_layers=1)
+    assert uses == ["admission", "admission", "verify"]
+    got = attn_prefill_ms_by_use(prof, uses)
+    assert got["admission"] == pytest.approx(0.16)
+    assert got["verify"] == pytest.approx(0.044)
+    assert (got["admission_launches"], got["verify_launches"],
+            got["merges"]) == (2, 1, 2)
+    with pytest.raises(RuntimeError):
+        attn_prefill_ms_by_use(prof, uses[:2])
