@@ -152,7 +152,36 @@ Phases, each printing one JSON line:
              wgmma attn_prefill), the same launches in both twins; each
              twin's steady tick; then the path check of phase 4 on the
              model. Each model is freed before the next.
-9. resilience overload hardening and durability on the full-width
+9. moe       the MoE family and the sliding-window KV ring at full width:
+             phi3.5-moe (16 experts, top-2) cut to 8 of 32 layers and
+             mixtral-8x22b (8 experts, top-2, window 4096) cut to 4 of 56
+             (the fp32 master the export is made from must fit the card),
+             each from a seeded generator on the card (its layers drawn
+             into preallocated stacks), exported to W3A8 containers (the
+             expert stacks as int8 levels, quantised a layer at a time),
+             the master freed, served by ServingEngine(slots=8, bf16, kv
+             bf16) captured and as its capture=False twin: phi3.5-moe 8
+             requests x 16 tokens at max_len 512; mixtral at max_len 8192
+             (a 4096-slot ring) four short prompts, a 4060-token prompt
+             admitted in the 4096 bucket that decodes 100 tokens (past
+             slot 4095: the ring wraps) and a 4500-token prompt admitted
+             solo through the windowed attn_prefill and the ring roll.
+             Gated: identical tokens, replay only, per forward L routers in
+             qmatmul's row-major k_lanes, one readout K-major, 3 E L expert
+             products in n_lanes in the variant their capacity M plans,
+             4 L qmatvec in the variant the forward's tokens plan, no plain
+             version, the same launches in both twins; for mixtral a solo
+             admission and a slot past the ring. Each twin's steady tick;
+             the build's seconds and peak GB; then the MoE path check
+             (8 prompts filling a 64-token bucket + 4 decode steps in
+             fp32, kernels against plain versions: routing first, a flip
+             accepted only where the probabilities at stake differ by
+             < 1e-5 and reported; logits within 2e-3 x max|logit|). The
+             parity phase holds every kernel at these shapes (expert
+             products at a tick's, an admission's and the solo prompt's
+             capacity M, the routers, the windowed attn_prefill at
+             T = 4500, attn_decode over a full 4096-slot ring).
+10. resilience overload hardening and durability on the full-width
              qwen2-1.5b of phases 3 and 5 (its qp export and fp32 master,
              parked on the host during phases 6-8), every engine
              ServingEngine(slots=8, max_len=512), every case captured and
@@ -188,7 +217,7 @@ Phases, each printing one JSON line:
              the flip changes the K/V that the next replayed tick writes
              (layers 1 and up) against a clean engine's; the probe's ms
              beside its bound.
-10. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
+11. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path; then one entry for each of
              qmatmul's n_lanes and the fp32 attn_prefill, with their
@@ -246,6 +275,9 @@ VARIANTS = {
 # qmatmul's n_lanes launches by variant (decode for M <= 16, prefill above),
 # read beside its layouts as "qmatmul/n_lanes"
 N_LANES = "qmatmul/n_lanes"
+# qmatmul's k_lanes launches by W's orientation (k_major: the readouts;
+# row_major: the MLP heads and the MoE routers), read as "qmatmul/k_lanes"
+K_LANES = "qmatmul/k_lanes"
 # the fp32 attn_prefill's second kernel (the merge of a split of S), read
 # as "attn_prefill/merge": {"merge": launches}
 SIMT_MERGE = "attn_prefill/merge"
@@ -267,6 +299,20 @@ DENSE = (("stablelm-3b", None, dict(d_model=320)),
          ("qwen3-32b", 8, {}))
 DENSE_PROMPTS = (0, 3, 4, 5, 8, 9, 10, 11)   # prompts 4, 12, 3, 16, 100-250
 DENSE_NEW = 16
+# the moe phase: (arch, layers kept on the card, engine max_len); the depth
+# cut keeps each fp32 master (phi3.5-moe 8 layers: 42 GB; mixtral 4: 41 GB)
+# and its export within the card's 80 GB
+MOE = (("phi3.5-moe-42b-a6.6b", 8, 512), ("mixtral-8x22b", 4, 8192))
+MOE_NEW = 16
+MOE_BUCKET = 64            # the admission round the parity phase holds
+# mixtral's long requests (prompt tokens, new tokens): one admitted in the
+# 4096 bucket that decodes past slot 4095 (the ring wraps), one past the
+# bucket cap, admitted solo through the windowed attn_prefill
+MOE_WRAP = (4060, 100)
+MOE_SOLO = (4500, MOE_NEW)
+# the parity phase's MoE shapes: (arch, T of the windowed attn_prefill)
+MOE_PARITY = (("phi3.5-moe-42b-a6.6b", 0), ("mixtral-8x22b", MOE_SOLO[0]))
+MOE_PATH_STEPS = 4         # decode steps of the MoE path check
 SPEC_K = 4                                  # drafts a speculative tick
 SPEC_GATE = dict(prompts=8, prompt_len=16, max_new=16)   # fp32 identity gate
 WARM_NEW = 2 * (SPEC_K + 1)     # new tokens a request of a warm-up serve
@@ -827,7 +873,7 @@ def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
         bound=tc_bound_ms(nbytes, 2 * m * k * n, dname), headline=headline)
 
 
-def _q_proj_case(g, device, m, k, n, bias, dname, dt):
+def _q_proj_case(g, device, m, k, n, bias, dname, dt, label="q form"):
     """A q-form projection: (K, N) row-major int8 levels, per-channel
     delta, the QKV bias where qwen2 has it; run twice for the same bits,
     gated to launch qmatmul's n_lanes layout in the variant its plan gives
@@ -859,7 +905,7 @@ def _q_proj_case(g, device, m, k, n, bias, dname, dt):
     nbytes = m * k * xb + w.numel() + n * 4 * (2 if bias else 1) \
         + m * n * xb
     return dict(
-        name="qmatmul", shape=f"M={m} K={k} N={n} (q form"
+        name="qmatmul", shape=f"M={m} K={k} N={n} ({label}"
                               f"{', bias' if bias else ''})",
         dtype=dname, variant=f"n_lanes/{want.variant}", ksplit=want.ksplit,
         err=compare(got, ref, dname, what), run=run,
@@ -893,6 +939,79 @@ def _qmatmul_head_case(g, device, clock, m, k, n, dname, dt):
         plain=(lambda: qmatmul_ref(x, w, delta, bias=bias)),
         library=(lambda: torch.addmm(bx, x, wdq)),
         bound=bound_ms(nbytes, 2 * m * k * n, dname), headline=False)
+
+
+def _parts_case(parts, name, label, gate=None, twice=True, row_dims=1,
+                **extra):
+    """A bf16 case that ``bench_kernels`` builds as parts (inputs, plain
+    version, library call, the bytes and operations of its bound), gated
+    as every case here: launched in the variant ``gate`` = (counter,
+    variant) names, two runs the same bits where ``twice``, against its
+    plain version."""
+    what = f"{name} {parts['shape']} {label}"
+    fn = (lambda: same_bits(parts["run"], what)) if twice else parts["run"]
+    if gate:
+        counter, want = gate
+        got, v = launched_variant(counter, fn, want)
+        # a layout's counter (qmatmul/k_lanes) names the layout too
+        extra["variant"] = (f"{counter.split('/')[1]}/{v}" if "/" in counter
+                            else v)
+    else:
+        got = fn()
+    return dict(
+        name=name, shape=f"{parts['shape']} ({label})", dtype=parts["dtype"],
+        err=compare(got, parts["plain"](), "bfloat16", what, row_dims),
+        run=parts["run"], plain=parts["plain"], library=parts["library"],
+        library_call=parts["library_call"],
+        bound=bound_ms(parts["nbytes"], parts["ops"], parts["peak"]),
+        headline=False, **extra)
+
+
+def _moe_cases(device, clock, rehearse):
+    """The MoE family's new shapes (bf16): every expert product of
+    phi3.5-moe and mixtral-8x22b in qmatmul's n_lanes at the capacity M of
+    a decode tick, of an admission round and of mixtral's solo prefill;
+    their routers in the row-major k_lanes at a tick's M = 8 and at the
+    4096 bucket's 32768 rows; mixtral's windowed attn_prefill at its solo
+    prompt; attn_decode over a full 4096-slot ring. The CPU rehearsal
+    shrinks every shape by 16."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn_decode import kernel as dec_k
+    from repro_torch.launch import bench_kernels as bk
+    from repro_torch.models.moe import groups
+    g = torch.Generator(device=device).manual_seed(2468)
+    cut = 16 if rehearse else 1
+    bf = ("bfloat16", torch.bfloat16)
+    for arch, window_t in MOE_PARITY:
+        c = get_config(arch)
+        # a tick (8 slots), an admission round, and for mixtral its solo
+        # prompt and its 4096 bucket
+        toks = (8, 8 * MOE_BUCKET) + ((MOE_SOLO[0], 8 * 4096)
+                                     if c.sliding_window else ())
+        for t in toks:
+            t = max(1, t // cut)
+            ng, _, cap = groups(c, t)
+            for k, n in ((c.d_model, c.d_ff), (c.d_ff, c.d_model)):
+                yield _q_proj_case(g, device, ng * cap, k // cut, n // cut,
+                                   False, *bf, label=f"{arch} expert, "
+                                   f"{t} tokens")
+        for m in (8, 8 * 4096) if c.sliding_window else (8,):
+            yield _parts_case(bk.router_parts(
+                g, device, max(1, m // cut), c.d_model // cut,
+                c.num_experts), "qmatmul", arch, gate=(K_LANES, "row_major"))
+        if c.sliding_window:
+            kv = dict(kvh=c.num_kv_heads, grp=c.num_heads // c.num_kv_heads,
+                      hd=c.head_dim)
+            yield _parts_case(bk.window_prefill_parts(
+                g, device, window_t // cut, c.sliding_window // cut, **kv),
+                "attn_prefill", arch, gate=("attn_prefill", "wgmma"),
+                twice=False, row_dims=2)
+            s = c.sliding_window // cut
+            yield _parts_case(bk.ring_decode_parts(g, device, 8, s, **kv),
+                              "attn_decode", arch, splits=dec_k.plan(
+                                  8, s, kv["kvh"], kv["grp"], kv["hd"],
+                                  torch.bfloat16).splits)
 
 
 def _mlp_cases(device, clock, rehearse):
@@ -955,6 +1074,7 @@ def parity_phase(cfg, device, rehearse):
     cases = []
     for c in itertools.chain(_kernel_cases(cfg, device, clock),
                              _dense_cases(device, clock, rehearse),
+                             _moe_cases(device, clock, rehearse),
                              _mlp_cases(device, clock, rehearse)):
         c["bound_ms"], c["bound_by"] = c.pop("bound")
         run, plain, library = c.pop("run"), c.pop("plain"), c.pop("library")
@@ -1005,8 +1125,10 @@ def reset_counts():
         split = getattr(c[name][0], attr)
         for key in split:
             split[key] = 0
-    for key in c["qmatmul"][0].launches_by_variant:
-        c["qmatmul"][0].launches_by_variant[key] = 0
+    for split in (c["qmatmul"][0].launches_by_variant,
+                  c["qmatmul"][0].launches_by_orientation):
+        for key in split:
+            split[key] = 0
     c["attn_prefill"][0].merges = 0
 
 
@@ -1018,12 +1140,14 @@ def read_counts():
 
 def read_variants():
     """Launches by variant (qmatvec, attn_prefill), by layout (qmatmul),
-    qmatmul's n_lanes launches by variant (N_LANES) and the fp32
-    attn_prefill's merges (SIMT_MERGE)."""
+    qmatmul's n_lanes launches by variant (N_LANES) and k_lanes launches by
+    orientation (K_LANES), and the fp32 attn_prefill's merges
+    (SIMT_MERGE)."""
     c = _counters()
     out = {name: dict(getattr(c[name][0], attr))
            for name, (attr, _) in VARIANTS.items()}
     out[N_LANES] = dict(c["qmatmul"][0].launches_by_variant)
+    out[K_LANES] = dict(c["qmatmul"][0].launches_by_orientation)
     out[SIMT_MERGE] = {"merge": c["attn_prefill"][0].merges}
     return out
 
@@ -1354,7 +1478,8 @@ def _serve(eng, reqs, device, max_new=None):
     """Serve ``reqs`` on ``eng`` with the launch counters zeroed just before
     and read just after: the requests (by uid), wall seconds, ticks and
     admission rounds it took, the counters, and the engine's captures
-    before and after."""
+    before and after. ``max_new``: the new tokens of every request, or a
+    list of them, one a request."""
     import copy
 
     import torch
@@ -1366,8 +1491,10 @@ def _serve(eng, reqs, device, max_new=None):
     caps = copy.deepcopy(eng.captures)
     reset_counts()
     t0 = time.perf_counter()
-    for p in reqs:
-        eng.submit(p, max_new=max_new or MAX_NEW)
+    news = max_new if isinstance(max_new, (list, tuple)) \
+        else [max_new or MAX_NEW] * len(reqs)
+    for p, n in zip(reqs, news):
+        eng.submit(p, max_new=n)
     done = sorted(eng.run_all(), key=lambda r: r.uid)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -2035,6 +2162,355 @@ def dense_phase(device, seed, rehearse):
 
 
 # --- phase 9 ----------------------------------------------------------------------
+
+def _admission_log(eng):
+    """Log ``eng``'s admissions from now on: the tokens of each admission
+    forward (slots x bucket for a round, the prompt's length for a solo
+    admission) and the solo prompts' lengths."""
+    log = {"tokens": [], "solo": []}
+    batch, solo = eng._admit_batch, eng._admit_solo
+
+    def _batch(slot_ids, reqs, bucket):
+        log["tokens"].append(eng.slots * bucket)
+        return batch(slot_ids, reqs, bucket)
+
+    def _solo(slot, req):
+        log["tokens"].append(len(req.admit_prompt))
+        log["solo"].append(len(req.admit_prompt))
+        return solo(slot, req)
+    eng._admit_batch, eng._admit_solo = _batch, _solo
+    return log
+
+
+def _moe_launch_gate(eng, cfg, run, admitted, what):
+    """The MoE engine's launch gates over one serve: every kernel of the
+    path launched and no plain version ran; per forward (each tick, each
+    admission of ``admitted`` tokens) L router products in qmatmul's
+    row-major k_lanes, one readout in its K-major k_lanes, 3 E L expert
+    products in n_lanes in the variant its plan gives for the forward's
+    capacity M (decode for M <= 16), 4 L qmatvec launches in the variant
+    its plan gives for the forward's tokens; L wgmma attn_prefill an
+    admission and L attn_decode a tick."""
+    import torch
+    from repro_torch.kernels.qmatmul import kernel as qmm_k
+    from repro_torch.kernels.qmatvec import kernel as qmv_k
+    from repro_torch.models.moe import groups
+    launches, plain, v = run["launches"], run["plain"], run["variants"]
+    if min(launches[k] for k in ENGINE_KERNELS) <= 0:
+        fail(f"{what}: a kernel of the engine path never launched: {launches}")
+    if max(plain.values()) != 0:
+        fail(f"{what}: a plain version ran on the engine path: {plain}")
+    if len(admitted) != run["rounds"]:
+        fail(f"{what}: {len(admitted)} admissions logged, {run['rounds']} "
+             f"rounds counted")
+    n_l, e, d, f = cfg.num_layers, cfg.num_experts, cfg.d_model, cfg.d_ff
+    fwd = [eng.slots] * run["ticks"] + list(admitted)
+    experts = dict.fromkeys(("decode", "prefill"), 0)
+    qmv = dict.fromkeys(("decode", "prefill"), 0)
+    for t in fwd:
+        ng, _, cap = groups(cfg, t)
+        for k, n, times in ((d, f, 2), (f, d, 1)):        # up, gate; down
+            experts[qmm_k.plan(ng * cap, k, n, n, 1, torch.bfloat16)
+                    .variant] += times * e * n_l
+        qmv[qmv_k.plan(t, d, d, torch.bfloat16).variant] += 4 * n_l
+    want = {"qmatmul": {"n_lanes": 3 * e * n_l * len(fwd),
+                        "k_lanes": (n_l + 1) * len(fwd)},
+            K_LANES: {"k_major": len(fwd), "row_major": n_l * len(fwd)},
+            N_LANES: experts, "qmatvec": qmv,
+            "attn_prefill": {"wgmma": n_l * run["rounds"], "simt": 0}}
+    got = {k: v[k] for k in want}
+    if got != want:
+        fail(f"{what}: launches by variant {got}, want {want}")
+    if launches["attn_decode"] != n_l * run["ticks"]:
+        fail(f"{what}: {launches['attn_decode']} attn_decode launches for "
+             f"{run['ticks']} ticks of {n_l} layers")
+
+
+def _moe_path_runs(cfg, params, device, toks, max_len, lengths):
+    """Prefill of ``toks`` (B, T) and MOE_PATH_STEPS decode steps in fp32
+    activations, no activation quant, through the kernels and through the
+    plain versions on the same weights (the plain run is fed the kernel
+    run's greedy tokens), the routing of every MoE call recorded. Returns
+    {"kernel" / "plain": (last-position logits (steps + 1, B, V), the
+    routing trace)}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.precision import W3A8
+    from repro_torch.models import api, moe
+    policy = dataclasses.replace(W3A8, act_bits=None)
+    runs, feed = {}, None
+    for name, mm, am in (("kernel", "kernel", "kernel"),
+                         ("plain", "dequant", "ref")):
+        kw = dict(policy=policy, dtype=torch.float32, matmul_mode=mm,
+                  attn_mode=am)
+        with moe.trace_routing() as trace:
+            logits, cache = api.prefill(params, {"tokens": toks}, cfg,
+                                        max_len=max_len, lengths=lengths,
+                                        **kw)
+            steps, seq = [logits], feed or []
+            for i in range(MOE_PATH_STEPS):
+                if feed is None:
+                    seq.append(steps[-1][:, -1].argmax(-1).to(
+                        torch.int32)[:, None])
+                logits, cache = api.decode_step(params, cache, seq[i], cfg,
+                                                **kw)
+                steps.append(logits)
+        feed = seq
+        runs[name] = (torch.stack([s_[:, -1] for s_ in steps]), list(trace))
+    return runs
+
+
+def _moe_path_compare(cfg, runs, b, t, what):
+    """The kernel run against the plain run, routing first, call by call.
+    A token whose top-k experts differ (a flip) in a row that no earlier
+    flip reached is accepted only where the plain path's probabilities of
+    the experts the two paths chose, at each choice where they differ,
+    differ by under 1e-5; each is reported. The kept mask must agree in
+    every group without a flip or a tainted row. A flip, or a kept mask
+    that differs, taints every row of its group from then on (capacity
+    couples the rows of a group; attention carries the taint down the
+    row). Then the logits of every (step, row) left untainted must agree
+    within 2e-3 x max|logit|; at least one must be left."""
+    import torch
+    (a, ta), (p, tp) = runs["kernel"], runs["plain"]
+    n_l = cfg.num_layers
+    calls = (1 + MOE_PATH_STEPS) * n_l
+    if len(ta) != len(tp) or len(ta) != calls:
+        fail(f"{what}: {len(ta)} / {len(tp)} MoE calls traced, want {calls}")
+    tainted = torch.zeros(b, dtype=torch.bool)
+    flips, downstream, ok_rows = [], 0, []
+    for i, (rk, rp) in enumerate(zip(ta, tp)):
+        step, layer = divmod(i, n_l)
+        ki, pi = rk["top_i"].cpu(), rp["top_i"].cpu()
+        ng, g = ki.shape[:2]
+        rows = torch.arange(ng * g).reshape(ng, g) // (t if step == 0 else 1)
+        flipped = (ki != pi).any(-1)                             # (ng, g)
+        clean = ~tainted[rows]                                   # (ng, g)
+        probs = rp["probs"].cpu()
+        for grp, tok in (flipped & clean).nonzero().tolist():
+            at = ki[grp, tok] != pi[grp, tok]
+            pr = probs[grp, tok]
+            margin = float((pr[ki[grp, tok][at]]
+                            - pr[pi[grp, tok][at]]).abs().max())
+            flips.append({"step": step, "layer": layer, "group": grp,
+                          "token": tok, "row": int(rows[grp, tok]),
+                          "kernel_experts": ki[grp, tok].tolist(),
+                          "plain_experts": pi[grp, tok].tolist(),
+                          "margin": margin})
+            if not margin < 1e-5:
+                fail(f"{what}: routing flip at step {step} layer {layer} "
+                     f"row {int(rows[grp, tok])} with margin {margin} "
+                     f">= 1e-5")
+        downstream += int((flipped & ~clean).sum())
+        g_flip = flipped.any(-1)                                 # (ng,)
+        g_keep = (rk["keep"].cpu() != rp["keep"].cpu()).flatten(1).any(-1)
+        if bool((g_keep & ~g_flip & clean.all(-1)).any()):
+            fail(f"{what}: the kept mask differs at step {step} layer "
+                 f"{layer} in a group without a routing flip or a tainted "
+                 f"row")
+        tainted[rows[g_flip | g_keep].flatten()] = True
+        if layer == n_l - 1:
+            ok_rows.append(~tainted.clone())
+    ok = torch.stack(ok_rows).to(a.device)                       # (steps, B)
+    rec = {"routing_flips": flips, "flips_in_tainted_rows": downstream,
+           "moe_calls_compared": len(ta),
+           "logit_rows_compared": int(ok.sum()),
+           "logit_rows": int(ok.numel())}
+    if not bool(ok.any()):
+        fail(f"{what}: routing flips left no (step, row) to compare: "
+             f"{flips}")
+    a, p = a[ok].float(), p[ok].float()
+    if not (a.isfinite().all() and p.isfinite().all()):
+        fail(f"{what}: non-finite logits on the path-parity run")
+    err, scale = float((a - p).abs().max()), float(p.abs().max())
+    rec.update(max_abs_logit_diff=err, max_abs_logit=scale,
+               greedy_agreement=float(
+                   (a.argmax(-1) == p.argmax(-1)).float().mean()))
+    if not err <= 2e-3 * scale:
+        fail(f"{what}: kernel path vs plain path logits differ by {err} "
+             f"(> 2e-3 x {scale})")
+    return rec
+
+
+def _moe_path_check(cfg, params, device, max_len):
+    """The kernel path against the plain path (``_moe_path_runs``,
+    ``_moe_path_compare``): 8 prompts that fill a 64-token bucket (no
+    padded query, whose attention differs between the two paths and whose
+    hidden state would take expert capacity); and, on a sliding-window
+    ring of the engine's ``max_len``, two unpadded prompts of the window
+    plus one routing group (4608 tokens on mixtral's 4096-slot ring: the
+    windowed prefill, kept and rolled into the ring, 18 groups of 512),
+    whose decode steps write past the wrap."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import cache_len_for
+    t = min(MOE_BUCKET, cfg.sliding_window or MOE_BUCKET)
+    cases = [("full bucket", 8, t, t + 32, True)]
+    if cfg.sliding_window:
+        w = cfg.sliding_window
+        cases.append(("ring", 2, w + min(moe.GROUP_SIZE, w), max_len, False))
+    out = []
+    for label, b, t, ml, padded in cases:
+        toks = torch.tensor([[(7 * i + 3 * j) % (cfg.vocab_size - 1) + 1
+                              for j in range(t)] for i in range(b)],
+                            dtype=torch.int32, device=device)
+        lengths = (torch.full((b,), t, dtype=torch.int32, device=device)
+                   if padded else None)
+        runs = _moe_path_runs(cfg, params, device, toks, ml, lengths)
+        rec = {"case": label, "prompts": f"{b} x {t} tokens",
+               "cache_len": cache_len_for(cfg, ml),
+               "activations": "float32", "act_bits": None,
+               "steps": f"prefill + {MOE_PATH_STEPS} decode",
+               "tolerance": "2e-3 x max|logit| over untainted (step, row); "
+                            "a routing flip only where the probabilities "
+                            "at stake differ by < 1e-5",
+               **_moe_path_compare(cfg, runs, b, t,
+                                   f"{cfg.name} path check, {label}")}
+        del runs
+        out.append(rec)
+    return out
+
+
+def moe_phase(device, seed, rehearse):
+    """The MoE family and the sliding-window ring at full width:
+    phi3.5-moe (8 of 32 layers) and mixtral-8x22b (4 of 56 layers), each
+    from a seeded generator on the card, exported to W3A8 containers (the
+    expert stacks as int8 levels; the fp32 master freed after the export),
+    served by ServingEngine(slots=8, bf16, kv bf16; max_len 512, and 8192
+    for mixtral, whose cache is then a 4096-slot ring) captured and as its
+    capture=False twin: phi3.5-moe 8 requests x MOE_NEW tokens; mixtral
+    four short prompts, one of MOE_WRAP[0] tokens admitted in the 4096
+    bucket that decodes past slot 4095, and one of MOE_SOLO[0] tokens
+    admitted solo past the bucket cap. Gated: identical tokens, replay
+    only, every launch in the variant its plan gives (every expert product
+    in n_lanes, every router in the row-major k_lanes), no plain version,
+    the same launches in both twins; for mixtral at least one solo
+    admission and a ring that wrapped. Then each twin's steady tick and the
+    MoE path check. Returns the summed launches and variants of the
+    captured runs."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.precision import W3A8
+    from repro_torch.launch.profile_engine import prompts
+    from repro_torch.models.transformer import cache_len_for
+    from repro_torch.serving.engine import ServingEngine
+    launches, variants = None, None
+    models = []
+    for arch, layers, max_len in MOE:
+        cfg = get_config(arch)
+        full = cfg.num_layers
+        wrap, solo = MOE_WRAP, MOE_SOLO
+        if rehearse:
+            cfg = reduced(cfg)
+            if cfg.sliding_window:
+                max_len, wrap, solo = 128, (28, 12), (40, 8)
+        else:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cs = cache_len_for(cfg, max_len)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        master, params, build_s = build_model(cfg, device, seed)
+        build_gb = (round(torch.cuda.max_memory_allocated() / 1e9, 2)
+                    if device.type == "cuda" else None)
+        del master
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        base = [p for i, p in enumerate(prompts(cfg.vocab_size))
+                if i in DENSE_PROMPTS]
+        reqs, news = base, [MOE_NEW] * len(base)
+        if cfg.sliding_window:
+            longs = [[(5 * j + 11 * i) % (cfg.vocab_size - 1) + 1
+                      for j in range(n)] for i, (n, _) in
+                     enumerate((wrap, solo))]
+            reqs = base[:4] + longs
+            news = [MOE_NEW] * 4 + [wrap[1], solo[1]]
+        what = f"moe {arch}"
+
+        def make(capture):
+            return ServingEngine(params, cfg, policy=W3A8, slots=8,
+                                 max_len=max_len, dtype=torch.bfloat16,
+                                 capture=capture, device=device)
+        engines = {"captured": _warmed(make(None), reqs),
+                   "eager": _warmed(make(False), reqs)}
+        logs = {name: _admission_log(e) for name, e in engines.items()}
+        runs = {name: _serve(e, reqs, device, max_new=news)
+                for name, e in engines.items()}
+        run = runs["captured"]
+        done = run["done"]
+        if [len(r.out) for r in done] != news:
+            fail(f"{what}: not every request got its tokens: "
+                 f"{[len(r.out) for r in done]} of {news}")
+        _twin_gate(runs, what)
+        ring = {}
+        if cfg.sliding_window:
+            for name, e in engines.items():
+                ring[name] = {"solo_admissions": len(logs[name]["solo"]),
+                              "max_slot_len": int(e.cache["len"].max()),
+                              "cache_len": cs}
+                if not logs[name]["solo"] or ring[name]["max_slot_len"] <= cs:
+                    fail(f"{what} {name}: no solo admission or no slot past "
+                         f"the {cs}-slot ring: {ring[name]}")
+            if not any(len(r.prompt) <= cs < len(r.prompt) + len(r.out)
+                       for r in done):
+                fail(f"{what}: no bucketed request decoded past the ring")
+        if not rehearse:
+            for name, e in engines.items():
+                _moe_launch_gate(e, cfg, runs[name], logs[name]["tokens"],
+                                 f"{what} {name}")
+            if runs["eager"]["launches"] != run["launches"] \
+                    or runs["eager"]["variants"] != run["variants"]:
+                fail(f"{what}: replayed launches {run['variants']} differ "
+                     f"from the eager twin's {runs['eager']['variants']}")
+        cut = (f"depth {cfg.num_layers} of {full}; widths as published"
+               if not rehearse else "CPU rehearsal: reduced()")
+        rec = {"arch": arch, "layers": cfg.num_layers, "full_layers": full,
+               "cut": cut, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+               "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+               "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+               "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+               "sliding_window": cfg.sliding_window, "max_len": max_len,
+               "cache_len": cs, "init_export_s": round(build_s, 3),
+               "build_peak_gb": build_gb,
+               "requests": [f"{len(p)} prompt + {n} new"
+                            for p, n in zip(reqs, news)],
+               **_run_line(run), "eager_twin": _run_line(runs["eager"]),
+               "captured_eager_token_identical": True,
+               "admission_tokens": list(logs["captured"]["tokens"]),
+               "ring": ring,
+               "launches": run["launches"],
+               "launches_by_variant": run["variants"],
+               "plain_calls": run["plain"]}
+        rec["steady"] = {name: _steady(e, cfg, device, rehearse,
+                                       names=("qmatvec", "qmatmul",
+                                              "attn_decode"))
+                         for name, e in engines.items()}
+        del engines, runs
+        rec["path"] = _moe_path_check(cfg, params, device, max_len)
+        if device.type == "cuda":
+            rec["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+        models.append(rec)
+        if launches is None:
+            launches, variants = run["launches"], run["variants"]
+        else:
+            launches = {k: launches[k] + v for k, v in run["launches"].items()}
+            variants = {n: {k: variants[n][k] + c for k, c in d.items()}
+                        for n, d in run["variants"].items()}
+        del params, run
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "moe", "engine": "ServingEngine(slots=8, bf16, kv bf16), "
+          "W3A8 qp export of a seeded fp32 master (expert stacks as int8 "
+          "levels)", "models": models})
+    return launches, variants
+
+
+# --- phase 10 ---------------------------------------------------------------------
 
 RES_COUNTERS = ("decode_calls", "prefill_calls", "shed_count",
                 "deadline_miss_count", "preempt_count", "poisoned_count",
@@ -2747,6 +3223,7 @@ def main(argv=None) -> int:
         digit, metrics["w3a8_mcr"], device, args.seed, args.rehearse)
     dense_launches, dense_variants = dense_phase(device, args.seed,
                                                  args.rehearse)
+    moe_launches, moe_variants = moe_phase(device, args.seed, args.rehearse)
     master, params = _on(master, device), _on(params, device)
     res_launches, res_variants = resilience_phase(cfg, master, params,
                                                   device, args.rehearse)
@@ -2762,6 +3239,7 @@ def main(argv=None) -> int:
         by_path.update(paper=paper_launches[name],
                        deploy=deploy_launches[name],
                        dense=dense_launches[name],
+                       moe=moe_launches[name],
                        resilience=res_launches[name])
         entry = {
             "name": name, "route": "cuda", "source": src,
@@ -2783,6 +3261,7 @@ def main(argv=None) -> int:
                                      "spec": spec_variants[name],
                                      "deploy": deploy_variants[name],
                                      "dense": dense_variants[name],
+                                     "moe": moe_variants[name],
                                      "resilience": res_variants[name]})
         kernels.append(entry)
     # the redesigned routes: their headline case, their launches on the

@@ -175,6 +175,8 @@ _MODULE_FOR = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen3-32b": "qwen3_32b",
     "stablelm-3b": "stablelm_3b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
+    "mixtral-8x22b": "mixtral_8x22b",
     "digit": "digit",
     "phoneme": "phoneme",
 }

@@ -225,9 +225,18 @@ def fit_deltas(params: Any, policy: QuantPolicy) -> Any:
         return map_with_path(fit, params)
 
 
+# the fit runs one stacked index and one block of output columns of at
+# most _FIT_BLOCK elements at a time, so its temporaries (a few times the
+# block) stay small beside the master on the card (an MoE expert stack is
+# many GB); each column's delta is its own, so the levels and deltas are
+# those of fitting the whole leaf at once
+_FIT_BLOCK = 1 << 28
+
+
 def _quantize_leaf(leaf: torch.Tensor, spec: qz.QuantSpec, nd: int):
-    """Per-output-channel (last dim) levels + delta, every stacked layer at
-    once. Returns (q int8 same shape, delta broadcastable against q)."""
+    """Per-output-channel (last dim) levels + delta of each stacked layer,
+    fitted by stacked index and block of output columns. Returns (q int8
+    same shape, delta broadcastable against q)."""
     cspec = qz.QuantSpec(bits=spec.bits, per_channel=-1, iters=spec.iters)
     if nd == 0:
         d = qz.optimal_uniform_delta(leaf, cspec)
@@ -235,11 +244,19 @@ def _quantize_leaf(leaf: torch.Tensor, spec: qz.QuantSpec, nd: int):
         return q, d.reshape([1] * (leaf.dim() - 1) + [leaf.shape[-1]])
     n = leaf.shape[-1]
     flat = leaf.reshape(-1, math.prod(leaf.shape[nd:-1]), n)   # (P, K, N)
-    rows = flat.transpose(1, 2).reshape(-1, flat.shape[1])     # (P*N, K)
-    d = qz._optimal_delta_rows(rows, cspec.levels, cspec.iters)
-    d = d.reshape(flat.shape[0], 1, n)
-    q = torch.clamp(torch.round(flat / torch.clamp(d, min=1e-12)),
-                    -cspec.levels, cspec.levels).to(torch.int8)
+    q = torch.empty(flat.shape, dtype=torch.int8, device=leaf.device)
+    d = torch.empty((flat.shape[0], 1, n), dtype=torch.float32,
+                    device=leaf.device)
+    cols = max(1, _FIT_BLOCK // flat.shape[1])
+    for i in range(flat.shape[0]):
+        for c0 in range(0, n, cols):
+            w = flat[i, :, c0:c0 + cols]                       # (K, cols)
+            dc = qz._optimal_delta_rows(w.transpose(0, 1).contiguous(),
+                                        cspec.levels, cspec.iters)[None, :]
+            q[i, :, c0:c0 + cols] = torch.clamp(
+                torch.round(w / torch.clamp(dc, min=1e-12)),
+                -cspec.levels, cspec.levels).to(torch.int8)
+            d[i, :, c0:c0 + cols] = dc
     bshape = leaf.shape[:nd] + (1,) * (leaf.dim() - nd - 1) + (n,)
     return q.reshape(leaf.shape), d.reshape(bshape)
 

@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: element conversions, an exact
-// int8 -> bf16x2 conversion and a warp-wide sum. Element types are float
+// int8 -> bf16x2 conversion, a warp-wide sum and the promotion of tensor-core
+// sums. Element types are float
 // (code 0), __nv_bfloat16 (code 1) and int8_t (code 2), as the Python
 // wrappers pass them.
 #pragma once
@@ -41,6 +42,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// fp32 x on the tensor cores enters as three bf16 planes, whose products are
+// exact; but mma.sync's fp32 accumulator truncates at every add, so over a
+// long K its error grows with the adds (1e-5 to 3e-5 of the output at K =
+// 6144 to 16384). The kernels mma a short run of K into ``run`` and add the
+// run into an fp32 ``tot`` on the CUDA cores, which round: promote(tot, run)
+// adds run into tot element by element and zeroes run.
+__device__ __forceinline__ void promote(float& tot, float& run) {
+  tot += run;
+  run = 0.f;
+}
+template <typename T, int N>
+__device__ __forceinline__ void promote(T (&tot)[N], T (&run)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) promote(tot[i], run[i]);
 }
 
 }  // namespace rt

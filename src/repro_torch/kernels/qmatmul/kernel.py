@@ -8,9 +8,11 @@ a row-major W of at most 64 columns (the paper MLP's heads), ``n_lanes``
 (lanes along N) for any other (the ``q`` form's projections), and for
 ``n_lanes`` its variant by M, ``decode`` (M <= 16) or ``prefill``, and its
 split of K. ``launches`` counts launches (one a call, a K split's second
-kernel included), ``launches_by_layout`` splits them by layout and
-``launches_by_variant`` the ``n_lanes`` ones by variant; nothing else
-touches them.
+kernel included), ``launches_by_layout`` splits them by layout,
+``launches_by_variant`` the ``n_lanes`` ones by variant and
+``launches_by_orientation`` the ``k_lanes`` ones by W's orientation
+(``k_major``: the readout and the container head; ``row_major``: the MLP
+heads and the MoE router); nothing else touches them.
 """
 from __future__ import annotations
 
@@ -23,14 +25,16 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["qmatmul_cuda", "plan", "Plan", "launches", "launches_by_layout",
-           "launches_by_variant", "LAYOUTS", "N_LANES_VARIANTS",
-           "decode_tile_row"]
+           "launches_by_variant", "launches_by_orientation", "LAYOUTS",
+           "N_LANES_VARIANTS", "K_LANES_ORIENTATIONS", "decode_tile_row"]
 
 LAYOUTS = ("n_lanes", "k_lanes")
 N_LANES_VARIANTS = ("decode", "prefill")
+K_LANES_ORIENTATIONS = ("k_major", "row_major")
 launches = 0
 launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 launches_by_variant = dict.fromkeys(N_LANES_VARIANTS, 0)   # n_lanes only
+launches_by_orientation = dict.fromkeys(K_LANES_ORIENTATIONS, 0)  # k_lanes
 
 # k_lanes, K-contiguous W: 128 K values a step; x staged in K chunks of a
 # multiple of the step (padded by 8 bf16 per row), in bf16 planes
@@ -61,7 +65,8 @@ _FLOATS = (torch.float32, torch.bfloat16)
 class Plan(NamedTuple):
     """One launch: the layout, its two parameters, the dynamic shared
     memory it asks for (bytes), the n_lanes variant and the slices of K
-    across blocks. k_lanes with a K-contiguous W: p0 = 8-row tiles of x a
+    across blocks, and the k_lanes orientation of W (``k_major`` or
+    ``row_major``). k_lanes with a K-contiguous W: p0 = 8-row tiles of x a
     block, p1 = K values staged a chunk; with a row-major W: 0, 0. n_lanes:
     p0 = warps a block (decode; 0 for prefill), p1 = 64-K chunks a
     slice.
@@ -73,6 +78,7 @@ class Plan(NamedTuple):
     dynamic_smem: int
     variant: str = ""
     ksplit: int = 1
+    orientation: str = ""
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -141,9 +147,10 @@ def plan(m: int, k: int, n: int, stride_k: int, stride_n: int,
         per_k = planes * 8 * nt * 2
         kc = min(_cdiv(max(k, 1), _KL_STEP) * _KL_STEP,
                  (_KL_X_BYTES // per_k - _KL_PAD) // _KL_STEP * _KL_STEP)
-        return Plan("k_lanes", nt, kc, per_k * (kc + _KL_PAD))
+        return Plan("k_lanes", nt, kc, per_k * (kc + _KL_PAD),
+                    orientation="k_major")
     if stride_n == 1 and n <= _KN_MAX_N:
-        return Plan("k_lanes", 0, 0, 0)
+        return Plan("k_lanes", 0, 0, 0, orientation="row_major")
     return _n_lanes_plan(m, k, n, x_dtype)
 
 
@@ -202,4 +209,6 @@ def qmatmul_cuda(x: torch.Tensor, w_q: torch.Tensor, delta: torch.Tensor,
     launches_by_layout[p.layout] += 1
     if p.variant:
         launches_by_variant[p.variant] += 1
+    else:
+        launches_by_orientation[p.orientation] += 1
     return out

@@ -3,7 +3,7 @@ the ``q`` form's projections) and the fp32 ``attn_prefill`` at the serving
 path's shapes, through their public wrappers, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_kernels [--tag T]
-        [--groups qwen,dense,head,q,prefill32]
+        [--groups qwen,dense,head,q,prefill32,moe,fp32sum]
 
 Groups: ``qwen`` (the default) qwen2-1.5b's projections and decode
 attention and the paper MLP's layers; ``dense`` qmatvec at the decode
@@ -18,7 +18,20 @@ dequantized matrix in x's dtype (TF32 off), and the plain version;
 ``prefill32`` the fp32 ``attn_prefill`` (fp32 and int8 K/V) at the
 largest bucket (T = S = 256) of qwen2-1.5b and stablelm-3b and at the
 speculative verify shape (T = 5, S = 512), beside SDPA over the
-(dequantized) K/V in fp32, and the plain version.
+(dequantized) K/V in fp32, and the plain version; ``moe`` the MoE
+family's shapes in bf16: phi3.5-moe's and mixtral-8x22b's expert products
+(row-major int8 levels, ``n_lanes``) at the capacity M of a decode tick
+(1, 2), of an admission (80 = a 64-token bucket x 8 rows; 10240 = the
+4096 bucket) and of mixtral's 4500-token solo prefill (1406), beside
+``addmm`` on the dequantized bf16 expert; their routers (row-major
+(d, E) levels, ``k_lanes``, fp32 out) at M = 8 and at the 4096 bucket's
+32768 rows, beside ``addmm`` on the dequantized bf16 router; mixtral's
+windowed attn_prefill (B = 1, T = S = 4500, KV = 8, G = 6, D = 128,
+lo = max(t - 4095, 0)) beside SDPA with the window mask; and attn_decode
+over a full 4096-slot ring (B = 8), beside SDPA; ``fp32sum`` the
+precision of fp32 x through the tensor cores (qmatvec, qmatmul's n_lanes
+and K-major k_lanes) at the shapes of mixtral's path check, against a
+float64 product, beside the plain version's.
 
 Uses only the wrappers (``kernels/*/ops.py``), their plain versions and
 ``core/packing.py``, so the same file times two trees of the port in one
@@ -84,6 +97,23 @@ Q_CASES = [(m, k, n, bias, dtype) for dtype in (torch.bfloat16, torch.float32)
 # stablelm-3b's largest bucket, and the speculative verify shape
 PREFILL32_CASES = [(8, 256, 256, 2, 6, 128), (8, 256, 256, 32, 1, 80),
                    (8, 5, 512, 2, 6, 128)]
+# the MoE family: expert products (M, K, N) at the capacity M of a decode
+# tick, an admission and mixtral's solo prefill; routers (M, K, N = E)
+MOE_EXPERT_CASES = ([(m, k, n) for m in (1, 80)
+                     for k, n in ((4096, 6400), (6400, 4096))]
+                    + [(m, k, n) for m in (2, 1406, 10240)
+                       for k, n in ((6144, 16384), (16384, 6144))])
+MOE_ROUTER_CASES = ((8, 4096, 16), (8, 6144, 8), (32768, 6144, 8))
+MOE_WINDOW = (4500, 4096)            # mixtral's solo prompt and its window
+# fp32 x through the tensor cores at the MoE path check's shapes: mixtral's
+# attention projections over 2 x 4608 tokens and at a decode tick (M = 2),
+# its expert products at that prefill's capacity M (2880) and a tick's, and
+# its untied head read K-major
+FP32SUM_CASES = [("qmatvec", 9216, 6144, 6144), ("qmatvec", 9216, 6144, 1024),
+                 ("qmatvec", 2, 6144, 6144),
+                 ("n_lanes", 2880, 6144, 16384), ("n_lanes", 2880, 16384, 6144),
+                 ("n_lanes", 2, 6144, 16384), ("n_lanes", 2, 16384, 6144),
+                 ("k_lanes", 8, 6144, 32768)]
 
 
 def _event_ms(fn):
@@ -331,11 +361,151 @@ def prefill32_case(g, b, t, s, kvh, grp, hd, cache):
             "library_ms": _event_ms(lib), "library_device_ms": _device_ms(lib)}
 
 
+# The MoE cases are built once here, as parts: ``shape``, ``dtype``, the
+# kernel call ``run``, its plain version ``plain`` (the same output shape),
+# the ``library`` call and its name ``library_call``, and what the bound
+# counts: ``nbytes`` moved and ``ops`` at the ``peak`` of that dtype.
+# ``chip_smoke.py`` gates the same parts on the card; ``_timed`` times them.
+_PEAK_OPS_MS = {"float32": 67e9, "bfloat16": 989e9}    # operations a ms
+
+
+def router_parts(g, dev, m, k, n):
+    """An MoE router: (K, E) row-major int8 levels with E <= 64 columns,
+    per-channel delta, bf16 x, fp32 logits: qmatmul's row-major k_lanes
+    kernel, whose sums run on the CUDA cores in fp32 (so its operations
+    take the fp32 peak); ``addmm`` on the dequantized bf16 router."""
+    w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    delta = torch.rand(n, generator=g, device=dev) * 0.01
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    wdq = (w.float() * delta).to(torch.bfloat16)
+    zero = torch.zeros(n, device=dev, dtype=torch.bfloat16)
+    return dict(
+        shape=f"M={m} K={k} N={n} (MoE router, fp32 out)", dtype="bfloat16",
+        run=lambda: qmm_ops.qmatmul(x, w, delta, out_dtype=torch.float32),
+        plain=lambda: qmatmul_ref(x, w, delta, out_dtype=torch.float32),
+        library=lambda: torch.addmm(zero, x, wdq),
+        library_call="addmm on the dequantized bf16 router",
+        nbytes=m * k * 2 + k * n + n * 4 + m * n * 4, ops=2 * m * k * n,
+        peak="float32")
+
+
+def window_prefill_parts(g, dev, t, window, kvh=8, grp=6, hd=128):
+    """A solo prefill's windowed attention: one row of T queries against
+    its own T keys, query t seeing max(t - window + 1, 0) <= p <= t, bf16
+    (the wgmma kernel); SDPA with the same window as a boolean mask."""
+    q = torch.randn((1, t, kvh * grp, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((1, t, kvh, hd), generator=g,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    pos = torch.arange(t, dtype=torch.int32, device=dev)
+    hi, lo = (pos + 1)[None], torch.clamp(pos - (window - 1), min=0)[None]
+    qg = scale_q(q, hd ** -0.5).reshape(1, t, kvh, grp, hd)
+    kh = kc.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = vc.transpose(1, 2).repeat_interleave(grp, dim=1)
+    mask = ((pos[None, :] < hi[0, :, None])
+            & (pos[None, :] >= lo[0, :, None]))[None, None]
+    h = kvh * grp
+    return dict(
+        shape=f"B=1 T=S={t} KV={kvh} G={grp} D={hd} window {window}",
+        dtype="bfloat16/kv-bf16",
+        run=lambda: pf_ops.attn_prefill(q, kc, vc, hi, lo=lo),
+        plain=lambda: attn_prefill_ref(qg, kc, vc, lo, hi).reshape(
+            1, t, h, hd),
+        library=lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kh, vh, attn_mask=mask),
+        library_call="SDPA with the window mask (KV heads expanded)",
+        nbytes=2 * t * h * hd * 2 + 2 * t * kvh * hd * 2 + 2 * t * 4,
+        ops=4 * hd * h * int((hi - lo).sum()), peak="bfloat16")
+
+
+def ring_decode_parts(g, dev, b=8, s=4096, kvh=8, grp=6, hd=128):
+    """attn_decode over a full sliding-window ring: every row holds all
+    ``s`` entries of a bf16 cache; SDPA over the same cache."""
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    q = torch.randn((b, 1, kvh * grp, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, s, kvh, hd), generator=g,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    kh = kc.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = vc.transpose(1, 2).repeat_interleave(grp, dim=1)
+    h = kvh * grp
+    return dict(
+        shape=f"B={b} S={s} KV={kvh} G={grp} D={hd} full ring",
+        dtype="bfloat16/kv-bf16",
+        run=lambda: dec_ops.attn_decode(q, kc, vc, lens),
+        plain=lambda: attn_decode_ref(q, kc, vc, lens),
+        library=lambda: F.scaled_dot_product_attention(q.transpose(1, 2),
+                                                       kh, vh),
+        library_call="SDPA",
+        nbytes=2 * b * h * hd * 2 + 2 * b * s * kvh * hd * 2 + b * 4,
+        ops=4 * hd * h * b * s, peak="bfloat16")
+
+
+def _timed(kernel, parts, **extra):
+    """One JSON line for a case built as parts (bf16, held to 2e-2 x
+    max|plain|): the bound, the kernel's, its plain version's and the
+    library call's times."""
+    run, lib = parts["run"], parts["library"]
+    err = _err(run(), parts["plain"](), torch.bfloat16,
+               f"{kernel} {parts['shape']}")
+    return {"kernel": kernel, **extra, "shape": parts["shape"],
+            "dtype": parts["dtype"], "max_abs_err": err,
+            "bound_ms": max(parts["nbytes"] / 3.35e9,
+                            parts["ops"] / _PEAK_OPS_MS[parts["peak"]]),
+            "ms": _event_ms(run), "device_ms": _device_ms(run),
+            "plain_ms": _event_ms(parts["plain"]),
+            "library": parts["library_call"], "library_ms": _event_ms(lib),
+            "library_device_ms": _device_ms(lib)}
+
+
+def router_case(g, m, k, n):
+    c = router_parts(g, torch.device("cuda"), m, k, n)
+    return _timed("qmatmul", c, orientation=_counted(
+        c["run"], qmm_k, "launches_by_orientation"))
+
+
+def window_prefill_case(g, t, window):
+    c = window_prefill_parts(g, torch.device("cuda"), t, window)
+    return _timed("attn_prefill", c, variant=_counted(
+        c["run"], pf_k, "launches_by_variant"))
+
+
+def fp32sum_case(g, kernel, m, k, n):
+    """fp32 x on the tensor cores (three bf16 planes) at a long K: the max
+    error over max|out| of the kernel and of its plain version (an fp32
+    matmul) against a float64 product of the same levels, and the
+    kernel's time. No tolerance: the card tests hold the kernel to 3e-6."""
+    dev = torch.device("cuda")
+    x = torch.randn((m, k), generator=g, device=dev)
+    delta = torch.rand(n, generator=g, device=dev) * 0.05 + 0.01
+    lo, hi = (-4, 4) if kernel == "qmatvec" else (-127, 128)
+    lv = torch.randint(lo, hi, (k, n), generator=g, device=dev,
+                       dtype=torch.int8)
+    if kernel == "qmatvec":
+        w = pack_matrix(lv, 3)
+        run = lambda: qmv_ops.qmatvec(x, w, delta, k=k)
+        plain = lambda: qmatvec_ref(x, w, delta, k)
+    else:
+        w = lv if kernel == "n_lanes" else lv.T.contiguous().T
+        run = lambda: qmm_ops.qmatmul(x, w, delta)
+        plain = lambda: qmatmul_ref(x, w, delta)
+    ref = x.double() @ (lv.double() * delta.double())
+    scale = float(ref.abs().max())
+    rel = lambda out: float((out.double() - ref).abs().max()) / scale
+    return {"kernel": "qmatvec" if kernel == "qmatvec" else "qmatmul",
+            "layout": kernel, "shape": f"M={m} K={k} N={n}",
+            "dtype": "float32", "max_err_over_max_kernel": rel(run()),
+            "max_err_over_max_plain": rel(plain()), "reference": "float64",
+            "ms": _event_ms(run), "device_ms": _device_ms(run)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="", help="a label printed on each line")
     ap.add_argument("--groups", default="qwen",
-                    help="comma-separated: qwen, dense, head, q, prefill32")
+                    help="comma-separated: qwen, dense, head, q, "
+                         "prefill32, moe, fp32sum")
     args = ap.parse_args(argv)
     groups = set(args.groups.split(","))
     if not torch.cuda.is_available():
@@ -357,6 +527,15 @@ def main(argv=None):
     if "prefill32" in groups:
         cases += [lambda c=c, kv=kv: prefill32_case(g, *c, kv)
                   for c in PREFILL32_CASES for kv in ("fp32", "int8")]
+    if "moe" in groups:
+        cases += [lambda c=c: q_case(g, *c, False, torch.bfloat16)
+                  for c in MOE_EXPERT_CASES]
+        cases += [lambda c=c: router_case(g, *c) for c in MOE_ROUTER_CASES]
+        cases += [lambda: window_prefill_case(g, *MOE_WINDOW),
+                  lambda: _timed("attn_decode", ring_decode_parts(
+                      g, torch.device("cuda")))]
+    if "fp32sum" in groups:
+        cases += [lambda c=c: fp32sum_case(g, *c) for c in FP32SUM_CASES]
     for case in cases:
         print(json.dumps({"tag": args.tag, **case()}), flush=True)
         torch.cuda.empty_cache()

@@ -1,8 +1,8 @@
 """Where the serving time goes: a full-width W3A8 ``qp`` model (qwen2-1.5b
-unless ``--arch`` names another ported dense config, ``--layers`` cutting
-its depth as ``launch/serve.py`` does; ``--form q`` the int8-level export
-instead, every projection through qmatmul's ``n_lanes``) served by the
-engine on the card, under ``torch.profiler``.
+unless ``--arch`` names another ported config, dense or MoE, ``--layers``
+cutting its depth as ``launch/serve.py`` does; ``--form q`` the int8-level
+export instead, every projection through qmatmul's ``n_lanes``) served by
+the engine on the card, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine [--kv8]
         [--steady-only] [--spec-k K] [--eager] [--quant w3|float]
@@ -193,7 +193,7 @@ def attn_prefill_ms_by_use(prof, uses):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    help="any ported dense config")
+                    help="any ported config (dense or moe)")
     ap.add_argument("--layers", type=int, default=None,
                     help="keep the first N layers (full width), as "
                          "launch/serve.py --layers")

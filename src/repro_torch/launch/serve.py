@@ -4,12 +4,14 @@ card (one decode call per tick, all slots at once).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --requests 8 --slots 4 --max-new 16
 
-Any ported dense config serves (``--arch`` qwen2-1.5b, stablelm-3b,
-qwen2.5-14b, qwen3-32b). ``--reduced`` shrinks the model for a rehearsal;
-``--device cpu`` runs the kernels' plain versions on the CPU. ``--layers N``
-keeps the first N layers at full width: the export is made from an fp32
-master on the card, and qwen2.5-14b's (59 GB) and qwen3-32b's (131 GB) do
-not fit one 80 GB card at full depth. ``--spec-k K`` serves speculatively:
+Any ported config serves (``--arch`` qwen2-1.5b, stablelm-3b,
+qwen2.5-14b, qwen3-32b; the MoE family phi3.5-moe-42b-a6.6b and
+mixtral-8x22b, whose cache is a ring of at most its 4096-token window).
+``--reduced`` shrinks the model for a rehearsal; ``--device cpu`` runs the
+kernels' plain versions on the CPU. ``--layers N`` keeps the first N
+layers at full width: the export is made from an fp32 master on the card,
+and qwen2.5-14b's (59 GB), qwen3-32b's (131 GB), phi3.5-moe's (168 GB) and
+mixtral-8x22b's (564 GB) do not fit one 80 GB card at full depth. ``--spec-k K`` serves speculatively:
 the packed 3-bit export of the same master weights drafts K tokens a tick
 (``--draft-depth`` keeps a leading share of its layers) and the target
 verifies them. The same flags as the reference's ``launch/serve.py``,

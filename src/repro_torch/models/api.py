@@ -1,5 +1,5 @@
 """Unified model interface — port of the reference's ``models/api.py`` for
-the families the port serves (dense).
+the families the port serves (dense and moe, both in ``transformer``).
 
     init(gen, cfg, dtype, device)                        -> params
     prefill(params, batch, cfg, *, policy, ...)          -> (logits, cache)
@@ -35,7 +35,7 @@ __all__ = ["get_model", "init_cache", "prefill", "decode_step",
            "insert_prefill", "insert_prefill_many", "free_slots",
            "cache_to_host", "cache_from_host"]
 
-_FAMILY_MODULE = {"dense": transformer}
+_FAMILY_MODULE = {"dense": transformer, "moe": transformer}
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:

@@ -18,7 +18,9 @@ Shapes: q (B, Lq, H, D); k/v (B, Lkv, KV, D); GQA groups G = H // KV.
 'auto' picks the kernel for CUDA tensors, the reference elsewhere. The
 reference paths add to the kernels' plain-version counters
 (``kernels.<name>.ref.calls``), so a run can show it never left the
-kernels. Sliding-window attention is not ported yet and raises.
+kernels. A sliding window (``prefill_attention(window=)``) raises the
+kernel's lower bound to ``lo = max(t - window + 1, 0)``; its reference is
+``sliding_window_attention``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from repro_torch.kernels.attn_prefill import ops as pf_ops
 from repro_torch.kernels.attn_prefill import ref as pf_ref
 
 __all__ = ["chunked_attention", "decode_attention", "prefill_attention",
-           "verify_attention", "resolve_attn_mode", "ATTN_MODES"]
+           "sliding_window_attention", "verify_attention",
+           "resolve_attn_mode", "ATTN_MODES"]
 
 NEG_INF = -1e30
 
@@ -99,15 +102,50 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(b, lq, h, d).to(q.dtype)
 
 
+def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int,
+                             chunk: int = 1024) -> torch.Tensor:
+    """Causal sliding-window attention, query t seeing keys
+    t - window < p <= t — the reference's ``sliding_window_attention``:
+    queries in chunks, each against the static span of ``window + chunk``
+    keys that ends with it (K/V left-padded by ``window``), plain masked
+    softmax over the span."""
+    b, lq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    chunk = min(chunk, lq)
+    nq = -(-lq // chunk)
+    pad = nq * chunk - lq
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, window, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, window, pad))
+    span = window + chunk
+    outs = []
+    for i in range(nq):
+        s0 = i * chunk
+        qr = scale_q(qp[:, s0:s0 + chunk], 1.0 / (d ** 0.5)).reshape(
+            b, chunk, kvh, g, d)
+        kb, vb = kp[:, s0:s0 + span], vp[:, s0:s0 + span]
+        sc = torch.einsum("bqkgd,bckd->bkgqc", qr.float(), kb.float())
+        qpos = s0 + torch.arange(chunk, device=q.device)
+        kpos = s0 - window + torch.arange(span, device=q.device)
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos[None, :] > qpos[:, None] - window)
+                & (kpos[None, :] >= 0) & (kpos[None, :] < lq))
+        sc = torch.where(mask[None, None, None], sc, _neg_inf(sc))
+        p = torch.softmax(sc, dim=-1).to(v.dtype)
+        o = torch.einsum("bkgqc,bckd->bqkgd", p.float(), vb.float())
+        outs.append(o.to(v.dtype).reshape(b, chunk, h, d))
+    return torch.cat(outs, dim=1)[:, :lq].to(q.dtype)
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       lengths=None, window: int = 0, mode: str = "auto",
                       chunk: int = 1024) -> torch.Tensor:
     """Prompt self-attention for prefill/admission: q (B, T, H, D) against
     k/v (B, T, KV, D); ``lengths`` (B,) optional per-row valid prompt
-    lengths (bucketed admission right-pads rows to the bucket)."""
-    if window:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "yet")
+    lengths (bucketed admission right-pads rows to the bucket); ``window``
+    > 0 also hides keys at or before t - window from query t."""
     if resolve_attn_mode(mode, q.device) == "kernel":
         b, t = q.shape[0], q.shape[1]
         pos = torch.arange(t, dtype=torch.int32, device=q.device)
@@ -115,8 +153,13 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if lengths is not None:
             lens = torch.as_tensor(lengths, device=q.device).to(torch.int32)
             hi = torch.minimum(hi, lens.reshape(-1, 1).expand(b, 1))
-        return pf_ops.attn_prefill(q, k, v, hi)
+        lo = None
+        if window:
+            lo = torch.clamp(pos - (window - 1), min=0)[None, :].expand(b, t)
+        return pf_ops.attn_prefill(q, k, v, hi, lo=lo)
     pf_ref.calls += 1
+    if window:
+        return sliding_window_attention(q, k, v, window=window, chunk=chunk)
     return chunked_attention(q, k, v, chunk=chunk)
 
 

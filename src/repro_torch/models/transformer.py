@@ -1,11 +1,19 @@
-"""Decoder-only transformer backbone, dense family — port of the reference's
-``models/transformer.py`` serve path (GQA or MHA, QKV bias, qk-norm, RoPE,
-tied embeddings or an untied head, SwiGLU).
+"""Decoder-only transformer backbone, dense and MoE families — port of the
+reference's ``models/transformer.py`` serve path (GQA or MHA, QKV bias,
+qk-norm, RoPE, tied embeddings or an untied head, SwiGLU or a
+Mixture-of-Experts FFN (``models/moe.py``), sliding-window attention).
 
 Parameters keep the reference's tree and its stacked layout: every leaf
 under ``layers`` has a leading (L,) axis, and a Python loop over layers
 takes the place of ``jax.lax.scan``. Every projection goes through
 ``quant_dense`` so the W3A8 policy applies.
+
+Sliding window (``cfg.sliding_window > 0``): the cache holds
+``cs = min(max_len, window)`` positions as a ring, position ``p`` at slot
+``p % cs``. ``prefill`` of a prompt longer than the ring keeps its last
+``cs`` positions, rolled so that each sits at its slot; ``decode_step``
+and ``verify_step`` write at ``position % cs`` and attend over
+``min(position + 1, cs)`` entries.
 
 The reference is functional and donates the cache to its jitted calls;
 here the cache tensors are updated IN PLACE (``decode_step``, the
@@ -20,8 +28,7 @@ cache (through ``attention.verify_attention``) and ``rollback_cache``
 rewinds rows to their committed lengths, zeroing the wiped entries, in
 place.
 
-Not ported yet: sliding-window rings (``cfg.sliding_window > 0`` raises),
-MoE and the training ``forward``.
+Not ported yet: the training ``forward``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (decode_attention, prefill_attention,
                                           resolve_attn_mode, verify_attention)
 from repro_torch.models.layers import (apply_rope, embed_init, embed_lookup,
@@ -46,11 +54,9 @@ __all__ = ["init", "cache_len_for", "init_cache", "prefill", "decode_step",
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window KV rings are not ported yet")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"only the dense family is ported; got "
-                                  f"{cfg.name} ({cfg.family})")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"only the dense and moe families are "
+                                  f"ported; got {cfg.name} ({cfg.family})")
 
 
 # --- init -----------------------------------------------------------------------
@@ -67,25 +73,41 @@ def _layer_init(gen, cfg: ModelConfig, dtype, device) -> Dict[str, Any]:
     if cfg.qk_norm:
         attn["q_norm"] = rmsnorm_init(hd, device)
         attn["k_norm"] = rmsnorm_init(hd, device)
-    return {"ln1": rmsnorm_init(d, device), "ln2": rmsnorm_init(d, device),
-            "attn": attn,
-            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, **kw)}
+    p = {"ln1": rmsnorm_init(d, device), "ln2": rmsnorm_init(d, device),
+         "attn": attn}
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg, **kw)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, **kw)
+    return p
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_into(stacks, tree, i: int, n: int):
+    """Copy layer ``i``'s ``tree`` into the (n, ...) ``stacks`` (allocated
+    at the first layer); returns the stacks."""
+    if isinstance(tree, dict):
+        stacks = stacks if stacks is not None else {}
+        for k, v in tree.items():
+            stacks[k] = _stack_into(stacks.get(k), v, i, n)
+        return stacks
+    if stacks is None:
+        stacks = tree.new_empty((n,) + tuple(tree.shape))
+    stacks[i].copy_(tree)
+    return stacks
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
          device=None) -> Dict[str, Any]:
     """Random float master weights from ``gen`` on ``device``, in the
     reference's stacked tree layout. The numbers differ from the
-    reference's ``jax.random`` init; parity tests bridge JAX weights."""
+    reference's ``jax.random`` init; parity tests bridge JAX weights. Each
+    layer is drawn in turn and copied into preallocated (L, ...) stacks, so
+    the build holds the master and one layer, never two masters."""
     _check_supported(cfg)
-    layers = _stack([_layer_init(gen, cfg, dtype, device)
-                     for _ in range(cfg.num_layers)])
+    layers = None
+    for i in range(cfg.num_layers):
+        layers = _stack_into(layers, _layer_init(gen, cfg, dtype, device), i,
+                             cfg.num_layers)
     params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                                   device),
               "layers": layers, "final_norm": rmsnorm_init(cfg.d_model, device)}
@@ -127,6 +149,9 @@ def _attn_out(lp, o, cfg, policy, b, s, mm: str):
 
 
 def _ffn(lp, h, cfg: ModelConfig, policy, mm: str):
+    if cfg.family == "moe":
+        return moe_mod.moe_apply(lp["moe"], h, cfg, policy=policy,
+                                 matmul_mode=mm)[0]
     return mlp_apply(lp["mlp"], h, act=cfg.mlp_act, policy=policy,
                      matmul_mode=mm)
 
@@ -177,7 +202,9 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
     ``lengths`` (B,) enables right-padded multi-request prefill: row ``i``
     holds a prompt of true length ``lengths[i]`` left-aligned in the padded
     (B, S) tokens; logits are gathered at each row's last real token and
-    ``cache["len"]`` is the per-row length."""
+    ``cache["len"]`` is the per-row length. A padded prefill must fit the
+    cache; an unpadded prompt longer than a sliding-window ring keeps its
+    last ``cs`` positions, each at its ring slot."""
     _check_supported(cfg)
     tokens = batch["tokens"]
     attn_mode = resolve_attn_mode(attn_mode, tokens.device)
@@ -195,7 +222,8 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
         lp = _layer(params["layers"], i)
         hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
         q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, matmul_mode)
-        o = prefill_attention(q, k, v, lengths=lengths, mode=attn_mode,
+        o = prefill_attention(q, k, v, lengths=lengths,
+                              window=cfg.sliding_window or 0, mode=attn_mode,
                               chunk=min(attn_chunk, s))
         h = h + _attn_out(lp, o, cfg, policy, b, s, matmul_mode)
         hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
@@ -215,6 +243,11 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
         padw = cs - ks.shape[2]
         ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, padw))
         vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, padw))
+    elif cfg.sliding_window and s >= cs and s % cs:
+        # the slice put position s - cs + i at slot i; roll by s % cs so it
+        # sits at its ring slot (s + i) % cs
+        ks = torch.roll(ks, s % cs, dims=2)
+        vs = torch.roll(vs, s % cs, dims=2)
     clen = (torch.full((), s, dtype=torch.int32, device=h.device)
             if lengths is None else lengths)
     if quantize_cache:
@@ -233,7 +266,8 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     K/V into ``cache`` in place and returns (logits (B, 1, V) fp32, cache
     with ``len + 1``). ``cache["len"]`` is a scalar or a (B,) vector of
     per-row lengths (slot-major continuous batching). Rows whose position
-    is past the cache write nothing (the reference's dropped scatter)."""
+    is past the cache write nothing (the reference's dropped scatter); a
+    sliding-window ring writes every row at ``pos % cs``."""
     _check_supported(cfg)
     b = tokens.shape[0]
     dev = tokens.device
@@ -244,14 +278,19 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, dev)
     positions = pos[:, None]                                       # (B, 1)
     cs = cache["k"].shape[2]
-    in_range = pos < cs
-    slot = torch.clamp(pos, max=cs - 1).long()
+    ring = bool(cfg.sliding_window)
+    slot = (torch.remainder(pos, cs) if ring
+            else torch.clamp(pos, max=cs - 1)).long()
     rows = torch.arange(b, device=dev)
     valid = torch.clamp(pos + 1, max=cs)
 
     def _write(buf, layer, new):
-        """buf[layer, rows, slot] = new where the row is in range."""
-        keep = in_range.reshape((b,) + (1,) * (new.dim() - 1))
+        """buf[layer, rows, slot] = new where the row is in range (always
+        on a ring)."""
+        if ring:
+            buf[layer, rows, slot] = new.to(buf.dtype)
+            return
+        keep = (pos < cs).reshape((b,) + (1,) * (new.dim() - 1))
         buf[layer, rows, slot] = torch.where(keep, new.to(buf.dtype),
                                              buf[layer, rows, slot])
 
@@ -292,7 +331,8 @@ def verify_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     that follows ``tokens[:, t]``, as ``decode_step`` would give after
     consuming ``tokens[:, :t + 1]`` one by one. K/V of all T positions are
     written into ``cache`` in place at ``len .. len + T - 1`` (a position
-    past the cache writes nothing); ``rollback_cache`` undoes the rejected
+    past the cache writes nothing; a sliding-window ring writes each at
+    ``position % cs``); ``rollback_cache`` undoes the rejected
     ones. Returns (logits (B, T, V) fp32, cache with ``len + T``, None):
     the trailing None is the rollback trajectory, which only stateful
     families have."""
@@ -307,18 +347,24 @@ def verify_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     positions = pos0[:, None] + torch.arange(t, dtype=torch.int32,
                                              device=dev)[None, :]  # (B, T)
     cs = cache["k"].shape[2]
+    ring = bool(cfg.sliding_window)
     rows = torch.arange(b, device=dev)[:, None]
-    slot = torch.clamp(positions, max=cs - 1).long()
-    # Positions past the cache are clamped onto slot cs - 1 and take the
-    # value that slot ends with (the in-range write of position cs - 1, or
-    # its old entry), so the duplicate indices all write the same value:
-    # the reference's dropped scatter.
+    slot = (torch.remainder(positions, cs) if ring
+            else torch.clamp(positions, max=cs - 1)).long()
+    # Off a ring, positions past the cache are clamped onto slot cs - 1 and
+    # take the value that slot ends with (the in-range write of position
+    # cs - 1, or its old entry), so the duplicate indices all write the
+    # same value: the reference's dropped scatter.
     src = torch.clamp(slot - pos0[:, None], min=0)                 # (B, T)
     keep = pos0[:, None] + src < cs
     valid = torch.clamp(positions + 1, max=cs)                     # (B, T)
 
     def _write(buf, layer, new):
-        """buf[layer, b, position] = new[b, t] for every in-range position."""
+        """buf[layer, b, position] = new[b, t] for every in-range position
+        (every position on a ring)."""
+        if ring:
+            buf[layer, rows, slot] = new.to(buf.dtype)
+            return
         k_ = keep.reshape((b, t) + (1,) * (new.dim() - 2))
         buf[layer, rows, slot] = torch.where(k_, new[rows, src].to(buf.dtype),
                                              buf[layer, rows, slot])

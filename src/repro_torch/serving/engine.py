@@ -17,6 +17,9 @@ hardening and durability.
     and inserted with ONE multi-slot scatter. The prefill batch is pinned
     to ``slots``: dummy rows have length 1 and an out-of-range slot, which
     the scatter drops on the device. ``prefill_calls`` counts these calls.
+    A prompt longer than the bucket cap (past a sliding-window ring) is
+    admitted alone at its exact length, eagerly (the reference traces one
+    prefill per such length); the ring roll in ``prefill`` places it.
   * ONE ``decode_step`` per tick advances every slot at once. Sampling and
     termination (budget / EOS) are computed on the device as masks;
     inactive slots are frozen there (token and length held), so a tick
@@ -195,6 +198,17 @@ def generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     return torch.cat(out, dim=1)
 
 
+def _no_ring_wrap(mod, cfg: ModelConfig, max_len: int):
+    """Speculative rollback is a length rewind: a sliding-window ring that
+    wraps during the verify window would have overwritten live entries no
+    rewind can restore. Forbid the configuration instead of corrupting."""
+    if mod.cache_len_for(cfg, max_len) < max_len:
+        raise ValueError(
+            f"speculative decoding needs max_len <= sliding_window "
+            f"({cfg.sliding_window}) for {cfg.name}: a wrapped KV ring "
+            f"cannot be rolled back (got max_len {max_len})")
+
+
 def _spec_models(params, cfg: ModelConfig, draft_params,
                  draft_cfg: Optional[ModelConfig]):
     """The drafter for ``params``: derived from the target checkpoint
@@ -227,6 +241,8 @@ def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     b, p = prompts.shape
     # verify writes up to spec_k positions past the committed stream
     max_len = p + max_new_tokens + spec_k
+    _no_ring_wrap(mod, cfg, max_len)
+    _no_ring_wrap(dmod, draft_cfg, max_len)
     kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
     mkw = dict(policy=policy, dtype=dtype)
     gen = torch.Generator(device=prompts.device).manual_seed(seed)
@@ -394,6 +410,8 @@ class ServingEngine:
                 params, cfg, draft_params, draft_cfg)
             self.draft_params = _to_device(draft_params, self.device)
             self.dmod = get_model(self.draft_cfg)
+            _no_ring_wrap(self.mod, cfg, max_len)
+            _no_ring_wrap(self.dmod, self.draft_cfg, max_len)
             self.draft_cache = model_api.init_cache(
                 self.draft_cfg, slots, max_len, dtype, per_slot_len=True,
                 kv_bits=kv_bits, device=self.device)
@@ -577,14 +595,6 @@ class ServingEngine:
         lens, slot_map, bud = self._in_lens, self._in_map, self._in_budget
         logits0, src = self._prefill(toks, lens)
         self.mod.insert_prefill_many(self.cache, slot_map, src)
-        t0 = _sample(self._gen, logits0[:, 0], self.temperature).to(torch.int32)
-        # the prefill sample already counts: a max_new == 1 request (or an
-        # immediate EOS) never becomes active
-        act0 = (bud > 1) & (t0 != self._eos())
-        index_drop_(self._tokens, slot_map, t0[:, None])
-        index_drop_(self._active, slot_map, act0)
-        index_drop_(self._emitted, slot_map, torch.ones_like(t0))
-        index_drop_(self._budget, slot_map, bud)
         if self.spec_k:
             # the drafter needs the prompt in ITS cache too (its logits are
             # unused: the target samples every committed token)
@@ -594,6 +604,22 @@ class ServingEngine:
                 lengths=lens, attn_chunk=self.attn_chunk,
                 **self._kw["prefill"])
             self.dmod.insert_prefill_many(self.draft_cache, slot_map, dsrc)
+        self._seat(logits0, slot_map, bud)
+
+    def _seat(self, logits0: torch.Tensor, slot_map: torch.Tensor,
+              bud: torch.Tensor):
+        """Sample each admitted row's first token from its prefill logits
+        ``logits0`` and start slot ``slot_map[i]`` on it with budget
+        ``bud[i]``; rows whose slot is ``>= slots`` are dropped on the
+        device."""
+        t0 = _sample(self._gen, logits0[:, 0], self.temperature).to(torch.int32)
+        # the prefill sample already counts: a max_new == 1 request (or an
+        # immediate EOS) never becomes active
+        act0 = (bud > 1) & (t0 != self._eos())
+        index_drop_(self._tokens, slot_map, t0[:, None])
+        index_drop_(self._active, slot_map, act0)
+        index_drop_(self._emitted, slot_map, torch.ones_like(t0))
+        index_drop_(self._budget, slot_map, bud)
         admitted = index_drop_(torch.zeros_like(self._active), slot_map, True)
         self._record(self._tokens, admitted, admitted & ~self._active)
 
@@ -860,11 +886,17 @@ class ServingEngine:
                 self._preempt(victims[:len(self.queue)])
                 free = self._free_slots()
         while self.queue and free:
+            if len(self.queue[0].admit_prompt) > self._bucket_cap:
+                # past a sliding-window ring a padded row's ring alignment
+                # is undefined: this prompt takes the exact solo path
+                self._admit_solo(free.pop(0), self.queue.pop(0))
+                continue
             bucket = self._bucket_len(len(self.queue[0].admit_prompt))
             batch: List[Request] = []
             rest: List[Request] = []
             for r in self.queue:
                 if (len(batch) < len(free)
+                        and len(r.admit_prompt) <= self._bucket_cap
                         and self._bucket_len(len(r.admit_prompt)) == bucket):
                     batch.append(r)
                 else:
@@ -900,6 +932,28 @@ class ServingEngine:
         # warm-ups run with every row dropped, so they change no slot
         self.graphs.run(("admit", bucket), lambda: self._admit(buf),
                         idle=lambda: masked(self._in_map, self.slots))
+        self._record_admitted(slot_ids, reqs)
+
+    def _admit_solo(self, slot: int, req: Request):
+        """Exact-length single-request admission of a prompt longer than the
+        bucket cap (past a sliding-window ring): one eager prefill of its
+        own length, inserted into ``slot``; the first token is sampled as
+        in a bucketed round. The tick stays captured. A speculative engine
+        never gets here: ``_no_ring_wrap`` keeps its cache at ``max_len``,
+        which no admitted prompt exceeds."""
+        assert not self.spec_k
+        toks = torch.tensor([req.admit_prompt], dtype=torch.int32)
+        logits0, src = self._prefill(toks.to(self.device), None)
+        self.mod.insert_prefill(self.cache, slot, src)
+        self._seat(logits0, torch.tensor([slot]).to(self.device),
+                   torch.tensor([req.remaining], dtype=torch.int32).to(
+                       self.device))
+        self._record_admitted([slot], [req])
+
+    def _record_admitted(self, slot_ids: List[int], reqs: List[Request]):
+        """Bookkeeping after an admission (batched or solo): the round is
+        counted and logged, the slots owned, the record kept, and slots
+        whose lifetime is already over released."""
         self.prefill_calls += 1
         self._log_event({"e": "admit", "uids": [r.uid for r in reqs],
                          "slots": list(slot_ids)})

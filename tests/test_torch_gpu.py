@@ -957,3 +957,242 @@ def test_snapshot_restores_into_a_captured_engine(cuda, tmp_path,
     got = {**mid, **{r.uid: r.out for r in fresh.run_all()}}
     assert got == want
     assert fresh.captures["tick"] == caps["tick"] == 1
+
+
+# --- the MoE family and the sliding-window ring -------------------------------
+
+# expert products (M, K, N): phi3.5-moe's at a tick's capacity (M = 1) and
+# an admission's (80), mixtral-8x22b's at a tick's (2), its solo prompt's
+# (1406) and its 4096 bucket's (10240), up / gate and down
+MOE_EXPERTS = ([(m, k, n) for m in (1, 80)
+                for k, n in ((4096, 6400), (6400, 4096))]
+               + [(m, k, n) for m in (2, 1406, 10240)
+                  for k, n in ((6144, 16384), (16384, 6144))])
+
+
+@pytest.mark.parametrize("m,k,n", MOE_EXPERTS)
+def test_moe_expert_products(cuda, m, k, n):
+    """Every expert product shape of phi3.5-moe and mixtral-8x22b in bf16:
+    one row-major int8 expert (a contiguous ``q[e]`` view of the stack)
+    with the per-layer delta, in qmatmul's n_lanes, in the variant its plan
+    gives for the capacity M, against the plain version on the card."""
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    stack = torch.randint(-3, 4, (2, k, n), generator=g, device=cuda,
+                          dtype=torch.int8)
+    w = stack[1]
+    d = torch.rand((1, 1, n), generator=g, device=cuda) * 0.05
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    variant = "decode" if m <= 16 else "prefill"
+    assert qmm_k.plan(m, k, n, *w.stride(), torch.bfloat16).variant == variant
+    v0 = qmm_k.launches_by_variant[variant]
+    got = qmm_ops.qmatmul(x, w, d.expand(2, 1, n)[1].reshape(-1))
+    assert qmm_k.launches_by_variant[variant] == v0 + 1
+    _check(got, qmatmul_ref(x, w, d.reshape(-1)).cpu(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 16), (8, 6144, 8),
+                                   (32768, 6144, 8), (3, 64, 4)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_router(cuda, m, k, n, dtype):
+    """The MoE routers: (d, E) row-major int8 levels, E <= 64 columns,
+    fp32 logits, in qmatmul's row-major k_lanes kernel, at a tick's M = 8,
+    the 4096 bucket's 32768 rows and a reduced model's shape."""
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    d = torch.rand(n, generator=g, device=cuda) * 0.01
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    o0 = qmm_k.launches_by_orientation["row_major"]
+    got = qmm_ops.qmatmul(x, w, d, out_dtype=torch.float32)
+    assert qmm_k.launches_by_orientation["row_major"] == o0 + 1
+    _check(got, qmatmul_ref(x, w, d, out_dtype=torch.float32).cpu(),
+           torch.float32)
+
+
+@pytest.mark.parametrize("t,window,dtype", [(4500, 4096, torch.bfloat16),
+                                            (300, 64, torch.float32),
+                                            (300, 64, torch.bfloat16)])
+def test_windowed_attn_prefill(cuda, t, window, dtype):
+    """mixtral's solo prefill attention (B = 1, T = S, KV = 8, G = 6,
+    D = 128), query t seeing max(t - window + 1, 0) <= p <= t, against the
+    plain version on the card, and the model-level window through
+    ``prefill_attention`` in the kernel mode."""
+    from repro_torch.kernels.attn_decode.ref import scale_q
+    from repro_torch.kernels.attn_prefill.ref import attn_prefill_ref
+    from repro_torch.models.attention import prefill_attention
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q = torch.randn((1, t, 48, 128), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((1, t, 8, 128), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    pos = torch.arange(t, dtype=torch.int32, device=cuda)
+    hi, lo = (pos + 1)[None], torch.clamp(pos - (window - 1), min=0)[None]
+    got = pf_ops.attn_prefill(q, k, v, hi, lo=lo)
+    qg = scale_q(q, 128 ** -0.5).reshape(1, t, 8, 6, 128)
+    ref = attn_prefill_ref(qg, k, v, lo, hi).reshape(1, t, 48, 128)
+    _check(got, ref.cpu(), dtype)
+    assert torch.equal(got, prefill_attention(q, k, v, window=window,
+                                              mode="kernel"))
+
+
+def test_attn_decode_full_ring(cuda):
+    """attn_decode over a full 4096-slot ring (every row valid = S), B = 8,
+    KV = 8, G = 6, D = 128, bf16."""
+    from repro_torch.kernels.attn_decode.ref import attn_decode_ref
+    g = torch.Generator(device=cuda).manual_seed(4096)
+    q = torch.randn((8, 1, 48, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((8, 4096, 8, 128), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    lens = torch.full((8,), 4096, dtype=torch.int32, device=cuda)
+    _check(dec_ops.attn_decode(q, k, v, lens),
+           attn_decode_ref(q, k, v, lens).cpu(), torch.bfloat16)
+
+
+def _moe_model(arch, form="qp", d_model=128):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.models import get_model
+    cfg = reduced(get_config(arch), d_model=d_model, vocab=256)
+    policy = dataclasses.replace(W3A8, act_bits=None)
+    master = get_model(cfg).init(_gen(20), cfg)
+    export = {"q": quant_dense.export_levels,
+              "qp": quant_dense.export_container}[form]
+    return cfg, export(master, policy), policy
+
+
+@pytest.mark.parametrize("tokens", [(3, 7), (2, 512)])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "mixtral-8x22b"])
+def test_moe_apply_kernel_matches_plain(cuda, arch, tokens):
+    """One MoE layer at reduced width on the card, fp32: the kernel path
+    (router in the row-major k_lanes, each expert in n_lanes) routes every
+    token as the plain path does and its output agrees within 1e-4 x
+    max|plain|, in one group (21 tokens) and in two (1024)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _layer
+    cfg, params, policy = _moe_model(arch)
+    lp = _layer(params["layers"]["moe"], 0)
+    lp = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in lp.items()}
+    x = torch.randn(tokens + (cfg.d_model,), generator=_gen(3)).to(cuda)
+    outs, traces = [], []
+    for mode in ("kernel", "dequant"):
+        with moe.trace_routing() as trace:
+            outs.append(moe.moe_apply(lp, x, cfg, policy=policy,
+                                      matmul_mode=mode)[0])
+        traces.append(trace[0])
+    assert torch.equal(traces[0]["top_i"], traces[1]["top_i"])
+    assert torch.equal(traces[0]["keep"], traces[1]["keep"])
+    _check(outs[0], outs[1].cpu(), torch.float32)
+
+
+def test_mixtral_ring_engine_captured_matches_eager(cuda):
+    """A reduced mixtral (window 32, max_len 64: a 32-slot ring) served on
+    the card from its qp export in bf16: a prompt past the ring is
+    admitted solo (an eager prefill between replayed ticks), bucketed rows
+    decode past slot 31, and the captured engine serves the tokens of its
+    capture=False twin."""
+    from repro_torch.serving.engine import ServingEngine
+    cfg, params, policy = _moe_model("mixtral-8x22b")
+    prompts = [[1, 2, 3], list(range(5, 30)), list(range(40, 80)), [9] * 7]
+    outs, solos = [], []
+    for capture in (True, False):
+        eng = ServingEngine(params, cfg, policy=policy, slots=3, max_len=64,
+                            dtype=torch.bfloat16, capture=capture,
+                            device=cuda)
+        solo = eng._admit_solo
+        n = []
+        eng._admit_solo = lambda s, r: (n.append(1), solo(s, r))
+        uid = {int(eng.submit(p, max_new=14)): i for i, p in enumerate(prompts)}
+        outs.append({uid[r.uid]: r.out for r in eng.run_all()})
+        solos.append(len(n))
+        assert int(eng.cache["len"].max()) > 32
+    assert outs[0] == outs[1] and solos == [1, 1]
+    assert all(len(o) == 14 for o in outs[0].values())
+
+
+@pytest.mark.parametrize("kernel,m,k,n", [
+    ("qmatvec", 512, 6144, 1024), ("qmatvec", 2, 6144, 6144),
+    ("n_lanes", 512, 16384, 1024), ("n_lanes", 2, 16384, 6144),
+    ("k_lanes", 8, 6144, 4096)])
+def test_fp32_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
+    """fp32 x on the tensor cores (three bf16 planes) at a long K: the sum
+    is promoted to an fp32 total on the CUDA cores every run of K, so the
+    output stays within 3e-6 x max|out| of a float64 product (unpromoted,
+    mma.sync's truncating accumulator gave 1e-5 to 3e-5 at these K), in
+    qmatvec, qmatmul's n_lanes (decode and prefill) and its K-major
+    k_lanes."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    delta = torch.rand(n, generator=g, device=cuda) * 0.05 + 0.01
+    lv = torch.randint(-4 if kernel == "qmatvec" else -127,
+                       4 if kernel == "qmatvec" else 128, (k, n),
+                       generator=g, device=cuda, dtype=torch.int8)
+    if kernel == "qmatvec":
+        out = qmv_ops.qmatvec(x, pack_matrix(lv, 3), delta, k=k)
+    else:
+        w = lv if kernel == "n_lanes" else lv.T.contiguous().T
+        assert qmm_k.plan(m, k, n, *w.stride(), x.dtype).layout == kernel
+        out = qmm_ops.qmatmul(x, w, delta)
+    ref = x.double() @ (lv.double() * delta.double())
+    err = float((out.double() - ref).abs().max() / ref.abs().max())
+    assert err <= 3e-6, err
+
+
+def test_mixtral_ring_kernel_path_matches_plain(cuda):
+    """A reduced mixtral (window 32) on the card in fp32: two unpadded
+    64-token prompts (the windowed prefill, kept and rolled into the
+    32-slot ring) and 4 decode steps past the wrap, through the kernels
+    and through the plain versions: the same routing at every MoE call
+    and logits within 1e-4 x max|plain| at every step."""
+    from repro_torch.models import api, moe
+    from repro_torch.serving.engine import _to_device
+    cfg, params, policy = _moe_model("mixtral-8x22b")
+    params = _to_device(params, cuda)
+    toks = (torch.arange(128, dtype=torch.int32).reshape(2, 64) * 7 % 255
+            + 1).to(cuda)
+    outs, traces, feed = [], [], []
+    for mm, am in (("kernel", "kernel"), ("dequant", "ref")):
+        kw = dict(policy=policy, dtype=torch.float32, matmul_mode=mm,
+                  attn_mode=am)
+        with moe.trace_routing() as trace:
+            logits, cache = api.prefill(params, {"tokens": toks}, cfg,
+                                        max_len=128, **kw)
+            steps = [logits[:, -1]]
+            for i in range(4):
+                if len(feed) <= i:
+                    feed.append(steps[-1].argmax(-1).to(torch.int32)[:, None])
+                logits, cache = api.decode_step(params, cache, feed[i], cfg,
+                                                **kw)
+                steps.append(logits[:, -1])
+        outs.append(torch.stack(steps))
+        traces.append(list(trace))
+    assert cache["k"].shape[2] == 32 and len(traces[0]) == 5 * cfg.num_layers
+    for rk, rp in zip(*traces):
+        assert torch.equal(rk["top_i"], rp["top_i"])
+        assert torch.equal(rk["keep"], rp["keep"])
+    _check(outs[0], outs[1].cpu(), torch.float32)
+
+
+@pytest.mark.parametrize("shape,block", [((2, 4, 512, 2048), 4 * 512 * 1024),
+                                         ((2, 2, 4500, 1536), 9000 * 768)])
+def test_quantize_leaf_chunked_on_card(cuda, shape, block, monkeypatch):
+    """On the card too, a stacked leaf quantised by stacked index and block
+    of output columns gives the levels and deltas of fitting the whole
+    leaf at once, bit for bit (each column's delta is its own)."""
+    from repro_torch.core import quant_dense
+    from repro_torch.core.quantizer import QuantSpec, _optimal_delta_rows
+    monkeypatch.setattr(quant_dense, "_FIT_BLOCK", block)
+    spec = QuantSpec(bits=3)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    leaf = torch.randn(shape, generator=g, device=cuda) * 0.05
+    flat = leaf.reshape(shape[0], -1, shape[-1])
+    d = _optimal_delta_rows(flat.transpose(1, 2).reshape(-1, flat.shape[1]),
+                            3, spec.iters).reshape(shape[0], 1, -1)
+    q = torch.clamp(torch.round(flat / torch.clamp(d, min=1e-12)), -3, 3)
+    part = quant_dense._quantize_leaf(leaf, spec, 1)
+    assert torch.equal(part[0], q.to(torch.int8).reshape(shape))
+    assert torch.equal(part[1], d.reshape(shape[0], 1, 1, shape[-1]))

@@ -69,6 +69,22 @@ def test_mlp_heads_take_k_lanes(m, k, n, dtype):
     assert (p.p0, p.p1, p.dynamic_smem) == (0, 0, 0)
 
 
+@pytest.mark.parametrize("m,k,n,transposed,orientation", [
+    (8, 1536, 151936, True, "k_major"),          # the tied readout
+    (100, 1022, 10, False, "row_major"),         # the digit head
+    (8, 4096, 16, False, "row_major"),           # phi3.5-moe's router
+    (32768, 6144, 8, False, "row_major"),        # mixtral's, 4096 bucket
+    (8, 4096, 6400, False, "")])                 # an expert: n_lanes
+def test_plan_names_k_lanes_orientation(m, k, n, transposed, orientation):
+    """``plan`` names the orientation of W that a k_lanes launch reads,
+    which ``launches_by_orientation`` counts: K-major for the readout and
+    the container head, row-major for the MLP heads and the MoE routers;
+    none for n_lanes."""
+    p = _qplan(m, k, n, transposed)
+    assert p.orientation == orientation
+    assert (p.layout == "k_lanes") == bool(orientation)
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 1536, 8960), (512, 1536, 1536),
                                    (8, 8960, 1536), (3, 23, 65)])
 def test_wide_row_major_keeps_n_lanes(m, k, n):
