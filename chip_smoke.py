@@ -28,7 +28,11 @@ Phases, each printing one JSON line:
              bf16, int8 K/V and fp32, bf16 prefill at head_dim 32 and 256,
              qmatvec at the widest decode projections and the untied 8-bit
              heads of stablelm-3b, qwen2.5-14b and qwen3-32b stored
-             K-major), each case naming the variant, layout or kernel it
+             K-major; for the ssm phase qmatvec at every projection of
+             mamba2-2.7b and zamba2-1.2b at M = 8 and 2048, their tied
+             readouts, and both attention kernels at zamba2's shared
+             block, MHA, D = 64, with the verify shape), each case naming
+             the variant, layout or kernel it
              took and gated that it is the one its plan gives (qmatvec:
              decode for M <= 16, else prefill; qmatmul: k_lanes / n_lanes;
              attn_prefill: wgmma for bf16 queries, simt for fp32), and
@@ -142,7 +146,9 @@ Phases, each printing one JSON line:
              full depth (32 layers, head_dim 80, MHA, untied head),
              qwen2.5-14b (G = 5, QKV bias) and qwen3-32b (qk-norm) cut to
              8 layers (the fp32 master the export is made from must fit
-             the card), each from a seeded generator, exported to W3A8
+             the card), and the audio / vlm decoders musicgen-large at
+             full depth (48 layers, gelu MLP, MHA) and internvl2-26b cut
+             to 8 of 48 layers, each from a seeded generator, exported to W3A8
              containers, served for 8 requests (prompts 3-16 and
              100-250) x 16 new tokens by ServingEngine(slots=8,
              max_len=512, bf16) captured and as its capture=False twin:
@@ -181,7 +187,30 @@ Phases, each printing one JSON line:
              products at a tick's, an admission's and the solo prompt's
              capacity M, the routers, the windowed attn_prefill at
              T = 4500, attn_decode over a full 4096-slot ring).
-10. resilience overload hardening and durability on the full-width
+10. ssm      the state-space and hybrid families at full width and
+             depth: mamba2-2.7b (64 layers) and zamba2-1.2b (38 mamba
+             blocks, 6 applications of its shared attention block, a
+             2-block tail), seeded fp32 masters exported to W3A8 `qp`,
+             each served by ServingEngine(slots=8, max_len=512, bf16) for
+             the dense phase's 8 requests x 16 tokens captured and as its
+             capture=False twin (zamba2 also with an int8 KV cache):
+             identical tokens, replay only, the same launches in both
+             twins, and launches gated per forward from each serve's
+             ticks and admission rounds: every projection in qmatvec
+             (ticks decode, admissions prefill), one readout in qmatmul's
+             k_lanes, per shared-block application one attn_decode on a
+             tick and one wgmma attn_prefill on an admission (none for
+             mamba2), no plain version; each twin's steady tick; the path
+             check. Then for zamba2: speculative serving (the float
+             master, bf16 weights, verifying its qp drafter, spec_k 4,
+             captured and eager, the spec phase's gates), the fp32 gate
+             (spec generate and the captured fp32 spec engine
+             token-identical to greedy, the captured fp32 plain engine to
+             its eager twin), and under capture the fp32 master with
+             preempt_after 4 (12 requests: tokens of the undisturbed
+             engine) and the qp engine snapshotted at tick 8 and restored
+             into a fresh engine (tokens of the uninterrupted run).
+11. resilience overload hardening and durability on the full-width
              qwen2-1.5b of phases 3 and 5 (its qp export and fp32 master,
              parked on the host during phases 6-8), every engine
              ServingEngine(slots=8, max_len=512), every case captured and
@@ -217,7 +246,7 @@ Phases, each printing one JSON line:
              the flip changes the K/V that the next replayed tick writes
              (layers 1 and up) against a clean engine's; the probe's ms
              beside its bound.
-11. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
+12. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path; then one entry for each of
              qmatmul's n_lanes and the fp32 attn_prefill, with their
@@ -296,7 +325,9 @@ PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
 # 6.2 GB of embedding and head)
 DENSE = (("stablelm-3b", None, dict(d_model=320)),
          ("qwen2.5-14b", 8, {}),
-         ("qwen3-32b", 8, {}))
+         ("qwen3-32b", 8, {}),
+         ("musicgen-large", None, {}),
+         ("internvl2-26b", 8, {}))
 DENSE_PROMPTS = (0, 3, 4, 5, 8, 9, 10, 11)   # prompts 4, 12, 3, 16, 100-250
 DENSE_NEW = 16
 # the moe phase: (arch, layers kept on the card, engine max_len); the depth
@@ -313,6 +344,13 @@ MOE_SOLO = (4500, MOE_NEW)
 # the parity phase's MoE shapes: (arch, T of the windowed attn_prefill)
 MOE_PARITY = (("phi3.5-moe-42b-a6.6b", 0), ("mixtral-8x22b", MOE_SOLO[0]))
 MOE_PATH_STEPS = 4         # decode steps of the MoE path check
+# the ssm phase: (arch, the CPU rehearsal's reduced() sizes), both served
+# at full width and depth (mamba2-2.7b's fp32 master: 10.8 GB)
+SSM = (("mamba2-2.7b", dict(layers=2)), ("zamba2-1.2b", dict(layers=5)))
+SSM_ARCHS = tuple(a for a, _ in SSM)
+SSM_NEW = 16
+SSM_PREEMPT = 4            # preempt_after of the hybrid's resilience case
+SSM_SNAPSHOT_TICK = 8      # the tick its snapshot is taken at
 SPEC_K = 4                                  # drafts a speculative tick
 SPEC_GATE = dict(prompts=8, prompt_len=16, max_new=16)   # fp32 identity gate
 WARM_NEW = 2 * (SPEC_K + 1)     # new tokens a request of a warm-up serve
@@ -496,16 +534,11 @@ def card_phase(device, rehearse: bool):
 def _kernel_cases(cfg, device, clock):
     """Yield one dict per (kernel, shape, dtype) case."""
     import torch
-    from repro_torch.kernels.qmatmul import ops as qmm_ops
-    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 
     g = torch.Generator(device=device).manual_seed(1234)
     d, hd = cfg.d_model, cfg.head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     dts = [("bfloat16", torch.bfloat16), ("float32", torch.float32)]
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=g, device=device).to(dtype)
 
     # qmatvec: the 7 projection shapes (4 distinct) at decode and prefill
     # M, and the largest admission (8 slots x the 256 bucket) at the d_ff
@@ -521,27 +554,9 @@ def _kernel_cases(cfg, device, clock):
                                       and dname == "bfloat16"))
 
     # qmatmul: the tied readout, (slots, D) x (D, V) as the transposed view
-    table = torch.randint(-127, 128, (cfg.vocab_size, d), generator=g,
-                          device=device, dtype=torch.int8)
     for dname, dt in dts:
-        hs = randn(8, d, dtype=dt)
-        got, layout = launched_variant(
-            "qmatmul", lambda: qmm_ops.qmatmul(hs, table.T, 1.0), "k_lanes")
-        ref = qmatmul_ref(hs, table.T, 1.0)
-        tdq = table.to(dt)
-        xb = hs.element_size()
-        nbytes = 8 * d * xb + table.numel() + cfg.vocab_size * 4 \
-            + 8 * cfg.vocab_size * xb
-        yield dict(
-            name="qmatmul", shape=f"M=8 K={d} N={cfg.vocab_size} (q.T view)",
-            dtype=dname, variant=layout,
-            err=compare(got, ref, dname, f"qmatmul {dname}"),
-            run=(lambda: qmm_ops.qmatmul(hs, table.T, 1.0)),
-            plain=(lambda: qmatmul_ref(hs, table.T, 1.0)),
-            library=(lambda: torch.matmul(hs, tdq.T)),
-            bound=tc_bound_ms(nbytes, 2 * 8 * d * cfg.vocab_size, dname),
-            headline=dname == "bfloat16")
-    del table
+        yield _readout_case(g, device, d, cfg.vocab_size, dname, dt,
+                            headline=dname == "bfloat16")
 
     # qmatmul n_lanes: the q form's projections (row-major int8 levels;
     # qwen2's QKV bias on wq / wk / wv) at decode M, an admission's M and
@@ -597,6 +612,33 @@ def _kernel_cases(cfg, device, clock):
                               ("fp32", "float32", torch.float32),
                               ("int8", "float32", torch.float32)):
         yield _verify_case(g, device, cfg, kvname, dname, dt)
+
+
+def _readout_case(g, device, d, vocab, dname, dt, headline=False,
+                  label=""):
+    """The tied readout: (8 slots, D) against the (V, D) int8 table read
+    as its transposed view, in qmatmul's k_lanes layout."""
+    import torch
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+    from repro_torch.kernels.qmatmul.ref import qmatmul_ref
+    table = torch.randint(-127, 128, (vocab, d), generator=g, device=device,
+                          dtype=torch.int8)
+    hs = torch.randn((8, d), generator=g, device=device).to(dt)
+    got, layout = launched_variant(
+        "qmatmul", lambda: qmm_ops.qmatmul(hs, table.T, 1.0), "k_lanes")
+    ref = qmatmul_ref(hs, table.T, 1.0)
+    tdq = table.to(dt)
+    xb = hs.element_size()
+    nbytes = 8 * d * xb + table.numel() + vocab * 4 + 8 * vocab * xb
+    return dict(
+        name="qmatmul", shape=f"M=8 K={d} N={vocab} (q.T view{label})",
+        dtype=dname, variant=layout,
+        err=compare(got, ref, dname, f"qmatmul {dname}{label}"),
+        run=(lambda: qmm_ops.qmatmul(hs, table.T, 1.0)),
+        plain=(lambda: qmatmul_ref(hs, table.T, 1.0)),
+        library=(lambda: torch.matmul(hs, tdq.T)),
+        bound=tc_bound_ms(nbytes, 2 * 8 * d * vocab, dname),
+        headline=headline)
 
 
 def _kv(g, device, b, s, kvh, hd, kvname, dt):
@@ -1014,6 +1056,56 @@ def _moe_cases(device, clock, rehearse):
                                   torch.bfloat16).splits)
 
 
+def _ssm_cases(device, clock, rehearse):
+    """The state-space and hybrid families' shapes: qmatvec at every
+    projection of mamba2-2.7b (in_proj 2560 -> 10576, out_proj 5120 ->
+    2560) and of zamba2-1.2b (in_proj 2048 -> 8384, out_proj 4096 -> 2048,
+    the shared block's 2048 -> 2048 / 8192, 8192 -> 2048) at a tick's M = 8
+    (bf16; zamba2's also fp32, its drafter in the fp32 gate) and its mamba
+    projections at the largest admission (8 x the 256 bucket); the tied
+    readouts at V = 50280 and 32000 (bf16; zamba2's also fp32); both
+    attention kernels at zamba2's shared block (MHA, KV = 32, G = 1,
+    D = 64): decode and a 256 bucket in bf16 and int8 K/V, fp32 decode,
+    and the verify shape in bf16 and fp32. The CPU rehearsal shrinks the
+    qmatvec and readout shapes by 16."""
+    import torch
+    from repro_torch.configs import get_config
+    g = torch.Generator(device=device).manual_seed(1357)
+    cut = 16 if rehearse else 1
+    bf, f32 = ("bfloat16", torch.bfloat16), ("float32", torch.float32)
+    for arch in SSM_ARCHS:
+        c = get_config(arch)
+        gn2 = 2 * c.ssm_ngroups * c.ssm_state
+        mamba = ((c.d_model, 2 * c.d_inner + gn2 + c.ssm_heads),
+                 (c.d_inner, c.d_model))
+        shared = (((c.d_model, c.num_heads * c.head_dim),
+                   (c.d_model, c.d_ff), (c.d_ff, c.d_model))
+                  if c.family == "hybrid" else ())
+        dts = (bf, f32) if c.family == "hybrid" else (bf,)
+        for k, n in mamba + shared:
+            for dname, dt in dts:
+                yield _qmatvec_case(g, device, clock, 8, k // cut, n // cut,
+                                    dname, dt)
+        for k, n in mamba:
+            yield _qmatvec_case(g, device, clock, 8 * 256, k // cut, n // cut,
+                                *bf)
+        for dname, dt in dts:
+            yield _readout_case(g, device, c.d_model // cut,
+                                c.vocab_size // cut, dname, dt,
+                                label=f", {arch} tied readout")
+        if c.family != "hybrid":
+            continue
+        h, kvh, hd = c.num_heads, c.num_kv_heads, c.head_dim
+        for kvname, dname, dt in (("bf16", *bf), ("int8", *bf),
+                                  ("fp32", *f32)):
+            yield _decode_case(g, device, 8, 512, h, kvh, hd, kvname, dname,
+                               dt)
+        for kvname, dname, dt in (("bf16", *bf), ("int8", *bf)):
+            yield _prefill_case(g, device, 256, h, kvh, hd, kvname, dname, dt)
+        for kvname, dname, dt in (("bf16", *bf), ("fp32", *f32)):
+            yield _verify_case(g, device, c, kvname, dname, dt)
+
+
 def _mlp_cases(device, clock, rehearse):
     """The paper MLP's shapes: its hidden layers through qmatvec, its head
     through qmatmul, and the PLAN sigmoid forward and backward."""
@@ -1075,6 +1167,7 @@ def parity_phase(cfg, device, rehearse):
     for c in itertools.chain(_kernel_cases(cfg, device, clock),
                              _dense_cases(device, clock, rehearse),
                              _moe_cases(device, clock, rehearse),
+                             _ssm_cases(device, clock, rehearse),
                              _mlp_cases(device, clock, rehearse)):
         c["bound_ms"], c["bound_by"] = c.pop("bound")
         run, plain, library = c.pop("run"), c.pop("plain"), c.pop("library")
@@ -1426,8 +1519,9 @@ def _path_check(cfg, params, device):
     feed = None
     for name, mm, am in (("kernel", "kernel", "kernel"),
                          ("plain", "dequant", "ref")):
-        kw = dict(policy=policy, dtype=torch.float32, matmul_mode=mm,
-                  attn_mode=am)
+        kw = dict(policy=policy, dtype=torch.float32, matmul_mode=mm)
+        if cfg.family != "ssm":              # ssm has no attention
+            kw["attn_mode"] = am
         logits, cache = api.prefill(params, {"tokens": toks}, cfg, max_len=96,
                                     lengths=lengths, **kw)
         steps = [logits]
@@ -1564,25 +1658,45 @@ def _steady(eng, cfg, device, rehearse, names, ticks=STEADY_TICKS):
     return out
 
 
+def attn_layers(cfg) -> int:
+    """Attention launches of one forward (``profile_engine.attn_layers``)."""
+    from repro_torch.launch.profile_engine import attn_layers as count
+    return count(cfg)
+
+
+def _projections(cfg) -> int:
+    """qmatvec launches of one forward of the qp export: 4 attention and 3
+    (SwiGLU) or 2 MLP projections a transformer layer; in_proj and
+    out_proj (or the four split projections and out_proj) a mamba block,
+    plus the shared block's at each of its applications."""
+    mlp = 3 if cfg.mlp_act == "silu" else 2
+    if cfg.family in ("ssm", "hybrid"):
+        per = 5 if cfg.ssm_split_proj else 2
+        return per * cfg.num_layers + (4 + mlp) * attn_layers(cfg)
+    return (4 + mlp) * cfg.num_layers
+
+
 def _spec_launch_gate(eng, cfg, dcfg, run, rehearse):
     """The launches one run of the spec engine must have made, from the
-    tick's structure: each tick verifies through the target's L layers
-    (attn_prefill) after spec_k + 1 drafter steps (Ld attn_decode, 7 Ld
-    qmatvec decode, one qmatmul readout each); each admission round
-    prefills target and drafter (L + Ld attn_prefill, 7 Ld qmatvec
-    prefill, one drafter readout). The target's products are plain float
-    matmuls. On the CPU rehearsal the plain versions take the same calls,
-    so the formulas are checked there too."""
+    tick's structure: each tick verifies through the target's A attention
+    layers (attn_prefill; A = L, or the shared-block applications of a
+    hybrid) after spec_k + 1 drafter steps (Ad attn_decode, P qmatvec
+    decode — 7 Ld for a SwiGLU transformer — one qmatmul readout each);
+    each admission round prefills target and drafter (A + Ad attn_prefill,
+    P qmatvec prefill, one drafter readout). The target's products are
+    plain float matmuls. On the CPU rehearsal the plain versions take the
+    same calls, so the formulas are checked there too."""
     import torch
     from repro_torch.kernels.qmatvec import kernel as qmv_k
     from repro_torch.serving.engine import _MIN_BUCKET
     launches, plain, variants = run["launches"], run["plain"], run["variants"]
     ticks, rounds, t1 = run["ticks"], run["rounds"], SPEC_K + 1
-    big, small = cfg.num_layers, dcfg.num_layers
+    big, small = attn_layers(cfg), attn_layers(dcfg)
+    proj = _projections(dcfg)
     want = {"attn_prefill": big * ticks + (big + small) * rounds,
             "attn_decode": small * t1 * ticks,
             "qmatmul": t1 * ticks + rounds,
-            "qmatvec": 7 * small * (t1 * ticks + rounds)}
+            "qmatvec": proj * (t1 * ticks + rounds)}
     seen = plain if rehearse else launches
     if {k: seen[k] for k in want} != want:
         fail(f"spec engine {'plain calls' if rehearse else 'launches'} "
@@ -1597,7 +1711,7 @@ def _spec_launch_gate(eng, cfg, dcfg, run, rehearse):
     if variants["qmatmul"]["k_lanes"] != launches["qmatmul"]:
         fail(f"a drafter readout did not take the k_lanes layout: {variants}")
     plan = qmv_k.plan
-    vwant = {"decode": 7 * small * t1 * ticks, "prefill": 7 * small * rounds}
+    vwant = {"decode": proj * t1 * ticks, "prefill": proj * rounds}
     if (plan(eng.slots, cfg.d_model, cfg.d_model,
              torch.bfloat16).variant != "decode"
             or plan(eng.slots * _MIN_BUCKET, cfg.d_model, cfg.d_model,
@@ -2512,6 +2626,306 @@ def moe_phase(device, seed, rehearse):
 
 # --- phase 10 ---------------------------------------------------------------------
 
+def _ssm_launch_gate(cfg, run, what, rehearse):
+    """The plain engine's launches over one serve, from the forward's
+    structure: each tick (M = slots) and each admission round (M = slots x
+    bucket) runs every projection in qmatvec (ticks in its decode variant,
+    admissions in its prefill one), one readout in qmatmul's k_lanes
+    layout, and one attention launch a shared-block application (hybrid:
+    attn_decode on a tick, the wgmma attn_prefill on an admission; none
+    for ssm); no plain version. On the CPU rehearsal the plain versions
+    take the same calls, so the formulas are checked there too."""
+    launches, plain, variants = run["launches"], run["plain"], run["variants"]
+    ticks, rounds = run["ticks"], run["rounds"]
+    proj, att = _projections(cfg), attn_layers(cfg)
+    want = {"qmatvec": proj * (ticks + rounds), "qmatmul": ticks + rounds,
+            "attn_decode": att * ticks, "attn_prefill": att * rounds}
+    seen = plain if rehearse else launches
+    if {k: seen[k] for k in want} != want:
+        fail(f"{what}: {'plain calls' if rehearse else 'launches'} {seen}, "
+             f"want {want} ({ticks} ticks, {rounds} rounds)")
+    if rehearse:
+        return want
+    if max(plain.values()) != 0:
+        fail(f"{what}: a plain version ran: {plain}")
+    vwant = {"decode": proj * ticks, "prefill": proj * rounds}
+    if variants["qmatvec"] != vwant:
+        fail(f"{what}: qmatvec launches by variant {variants['qmatvec']}, "
+             f"want {vwant}")
+    if variants["qmatmul"]["k_lanes"] != launches["qmatmul"]:
+        fail(f"{what}: a readout did not take the k_lanes layout: {variants}")
+    if variants["attn_prefill"]["wgmma"] != launches["attn_prefill"]:
+        fail(f"{what}: an admission did not run the wgmma attn_prefill: "
+             f"{variants}")
+    return want
+
+
+def _ssm_engines(cfg, params, device, reqs, kv_bits, rehearse):
+    """The qp export served by ServingEngine(slots=8, max_len=512, bf16)
+    captured and as its capture=False twin: identical tokens, replay only,
+    the launch gates on both and the same launches in both, each twin's
+    steady tick. Returns (record, the captured run)."""
+    import torch
+    from repro_torch.core.precision import W3A8
+    from repro_torch.serving.engine import ServingEngine
+    what = f"ssm {cfg.name} kv-{'int8' if kv_bits else 'bf16'}"
+
+    def make(capture):
+        return ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
+                             dtype=torch.bfloat16, kv_bits=kv_bits,
+                             capture=capture, device=device)
+    engines = {"captured": _warmed(make(None), reqs),
+               "eager": _warmed(make(False), reqs)}
+    runs = {name: _serve(eng, reqs, device, max_new=SSM_NEW)
+            for name, eng in engines.items()}
+    run = runs["captured"]
+    done = run["done"]
+    if len(done) != len(reqs) or any(len(r.out) != SSM_NEW for r in done):
+        fail(f"{what}: not every request got its {SSM_NEW} tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+        fail(f"{what}: a token id outside the vocabulary")
+    _twin_gate(runs, what)
+    want = _ssm_launch_gate(cfg, run, f"{what} captured", rehearse)
+    _ssm_launch_gate(cfg, runs["eager"], f"{what} eager", rehearse)
+    if not rehearse and (runs["eager"]["launches"] != run["launches"]
+                         or runs["eager"]["variants"] != run["variants"]):
+        fail(f"{what}: replayed launches {run['variants']} differ from the "
+             f"eager twin's {runs['eager']['variants']}")
+    names = ("qmatvec", "qmatmul") + (("attn_decode",)
+                                      if attn_layers(cfg) else ())
+    rec = {"kv": "int8" if kv_bits else "bf16", "requests": len(done),
+           **_run_line(run), "eager_twin": _run_line(runs["eager"]),
+           "captured_eager_token_identical": True,
+           "launches": run["launches"], "launches_want": want,
+           "launches_by_variant": run["variants"], "plain_calls": run["plain"],
+           "steady": {name: _steady(e, cfg, device, rehearse, names=names)
+                      for name, e in engines.items()}}
+    return rec, run
+
+
+def _ssm_spec(cfg, master, params, device, rehearse):
+    """The hybrid's speculative serving: the float master (weights cast
+    once to bf16) verifies the drafts of its qp export, spec_k 4, captured
+    and eager, gated as the spec phase gates (launches from the tick's
+    structure, replay only, identical tokens); then the fp32 gate:
+    generate(spec_k=4) on the fp32 master token-identical to greedy, the
+    captured fp32 spec engine greedy's tokens, the captured fp32 plain
+    engine its eager twin's. Returns (record, the captured run)."""
+    import torch
+    from repro_torch.core.precision import FLOAT
+    from repro_torch.launch.profile_engine import prompts
+    from repro_torch.launch.serve import cast_weights
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine, generate
+    what = f"ssm {cfg.name} spec"
+    dcfg, dparams = api.draft_of(cfg, params)       # already the qp export
+    target = cast_weights(master, torch.bfloat16)
+    allp = prompts(cfg.vocab_size)
+    reqs = [p for i, p in enumerate(allp) if i in DENSE_PROMPTS]
+
+    def make(capture):
+        return ServingEngine(target, cfg, policy=FLOAT, slots=8, max_len=512,
+                             dtype=torch.bfloat16, spec_k=SPEC_K,
+                             draft_params=dparams, draft_cfg=dcfg,
+                             capture=capture, device=device)
+    engines = {"captured": _warmed(make(None), reqs),
+               "eager": _warmed(make(False), reqs)}
+    runs = {name: _serve(e, reqs, device, max_new=SSM_NEW)
+            for name, e in engines.items()}
+    run = runs["captured"]
+    done = run["done"]
+    if len(done) != len(reqs) or any(len(r.out) != SSM_NEW for r in done):
+        fail(f"{what}: not every request got its {SSM_NEW} tokens")
+    _twin_gate(runs, what)
+    want = _spec_launch_gate(engines["captured"], cfg, dcfg, run, rehearse)
+    _spec_launch_gate(engines["eager"], cfg, dcfg, runs["eager"], rehearse)
+    del engines, target
+    rec = {"target": "float master, FLOAT policy, bf16 weights (cast once)",
+           "drafter": f"draft_of: qp export, {dcfg.num_layers} layers",
+           "spec_k": SPEC_K, "requests": len(done), **_run_line(run),
+           "eager_twin": _run_line(runs["eager"]),
+           "captured_eager_token_identical": True,
+           "spec_accept_rate": run["spec_accepted"] / run["spec_drafted"],
+           "tokens_per_tick": sum(len(r.out) for r in done) / run["ticks"],
+           "launches": run["launches"], "launches_want": want,
+           "launches_by_variant": run["variants"], "plain_calls": run["plain"]}
+    n, plen, new = (SPEC_GATE[k] for k in ("prompts", "prompt_len",
+                                           "max_new"))
+    gp = torch.tensor([r[:plen] for r in allp[-n:]], dtype=torch.int32)
+    gkw = dict(policy=FLOAT, max_new_tokens=new, dtype=torch.float32,
+               device=device)
+    spec = generate(master, gp, cfg, spec_k=SPEC_K, draft_params=dparams,
+                    draft_cfg=dcfg, **gkw).cpu()
+    greedy = generate(master, gp, cfg, **gkw).cpu()
+    rec.update({"fp32_gate": f"generate(spec_k={SPEC_K}) == greedy "
+                             f"generate, {n} prompts x {new} new tokens, "
+                             "fp32 activations, TF32 off",
+                "fp32_token_identical": bool(torch.equal(spec, greedy))})
+    if not torch.equal(spec, greedy):
+        rec["fp32_first_mismatch"] = _first_mismatch_margin(
+            master, cfg, FLOAT, gp.to(device), spec.to(device),
+            greedy.to(device))
+        emit({"phase": "ssm", "partial": rec})
+        fail(f"{what}: fp32 spec stream differs from greedy: "
+             f"{rec['fp32_first_mismatch']}")
+    rec.update(_fp32_engine_gates(master, cfg, dcfg, dparams, gp, greedy,
+                                  device))
+    for key in ("fp32_spec_engine_captured_equals_greedy",
+                "fp32_plain_engine_captured_equals_eager"):
+        if not rec[key]:
+            emit({"phase": "ssm", "partial": rec})
+            fail(f"{what}: {key} is false")
+    return rec, run
+
+
+def _ssm_resilience(cfg, master, params, device, reqs):
+    """Under capture: (1) the fp32 master (FLOAT policy, fp32 activations)
+    serving 12 requests with preempt_after=SSM_PREEMPT — the first 8 slots
+    preempted while 4 wait, re-admitted with their committed tokens —
+    against the same engine undisturbed; (2) the qp export in bf16
+    snapshotted at tick SSM_SNAPSHOT_TICK and restored into a fresh
+    captured engine, which continues to the donor's tokens, the donor's
+    being the uninterrupted run's. Tokens must be equal."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.launch.profile_engine import prompts
+    from repro_torch.serving.engine import ServingEngine
+    what = f"ssm {cfg.name} resilience"
+    many = prompts(cfg.vocab_size)[:12]
+
+    def serve32(**kw):
+        eng = ServingEngine(master, cfg, policy=FLOAT, slots=8, max_len=512,
+                            dtype=torch.float32, max_ticks=400,
+                            device=device, **kw)
+        for p in many:
+            eng.submit(p, max_new=SSM_NEW)
+        done = sorted(eng.run_all(), key=lambda r: r.uid)
+        return [(r.status, r.out) for r in done], eng.preempt_count
+    calm, _ = serve32()
+    pre, n_pre = serve32(preempt_after=SSM_PREEMPT)
+    if n_pre <= 0:
+        fail(f"{what}: preempt_after={SSM_PREEMPT} preempted nothing")
+    if pre != calm:
+        i = next(i for i, (a, b) in enumerate(zip(pre, calm)) if a != b)
+        fail(f"{what}: preempted request {i} served {pre[i]}, the "
+             f"undisturbed engine {calm[i]}")
+
+    def make():
+        return ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
+                             dtype=torch.bfloat16, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = make()
+        for p in reqs:
+            eng.submit(p, max_new=SSM_NEW)
+        while eng.decode_calls < SSM_SNAPSHOT_TICK:
+            eng.step()
+        eng.snapshot(tmp)
+        early = eng.drain()
+        donor = sorted(early + eng.run_all(), key=lambda r: r.uid)
+        fresh = make()
+        fresh.restore(tmp)
+        restored = sorted(early + fresh.run_all(), key=lambda r: r.uid)
+        captures = fresh.captures
+    plain = make()
+    for p in reqs:
+        plain.submit(p, max_new=SSM_NEW)
+    calm_qp = [r.out for r in sorted(plain.run_all(), key=lambda r: r.uid)]
+    if [r.out for r in restored] != [r.out for r in donor]:
+        fail(f"{what}: the restored engine's tokens differ from the donor's")
+    if [r.out for r in donor] != calm_qp:
+        fail(f"{what}: the snapshotting engine's tokens differ from an "
+             f"uninterrupted engine's")
+    return {"preempt": {"engine": "fp32 master, FLOAT, fp32 activations, "
+                                  "captured",
+                        "requests": f"{len(many)} x {SSM_NEW} new tokens",
+                        "preempt_after": SSM_PREEMPT,
+                        "preemptions": n_pre,
+                        "tokens_equal_undisturbed": True},
+            "snapshot_restore": {"engine": "qp bf16, captured",
+                                 "snapshot_tick": SSM_SNAPSHOT_TICK,
+                                 "restored_captures": captures,
+                                 "tokens_equal_uninterrupted": True}}
+
+
+def ssm_phase(device, seed, rehearse):
+    """The state-space and hybrid families at full width and depth: each
+    model of SSM built from a seeded generator on the card and exported to
+    W3A8 containers, served captured and as its capture=False twin (the
+    hybrid also with an int8 KV cache), gated (``_ssm_launch_gate``),
+    its path check; for the hybrid also speculative serving with the fp32
+    gate (``_ssm_spec``) and the resilience case (``_ssm_resilience``).
+    Returns the summed launches and variants of the captured runs."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.profile_engine import prompts
+    t0 = time.perf_counter()
+    launches, variants = None, None
+    models = []
+
+    def add(run):
+        nonlocal launches, variants
+        if launches is None:
+            launches, variants = run["launches"], run["variants"]
+            return
+        launches = {k: launches[k] + v for k, v in run["launches"].items()}
+        variants = {n: {k: variants[n][k] + c for k, c in d.items()}
+                    for n, d in run["variants"].items()}
+    for arch, small in SSM:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        full = cfg.num_layers
+        if rehearse:
+            cfg = reduced(cfg, **small)
+        master, params, build_s = build_model(cfg, device, seed)
+        if cfg.family == "ssm":
+            del master
+            master = None
+            gc.collect()
+        reqs = [p for i, p in enumerate(prompts(cfg.vocab_size))
+                if i in DENSE_PROMPTS]
+        rec = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+               "full_layers": full,
+               "cut": (f"CPU rehearsal: reduced({small})" if rehearse
+                       else "none"),
+               "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+               "ssm_heads": cfg.ssm_heads, "ssm_state": cfg.ssm_state,
+               "vocab": cfg.vocab_size,
+               "shared_block_applications": attn_layers(cfg),
+               "projections_per_forward": _projections(cfg),
+               "init_export_s": round(build_s, 3), "engines": []}
+        for kv_bits in (None, 8) if cfg.family == "hybrid" else (None,):
+            r, run = _ssm_engines(cfg, params, device, reqs, kv_bits,
+                                  rehearse)
+            rec["engines"].append(r)
+            add(run)
+        rec["path"] = _path_check(cfg, params, device)
+        if master is not None:
+            rec["spec"], run = _ssm_spec(cfg, master, params, device,
+                                         rehearse)
+            add(run)
+            rec["resilience"] = _ssm_resilience(cfg, master, params, device,
+                                                reqs)
+        if device.type == "cuda":
+            rec["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+        models.append(rec)
+        del master, params
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "ssm", "engine": "ServingEngine(slots=8, max_len=512, "
+          "bf16), W3A8 qp export of a seeded fp32 master",
+          "requests": f"{len(DENSE_PROMPTS)} x {SSM_NEW} new tokens",
+          "models": models, "seconds": round(time.perf_counter() - t0, 1)})
+    return launches, variants
+
+
+# --- phase 11 ---------------------------------------------------------------------
+
 RES_COUNTERS = ("decode_calls", "prefill_calls", "shed_count",
                 "deadline_miss_count", "preempt_count", "poisoned_count",
                 "queue_peak", "spec_drafted", "spec_accepted",
@@ -3224,6 +3638,7 @@ def main(argv=None) -> int:
     dense_launches, dense_variants = dense_phase(device, args.seed,
                                                  args.rehearse)
     moe_launches, moe_variants = moe_phase(device, args.seed, args.rehearse)
+    ssm_launches, ssm_variants = ssm_phase(device, args.seed, args.rehearse)
     master, params = _on(master, device), _on(params, device)
     res_launches, res_variants = resilience_phase(cfg, master, params,
                                                   device, args.rehearse)
@@ -3240,6 +3655,7 @@ def main(argv=None) -> int:
                        deploy=deploy_launches[name],
                        dense=dense_launches[name],
                        moe=moe_launches[name],
+                       ssm=ssm_launches[name],
                        resilience=res_launches[name])
         entry = {
             "name": name, "route": "cuda", "source": src,
@@ -3262,6 +3678,7 @@ def main(argv=None) -> int:
                                      "deploy": deploy_variants[name],
                                      "dense": dense_variants[name],
                                      "moe": moe_variants[name],
+                                     "ssm": ssm_variants[name],
                                      "resilience": res_variants[name]})
         kernels.append(entry)
     # the redesigned routes: their headline case, their launches on the

@@ -2,10 +2,9 @@
 
 A copy of the JAX package's ``configs/base.py`` (that module imports no JAX,
 but the port keeps its own copy so it never imports the JAX package). Every
-ported architecture is a ``ModelConfig`` in its own module under
+architecture of the reference is a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; ``get_config(name)`` resolves by id (e.g.
-"qwen2-1.5b"). Only the architectures whose family the port serves have a
-module here; ``get_config`` raises ``KeyError`` for the others.
+"qwen2-1.5b").
 ``reduced(cfg)`` shrinks any config to a CPU-smokeable size with the same
 family-specific structure.
 """
@@ -177,6 +176,10 @@ _MODULE_FOR = {
     "stablelm-3b": "stablelm_3b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe",
     "mixtral-8x22b": "mixtral_8x22b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "musicgen-large": "musicgen_large",
+    "internvl2-26b": "internvl2_26b",
     "digit": "digit",
     "phoneme": "phoneme",
 }

@@ -6,7 +6,8 @@ from typing import Any, Callable, Dict
 
 import torch
 
-__all__ = ["map_with_path", "flatten_with_path", "unflatten", "tree_get",
+__all__ = ["map_with_path", "tree_map", "flatten_with_path", "unflatten",
+           "tree_get",
            "tree_set", "tree_write_", "role_of", "tree_size", "tree_nbytes",
            "any_nan"]
 
@@ -20,6 +21,16 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: Any, _prefix: str = "") -
     if tree is None:
         return None
     return fn(_prefix, tree)
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Map ``fn(leaf, *leaves)`` over a nested-dict tree and the leaves at
+    the same places of ``rest`` (trees with at least its keys); preserves
+    ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def flatten_with_path(tree: Any, _prefix: str = "") -> Dict[str, Any]:

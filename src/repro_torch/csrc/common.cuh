@@ -44,12 +44,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// fp32 x on the tensor cores enters as three bf16 planes, whose products are
-// exact; but mma.sync's fp32 accumulator truncates at every add, so over a
-// long K its error grows with the adds (1e-5 to 3e-5 of the output at K =
-// 6144 to 16384). The kernels mma a short run of K into ``run`` and add the
-// run into an fp32 ``tot`` on the CUDA cores, which round: promote(tot, run)
-// adds run into tot element by element and zeroes run.
+// x on the tensor cores enters as bf16 (fp32 x as three bf16 planes), whose
+// products are exact; but mma.sync's fp32 accumulator truncates at every
+// add, so over a long K its error grows with the adds (fp32 x: 1.2e-5 to
+// 4.5e-5 of the output at K = 6144 to 16384; bf16 x: up to 2.1e-5 at K =
+// 16384, where an fp32 matmul is 4e-7 from float64). The
+// kernels mma a short run of K into ``run`` and add the run into an fp32
+// ``tot`` on the CUDA cores, which round: promote(tot, run) adds run into
+// tot element by element and zeroes run. They do so where the output can
+// show the truncation (``promotes``): for fp32 x, and for bf16 x with an
+// fp32 output. A bf16 output rounds to 2^-9 of itself, 100x above it (at K
+// = 16384 the kernels' and an fp32 matmul's bf16 outputs are as far from
+// float64), and a run costs the bf16 prefill GEMM up to 25% of its time.
 __device__ __forceinline__ void promote(float& tot, float& run) {
   tot += run;
   run = 0.f;
@@ -58,6 +64,10 @@ template <typename T, int N>
 __device__ __forceinline__ void promote(T (&tot)[N], T (&run)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) promote(tot[i], run[i]);
+}
+template <typename TIn, typename TOut>
+__host__ __device__ constexpr bool promotes() {
+  return sizeof(TIn) == 4 || sizeof(TOut) == 4;
 }
 
 }  // namespace rt

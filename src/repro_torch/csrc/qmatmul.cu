@@ -97,7 +97,8 @@
 //   fp32 x enters both as three bf16 planes (hi + mid + lo == x exactly),
 //   so every product with an int8 level is exact; each run of 64 K (128 in
 //   k_lanes) is summed by mma.sync and added into an fp32 total on the CUDA
-//   cores (rt::promote), so the sum is fp32's.
+//   cores (rt::promote), so the sum is fp32's (fp32 x, or an fp32 output:
+//   rt::promotes).
 //   W with other strides (or unaligned rows) is read one byte at a time
 //   into the same stages.
 #include "common.cuh"
@@ -277,7 +278,7 @@ qmatmul_kernel_nlanes_decode(const TIn* __restrict__ x,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[u][nt][e] = 0.f;
-  float tot[4][NT][4] = {};       // fp32 x: acc holds one chunk, promoted
+  float tot[4][NT][4] = {};       // acc holds one chunk (promotes)
 
   // the warp's j-th chunk (ci = warp + j KW) into stage j % ND_STAGES; one
   // commit group a chunk, empty past the slice
@@ -362,10 +363,10 @@ qmatmul_kernel_nlanes_decode(const TIn* __restrict__ x,
                            b[nt][1][p]);
       }
     }
-    if constexpr (P == 3) rt::promote(tot, acc);
+    if constexpr (rt::promotes<TIn, TOut>()) rt::promote(tot, acc);
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  if constexpr (P == 3) rt::promote(acc, tot);
+  if constexpr (rt::promotes<TIn, TOut>()) rt::promote(acc, tot);
 
   // the KW slices of K, in order: warp 0 adds the others'
   __syncthreads();                                // the stages are done
@@ -586,7 +587,7 @@ qmatmul_kernel_nlanes_prefill(const TIn* __restrict__ x,
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  float tot[4][4][4] = {};        // fp32 x: acc holds one K step, promoted
+  float tot[4][4][4] = {};        // acc holds one K step (promotes)
 
   // step kt of the slice into stage kt % S; one commit group a step, empty
   // past the slice. x copy j: row i / CPR, values XV (i % CPR) (i = tid +
@@ -666,10 +667,10 @@ qmatmul_kernel_nlanes_prefill(const TIn* __restrict__ x,
     }
     __syncthreads();            // the widened tiles are written
     np_mma<P>(acc, xb, wt, lane, wm, wn);
-    if constexpr (P == 3) rt::promote(tot, acc);
+    if constexpr (rt::promotes<TIn, TOut>()) rt::promote(tot, acc);
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  if constexpr (P == 3) rt::promote(acc, tot);
+  if constexpr (rt::promotes<TIn, TOut>()) rt::promote(acc, tot);
 
   np_store<TOut>(acc, y, part, delta, bias, M, N, m0 + 64 * wm,
                  n0 + 32 * wn, g, t, rank, ksplit);
@@ -765,7 +766,7 @@ qmatmul_kernel_klanes(const TIn* __restrict__ x, const int8_t* __restrict__ w,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    float tot[NT][4] = {};        // fp32 x: acc holds one step, promoted
+    float tot[NT][4] = {};        // acc holds one step (promotes)
 
     for (int k0 = 0; k0 < K; k0 += kc) {
       const int kn = min(kc, K - k0);
@@ -825,10 +826,10 @@ qmatmul_kernel_klanes(const TIn* __restrict__ x, const int8_t* __restrict__ w,
           wv[u][0] = wn[u][0];
           wv[u][1] = wn[u][1];
         }
-        if constexpr (P == 3) rt::promote(tot, acc);
+        if constexpr (rt::promotes<TIn, TOut>()) rt::promote(tot, acc);
       }
     }
-    if constexpr (P == 3) rt::promote(acc, tot);
+    if constexpr (rt::promotes<TIn, TOut>()) rt::promote(acc, tot);
     // c0, c1: table row g, x rows 2t, 2t+1; c2, c3: table row g + 8
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

@@ -21,7 +21,7 @@
 // out): the levels -4..3 are exact in bf16, and fp32 x enters as three bf16
 // planes (hi + mid + lo == x exactly), so every product stays exact, and
 // each chunk's mma sums are added into an fp32 total on the CUDA cores
-// (rt::promote), so the sum stays fp32's. A is
+// (rt::promote), so the sum stays fp32's (fp32 x, or an fp32 output: rt::promotes). A is
 // the weight tile (16 output columns x 16 K), B is x^T (16 K x 8 rows of
 // x). K runs in chunks of 80 (8 container words). In a chunk, lane (g, t)
 // of a warp loads 16 bytes of word row 2t and of word row 2t + 1, columns
@@ -248,7 +248,7 @@ __device__ __forceinline__ void qmatvec_body(
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[u][nt][e] = 0.f;
-  float tot[2][NT][4] = {};       // fp32 x: acc holds one chunk, promoted
+  float tot[2][NT][4] = {};       // acc holds one chunk (promotes)
 
   // 64-row tiles: a piece of the block's chunks is staged in shared memory
   // at a time, the B fragments read from there; 8- and 16-row tiles: no
@@ -341,10 +341,10 @@ __device__ __forceinline__ void qmatvec_body(
                              a[tu][3], b0, b1);
           }
       }
-      if constexpr (P == 3) rt::promote(tot, acc);
+      if constexpr (rt::promotes<TIn, TOut>()) rt::promote(tot, acc);
     }
   }
-  if constexpr (P == 3) rt::promote(acc, tot);
+  if constexpr (rt::promotes<TIn, TOut>()) rt::promote(acc, tot);
 
   // the KW slices of K, in order: slice 0's warps add the others'
   __syncthreads();                                // x no longer read

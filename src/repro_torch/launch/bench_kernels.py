@@ -30,8 +30,10 @@ windowed attn_prefill (B = 1, T = S = 4500, KV = 8, G = 6, D = 128,
 lo = max(t - 4095, 0)) beside SDPA with the window mask; and attn_decode
 over a full 4096-slot ring (B = 8), beside SDPA; ``fp32sum`` the
 precision of fp32 x through the tensor cores (qmatvec, qmatmul's n_lanes
-and K-major k_lanes) at the shapes of mixtral's path check, against a
-float64 product, beside the plain version's.
+and K-major k_lanes) at the shapes of mixtral's path check, and of bf16 x
+at mixtral's longest K (16384, the expert down projection; fp32 and bf16
+output, so the sum's error shows apart from the output's rounding),
+against a float64 product, beside the plain version's.
 
 Uses only the wrappers (``kernels/*/ops.py``), their plain versions and
 ``core/packing.py``, so the same file times two trees of the port in one
@@ -114,6 +116,14 @@ FP32SUM_CASES = [("qmatvec", 9216, 6144, 6144), ("qmatvec", 9216, 6144, 1024),
                  ("n_lanes", 2880, 6144, 16384), ("n_lanes", 2880, 16384, 6144),
                  ("n_lanes", 2, 6144, 16384), ("n_lanes", 2, 16384, 6144),
                  ("k_lanes", 8, 6144, 32768)]
+FP32SUM_CASES = [c + (torch.float32,) for c in FP32SUM_CASES]
+# bf16 x at mixtral's K = 16384: qmatvec and n_lanes at decode and prefill
+# M, and a K-major k_lanes table
+FP32SUM_CASES += [("qmatvec", 8, 16384, 6144, torch.bfloat16),
+                  ("qmatvec", 2880, 16384, 6144, torch.bfloat16),
+                  ("n_lanes", 2, 16384, 6144, torch.bfloat16),
+                  ("n_lanes", 2880, 16384, 6144, torch.bfloat16),
+                  ("k_lanes", 8, 16384, 32768, torch.bfloat16)]
 
 
 def _event_ms(fn):
@@ -471,33 +481,42 @@ def window_prefill_case(g, t, window):
         c["run"], pf_k, "launches_by_variant"))
 
 
-def fp32sum_case(g, kernel, m, k, n):
-    """fp32 x on the tensor cores (three bf16 planes) at a long K: the max
-    error over max|out| of the kernel and of its plain version (an fp32
-    matmul) against a float64 product of the same levels, and the
-    kernel's time. No tolerance: the card tests hold the kernel to 3e-6."""
+def fp32sum_case(g, kernel, m, k, n, dtype=torch.float32):
+    """fp32 x on the tensor cores (three bf16 planes), or bf16 x, at a long
+    K: the max error over max|out| of the kernel and of its plain version
+    (an fp32 matmul) against a float64 product of the same x and levels,
+    and the kernel's time; for bf16 x with fp32 output (the sum's error)
+    and with bf16 output (as the engine serves). No tolerance: the card
+    tests hold fp32 x to 3e-6."""
     dev = torch.device("cuda")
-    x = torch.randn((m, k), generator=g, device=dev)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
     delta = torch.rand(n, generator=g, device=dev) * 0.05 + 0.01
     lo, hi = (-4, 4) if kernel == "qmatvec" else (-127, 128)
     lv = torch.randint(lo, hi, (k, n), generator=g, device=dev,
                        dtype=torch.int8)
     if kernel == "qmatvec":
         w = pack_matrix(lv, 3)
-        run = lambda: qmv_ops.qmatvec(x, w, delta, k=k)
-        plain = lambda: qmatvec_ref(x, w, delta, k)
+        run = lambda out=None: qmv_ops.qmatvec(x, w, delta, k=k,
+                                               out_dtype=out)
+        plain = lambda out=None: qmatvec_ref(x, w, delta, k, out_dtype=out)
     else:
         w = lv if kernel == "n_lanes" else lv.T.contiguous().T
-        run = lambda: qmm_ops.qmatmul(x, w, delta)
-        plain = lambda: qmatmul_ref(x, w, delta)
+        run = lambda out=None: qmm_ops.qmatmul(x, w, delta, out_dtype=out)
+        plain = lambda out=None: qmatmul_ref(x, w, delta, out_dtype=out)
     ref = x.double() @ (lv.double() * delta.double())
     scale = float(ref.abs().max())
     rel = lambda out: float((out.double() - ref).abs().max()) / scale
-    return {"kernel": "qmatvec" if kernel == "qmatvec" else "qmatmul",
-            "layout": kernel, "shape": f"M={m} K={k} N={n}",
-            "dtype": "float32", "max_err_over_max_kernel": rel(run()),
-            "max_err_over_max_plain": rel(plain()), "reference": "float64",
-            "ms": _event_ms(run), "device_ms": _device_ms(run)}
+    f32 = torch.float32
+    rec = {"kernel": "qmatvec" if kernel == "qmatvec" else "qmatmul",
+           "layout": kernel, "shape": f"M={m} K={k} N={n}",
+           "dtype": str(dtype).removeprefix("torch."), "out_dtype": "float32",
+           "max_err_over_max_kernel": rel(run(f32)),
+           "max_err_over_max_plain": rel(plain(f32)),
+           "reference": "float64"}
+    if dtype == torch.bfloat16:
+        rec.update(max_err_over_max_kernel_bf16_out=rel(run()),
+                   max_err_over_max_plain_bf16_out=rel(plain()))
+    return {**rec, "ms": _event_ms(run), "device_ms": _device_ms(run)}
 
 
 def main(argv=None):

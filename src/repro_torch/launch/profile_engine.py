@@ -1,8 +1,9 @@
 """Where the serving time goes: a full-width W3A8 ``qp`` model (qwen2-1.5b
-unless ``--arch`` names another ported config, dense or MoE, ``--layers``
-cutting its depth as ``launch/serve.py`` does; ``--form q`` the int8-level
-export instead, every projection through qmatmul's ``n_lanes``) served by
-the engine on the card, under ``torch.profiler``.
+unless ``--arch`` names another config — dense, MoE, ssm, hybrid, audio
+or vlm — ``--layers`` cutting its depth as ``launch/serve.py`` does;
+``--form q`` the int8-level export instead, every projection through
+qmatmul's ``n_lanes``) served by the engine on the card, under
+``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_engine [--kv8]
         [--steady-only] [--spec-k K] [--eager] [--quant w3|float]
@@ -38,7 +39,8 @@ admissions (T = bucket). The profiled run is driven step by step, noting
 the admission rounds and the tick of each step from the engine's
 ``prefill_calls`` and ``decode_calls``; a step admits before it ticks, an
 admission round launches ``attn_prefill`` once a layer of target and
-drafter, a tick once a target layer, and one stream runs the kernels in
+drafter, a tick once a target layer (once a shared-block application for
+hybrid: ``attn_layers``), and one stream runs the kernels in
 launch order, so the i-th ``attn_prefill`` kernel of the trace (by start)
 is the i-th launch of that sequence (the counts must match). A steady
 tick's ``attn_prefill`` is all verify.
@@ -63,7 +65,7 @@ from repro_torch.core.precision import FLOAT
 from repro_torch.launch.serve import build_params, config_for
 from repro_torch.models import api as model_api
 from repro_torch.models import get_model
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import ServingEngine, check_family
 
 # launch/serve.py's prompt mix, then 100-250-token prompts that reach the
 # 128 and 256 buckets; chip_smoke.py serves the same requests
@@ -72,6 +74,16 @@ MAX_NEW = 32
 STEADY_TICKS = 20
 KERNELS = ("qmatvec", "qmatmul", "attn_decode", "attn_prefill")
 QMATVEC_VARIANTS = ("decode", "prefill")
+
+
+def attn_layers(cfg) -> int:
+    """Attention launches of one forward: one a layer for the transformer
+    families, one a shared-block application for hybrid, none for ssm."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
 
 
 def prompts(vocab: int) -> list[list[int]]:
@@ -193,7 +205,7 @@ def attn_prefill_ms_by_use(prof, uses):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b",
-                    help="any ported config (dense or moe)")
+                    help="any config: dense, moe, ssm, hybrid, audio, vlm")
     ap.add_argument("--layers", type=int, default=None,
                     help="keep the first N layers (full width), as "
                          "launch/serve.py --layers")
@@ -222,6 +234,7 @@ def main(argv=None):
         raise SystemExit("profile_engine needs a CUDA card")
     dev = torch.device("cuda")
     cfg = config_for(args.arch, layers=args.layers)
+    check_family(cfg, kv_bits=8 if args.kv8 else None, spec_k=args.spec_k)
     spec_k = args.spec_k
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     if args.fp32:
@@ -266,7 +279,7 @@ def main(argv=None):
             "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3)})
         if spec_k:
             by_use = attn_prefill_ms_by_use(prof, launch_uses(
-                steps, cfg.num_layers, draft_cfg.num_layers))
+                steps, attn_layers(cfg), attn_layers(draft_cfg)))
             out.update({"attn_prefill_device_ms_by_use": by_use,
                         "spec_accept_rate": (eng.spec_accepted - acc0)
                         / (eng.spec_drafted - dr0)})

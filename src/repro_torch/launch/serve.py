@@ -4,9 +4,12 @@ card (one decode call per tick, all slots at once).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         --requests 8 --slots 4 --max-new 16
 
-Any ported config serves (``--arch`` qwen2-1.5b, stablelm-3b,
-qwen2.5-14b, qwen3-32b; the MoE family phi3.5-moe-42b-a6.6b and
-mixtral-8x22b, whose cache is a ring of at most its 4096-token window).
+Any config serves (``--arch`` qwen2-1.5b, stablelm-3b, qwen2.5-14b,
+qwen3-32b; the MoE family phi3.5-moe-42b-a6.6b and mixtral-8x22b, whose
+cache is a ring of at most its 4096-token window; the state-space
+mamba2-2.7b and the hybrid zamba2-1.2b; musicgen-large and internvl2-26b,
+served as their decoders). ``--kv8`` and ``--spec-k`` refuse mamba2-2.7b
+(no KV cache, a state that cannot be rewound) with the engine's error.
 ``--reduced`` shrinks the model for a rehearsal; ``--device cpu`` runs the
 kernels' plain versions on the CPU. ``--layers N`` keeps the first N
 layers at full width: the export is made from an fp32 master on the card,
@@ -40,7 +43,7 @@ from repro_torch.core import quant_dense
 from repro_torch.core.precision import FLOAT, W3A8
 from repro_torch.models import api as model_api
 from repro_torch.models import get_model
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import ServingEngine, check_family
 
 
 def cast_weights(tree, dtype):
@@ -161,6 +164,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = config_for(args.arch, small=args.reduced, layers=args.layers)
+    check_family(cfg, kv_bits=8 if args.kv8 else None, spec_k=args.spec_k)
     params, policy, draft_cfg, draft_params = build_params(
         cfg, quant=args.quant, form=args.form, seed=args.seed,
         device=args.device, spec_k=args.spec_k, draft_depth=args.draft_depth)

@@ -1,10 +1,11 @@
-"""Unified model interface — port of the reference's ``models/api.py`` for
-the families the port serves (dense and moe, both in ``transformer``).
+"""Unified model interface — port of the reference's ``models/api.py``:
+``get_model(cfg)`` gives the family's module (dense, moe, audio and vlm:
+``transformer``; ssm: ``mamba2``; hybrid: ``hybrid``).
 
     init(gen, cfg, dtype, device)                        -> params
     prefill(params, batch, cfg, *, policy, ...)          -> (logits, cache)
     decode_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache)
-    verify_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache, None)
+    verify_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache, traj)
     rollback_cache(cfg, cache, slots, new_lens)          -> cache (in place)
     draft_of(cfg, params, depth_fraction=)               -> (draft_cfg, qp params)
     init_cache(cfg, batch, max_len, ...)                 -> cache
@@ -13,8 +14,11 @@ the families the port serves (dense and moe, both in ``transformer``).
 
 ``matmul_mode="auto"|"kernel"|"dequant"`` and ``attn_mode="auto"|"kernel"|
 "ref"`` select the CUDA kernels or their plain versions; 'auto' takes the
-kernels for CUDA tensors. ``init_cache(..., kv_bits=8)`` stores the KV
-cache as int8 plus per-token fp32 scales.
+kernels for CUDA tensors (``ssm`` takes no ``attn_mode``: it has no
+attention). ``init_cache(..., kv_bits=8)`` stores the KV cache as int8
+plus per-token fp32 scales (``ssm`` has no KV cache and refuses). The
+speculative entry points (``verify_step``, ``rollback_cache``,
+``spec_state_snapshot``) raise for ``ssm``: its state cannot be rewound.
 """
 from __future__ import annotations
 
@@ -28,19 +32,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.precision import W3A8
 from repro_torch.core.treeutil import flatten_with_path, unflatten
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, transformer
 
 __all__ = ["get_model", "init_cache", "prefill", "decode_step",
            "verify_step", "rollback_cache", "spec_state_snapshot", "draft_of",
            "insert_prefill", "insert_prefill_many", "free_slots",
            "cache_to_host", "cache_from_host"]
 
-_FAMILY_MODULE = {"dense": transformer, "moe": transformer}
+_FAMILY_MODULE = {
+    "dense": transformer, "audio": transformer, "vlm": transformer,
+    "moe": transformer,
+    "ssm": mamba2,
+    "hybrid": hybrid,
+}
 
 
 def get_model(cfg: ModelConfig) -> ModuleType:
-    if cfg.family not in _FAMILY_MODULE:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return _FAMILY_MODULE[cfg.family]
 
 
@@ -49,12 +56,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device=None):
     """Decode cache for ``batch`` rows. ``per_slot_len`` makes ``len`` a
     (batch,) int32 vector (the batched engine's layout); ``kv_bits=8``
-    allocates int8 K/V plus per-token fp32 scales."""
+    allocates int8 K/V plus per-token fp32 scales (the attention-bearing
+    families; ``ssm`` has no KV cache and refuses it)."""
     if kv_bits not in (None, 8):
         raise ValueError(f"kv_bits must be None or 8, got {kv_bits!r}")
-    cache = get_model(cfg).init_cache(cfg, batch, max_len,
-                                      dtype or torch.bfloat16,
-                                      quantized=kv_bits == 8, device=device)
+    dtype = dtype or torch.bfloat16
+    mod = get_model(cfg)
+    if cfg.family == "ssm":
+        if kv_bits:
+            raise ValueError("kv_bits=8 is meaningless for family 'ssm': "
+                             "it has no KV cache to quantize")
+        cache = mod.init_state(cfg, batch, max_len, dtype, device=device)
+    else:
+        cache = mod.init_cache(cfg, batch, max_len, dtype,
+                               quantized=kv_bits == 8, device=device)
     if per_slot_len:
         cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return cache
@@ -82,7 +97,7 @@ def rollback_cache(cfg: ModelConfig, cache, slots, new_lens, trajectory=None):
 
 def spec_state_snapshot(cfg: ModelConfig, cache):
     """The per-step snapshot a draft chain must stack for rollback (None
-    for the pure-KV dense family)."""
+    for the pure-KV families, the mamba states for hybrid)."""
     return get_model(cfg).spec_state_snapshot(cache)
 
 
@@ -92,25 +107,38 @@ def _head_layers(tree, keep: int):
     return tree[:keep]
 
 
+def _depth_slice(cfg: ModelConfig, params, depth_fraction: float):
+    """The first ``depth_fraction`` of the stacked layers (at least one):
+    ``layers`` for transformer and ssm, whole mamba + attention ``groups``
+    for hybrid (the tail kept)."""
+    out = dict(params)
+    if cfg.family == "hybrid":
+        n_groups = cfg.num_layers // cfg.attn_every
+        keep = max(1, int(n_groups * depth_fraction))
+        out["groups"] = _head_layers(params["groups"], keep)
+        return dataclasses.replace(
+            cfg, num_layers=keep * cfg.attn_every
+            + cfg.num_layers % cfg.attn_every), out
+    keep = max(1, int(cfg.num_layers * depth_fraction))
+    out["layers"] = _head_layers(params["layers"], keep)
+    return dataclasses.replace(cfg, num_layers=keep), out
+
+
 def draft_of(cfg: ModelConfig, params, *, depth_fraction: float = 1.0):
     """A speculative DRAFTER from the same checkpoint: ``(draft_cfg,
     draft_params)``, the params being the packed 3-bit ``qp`` serve form
     (``quant_dense.export_container`` under W3A8) of the same weights —
     the paper's fixed-point network drafting for its own full-precision
-    master. ``depth_fraction < 1`` keeps only the first
-    ``int(num_layers * depth_fraction)`` (at least 1) stacked layers, for a
-    cheaper drafter that agrees less often. Params already in a serve form
-    are sliced but not exported again."""
+    master. ``depth_fraction < 1`` keeps only the first fraction (at least
+    one) of the stacked layers — for hybrid, of the whole groups, the tail
+    kept — for a cheaper drafter that agrees less often. Params already in
+    a serve form are sliced but not exported again."""
     if not 0.0 < depth_fraction <= 1.0:
         raise ValueError(f"depth_fraction must be in (0, 1], "
                          f"got {depth_fraction}")
-    get_model(cfg)                          # the family must be ported
     draft_cfg, draft_params = cfg, params
     if depth_fraction < 1.0:
-        keep = max(1, int(cfg.num_layers * depth_fraction))
-        draft_params = dict(params)
-        draft_params["layers"] = _head_layers(params["layers"], keep)
-        draft_cfg = dataclasses.replace(cfg, num_layers=keep)
+        draft_cfg, draft_params = _depth_slice(cfg, params, depth_fraction)
     if not quant_dense.is_serve_form(draft_params):
         draft_params = quant_dense.export_container(draft_params, W3A8)
     return draft_cfg, draft_params

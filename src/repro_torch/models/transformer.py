@@ -53,10 +53,15 @@ __all__ = ["init", "cache_len_for", "init_cache", "prefill", "decode_step",
            "insert_prefill", "insert_prefill_many", "free_slots"]
 
 
+# the families this module serves: audio and vlm are the dense decoder whose
+# frontend prefix (``models/frontends.py``) only training feeds
+FAMILIES = ("dense", "moe", "audio", "vlm")
+
+
 def _check_supported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"only the dense and moe families are "
-                                  f"ported; got {cfg.name} ({cfg.family})")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"the transformer serves the {FAMILIES} families; "
+                         f"got {cfg.name} ({cfg.family})")
 
 
 # --- init -----------------------------------------------------------------------
@@ -160,6 +165,111 @@ def _logits(params, h, cfg, policy, mm: str):
     return logits_readout(params, h, cfg, policy=policy, matmul_mode=mm)
 
 
+def _last_hidden(h: torch.Tensor, lengths) -> torch.Tensor:
+    """(B, S, D) -> (B, 1, D): each row's last real position (``lengths``
+    (B,)), or the last position."""
+    if lengths is None:
+        return h[:, -1:]
+    idx = (lengths.long() - 1).reshape(-1, 1, 1).expand(-1, 1, h.shape[-1])
+    return torch.gather(h, 1, idx)
+
+
+def _prefill_layer(lp, h, cfg: ModelConfig, policy, positions, inv_freq,
+                   lengths, attn_chunk: int, mm: str, attn_mode: str):
+    """One layer over the prompt (the reference's ``_layer_forward``):
+    returns (h, k, v), k/v (B, S, KV, D) for the cache."""
+    b, s, _ = h.shape
+    hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, mm)
+    o = prefill_attention(q, k, v, lengths=lengths,
+                          window=cfg.sliding_window or 0, mode=attn_mode,
+                          chunk=min(attn_chunk, s))
+    h = h + _attn_out(lp, o, cfg, policy, b, s, mm)
+    hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    return h + _ffn(lp, hn, cfg, policy, mm), k, v
+
+
+def _cached_layer(lp, h, kv, i: int, write, valid, attend, cfg: ModelConfig,
+                  policy, positions, inv_freq, mm: str, attn_mode: str):
+    """One layer of decode or verify against cache entry ``i`` of ``kv``
+    ({"k", "v"[, "k_scale", "v_scale"]}, leaves (L, B, S, ...)): the new
+    K/V (int8 + scales for a quantized cache) go in through ``write(buf,
+    i, new)``, then ``attend`` (``decode_attention`` or
+    ``verify_attention``) reads the cache up to ``valid``."""
+    b, t, _ = h.shape
+    hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, mm)
+    ks_ = vs_ = None
+    if "k_scale" in kv:
+        kq, ksc = _quantize_kv(k)
+        vq, vsc = _quantize_kv(v)
+        for name, new in (("k", kq), ("v", vq), ("k_scale", ksc),
+                          ("v_scale", vsc)):
+            write(kv[name], i, new)
+        ks_, vs_ = kv["k_scale"][i], kv["v_scale"][i]
+    else:
+        write(kv["k"], i, k)
+        write(kv["v"], i, v)
+    o = attend(q, kv["k"][i], kv["v"][i], valid, k_scale=ks_, v_scale=vs_,
+               mode=attn_mode)
+    h = h + _attn_out(lp, o, cfg, policy, b, t, mm)
+    hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    return h + _ffn(lp, hn, cfg, policy, mm)
+
+
+def decode_writer(pos: torch.Tensor, cs: int, ring: bool):
+    """``(write, valid)`` for one decode token of each row at ``pos`` (B,)
+    into a cache of ``cs`` positions: ``write(buf, i, new)`` sets
+    ``buf[i, row, slot]`` to ``new[row, 0]`` (the row's slot ``pos % cs``
+    on a ring, else ``pos``, where a row past the cache writes nothing, the
+    reference's dropped scatter), and ``valid`` (B,) is each row's entries
+    to attend."""
+    b = pos.shape[0]
+    rows = torch.arange(b, device=pos.device)
+    slot = (torch.remainder(pos, cs) if ring
+            else torch.clamp(pos, max=cs - 1)).long()
+    keep = pos < cs
+
+    def write(buf, i, new):
+        new = new[:, 0].to(buf.dtype)
+        if not ring:
+            k_ = keep.reshape((b,) + (1,) * (new.dim() - 1))
+            new = torch.where(k_, new, buf[i, rows, slot])
+        buf[i, rows, slot] = new
+
+    return write, torch.clamp(pos + 1, max=cs)
+
+
+def verify_writer(pos0: torch.Tensor, t: int, cs: int, ring: bool):
+    """``(write, valid, positions)`` for T tokens of each row from ``pos0``
+    (B,): ``write(buf, i, new)`` sets the entries of positions ``pos0 ..
+    pos0 + T - 1`` (each at ``position % cs`` on a ring; off a ring a
+    position past the cache writes nothing), ``valid`` (B, T) is each
+    query's entries to attend and ``positions`` (B, T) the positions."""
+    b = pos0.shape[0]
+    positions = pos0[:, None] + torch.arange(t, dtype=torch.int32,
+                                             device=pos0.device)[None, :]
+    rows = torch.arange(b, device=pos0.device)[:, None]
+    slot = (torch.remainder(positions, cs) if ring
+            else torch.clamp(positions, max=cs - 1)).long()
+    # Off a ring, positions past the cache are clamped onto slot cs - 1 and
+    # take the value that slot ends with (the in-range write of position
+    # cs - 1, or its old entry), so the duplicate indices all write the
+    # same value: the reference's dropped scatter.
+    src = torch.clamp(slot - pos0[:, None], min=0)                 # (B, T)
+    keep = pos0[:, None] + src < cs
+
+    def write(buf, i, new):
+        if ring:
+            buf[i, rows, slot] = new.to(buf.dtype)
+            return
+        k_ = keep.reshape((b, t) + (1,) * (new.dim() - 2))
+        buf[i, rows, slot] = torch.where(k_, new[rows, src].to(buf.dtype),
+                                         buf[i, rows, slot])
+
+    return write, torch.clamp(positions + 1, max=cs), positions
+
+
 # --- serving: cache, prefill, decode ---------------------------------------------
 
 def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
@@ -219,25 +329,15 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, h.device)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, matmul_mode)
-        o = prefill_attention(q, k, v, lengths=lengths,
-                              window=cfg.sliding_window or 0, mode=attn_mode,
-                              chunk=min(attn_chunk, s))
-        h = h + _attn_out(lp, o, cfg, policy, b, s, matmul_mode)
-        hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _ffn(lp, hn, cfg, policy, matmul_mode)
+        h, k, v = _prefill_layer(_layer(params["layers"], i), h, cfg, policy,
+                                 positions, inv_freq, lengths, attn_chunk,
+                                 matmul_mode, attn_mode)
         ks.append(k[:, -cs:])
         vs.append(v[:, -cs:])
     ks, vs = torch.stack(ks), torch.stack(vs)              # (L, B, S, KV, D)
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=h.device).to(torch.int32)
-        idx = (lengths.long() - 1).reshape(b, 1, 1).expand(b, 1, h.shape[-1])
-        h = torch.gather(h, 1, idx)
-    else:
-        h = h[:, -1:]
-    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = rmsnorm(params["final_norm"], _last_hidden(h, lengths), cfg.norm_eps)
     logits = _logits(params, h, cfg, policy, matmul_mode)
     if cs > ks.shape[2]:
         padw = cs - ks.shape[2]
@@ -273,48 +373,14 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     dev = tokens.device
     attn_mode = resolve_attn_mode(attn_mode, dev)
     pos = cache["len"].to(torch.int32).reshape(-1).expand(b)       # (B,)
-    quantized = "k_scale" in cache
     h = embed_lookup(params["embed"], tokens, policy=policy, dtype=dtype)
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, dev)
-    positions = pos[:, None]                                       # (B, 1)
-    cs = cache["k"].shape[2]
-    ring = bool(cfg.sliding_window)
-    slot = (torch.remainder(pos, cs) if ring
-            else torch.clamp(pos, max=cs - 1)).long()
-    rows = torch.arange(b, device=dev)
-    valid = torch.clamp(pos + 1, max=cs)
-
-    def _write(buf, layer, new):
-        """buf[layer, rows, slot] = new where the row is in range (always
-        on a ring)."""
-        if ring:
-            buf[layer, rows, slot] = new.to(buf.dtype)
-            return
-        keep = (pos < cs).reshape((b,) + (1,) * (new.dim() - 1))
-        buf[layer, rows, slot] = torch.where(keep, new.to(buf.dtype),
-                                             buf[layer, rows, slot])
-
+    write, valid = decode_writer(pos, cache["k"].shape[2],
+                                 bool(cfg.sliding_window))
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, matmul_mode)
-        if quantized:
-            kq, ksc = _quantize_kv(k)
-            vq, vsc = _quantize_kv(v)
-            _write(cache["k"], i, kq[:, 0])
-            _write(cache["v"], i, vq[:, 0])
-            _write(cache["k_scale"], i, ksc[:, 0])
-            _write(cache["v_scale"], i, vsc[:, 0])
-            ks_, vs_ = cache["k_scale"][i], cache["v_scale"][i]
-        else:
-            _write(cache["k"], i, k[:, 0])
-            _write(cache["v"], i, v[:, 0])
-            ks_ = vs_ = None
-        o = decode_attention(q, cache["k"][i], cache["v"][i], valid,
-                             k_scale=ks_, v_scale=vs_, mode=attn_mode)
-        h = h + _attn_out(lp, o, cfg, policy, b, 1, matmul_mode)
-        hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _ffn(lp, hn, cfg, policy, matmul_mode)
+        h = _cached_layer(_layer(params["layers"], i), h, cache, i, write,
+                          valid, decode_attention, cfg, policy, pos[:, None],
+                          inv_freq, matmul_mode, attn_mode)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = _logits(params, h, cfg, policy, matmul_mode)
     new_cache = dict(cache)
@@ -341,55 +407,14 @@ def verify_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     dev = tokens.device
     attn_mode = resolve_attn_mode(attn_mode, dev)
     pos0 = cache["len"].to(torch.int32).reshape(-1).expand(b)      # (B,)
-    quantized = "k_scale" in cache
     h = embed_lookup(params["embed"], tokens, policy=policy, dtype=dtype)
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, dev)
-    positions = pos0[:, None] + torch.arange(t, dtype=torch.int32,
-                                             device=dev)[None, :]  # (B, T)
-    cs = cache["k"].shape[2]
-    ring = bool(cfg.sliding_window)
-    rows = torch.arange(b, device=dev)[:, None]
-    slot = (torch.remainder(positions, cs) if ring
-            else torch.clamp(positions, max=cs - 1)).long()
-    # Off a ring, positions past the cache are clamped onto slot cs - 1 and
-    # take the value that slot ends with (the in-range write of position
-    # cs - 1, or its old entry), so the duplicate indices all write the
-    # same value: the reference's dropped scatter.
-    src = torch.clamp(slot - pos0[:, None], min=0)                 # (B, T)
-    keep = pos0[:, None] + src < cs
-    valid = torch.clamp(positions + 1, max=cs)                     # (B, T)
-
-    def _write(buf, layer, new):
-        """buf[layer, b, position] = new[b, t] for every in-range position
-        (every position on a ring)."""
-        if ring:
-            buf[layer, rows, slot] = new.to(buf.dtype)
-            return
-        k_ = keep.reshape((b, t) + (1,) * (new.dim() - 2))
-        buf[layer, rows, slot] = torch.where(k_, new[rows, src].to(buf.dtype),
-                                             buf[layer, rows, slot])
-
+    write, valid, positions = verify_writer(pos0, t, cache["k"].shape[2],
+                                            bool(cfg.sliding_window))
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, matmul_mode)
-        if quantized:
-            kq, ksc = _quantize_kv(k)
-            vq, vsc = _quantize_kv(v)
-            _write(cache["k"], i, kq)
-            _write(cache["v"], i, vq)
-            _write(cache["k_scale"], i, ksc)
-            _write(cache["v_scale"], i, vsc)
-            ks_, vs_ = cache["k_scale"][i], cache["v_scale"][i]
-        else:
-            _write(cache["k"], i, k)
-            _write(cache["v"], i, v)
-            ks_ = vs_ = None
-        o = verify_attention(q, cache["k"][i], cache["v"][i], valid,
-                             k_scale=ks_, v_scale=vs_, mode=attn_mode)
-        h = h + _attn_out(lp, o, cfg, policy, b, t, matmul_mode)
-        hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
-        h = h + _ffn(lp, hn, cfg, policy, matmul_mode)
+        h = _cached_layer(_layer(params["layers"], i), h, cache, i, write,
+                          valid, verify_attention, cfg, policy, positions,
+                          inv_freq, matmul_mode, attn_mode)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = _logits(params, h, cfg, policy, matmul_mode)
     new_cache = dict(cache)

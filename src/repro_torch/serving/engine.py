@@ -91,6 +91,7 @@ streams differ from the reference's (``torch`` generator vs
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -100,11 +101,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.graphs import Graphs, index_drop_, masked
+from repro_torch.core.graphs import Graphs, index_drop_, kept, masked
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.core.quant_dense import MATMUL_MODES
-from repro_torch.core.treeutil import (tree_get, tree_set, tree_write_,
-                                      unflatten)
+from repro_torch.core.treeutil import (flatten_with_path, tree_get,
+                                      tree_set, tree_write_, unflatten)
 from repro_torch.models import api as model_api
 from repro_torch.models import get_model
 from repro_torch.models.attention import ATTN_MODES
@@ -114,11 +115,14 @@ from repro_torch.serving.resilience import (FaultPlan, SubmitOutcome,
 from repro_torch.serving.spec import (categorical, emit_counts,
                                       spec_decode_tick)
 
-__all__ = ["generate", "Request", "ServingEngine", "FaultPlan",
-           "SubmitOutcome", "SubmitRejected", "WatchdogExpired"]
+__all__ = ["generate", "check_family", "Request", "ServingEngine",
+           "FaultPlan", "SubmitOutcome", "SubmitRejected", "WatchdogExpired"]
 
 # smallest admission bucket: prompts of length 1..8 share one shape
 _MIN_BUCKET = 8
+# the cache subtrees that hold a recurrent (non-KV) state: ssm's layers,
+# hybrid's mamba groups and tail
+_RECURRENT = ("layers", "groups", "tail")
 
 _log = logging.getLogger(__name__)
 
@@ -131,11 +135,29 @@ def _sample(gen: torch.Generator, logits: torch.Tensor,
     return categorical(probs, gen)
 
 
-def _serve_kwargs(matmul_mode: str, attn_mode: str,
+def check_family(cfg: ModelConfig, *, kv_bits: Optional[int] = None,
+                 spec_k: int = 0):
+    """Refuse the knobs ``cfg``'s family cannot take, with the engine's
+    errors: ``ssm`` has no KV cache to quantize, and its state folds every
+    token irreversibly, so rejected drafts cannot be rewound."""
+    if cfg.family != "ssm":
+        return
+    if kv_bits:
+        raise ValueError("kv_bits=8 is meaningless for family 'ssm': it "
+                         "has no KV cache to quantize")
+    if spec_k:
+        raise ValueError("speculative decoding is unavailable for family "
+                         "'ssm': the SSD state folds every token "
+                         "irreversibly, so rejected drafts can't be rewound")
+
+
+def _serve_kwargs(cfg: ModelConfig, matmul_mode: str, attn_mode: str,
                   kv_bits: Optional[int]) -> Dict[str, Dict[str, Any]]:
     """Validated per-call kwargs for the serving knobs: ``attn_mode`` goes
     to prefill and decode, ``kv_bits=8`` becomes
-    ``prefill(quantize_cache=True)``."""
+    ``prefill(quantize_cache=True)`` — for the attention-bearing families;
+    ``ssm`` takes neither (no attention, no KV cache), and asking it to
+    quantize one is a config error, not a silent no-op."""
     if matmul_mode not in MATMUL_MODES:
         raise ValueError(f"matmul_mode must be one of {MATMUL_MODES}, "
                          f"got {matmul_mode!r}")
@@ -144,6 +166,10 @@ def _serve_kwargs(matmul_mode: str, attn_mode: str,
                          f"got {attn_mode!r}")
     if kv_bits not in (None, 8):
         raise ValueError(f"kv_bits must be None or 8, got {kv_bits!r}")
+    check_family(cfg, kv_bits=kv_bits)
+    if cfg.family == "ssm":
+        mm = {"matmul_mode": matmul_mode}
+        return {"prefill": mm, "decode": mm}
     common = {"matmul_mode": matmul_mode, "attn_mode": attn_mode}
     return {"prefill": dict(common, quantize_cache=kv_bits == 8),
             "decode": common}
@@ -182,7 +208,7 @@ def generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     params = _to_device(params, device)
     prompts = torch.as_tensor(prompts).to(device=device, dtype=torch.int32)
     b, p = prompts.shape
-    kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
+    kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
     gen = torch.Generator(device=prompts.device).manual_seed(seed)
     logits, cache = mod.prefill(params, {"tokens": prompts}, cfg,
                                 policy=policy, dtype=dtype,
@@ -212,11 +238,16 @@ def _no_ring_wrap(mod, cfg: ModelConfig, max_len: int):
 def _spec_models(params, cfg: ModelConfig, draft_params,
                  draft_cfg: Optional[ModelConfig]):
     """The drafter for ``params``: derived from the target checkpoint
-    (``api.draft_of``) when none is given."""
+    (``api.draft_of``) when none is given. Neither may be ``ssm``: its
+    state cannot be rewound past rejected drafts."""
+    check_family(cfg, spec_k=1)
     if draft_params is None:
         draft_cfg, draft_params = model_api.draft_of(cfg, params)
     else:
         draft_cfg = draft_cfg or cfg
+    if draft_cfg.family == "ssm":
+        raise ValueError("the speculative DRAFTER can't be family 'ssm': "
+                         "its state can't be rewound past rejected drafts")
     if draft_cfg.vocab_size != cfg.vocab_size:
         raise ValueError(f"draft vocab {draft_cfg.vocab_size} != target "
                          f"vocab {cfg.vocab_size}")
@@ -243,7 +274,7 @@ def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     max_len = p + max_new_tokens + spec_k
     _no_ring_wrap(mod, cfg, max_len)
     _no_ring_wrap(dmod, draft_cfg, max_len)
-    kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
+    kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
     mkw = dict(policy=policy, dtype=dtype)
     gen = torch.Generator(device=prompts.device).manual_seed(seed)
     logits, cache = mod.prefill(params, {"tokens": prompts}, cfg,
@@ -355,7 +386,7 @@ class ServingEngine:
                  integrity_every: Optional[int] = None,
                  golden_dir: Optional[str] = None,
                  capture: Optional[bool] = None, device="cuda"):
-        self._kw = _serve_kwargs(matmul_mode, attn_mode, kv_bits)
+        self._kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if shed_policy not in resilience.SHED_POLICIES:
@@ -653,7 +684,8 @@ class ServingEngine:
     def _set_modes(self, matmul_mode: str, attn_mode: str):
         """Serve with these modes from now on: the graphs captured with the
         old ones are dropped."""
-        self._kw = _serve_kwargs(matmul_mode, attn_mode, self.kv_bits)
+        self._kw = _serve_kwargs(self.cfg, matmul_mode, attn_mode,
+                                 self.kv_bits)
         self.matmul_mode, self.attn_mode = matmul_mode, attn_mode
         self.graphs.reset()
 
@@ -1038,9 +1070,20 @@ class ServingEngine:
             self._failed_ticks.add(self.decode_calls)
             raise resilience.InjectedFault(
                 f"injected tick failure at decode tick {self.decode_calls}")
-        # warm-ups run with every slot inactive, so they change no slot
         self.graphs.run("tick", self._spec_tick if self.spec_k else self._tick,
-                        idle=lambda: masked(self._active, False))
+                        idle=self._tick_idle)
+
+    @contextlib.contextmanager
+    def _tick_idle(self):
+        """The context of the tick's warm-ups: every slot inactive, so
+        they change no slot's tokens or length. A recurrent state (ssm,
+        hybrid) advances for inactive rows too, as in the reference (a
+        plain tick's K/V write at a held position is rewritten by the next
+        tick, a folded state is not), so it is kept and put back."""
+        state = [v for p, v in flatten_with_path(self.cache).items()
+                 if p.split("/", 1)[0] in _RECURRENT]
+        with masked(self._active, False), kept(*state):
+            yield
 
     def _dispatch_tick(self):
         """Run one tick, walking the degradation ladder on failure, as the

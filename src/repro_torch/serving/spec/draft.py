@@ -2,13 +2,15 @@
 drafter's proposals from spec_k + 1 eager ``decode_step`` calls (the
 reference runs them under one ``lax.scan``), through the drafter's own
 serving path (for ``qp`` params the qmatvec, qmatmul and attn_decode
-kernels)."""
+kernels), and for a stateful drafter (hybrid) the stack of its state
+snapshots that rollback selects from."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from repro_torch.core.treeutil import tree_map
 from repro_torch.serving.spec.accept import categorical
 
 __all__ = ["draft_chain"]
@@ -27,13 +29,24 @@ def draft_chain(mod, draft_params, dcache, pending: torch.Tensor, dcfg, *,
     accepts everything would leave the draft cache one entry short of the
     committed stream. The last step's sample is discarded.
 
-    Returns ``(dcache, trajectory, drafts (B, K), draft_logits (B, K, V))``;
-    ``trajectory`` (the drafter's stacked rollback snapshots in the
-    reference) is None: the dense family is pure KV."""
+    Returns ``(dcache, trajectory, drafts (B, K), draft_logits (B, K, V))``.
+    ``trajectory`` stacks the drafter's rollback snapshots
+    (``mod.spec_state_snapshot``), the pre-draft state first, so entry
+    ``j`` is the state after ``j`` steps (copies: ``decode_step`` advances
+    the state in place); None for a pure-KV drafter."""
+    snap0 = mod.spec_state_snapshot(dcache)
+    traj = None
+    if snap0 is not None:
+        traj = tree_map(lambda x: x.new_empty((spec_k + 2,) + x.shape),
+                        snap0)
+        tree_map(lambda d, x: d[0].copy_(x), traj, snap0)
     cur, logits, toks = pending, [], []
-    for _ in range(spec_k + 1):
+    for j in range(spec_k + 1):
         lg, dcache = mod.decode_step(draft_params, dcache, cur, dcfg, **mkw,
                                      **(attn_kw or {}))
+        if traj is not None:
+            tree_map(lambda d, x: d[j + 1].copy_(x), traj,
+                     mod.spec_state_snapshot(dcache))
         lg = lg[:, 0]
         if temperature == 0.0:
             nxt = torch.argmax(lg, dim=-1)
@@ -45,4 +58,4 @@ def draft_chain(mod, draft_params, dcache, pending: torch.Tensor, dcfg, *,
         toks.append(cur[:, 0])
     drafts = torch.stack(toks[:spec_k], dim=1)                   # (B, K)
     draft_logits = torch.stack(logits[:spec_k], dim=1)           # (B, K, V)
-    return dcache, None, drafts, draft_logits
+    return dcache, traj, drafts, draft_logits

@@ -1142,6 +1142,34 @@ def test_fp32_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
     assert err <= 3e-6, err
 
 
+@pytest.mark.parametrize("kernel,m,k,n", [
+    ("qmatvec", 512, 16384, 1024), ("n_lanes", 512, 16384, 1024),
+    ("n_lanes", 2, 16384, 6144), ("k_lanes", 8, 16384, 4096)])
+def test_bf16_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
+    """bf16 x at K = 16384 with an fp32 output: the mma sums are promoted
+    into an fp32 total as for fp32 x, so the output stays within 1e-6 x
+    max|out| of a float64 product, as an fp32 matmul of the same bf16 x
+    does (unpromoted: 2.3e-6 in qmatvec prefill, 1.8e-5 in n_lanes prefill
+    and 2.1e-5 in the K-major k_lanes)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    delta = torch.rand(n, generator=g, device=cuda) * 0.05 + 0.01
+    lv = torch.randint(-4 if kernel == "qmatvec" else -127,
+                       4 if kernel == "qmatvec" else 128, (k, n),
+                       generator=g, device=cuda, dtype=torch.int8)
+    f32 = torch.float32
+    if kernel == "qmatvec":
+        out = qmv_ops.qmatvec(x, pack_matrix(lv, 3), delta, k=k,
+                              out_dtype=f32)
+    else:
+        w = lv if kernel == "n_lanes" else lv.T.contiguous().T
+        assert qmm_k.plan(m, k, n, *w.stride(), x.dtype).layout == kernel
+        out = qmm_ops.qmatmul(x, w, delta, out_dtype=f32)
+    ref = x.double() @ (lv.double() * delta.double())
+    err = float((out.double() - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-6, err
+
+
 def test_mixtral_ring_kernel_path_matches_plain(cuda):
     """A reduced mixtral (window 32) on the card in fp32: two unpadded
     64-token prompts (the windowed prefill, kept and rolled into the
@@ -1196,3 +1224,173 @@ def test_quantize_leaf_chunked_on_card(cuda, shape, block, monkeypatch):
     part = quant_dense._quantize_leaf(leaf, spec, 1)
     assert torch.equal(part[0], q.to(torch.int8).reshape(shape))
     assert torch.equal(part[1], d.reshape(shape[0], 1, 1, shape[-1]))
+
+
+# --- the state-space and hybrid families --------------------------------------------
+
+# every projection (K, N) of mamba2-2.7b (in_proj, out_proj) and of
+# zamba2-1.2b (in_proj, out_proj, the shared block's q/k/v/o, up/gate, down)
+SSM_PROJ = [(2560, 10576), (5120, 2560), (2048, 8384), (4096, 2048),
+            (2048, 2048), (2048, 8192), (8192, 2048)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [8, 2048])
+@pytest.mark.parametrize("k,n", SSM_PROJ)
+def test_ssm_projections(cuda, k, n, m, dtype):
+    """qmatvec at the new families' projections, a tick's M and the
+    largest admission's, through the variant its plan gives for M."""
+    g = _gen(k + n + m)
+    x = torch.randn((m, k), generator=g).to(dtype)
+    w = pack_matrix(torch.randint(-4, 4, (k, n), generator=g,
+                                  dtype=torch.int8), 3)
+    d = torch.rand(n, generator=g) * 0.05
+    ref = qmv_ops.qmatvec(x, w, d, k=k)
+    before = dict(qmv_k.launches_by_variant)
+    got = qmv_ops.qmatvec(*_on(cuda, x, w, d), k=k)
+    want = qmv_k.plan(m, k, n, dtype).variant
+    assert qmv_k.launches_by_variant[want] == before[want] + 1
+    _check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,v", [(2560, 50280), (2048, 32000)])
+def test_ssm_tied_readouts(cuda, d, v, dtype):
+    """The tied readouts of mamba2-2.7b and zamba2-1.2b: the (V, D) int8
+    table read as its transposed view, in qmatmul's k_lanes layout."""
+    g = _gen(d)
+    table = torch.randint(-127, 128, (v, d), generator=g, dtype=torch.int8)
+    h = torch.randn((8, d), generator=g).to(dtype)
+    ref = qmm_ops.qmatmul(h, table.T, 1.0)
+    tc, hc = _on(cuda, table, h)
+    assert qmm_k.plan(8, d, v, *tc.T.stride(), dtype).layout == "k_lanes"
+    _check(qmm_ops.qmatmul(hc, tc.T, 1.0), ref, dtype)
+
+
+def _hybrid_card(d_model=128, vocab=256):
+    from repro_torch.configs import get_config, reduced
+    return reduced(get_config("zamba2-1.2b"), layers=5, d_model=d_model,
+                   vocab=vocab)
+
+
+def test_hybrid_rollback_on_card_matches_cpu(cuda):
+    """``rollback_cache`` of a hybrid cache with a trajectory on CUDA
+    tensors gives the CPU's cache, written into the same tensors: each
+    row's mamba snapshot selected, the wiped K/V zeroed, the lengths
+    rewound (an out-of-range slot dropped)."""
+    from repro_torch.core.treeutil import flatten_with_path, unflatten
+    from repro_torch.models import api
+    cfg = _hybrid_card()
+    cpu = api.init_cache(cfg, 4, 24, torch.float32, per_slot_len=True,
+                         device="cpu")
+    g = _gen(21)
+    flat = flatten_with_path(cpu)
+    for path, t in flat.items():
+        if path == "len":
+            t.copy_(torch.tensor([20, 7, 5, 24], dtype=torch.int32))
+        else:
+            t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+    traj = {name: {k: torch.rand((6,) + tuple(v.shape), generator=g)
+                   for k, v in cpu[name].items()}
+            for name in ("groups", "tail")}
+    card = unflatten({p: t.to(cuda) for p, t in flat.items()})
+    ptrs = {p: t.data_ptr() for p, t in flatten_with_path(card).items()}
+    tcard = unflatten({p: t.to(cuda)
+                       for p, t in flatten_with_path(traj).items()})
+    slots, new = torch.tensor([0, 1, 9, 3]), torch.tensor([15, 4, 1, 22])
+    want = api.rollback_cache(cfg, cpu, slots, new, traj)
+    got = api.rollback_cache(cfg, card, slots.to(cuda), new.to(cuda), tcard)
+    assert want["len"].tolist() == [15, 4, 5, 22]
+    for path, t in flatten_with_path(want).items():
+        assert torch.equal(flatten_with_path(got)[path].cpu(), t), path
+    for path, ptr in ptrs.items():
+        if path != "len":
+            assert flatten_with_path(got)[path].data_ptr() == ptr, path
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b"])
+def test_ssm_kernel_path_matches_plain(cuda, arch):
+    """A small model's qp export, fp32 activations: prefill of right-padded
+    prompts and 4 decode steps through the kernels on the card, against
+    the plain paths on the CPU: logits within 2e-3 x max|logit|."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.core.treeutil import flatten_with_path, unflatten
+    from repro_torch.models import api, get_model
+    cfg = reduced(get_config(arch), layers=5, d_model=128, vocab=256)
+    pol = dataclasses.replace(W3A8, act_bits=None)
+    params = quant_dense.export_container(
+        get_model(cfg).init(_gen(22), cfg), pol)
+    card = unflatten({p: t.to(cuda)
+                      for p, t in flatten_with_path(params).items()})
+    toks = torch.zeros((4, 16), dtype=torch.int32)
+    lens = torch.tensor([3, 16, 9, 1], dtype=torch.int32)
+    for i, n in enumerate(lens.tolist()):
+        toks[i, :n] = torch.arange(n) + 2 + i
+    logits = {}
+    for name, p, dev in (("card", card, cuda), ("cpu", params, "cpu")):
+        kw = dict(policy=pol, dtype=torch.float32)
+        lg, c = api.prefill(p, {"tokens": toks.to(dev)}, cfg, max_len=32,
+                            lengths=lens.to(dev), **kw)
+        steps = [lg.cpu()]
+        for i in range(4):
+            nxt = torch.full((4, 1), 5 + i, dtype=torch.int32, device=dev)
+            lg, c = api.decode_step(p, c, nxt, cfg, **kw)
+            steps.append(lg.cpu())
+        logits[name] = torch.stack(steps)
+    err = float((logits["card"] - logits["cpu"]).abs().max())
+    assert err <= 2e-3 * float(logits["cpu"].abs().max()), err
+
+
+@pytest.mark.parametrize("arch,kv_bits", [("mamba2-2.7b", None),
+                                          ("zamba2-1.2b", None),
+                                          ("zamba2-1.2b", 8)])
+def test_ssm_captured_engine_matches_eager(cuda, arch, kv_bits):
+    """The qp export of a small mamba2 / hybrid served on the card, bf16:
+    the captured engine (one tick capture, one per admission bucket; the
+    tick's warm-ups leave the recurrent state as they found it) serves the
+    tokens of its capture=False twin."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServingEngine
+    cfg = reduced(get_config(arch), layers=5, d_model=256, vocab=256)
+    params = quant_dense.export_container(
+        get_model(cfg).init(_gen(23), cfg), W3A8)
+    outs = []
+    for capture in (True, False):
+        eng = ServingEngine(params, cfg, policy=W3A8, slots=3, max_len=64,
+                            dtype=torch.bfloat16, kv_bits=kv_bits,
+                            capture=capture, device=cuda)
+        outs.append(_card_serve(eng))
+        if capture:
+            assert eng.captures == {"tick": 1,
+                                    "admit": {8: 1, 16: 1, 32: 1}}
+    assert outs[0] == outs[1]
+
+
+def test_hybrid_captured_spec_engine_matches_greedy(cuda):
+    """A small fp32 hybrid served speculatively on the card (its 3-bit
+    export drafting, spec_k = 4; both caches rolled back through their
+    state trajectories inside the captured tick) gives greedy generate's
+    tokens and the eager spec engine's."""
+    from repro_torch.core.precision import FLOAT
+    from repro_torch.models import get_model
+    from repro_torch.serving.engine import ServingEngine, generate
+    cfg = _hybrid_card()
+    master = get_model(cfg).init(_gen(24), cfg)
+    outs = []
+    for capture in (True, False):
+        eng = ServingEngine(master, cfg, policy=FLOAT, slots=3, max_len=64,
+                            dtype=torch.float32, spec_k=4, capture=capture,
+                            device=cuda)
+        outs.append(_card_serve(eng))
+        assert eng.spec_drafted > 0
+    assert outs[0] == outs[1]
+    for i, p in enumerate(CARD_PROMPTS):
+        g = generate(master, [p], cfg, policy=FLOAT, max_new_tokens=9,
+                     dtype=torch.float32, device=cuda).cpu()
+        assert outs[0][i] == ("ok", g[0, len(p):].tolist()), i
