@@ -246,7 +246,31 @@ Phases, each printing one JSON line:
              the flip changes the K/V that the next replayed tick writes
              (layers 1 and up) against a clean engine's; the probe's ms
              beside its bound.
-12. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
+12. train    LM training (run after phase 10 and before 11, while phase
+             11's weights are parked on the host), every step a CUDA graph
+             captured once and replayed, beside its capture=False twin
+             built anew from the same seed: (a) qwen2-1.5b at full width
+             and depth (1.54 B parameters) under W3A8 with frozen
+             fit_deltas_stacked deltas, AdamW, warmup_cosine, clip 1.0,
+             remat layer, bf16 compute over fp32 masters, TRAIN_STEPS
+             steps of lm_batch 8 x 256: losses, gnorm and lr of the twins
+             equal bit for bit, finite, the lr different at every replay,
+             the last 4 losses' average below the first 4's; ms a step
+             captured and eager, tokens/s, peak GB, the share of the (6 +
+             2) x params x tokens bound at 989 TFLOP/s; (b) the 100M config
+             of launch/train_lm_100m.py trained float and W3A8 (deltas
+             refitted every step) for TRAIN_100M_STEPS captured steps each
+             (first and last losses), the W3A8-trained master exported to
+             containers and served by ServingEngine(slots=8, greedy)
+             captured and eager on prompts of the stream: identical tokens,
+             the engine phase's launch gates (qmatvec, the k_lanes
+             readout, attn_decode, attn_prefill), the path check within
+             2e-3 x max|logit|, and the share of served transitions inside
+             the stream's window beside chance (1/16, not gated); (c) one
+             W3A8 step of phi3.5-moe (1 of 32 layers), mamba2-2.7b (32 of
+             64) and zamba2-1.2b (full) at full width: finite, loss and
+             gnorm of the twins equal bit for bit, peak GB.
+13. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path; then one entry for each of
              qmatmul's n_lanes and the fp32 attn_prefill, with their
@@ -3591,6 +3615,344 @@ def resilience_phase(cfg, master, params, device, rehearse):
     return launches, variants
 
 
+# --- phase 12 ---------------------------------------------------------------------
+
+TRAIN_TOKENS = (8, 256)        # batch x seq of every training step on the card
+TRAIN_STEPS = 12               # (a): captured steps, and its eager twin's
+TRAIN_100M_STEPS = 200         # (b): steps of each 100M run
+TRAIN_SERVE = (8, 16, 32)      # (b): requests, prompt tokens, new tokens
+# (c): (arch, layers kept on the card or None for all, the rehearsal's
+# reduced() sizes); a depth cut keeps the step's peak near 60 GB (fp32
+# params, grads and AdamW moments, 16 B a parameter, plus the 12 B a
+# parameter the capture's warm-ups keep): phi3.5-moe 1 of 32 layers (1.56
+# B parameters), mamba2-2.7b 32 of 64 (1.42 B)
+TRAIN_OTHERS = (("phi3.5-moe-42b-a6.6b", 1, {}), ("mamba2-2.7b", 32, {}),
+                ("zamba2-1.2b", None, dict(layers=5)))
+
+
+def _train_batches(vocab, n, device, rehearse, seed=0):
+    """``n`` batches of the LM stream (``lm_batch``, steps 0 .. n - 1) on
+    ``device``."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.data.synthetic import lm_batch
+    b, t = (2, 16) if rehearse else TRAIN_TOKENS
+    return [shard_batch(lm_batch(seed, i, batch=b, seq=t, vocab=vocab),
+                        device) for i in range(n)]
+
+
+def _train_state(cfg, device, seed, policy, tcfg, capture, frozen=True):
+    """A seeded fp32 master on ``device`` and (its train step, its state);
+    under a quantizing policy with ``frozen`` the state holds its
+    ``fit_deltas_stacked`` deltas, else they are refitted every step."""
+    import torch
+    from repro_torch.core import quant_dense
+    from repro_torch.models import get_model
+    from repro_torch.training.loop import make_train_step
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = get_model(cfg).init(gen, cfg, device=device)
+    extra = None
+    if frozen and policy.mode != "float":
+        extra = {"deltas": quant_dense.fit_deltas_stacked(params, policy)}
+    step, init = make_train_step(cfg, tcfg, policy, capture=capture)
+    return step, init(params, extra)
+
+
+def _train_run(step, state, batches, device):
+    """Every batch through ``step``: (state, the per-step metrics as lists,
+    read on the host once at the end, the first call's seconds (on the
+    card: its warm-ups and capture), and the host ms a step over the
+    others, synchronised)."""
+    import torch
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    sync()
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    sync()
+    first = time.perf_counter() - t0
+    out = [m]
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, m = step(state, b)
+        out.append(m)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / max(len(batches) - 1, 1)
+    rows = {k: [float(x[k]) for x in out] for k in out[0]}
+    return state, rows, first, ms
+
+
+def _peak_gb(device):
+    import torch
+    if device.type != "cuda":
+        return None
+    return round(torch.cuda.max_memory_allocated() / 1e9, 2)
+
+
+def _fresh(device):
+    import gc
+
+    import torch
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _n_params(state) -> int:
+    from repro_torch.core.treeutil import flatten_with_path
+    return sum(t.numel() for t in flatten_with_path(state["params"]).values())
+
+
+def _twin_runs(cfg, device, seed, policy, tcfg, batches, frozen=True):
+    """The same steps from the same seeded state, captured and as the
+    capture=False twin (each state built anew and freed after its run)."""
+    runs = {}
+    for name, capture in (("captured", None), ("eager", False)):
+        _fresh(device)
+        step, state = _train_state(cfg, device, seed, policy, tcfg, capture,
+                                   frozen)
+        n = _n_params(state)
+        state, rows, first, ms = _train_run(step, state, batches, device)
+        runs[name] = {"rows": rows, "first_call_s": round(first, 3),
+                      "ms_per_step": round(ms, 3),
+                      "captures": len(step.captures),
+                      "peak_gb": _peak_gb(device), "params": n}
+        del step, state
+    _fresh(device)
+    return runs
+
+
+def _twin_train_gate(runs, what, device, keys=("loss",)):
+    """Finite losses; the captured steps give the eager twin's ``keys``
+    bit for bit (the step is deterministic: no atomics, the same kernels
+    in the same order); on the card the captured run captured once."""
+    import math
+    a, b = runs["captured"]["rows"], runs["eager"]["rows"]
+    if not all(math.isfinite(x) for x in a["loss"] + b["loss"]):
+        fail(f"{what}: non-finite training loss: {a['loss']} / {b['loss']}")
+    for k in keys:
+        if a[k] != b[k]:
+            d = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a[k], b[k]))
+            fail(f"{what}: captured {k} differs from the eager twin's (max "
+                 f"relative difference {d}): {a[k]} vs {b[k]}")
+    want = 1 if device.type == "cuda" else 0
+    if runs["captured"]["captures"] != want or runs["eager"]["captures"]:
+        fail(f"{what}: captures {runs['captured']['captures']} / "
+             f"{runs['eager']['captures']}, want {want} / 0")
+
+
+def _train_full(device, seed, rehearse):
+    """(a) qwen2-1.5b at full width and depth under W3A8 with frozen
+    per-layer deltas: TRAIN_STEPS steps captured and as the eager twin."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.core.precision import W3A8
+    cfg = get_config("qwen2-1.5b")
+    if rehearse:
+        cfg = reduced(cfg)
+    steps = 4 if rehearse else TRAIN_STEPS
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=steps,
+                       grad_clip=1.0, optimizer="adamw", remat="layer")
+    batches = _train_batches(cfg.vocab_size, steps, device, rehearse)
+    runs = _twin_runs(cfg, device, seed, W3A8, tcfg, batches)
+    what = f"train {cfg.name}"
+    _twin_train_gate(runs, what, device, keys=("loss", "gnorm", "lr"))
+    cap, rows = runs["captured"], runs["captured"]["rows"]
+    loss = rows["loss"]
+    if len(set(rows["lr"])) != steps:
+        fail(f"{what}: the lr did not change at every replayed step: "
+             f"{rows['lr']}")
+    first4, last4 = sum(loss[:4]) / 4, sum(loss[-4:]) / 4
+    if not rehearse and not last4 < first4:
+        fail(f"{what}: the loss did not fall: first 4 average {first4}, last "
+             f"4 {last4}")
+    b, t = batches[0]["tokens"].shape
+    tokens = b * t
+    # 6 N per token is the step's own work; remat's recomputed forward
+    # (+ 2 N) is this implementation's choice, so it is reported beside
+    # the bound and not in it
+    bound = 6 * cap["params"] * tokens / PEAK_OPS["bfloat16"] * 1e3
+    bound_remat = bound * (6 + 2) / 6
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "params": cap["params"], "cut": "none" if not rehearse
+            else "CPU rehearsal: reduced()",
+            "policy": "W3A8, frozen fit_deltas_stacked deltas (act 8-bit)",
+            "compute": "bf16 over fp32 masters", "remat": "layer",
+            "optimizer": "AdamW, warmup_cosine 3e-4 (2 warm-up steps), "
+                         "clip 1.0", "batch": [b, t], "steps": steps,
+            "loss": loss, "eager_loss": runs["eager"]["rows"]["loss"],
+            "gnorm": rows["gnorm"], "lr": rows["lr"],
+            "loss_first4_avg": first4, "loss_last4_avg": last4,
+            "captured_eager_identical": ["loss", "gnorm", "lr"],
+            "ms_per_step": cap["ms_per_step"],
+            "eager_ms_per_step": runs["eager"]["ms_per_step"],
+            "first_call_s": cap["first_call_s"],
+            "tokens_per_s": round(tokens / cap["ms_per_step"] * 1e3, 1),
+            "bound_ms": round(bound, 3),
+            "bound": "6 x params x tokens at 989 TFLOP/s (bf16)",
+            "share_of_bound": round(bound / cap["ms_per_step"], 4),
+            "bound_with_remat_ms": round(bound_remat, 3),
+            "share_of_bound_with_remat": round(bound_remat
+                                               / cap["ms_per_step"], 4),
+            "peak_gb": cap["peak_gb"],
+            "eager_peak_gb": runs["eager"]["peak_gb"]}
+
+
+def _in_window(prompts, done, vocab):
+    """The share of served transitions (last prompt token -> first new
+    token, then new -> new) that fall inside the LM stream's window:
+    (next - 31 x - 17) % vocab < max(vocab // 16, 2)."""
+    inside = total = 0
+    window = max(vocab // 16, 2)
+    for p, r in zip(prompts, done):
+        seq = [p[-1]] + list(r.out)
+        for x, y in zip(seq, seq[1:]):
+            inside += (y - 31 * x - 17) % vocab < window
+            total += 1
+    return inside / max(total, 1)
+
+
+def _train_100m(device, seed, rehearse):
+    """(b) the 100M config trained float and W3A8 (deltas refitted each
+    step, as ``launch/train_lm_100m.py``), then the W3A8-trained master
+    exported to containers and served, captured and as its eager twin,
+    with the engine phase's launch gates and the path check."""
+    import math
+
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.train_lm_100m import make_100m_cfg, train_config
+    from repro_torch.serving.engine import ServingEngine
+    cfg = make_100m_cfg()
+    if rehearse:
+        cfg = reduced(cfg)
+    steps = 20 if rehearse else TRAIN_100M_STEPS
+    batches = _train_batches(cfg.vocab_size, steps, device, rehearse)
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "steps": steps,
+           "optimizer": "AdamW, warmup_cosine 3e-4 (20 warm-up steps), "
+                        "clip 1.0", "remat": "layer",
+           "batch": list(batches[0]["tokens"].shape), "runs": {}}
+    master = None
+    for name, policy in (("float", FLOAT), ("w3a8", W3A8)):
+        _fresh(device)
+        step, state = _train_state(cfg, device, seed, policy,
+                                   train_config(steps), None, frozen=False)
+        state, rows, first, ms = _train_run(step, state, batches, device)
+        loss = rows["loss"]
+        if not all(math.isfinite(x) for x in loss):
+            fail(f"train {cfg.name} {name}: non-finite loss {loss}")
+        rec["runs"][name] = {
+            "loss_first": loss[0], "loss_last": loss[-1],
+            "loss_first10_avg": sum(loss[:10]) / len(loss[:10]),
+            "loss_last10_avg": sum(loss[-10:]) / len(loss[-10:]),
+            "ms_per_step": round(ms, 3), "first_call_s": round(first, 3),
+            "captures": len(step.captures), "peak_gb": _peak_gb(device)}
+        if name == "w3a8":
+            master = state["params"]
+        del step, state
+    _fresh(device)
+    params = quant_dense.export_container(master, W3A8)
+    del master
+    n_req, plen, new = TRAIN_SERVE
+    reqs = [lm_batch(seed + 1, i, batch=1, seq=plen,
+                     vocab=cfg.vocab_size)["tokens"][0].tolist()
+            for i in range(n_req)]
+    what = f"train {cfg.name} serve"
+
+    def make(capture):
+        return ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
+                             dtype=torch.bfloat16, capture=capture,
+                             device=device)
+    engines = {"captured": _warmed(make(None), reqs),
+               "eager": _warmed(make(False), reqs)}
+    runs = {name: _serve(eng, reqs, device, max_new=new)
+            for name, eng in engines.items()}
+    run = runs["captured"]
+    done = run["done"]
+    if len(done) != n_req or any(len(r.out) != new for r in done):
+        fail(f"{what}: not every request got its {new} tokens")
+    _twin_gate(runs, what)
+    if not rehearse:
+        for name, eng in engines.items():
+            _engine_launch_gate(eng, cfg, runs[name], f"{what} {name}")
+    del engines
+    rec["serve"] = {
+        "engine": "ServingEngine(slots=8, max_len=512, bf16, greedy), "
+                  "W3A8 qp export of the W3A8-trained master",
+        "requests": f"{n_req} x {new} new tokens after {plen}-token prompts "
+                    f"of the stream", **_run_line(run),
+        "eager_twin": _run_line(runs["eager"]),
+        "captured_eager_token_identical": True,
+        "launches": run["launches"], "launches_by_variant": run["variants"],
+        "plain_calls": run["plain"],
+        "in_window_share": _in_window(reqs, done, cfg.vocab_size),
+        "chance": 1 / 16}
+    rec["serve"]["path"] = _path_check(cfg, params, device)
+    del params
+    _fresh(device)
+    return rec, run["launches"], run["variants"]
+
+
+def _train_families(device, seed, rehearse):
+    """(c) one W3A8 step (frozen deltas) of each model of TRAIN_OTHERS at
+    full width, captured and as its eager twin."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.core.precision import W3A8
+    out = []
+    for arch, layers, small in TRAIN_OTHERS:
+        cfg = get_config(arch)
+        full = cfg.num_layers
+        if rehearse:
+            cfg = reduced(cfg, **small)
+        elif layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=TRAIN_STEPS, grad_clip=1.0,
+                           optimizer="adamw", remat="layer")
+        batches = _train_batches(cfg.vocab_size, 1, device, rehearse)
+        runs = _twin_runs(cfg, device, seed, W3A8, tcfg, batches)
+        _twin_train_gate(runs, f"train {arch}", device,
+                         keys=("loss", "gnorm"))
+        cap = runs["captured"]
+        cut = (f"depth {cfg.num_layers} of {full}; widths as published"
+               if cfg.num_layers < full else "none")
+        out.append({"arch": arch, "family": cfg.family,
+                    "layers": cfg.num_layers, "full_layers": full,
+                    "cut": f"CPU rehearsal: reduced({small})" if rehearse
+                    else cut, "params": cap["params"],
+                    "loss": cap["rows"]["loss"][0],
+                    "gnorm": cap["rows"]["gnorm"][0],
+                    "aux": cap["rows"]["aux"][0],
+                    "captured_eager_identical": ["loss", "gnorm"],
+                    "first_call_s": cap["first_call_s"],
+                    "eager_first_call_s": runs["eager"]["first_call_s"],
+                    "peak_gb": cap["peak_gb"]})
+    return out
+
+
+def train_phase(device, seed, rehearse):
+    """LM training on the card: (a) qwen2-1.5b full size, (b) the 100M
+    config trained and its W3A8 export served, (c) the MoE, SSM and hybrid
+    families' step. Returns (b)'s captured serve's launches and
+    variants."""
+    t0 = time.perf_counter()
+    rec = {"phase": "train", "tokens_per_step": list(TRAIN_TOKENS)}
+    rec["full"] = _train_full(device, seed, rehearse)
+    rec["lm_100m"], launches, variants = _train_100m(device, seed, rehearse)
+    rec["families"] = _train_families(device, seed, rehearse)
+    rec["seconds"] = round(time.perf_counter() - t0, 1)
+    emit(rec)
+    return launches, variants
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3639,6 +4001,8 @@ def main(argv=None) -> int:
                                                  args.rehearse)
     moe_launches, moe_variants = moe_phase(device, args.seed, args.rehearse)
     ssm_launches, ssm_variants = ssm_phase(device, args.seed, args.rehearse)
+    train_launches, train_variants = train_phase(device, args.seed,
+                                                 args.rehearse)
     master, params = _on(master, device), _on(params, device)
     res_launches, res_variants = resilience_phase(cfg, master, params,
                                                   device, args.rehearse)
@@ -3656,6 +4020,7 @@ def main(argv=None) -> int:
                        dense=dense_launches[name],
                        moe=moe_launches[name],
                        ssm=ssm_launches[name],
+                       train=train_launches[name],
                        resilience=res_launches[name])
         entry = {
             "name": name, "route": "cuda", "source": src,
@@ -3679,6 +4044,7 @@ def main(argv=None) -> int:
                                      "dense": dense_variants[name],
                                      "moe": moe_variants[name],
                                      "ssm": ssm_variants[name],
+                                     "train": train_variants[name],
                                      "resilience": res_variants[name]})
         kernels.append(entry)
     # the redesigned routes: their headline case, their launches on the

@@ -1,5 +1,5 @@
-"""Bridge a JAX parameter or cache tree, given as numpy arrays, into the
-port's tree under the same paths on a given device.
+"""Bridge a JAX parameter, cache or training-state tree, given as numpy
+arrays, into the port's tree under the same paths on a given device.
 
 The port cannot reproduce ``jax.random`` init, so parity tests build their
 parameters with the JAX package, hand them over as numpy
@@ -9,6 +9,11 @@ which torch cannot read) go through a ``uint16`` view and come back as
 ``torch.bfloat16`` with the same bits. A JAX container export's untied
 8-bit head is stored K-contiguous once, as the port's own export stores it
 (``quant_dense.k_major_head``); its values and shape are unchanged.
+
+A whole JAX ``TrainState`` (``jax.device_get`` of it) comes across as the
+port's ``training.loop.TrainState``: the params, AdamW's ``m`` / ``v`` and
+int32 ``count`` (or SGD's ``mu``), the int32 ``step`` and the frozen
+``deltas``, whose None leaves stay None.
 """
 from __future__ import annotations
 

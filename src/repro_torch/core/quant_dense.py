@@ -18,7 +18,9 @@ stores them K-contiguous, a ``.T`` view of an (N, K) tensor
 (:func:`k_major_head`), as the tied readout's table already is: ``qmatmul``
 then reads it in its ``k_lanes`` layout;
 ``fit_deltas`` / ``export_packed`` / ``packed_apply`` are the paper MLP's
-per-tensor quantization step and its packed deployment check.
+per-tensor quantization step and its packed deployment check;
+``fit_deltas_stacked`` is that step applied layer by layer to a stacked LM
+tree, the frozen deltas of W3A8 training.
 
 Serve-form matmuls dispatch on ``mode``:
 
@@ -48,8 +50,9 @@ from repro_torch.kernels.qmatvec.ref import qmatvec_ref
 
 __all__ = ["init", "apply", "serve_apply", "tied_logits",
            "resolve_matmul_mode", "MATMUL_MODES", "effective_weight",
-           "fit_deltas", "export_levels", "export_container", "export_packed",
-           "packed_apply", "is_serve_form", "k_major_head"]
+           "fit_deltas", "fit_deltas_stacked", "export_levels",
+           "export_container", "export_packed", "packed_apply",
+           "is_serve_form", "k_major_head"]
 
 MATMUL_MODES = ("auto", "kernel", "dequant")
 
@@ -220,6 +223,32 @@ def fit_deltas(params: Any, policy: QuantPolicy) -> Any:
         if spec is None:
             return None
         return qz.optimal_uniform_delta(leaf, spec)
+
+    with torch.no_grad():
+        return map_with_path(fit, params)
+
+
+def fit_deltas_stacked(params: Any, policy: QuantPolicy) -> Any:
+    """Per-layer per-tensor deltas for stacked LM trees: a leaf (L, ..., N)
+    gets delta (L,) (or (G, A) for hybrid groups) — one step size per layer
+    per tensor, the paper's rule applied layerwise; unstacked leaves get a
+    0-d delta, other leaves None. A per-tensor fit runs every layer's rows
+    at once."""
+    def fit(path, leaf):
+        spec = _leaf_spec(path, policy)
+        if spec is None:
+            return None
+        nd = _stacked_dims(path)
+        if nd == 0:
+            return qz.optimal_uniform_delta(leaf, spec)
+        flat = leaf.reshape((-1,) + tuple(leaf.shape[nd:]))
+        if spec.per_channel is None:
+            ds = qz._optimal_delta_rows(flat.reshape(flat.shape[0], -1),
+                                        spec.levels, spec.iters)
+        else:
+            ds = torch.stack([qz.optimal_uniform_delta(w, spec)
+                              for w in flat])
+        return ds.reshape(tuple(leaf.shape[:nd]) + tuple(ds.shape[1:]))
 
     with torch.no_grad():
         return map_with_path(fit, params)

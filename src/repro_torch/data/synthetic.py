@@ -1,20 +1,51 @@
-"""Deterministic synthetic classification sets with the paper's dims
-(784 -> 10 digit, 429 -> 61 phoneme), standing in for MNIST/TIMIT.
+"""Deterministic synthetic datasets — port of the reference's
+``data/synthetic.py``.
 
-Port of the classification half of the reference's ``data/synthetic.py``.
-The numpy generation is a verbatim copy, so the ``train``/``test`` arrays
-and the ``batches`` order are bit-identical to the reference's; ``batches``
-yields torch tensors on the device the caller names (the split is moved
-there once per call and each batch is gathered there).
+LM stream (``lm_batch``): Markov-ish token sequences with local structure
+so the loss has real signal, ``x[t+1] = (31 x[t] + 17 + n) % vocab`` with
+noise ``n < max(vocab // 16, 2)``. A pure function of ``(seed, step)``
+through an explicit ``torch.Generator``, so any batch can be regenerated
+anywhere and the input pipeline restarts from a step counter alone. Its
+stream is not ``jax.random``'s (the two generators differ), so parity
+tests feed both packages the same numpy batches.
+
+Classification (digit 784 -> 10, phoneme 429 -> 61), standing in for
+MNIST/TIMIT: the numpy generation is a verbatim copy, so the
+``train``/``test`` arrays and the ``batches`` order are bit-identical to
+the reference's; ``batches`` yields torch tensors on the device the caller
+names (the split is moved there once per call and each batch is gathered
+there).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["ClassificationTask", "digit_task", "phoneme_task"]
+__all__ = ["lm_batch", "ClassificationTask", "digit_task", "phoneme_task"]
+
+
+# --- LM stream -----------------------------------------------------------------
+
+def lm_batch(seed: int, step: int, *, batch: int, seq: int,
+             vocab: int) -> Dict[str, torch.Tensor]:
+    """(B, S) int32 ``tokens`` and their next tokens ``labels`` on the host:
+    ``x0`` uniform over the vocabulary, then ``x[t+1] = (31 x[t] + 17 +
+    n[t]) % vocab``; ``labels`` is the stream shifted by one."""
+    # the generator keeps 32 bits of its seed: mix (seed, step) into them
+    mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(1)
+    gen = torch.Generator().manual_seed(int(mixed[0]))
+    x0 = torch.randint(0, vocab, (batch,), generator=gen)
+    noise = torch.randint(0, max(vocab // 16, 2), (batch, seq),
+                          generator=gen)
+    xs = torch.empty((batch, seq + 1), dtype=torch.int64)
+    xs[:, 0] = x0
+    for t in range(seq):
+        xs[:, t + 1] = (xs[:, t] * 31 + 17 + noise[:, t]) % vocab
+    xs = xs.to(torch.int32)
+    return {"tokens": xs[:, :-1].contiguous(),
+            "labels": xs[:, 1:].contiguous()}
 
 
 class ClassificationTask:

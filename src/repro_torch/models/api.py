@@ -3,6 +3,7 @@
 ``transformer``; ssm: ``mamba2``; hybrid: ``hybrid``).
 
     init(gen, cfg, dtype, device)                        -> params
+    forward(params, batch, cfg, *, policy, deltas, ...)  -> (logits, aux)
     prefill(params, batch, cfg, *, policy, ...)          -> (logits, cache)
     decode_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache)
     verify_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache, traj)

@@ -1,6 +1,6 @@
 """Zamba2-style hybrid: a Mamba2 backbone plus ONE shared attention block
 applied every ``attn_every`` layers (arXiv:2411.15242) — port of the
-reference's ``models/hybrid.py`` serve path.
+reference's ``models/hybrid.py``.
 
 Layout: ``num_layers = n_groups * attn_every + n_tail``. A group is
 ``attn_every`` mamba blocks followed by the shared transformer block (the
@@ -24,8 +24,9 @@ runs the transformer's own layer functions, whose K/V writes land in
 Speculative decoding: ``verify_step`` advances the mamba blocks by the
 exact per-token decode recurrence and returns the (T + 1)-snapshot
 trajectory of their states; ``rollback_cache`` rewinds the KV by length
-and restores each row's mamba state from its snapshot. Not ported yet: the
-training ``forward``.
+and restores each row's mamba state from its snapshot. ``forward`` is the
+training pass (``deltas`` threaded to the groups, the tail and the shared
+block).
 """
 from __future__ import annotations
 
@@ -42,12 +43,13 @@ from repro_torch.core.treeutil import flatten_with_path, tree_map
 from repro_torch.models import mamba2, transformer
 from repro_torch.models.attention import (decode_attention,
                                           resolve_attn_mode, verify_attention)
-from repro_torch.models.layers import (embed_init, embed_lookup, rmsnorm,
-                                       rmsnorm_init, rope_freqs)
+from repro_torch.models.layers import (dget, embed_init, embed_lookup,
+                                       rmsnorm, rmsnorm_init, rope_freqs)
 
-__all__ = ["init", "init_cache", "cache_len_for", "prefill", "decode_step",
-           "verify_step", "spec_state_snapshot", "rollback_cache",
-           "insert_prefill", "insert_prefill_many", "free_slots"]
+__all__ = ["init", "forward", "init_cache", "cache_len_for", "prefill",
+           "decode_step", "verify_step", "spec_state_snapshot",
+           "rollback_cache", "insert_prefill", "insert_prefill_many",
+           "free_slots"]
 
 _STATE = ("groups", "tail")         # the subtrees holding mamba states
 
@@ -106,6 +108,47 @@ def _state_of(cache, g, a):
     """The {"ssm", "conv"} views of block (g, a) (g None: the tail's a)."""
     return (_at(cache["groups"], g, a) if g is not None
             else _at(cache["tail"], a))
+
+
+# --- full forward (train) ----------------------------------------------------------
+
+def forward(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
+            deltas: Optional[Dict] = None, dtype=torch.bfloat16,
+            remat: str = "layer", attn_chunk: int = 1024,
+            chunk: int = mamba2.DEFAULT_CHUNK, matmul_mode: str = "auto"):
+    """Training / eval forward: (logits (B, S, V) fp32, aux 0 fp32). Each
+    group runs its mamba blocks (each checkpointed unless ``remat`` is
+    'none', as the reference's ``_mamba_scan``) and then the shared block,
+    the same weights at every application; then the tail's blocks."""
+    n_groups, n_tail = _counts(cfg)
+    h = embed_lookup(params["embed"], batch["tokens"], policy=policy,
+                     delta=dget(deltas, "embed", "w"), dtype=dtype)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, h.device)
+
+    def block(lp, ld, hh):
+        return mamba2.block_apply(lp, hh, cfg, policy=policy, deltas=ld,
+                                  chunk=chunk, matmul_mode=matmul_mode)
+
+    block = transformer.remat_layer(block, remat)
+
+    def blocks(stack, dstack, n, hh):
+        for lp, ld in zip(transformer.unstack(stack, n),
+                          transformer.unstack(dstack, n)):
+            hh = block(lp, ld, hh)
+        return hh
+
+    for gp, gd in zip(transformer.unstack(params["groups"], n_groups),
+                      transformer.unstack(dget(deltas, "groups"), n_groups)):
+        h = blocks(gp, gd, cfg.attn_every, h)
+        h, _, _ = transformer._layer_forward(
+            params["shared"], dget(deltas, "shared"), h, cfg, policy,
+            positions, inv_freq, attn_chunk, matmul_mode)
+    if n_tail:
+        h = blocks(params["tail"], dget(deltas, "tail"), n_tail, h)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return (transformer._logits(params, h, cfg, policy, matmul_mode, deltas),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 # --- serving: cache, prefill, decode ---------------------------------------------
@@ -173,9 +216,9 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
         for k, v in st.items():
             sub.setdefault(k, []).append(v)
         if g is not None and a == cfg.attn_every - 1:
-            h, k, v = transformer._prefill_layer(
-                params["shared"], h, cfg, policy, positions, inv_freq,
-                lengths, attn_chunk, matmul_mode, attn_mode)
+            h, _, (k, v) = transformer._layer_forward(
+                params["shared"], None, h, cfg, policy, positions, inv_freq,
+                attn_chunk, matmul_mode, attn_mode, lengths)
             ks.append(k)
             vs.append(v)
     n_groups, _ = _counts(cfg)

@@ -2,12 +2,15 @@
 
 Port of the reference's ``models/layers.py``. Every weight matmul routes
 through ``quant_dense.apply`` so the W3A8 policy applies uniformly; norms
-and biases stay fp32. The reference's sharding constraint on the logits is
-dropped: one card has nothing to constrain.
+and biases stay fp32. ``deltas`` / ``delta`` (default None) are frozen
+step sizes for a float master under a quantizing policy
+(``quant_dense.fit_deltas_stacked``, one layer's slice of them here); None
+refits each weight's delta in every forward. The reference's sharding
+constraint on the logits is dropped: one card has nothing to constrain.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -17,7 +20,7 @@ from repro_torch.core.precision import QuantPolicy
 
 __all__ = ["rmsnorm_init", "rmsnorm", "head_rmsnorm", "rope_freqs",
            "apply_rope", "mlp_init", "mlp_apply", "embed_init", "embed_lookup",
-           "embed_logits", "logits_readout", "act_fn"]
+           "embed_logits", "logits_readout", "act_fn", "dget"]
 
 
 # --- norms --------------------------------------------------------------------
@@ -82,21 +85,33 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, act: str = "silu",
     return p
 
 
+def dget(deltas, *names):
+    """``deltas[names[0]][names[1]]...``, or None where the path stops."""
+    node = deltas
+    for n in names:
+        if node is None:
+            return None
+        node = node.get(n)
+    return node
+
+
 def mlp_apply(params: Dict[str, Any], x: torch.Tensor, *, act: str,
-              policy: QuantPolicy, matmul_mode: str = "auto") -> torch.Tensor:
+              policy: QuantPolicy, deltas: Optional[Dict] = None,
+              matmul_mode: str = "auto") -> torch.Tensor:
     fn = act_fn(act)
-    up = quant_dense.apply(params["up"], x, policy=policy, role="hidden",
-                           mode=matmul_mode)
+
+    def proj(name, h):
+        return quant_dense.apply(params[name], h, policy=policy,
+                                 role="hidden", delta=dget(deltas, name, "w"),
+                                 mode=matmul_mode)
+    up = proj("up", x)
     if "gate" in params:
-        gate = quant_dense.apply(params["gate"], x, policy=policy,
-                                 role="hidden", mode=matmul_mode)
-        h = fn(gate) * up
+        h = fn(proj("gate", x)) * up
     else:
         h = fn(up)
     if policy.act_bits:
         h = qat.fake_quant_act(h, policy.act_bits)
-    return quant_dense.apply(params["down"], h, policy=policy, role="hidden",
-                             mode=matmul_mode)
+    return proj("down", h)
 
 
 # --- embeddings -----------------------------------------------------------------
@@ -109,32 +124,37 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def embed_lookup(params: Dict[str, Any], tokens: torch.Tensor, *,
-                 policy: QuantPolicy, dtype=torch.bfloat16) -> torch.Tensor:
+                 policy: QuantPolicy, delta=None,
+                 dtype=torch.bfloat16) -> torch.Tensor:
     if "q" in params:          # serve form: gather int8 rows, dequantize in fp32
         rows = params["q"][tokens].to(torch.float32) * params["delta"]
         return rows.to(dtype)
-    w = quant_dense.effective_weight(params, policy, "embed")
+    w = quant_dense.effective_weight(params, policy, "embed", delta)
     return w.to(dtype)[tokens]
 
 
 def embed_logits(params: Dict[str, Any], h: torch.Tensor, *,
-                 policy: QuantPolicy, matmul_mode: str = "auto") -> torch.Tensor:
-    """Tied-embedding readout h @ E^T. Serve-form tables go through
-    ``quant_dense.tied_logits`` (the int8 table is never dequantized)."""
+                 policy: QuantPolicy, delta=None,
+                 matmul_mode: str = "auto") -> torch.Tensor:
+    """Tied-embedding readout h @ E^T (role 'output', 8-bit under W3A8).
+    Serve-form tables go through ``quant_dense.tied_logits`` (the int8
+    table is never dequantized)."""
     if "q" in params:
         return quant_dense.tied_logits(params, h, mode=matmul_mode)
-    w = quant_dense.effective_weight(params, policy, "output")
+    w = quant_dense.effective_weight(params, policy, "output", delta)
     return h @ w.to(h.dtype).T
 
 
 def logits_readout(params: Dict[str, Any], h: torch.Tensor, cfg, *,
-                   policy: QuantPolicy, matmul_mode: str = "auto") -> torch.Tensor:
+                   policy: QuantPolicy, embed_delta=None, head_delta=None,
+                   matmul_mode: str = "auto") -> torch.Tensor:
     """Final LM readout: tied embedding or a separate head per
     ``cfg.tie_embeddings``; fp32 logits."""
     if cfg.tie_embeddings:
         out = embed_logits(params["embed"], h, policy=policy,
-                           matmul_mode=matmul_mode)
+                           delta=embed_delta, matmul_mode=matmul_mode)
     else:
         out = quant_dense.apply(params["head"], h, policy=policy,
-                                role="output", mode=matmul_mode)
+                                role="output", delta=head_delta,
+                                mode=matmul_mode)
     return out.to(torch.float32)

@@ -1,5 +1,5 @@
 """Mamba2 (SSD — state-space duality, arXiv:2405.21060) backbone — port of
-the reference's ``models/mamba2.py`` serve path.
+the reference's ``models/mamba2.py``.
 
 Prefill runs the chunked SSD algorithm: within a chunk the recurrence is
 an attention-like masked matmul (quadratic in the chunk length only);
@@ -21,8 +21,9 @@ captured graph reads the same tensors on every replay.
 
 Speculative decoding is refused (``verify_step``, ``spec_state_snapshot``,
 ``rollback_cache`` raise ``ValueError``, as in the reference): the SSD state
-folds every token into one fixed-size state. Not ported yet: the training
-``forward``.
+folds every token into one fixed-size state. ``forward`` is the training
+pass, each block checkpointed under ``remat``, ``deltas`` threaded to every
+projection.
 """
 from __future__ import annotations
 
@@ -35,14 +36,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
-from repro_torch.models.layers import (embed_init, embed_lookup, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (dget, embed_init, embed_lookup,
+                                       rmsnorm, rmsnorm_init)
 from repro_torch.models.transformer import (_last_hidden, _layer, _logits,
-                                            _slot_index, _stack_into)
+                                            _slot_index, _stack_into,
+                                            remat_layer, unstack)
 
-__all__ = ["init", "init_state", "cache_len_for", "prefill", "decode_step",
-           "verify_step", "rollback_cache", "spec_state_snapshot",
-           "insert_prefill", "insert_prefill_many", "free_slots",
+__all__ = ["init", "forward", "init_state", "cache_len_for", "prefill",
+           "decode_step", "verify_step", "rollback_cache",
+           "spec_state_snapshot", "insert_prefill", "insert_prefill_many",
+           "free_slots",
            "block_init", "block_apply", "block_state", "block_decode",
            "DEFAULT_CHUNK"]
 
@@ -107,9 +110,9 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 # --- projections ------------------------------------------------------------------
 
-def _proj(lp, name: str, x, policy, mm: str):
+def _proj(lp, name: str, x, policy, mm: str, ld=None):
     return quant_dense.apply(lp[name], x, policy=policy, role="hidden",
-                             mode=mm)
+                             delta=dget(ld, name, "w"), mode=mm)
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
@@ -140,16 +143,17 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _in_conv(lp, hn, cfg: ModelConfig, policy, mm: str, conv_state=None):
+def _in_conv(lp, hn, cfg: ModelConfig, policy, mm: str, conv_state=None,
+             ld=None):
     """The block's projections and causal conv: (z, x, B, C, dt, xbc_pre,
     new conv state). ``xbc_pre`` is the conv input (x | B | C) before the
     conv, whose trailing window is the decode conv state."""
     di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
     if cfg.ssm_split_proj:
-        z = _proj(lp, "wz", hn, policy, mm)
-        x0 = _proj(lp, "wx", hn, policy, mm)
-        bc0 = _proj(lp, "wbc", hn, policy, mm)
-        dt = _proj(lp, "wdt", hn, policy, mm)
+        z = _proj(lp, "wz", hn, policy, mm, ld)
+        x0 = _proj(lp, "wx", hn, policy, mm, ld)
+        bc0 = _proj(lp, "wbc", hn, policy, mm, ld)
+        dt = _proj(lp, "wdt", hn, policy, mm, ld)
         cs_x = cs_bc = None
         if conv_state is not None:
             cs_x, cs_bc = torch.split(conv_state, [di, 2 * gn], dim=-1)
@@ -159,7 +163,8 @@ def _in_conv(lp, hn, cfg: ModelConfig, policy, mm: str, conv_state=None):
         b_mat, c_mat = torch.split(bc, [gn, gn], dim=-1)
         xbc_pre = torch.cat([x0, bc0], dim=-1)
     else:
-        z, x, bc, dt = _split_proj(_proj(lp, "in_proj", hn, policy, mm), cfg)
+        z, x, bc, dt = _split_proj(_proj(lp, "in_proj", hn, policy, mm, ld),
+                                   cfg)
         xbc_pre = torch.cat([x, bc], dim=-1)
         xbc, new_conv = _causal_conv(xbc_pre, lp["conv_w"], lp["conv_b"],
                                      conv_state)
@@ -167,11 +172,11 @@ def _in_conv(lp, hn, cfg: ModelConfig, policy, mm: str, conv_state=None):
     return z, x, b_mat, c_mat, dt, xbc_pre, new_conv
 
 
-def _gate_out(lp, y, z, h_in, cfg: ModelConfig, policy, mm: str):
+def _gate_out(lp, y, z, h_in, cfg: ModelConfig, policy, mm: str, ld=None):
     """y (B, L, di) in the activation dtype -> h_in + out_proj(gated
     rmsnorm)."""
     y = rmsnorm(lp["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return h_in + _proj(lp, "out_proj", y, policy, mm)
+    return h_in + _proj(lp, "out_proj", y, policy, mm, ld)
 
 
 # --- chunked SSD core ---------------------------------------------------------------
@@ -241,11 +246,12 @@ def _ssd_chunked(x, b_mat, c_mat, dt, a_log, chunk: int, bf16: bool = False):
 
 
 def block_apply(lp, h_in: torch.Tensor, cfg: ModelConfig, *,
-                policy: QuantPolicy, chunk: int = DEFAULT_CHUNK,
-                return_state: bool = False,
+                policy: QuantPolicy, deltas: Optional[Dict] = None,
+                chunk: int = DEFAULT_CHUNK, return_state: bool = False,
                 lengths: Optional[torch.Tensor] = None,
                 matmul_mode: str = "auto"):
-    """A whole Mamba2 block over a sequence (pre-norm residual).
+    """A whole Mamba2 block over a sequence (pre-norm residual);
+    ``deltas`` the block's frozen step sizes or None.
 
     With ``return_state`` returns (out, {"ssm", "conv"}): the exact decode
     state after the sequence. ``lengths`` (B,) marks right-padded rows: dt
@@ -256,7 +262,7 @@ def block_apply(lp, h_in: torch.Tensor, cfg: ModelConfig, *,
     bsz, ln, _ = h_in.shape
     hn = rmsnorm(lp["norm"], h_in, cfg.norm_eps)
     z, x, b_mat, c_mat, dt, xbc_pre, _ = _in_conv(lp, hn, cfg, policy,
-                                                  matmul_mode)
+                                                  matmul_mode, ld=deltas)
     hh, hp = cfg.ssm_heads, cfg.ssm_headdim
     x = x.reshape(bsz, ln, hh, hp)
     b_mat = b_mat.reshape(bsz, ln, cfg.ssm_ngroups, cfg.ssm_state)
@@ -271,7 +277,7 @@ def block_apply(lp, h_in: torch.Tensor, cfg: ModelConfig, *,
                               bf16=cfg.ssm_bf16)
     y = y + x.to(torch.float32) * lp["ssm_d"][:, None]           # D skip
     y = y.reshape(bsz, ln, cfg.d_inner).to(h_in.dtype)
-    out = _gate_out(lp, y, z, h_in, cfg, policy, matmul_mode)
+    out = _gate_out(lp, y, z, h_in, cfg, policy, matmul_mode, deltas)
     if not return_state:
         return out
     wlen = cfg.ssm_conv
@@ -327,6 +333,30 @@ def block_decode(lp, h_in: torch.Tensor, state: Dict, cfg: ModelConfig, *,
 
 
 # --- whole-model wrappers ---------------------------------------------------------------
+
+def forward(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
+            deltas: Optional[Dict] = None, dtype=torch.bfloat16,
+            remat: str = "layer", attn_chunk: int = 0,
+            chunk: int = DEFAULT_CHUNK, matmul_mode: str = "auto"):
+    """Training / eval forward: (logits (B, S, V) fp32, aux 0 fp32 — no
+    MoE here). Each block is checkpointed unless ``remat`` is 'none';
+    ``attn_chunk`` is unused (no attention)."""
+    h = embed_lookup(params["embed"], batch["tokens"], policy=policy,
+                     delta=dget(deltas, "embed", "w"), dtype=dtype)
+
+    def body(lp, ld, hh):
+        return block_apply(lp, hh, cfg, policy=policy, deltas=ld, chunk=chunk,
+                           matmul_mode=matmul_mode)
+
+    body = remat_layer(body, remat)
+    n = cfg.num_layers
+    for lp, ld in zip(unstack(params["layers"], n),
+                      unstack(dget(deltas, "layers"), n)):
+        h = body(lp, ld, h)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return (_logits(params, h, cfg, policy, matmul_mode, deltas),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
 
 def cache_len_for(cfg: ModelConfig, max_len: int) -> int:
     """The state holds no positions: every prompt up to ``max_len`` fits."""

@@ -40,7 +40,7 @@ from repro_torch.core import quant_dense
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.qmatmul import ref as qmm_ref
-from repro_torch.models.layers import act_fn
+from repro_torch.models.layers import act_fn, dget
 
 __all__ = ["moe_init", "moe_apply", "groups", "trace_routing", "GROUP_SIZE"]
 
@@ -100,7 +100,7 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _expert_matmul(params, name: str, buf: torch.Tensor, policy: QuantPolicy,
-                   mode: str) -> torch.Tensor:
+                   mode: str, deltas: Optional[Dict] = None) -> torch.Tensor:
     """buf (ng, E, C, K) x expert stack (E, K, F) -> (ng, E, C, F) in buf's
     dtype, for any weight form."""
     leaf = params[name]
@@ -119,14 +119,18 @@ def _expert_matmul(params, name: str, buf: torch.Tensor, policy: QuantPolicy,
         acc = torch.einsum("necd,edf->necf", buf.to(torch.float32),
                            q.to(torch.float32))
         return (acc * delta[None].to(torch.float32)).to(buf.dtype)
-    w = quant_dense.effective_weight(leaf, policy, "hidden")
+    w = quant_dense.effective_weight(leaf, policy, "hidden",
+                                     dget(deltas, name, "w"))
     return torch.einsum("necd,edf->necf", buf, w.to(buf.dtype))
 
 
 def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
-              policy: QuantPolicy, matmul_mode: str = "auto"
+              policy: QuantPolicy, deltas: Optional[Dict] = None,
+              matmul_mode: str = "auto"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss fp32 scalar)."""
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, aux loss fp32 scalar).
+    ``deltas``: this layer's frozen step sizes of the float master (None:
+    refit in the forward)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     ng, g, cap = groups(cfg, b * s)
@@ -139,7 +143,8 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
         logits = quant_dense.serve_apply(router, xg, mode=matmul_mode,
                                          out_dtype=torch.float32)
     else:
-        wr = quant_dense.effective_weight(router, policy, "router")
+        wr = quant_dense.effective_weight(router, policy, "router",
+                                          dget(deltas, "router", "w"))
         logits = torch.matmul(xg.to(torch.float32),
                               wr.to(x.dtype).to(torch.float32))
     probs = torch.softmax(logits.to(torch.float32), dim=-1)    # (ng, g, E)
@@ -173,12 +178,13 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     buf = buf.reshape(ng, e, cap, d)
 
     act = act_fn(cfg.mlp_act)
-    h = _expert_matmul(params, "up", buf, policy, matmul_mode)
+    h = _expert_matmul(params, "up", buf, policy, matmul_mode, deltas)
     if "gate" in params:
-        h = act(_expert_matmul(params, "gate", buf, policy, matmul_mode)) * h
+        h = act(_expert_matmul(params, "gate", buf, policy, matmul_mode,
+                               deltas)) * h
     else:
         h = act(h)
-    out_buf = _expert_matmul(params, "down", h, policy, matmul_mode)
+    out_buf = _expert_matmul(params, "down", h, policy, matmul_mode, deltas)
 
     yk = torch.bmm(comb.reshape(ng, k * g, e * cap),
                    out_buf.reshape(ng, e * cap, d))            # (ng, kg, d)

@@ -1,5 +1,5 @@
 """Decoder-only transformer backbone, dense and MoE families — port of the
-reference's ``models/transformer.py`` serve path (GQA or MHA, QKV bias,
+reference's ``models/transformer.py`` (GQA or MHA, QKV bias,
 qk-norm, RoPE, tied embeddings or an untied head, SwiGLU or a
 Mixture-of-Experts FFN (``models/moe.py``), sliding-window attention).
 
@@ -28,13 +28,19 @@ cache (through ``attention.verify_attention``) and ``rollback_cache``
 rewinds rows to their committed lengths, zeroing the wiped entries, in
 place.
 
-Not ported yet: the training ``forward``.
+Training: ``forward`` runs the whole sequence through every layer (each
+checkpointed under ``remat``) and returns fp32 logits and the MoE aux
+loss; ``deltas`` threads frozen per-layer step sizes
+(``quant_dense.fit_deltas_stacked``) down to every projection. The
+stacked leaves are split into per-layer views once (``unstack``), so the
+backward stacks each leaf's gradient in one op.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
@@ -43,14 +49,15 @@ from repro_torch.core.precision import QuantPolicy
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (decode_attention, prefill_attention,
                                           resolve_attn_mode, verify_attention)
-from repro_torch.models.layers import (apply_rope, embed_init, embed_lookup,
-                                       head_rmsnorm, logits_readout, mlp_apply,
-                                       mlp_init, rmsnorm, rmsnorm_init,
-                                       rope_freqs)
+from repro_torch.models.layers import (apply_rope, dget, embed_init,
+                                       embed_lookup, head_rmsnorm,
+                                       logits_readout, mlp_apply, mlp_init,
+                                       rmsnorm, rmsnorm_init, rope_freqs)
 
-__all__ = ["init", "cache_len_for", "init_cache", "prefill", "decode_step",
-           "verify_step", "spec_state_snapshot", "rollback_cache",
-           "insert_prefill", "insert_prefill_many", "free_slots"]
+__all__ = ["init", "forward", "cache_len_for", "init_cache", "prefill",
+           "decode_step", "verify_step", "spec_state_snapshot",
+           "rollback_cache", "insert_prefill", "insert_prefill_many",
+           "free_slots", "unstack", "remat_layer"]
 
 
 # the families this module serves: audio and vlm are the dense decoder whose
@@ -123,6 +130,37 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     return params
 
 
+# --- per-layer views and remat ------------------------------------------------------
+
+def unstack(tree, n: int):
+    """The per-layer slices of a stacked tree (every leaf's leading axis
+    of length ``n``): a list of ``n`` trees of views. Each leaf is split by
+    one ``torch.unbind``, whose backward stacks the layers' gradients in
+    one op (indexing layer by layer would build a full-size zero gradient
+    for every layer). None (a tree or a leaf) gives None in every slice."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if tree is None:
+        return [None] * n
+    return list(torch.unbind(tree))
+
+
+def remat_layer(fn, remat: str):
+    """``fn`` itself, or (``remat`` other than 'none') ``fn`` under
+    activation checkpointing: its activations are recomputed in the
+    backward. ``preserve_rng_state=False``: the forward draws no random
+    numbers, and reading the CUDA RNG state is not allowed inside a
+    captured graph."""
+    if remat == "none":
+        return fn
+
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
 # --- blocks ---------------------------------------------------------------------
 
 def _layer(layers, i: int):
@@ -131,38 +169,46 @@ def _layer(layers, i: int):
     return layers[i]
 
 
-def _qkv(lp, h, cfg: ModelConfig, policy, positions, inv_freq, mm: str):
+def _qkv(lp, h, cfg: ModelConfig, policy, positions, inv_freq, mm: str,
+         ld=None):
     b, s, _ = h.shape
     hd = cfg.head_dim
     a = lp["attn"]
-    q = quant_dense.apply(a["wq"], h, policy=policy, role="hidden", mode=mm)
-    k = quant_dense.apply(a["wk"], h, policy=policy, role="hidden", mode=mm)
-    v = quant_dense.apply(a["wv"], h, policy=policy, role="hidden", mode=mm)
-    q = q.reshape(b, s, cfg.num_heads, hd)
-    k = k.reshape(b, s, cfg.num_kv_heads, hd)
-    v = v.reshape(b, s, cfg.num_kv_heads, hd)
+
+    def proj(name):
+        return quant_dense.apply(a[name], h, policy=policy, role="hidden",
+                                 delta=dget(ld, "attn", name, "w"), mode=mm)
+    q = proj("wq").reshape(b, s, cfg.num_heads, hd)
+    k = proj("wk").reshape(b, s, cfg.num_kv_heads, hd)
+    v = proj("wv").reshape(b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = head_rmsnorm(a["q_norm"]["scale"], q, cfg.norm_eps)
         k = head_rmsnorm(a["k_norm"]["scale"], k, cfg.norm_eps)
     return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
 
 
-def _attn_out(lp, o, cfg, policy, b, s, mm: str):
+def _attn_out(lp, o, cfg, policy, b, s, mm: str, ld=None):
     o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return quant_dense.apply(lp["attn"]["wo"], o, policy=policy,
-                             role="hidden", mode=mm)
+                             role="hidden", delta=dget(ld, "attn", "wo", "w"),
+                             mode=mm)
 
 
-def _ffn(lp, h, cfg: ModelConfig, policy, mm: str):
+def _ffn(lp, h, cfg: ModelConfig, policy, mm: str, ld=None):
+    """(out, aux loss): the MoE block's load-balancing loss, None for an
+    MLP (so the serve paths, which drop it, build nothing for it)."""
     if cfg.family == "moe":
         return moe_mod.moe_apply(lp["moe"], h, cfg, policy=policy,
-                                 matmul_mode=mm)[0]
+                                 deltas=dget(ld, "moe"), matmul_mode=mm)
     return mlp_apply(lp["mlp"], h, act=cfg.mlp_act, policy=policy,
-                     matmul_mode=mm)
+                     deltas=dget(ld, "mlp"), matmul_mode=mm), None
 
 
-def _logits(params, h, cfg, policy, mm: str):
-    return logits_readout(params, h, cfg, policy=policy, matmul_mode=mm)
+def _logits(params, h, cfg, policy, mm: str, deltas=None):
+    return logits_readout(params, h, cfg, policy=policy,
+                          embed_delta=dget(deltas, "embed", "w"),
+                          head_delta=dget(deltas, "head", "w"),
+                          matmul_mode=mm)
 
 
 def _last_hidden(h: torch.Tensor, lengths) -> torch.Tensor:
@@ -174,19 +220,25 @@ def _last_hidden(h: torch.Tensor, lengths) -> torch.Tensor:
     return torch.gather(h, 1, idx)
 
 
-def _prefill_layer(lp, h, cfg: ModelConfig, policy, positions, inv_freq,
-                   lengths, attn_chunk: int, mm: str, attn_mode: str):
-    """One layer over the prompt (the reference's ``_layer_forward``):
-    returns (h, k, v), k/v (B, S, KV, D) for the cache."""
+def _layer_forward(lp, ld, h, cfg: ModelConfig, policy, positions, inv_freq,
+                   attn_chunk: int, mm: str = "auto", attn_mode: str = "ref",
+                   lengths=None):
+    """One layer over a whole sequence: returns (h, aux loss or None for
+    an MLP layer, (k, v)), k/v (B, S, KV, D) for a prefill's cache.
+    ``ld``: the layer's frozen deltas or None. ``attn_mode`` / ``lengths`` pick the attention:
+    'kernel' is the attn_prefill kernel with the bucketed-prefill mask,
+    'ref' (the training default) the chunked / sliding-window reference,
+    causal only."""
     b, s, _ = h.shape
     hn = rmsnorm(lp["ln1"], h, cfg.norm_eps)
-    q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, mm)
+    q, k, v = _qkv(lp, hn, cfg, policy, positions, inv_freq, mm, ld)
     o = prefill_attention(q, k, v, lengths=lengths,
                           window=cfg.sliding_window or 0, mode=attn_mode,
                           chunk=min(attn_chunk, s))
-    h = h + _attn_out(lp, o, cfg, policy, b, s, mm)
+    h = h + _attn_out(lp, o, cfg, policy, b, s, mm, ld)
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
-    return h + _ffn(lp, hn, cfg, policy, mm), k, v
+    f, aux = _ffn(lp, hn, cfg, policy, mm, ld)
+    return h + f, aux, (k, v)
 
 
 def _cached_layer(lp, h, kv, i: int, write, valid, attend, cfg: ModelConfig,
@@ -214,7 +266,7 @@ def _cached_layer(lp, h, kv, i: int, write, valid, attend, cfg: ModelConfig,
                mode=attn_mode)
     h = h + _attn_out(lp, o, cfg, policy, b, t, mm)
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
-    return h + _ffn(lp, hn, cfg, policy, mm)
+    return h + _ffn(lp, hn, cfg, policy, mm)[0]
 
 
 def decode_writer(pos: torch.Tensor, cs: int, ring: bool):
@@ -268,6 +320,53 @@ def verify_writer(pos0: torch.Tensor, t: int, cs: int, ring: bool):
                                          buf[i, rows, slot])
 
     return write, torch.clamp(positions + 1, max=cs), positions
+
+
+# --- full forward (train) ----------------------------------------------------------
+
+def _embed_input(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 policy, deltas, dtype):
+    """Token embeddings, after the frontend prefix (``frontend_embeds``
+    (B, F, d)) for the audio / vlm stubs."""
+    h = embed_lookup(params["embed"], batch["tokens"], policy=policy,
+                     delta=dget(deltas, "embed", "w"), dtype=dtype)
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        h = torch.cat([batch["frontend_embeds"].to(dtype), h], dim=1)
+    return h
+
+
+def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, *, policy: QuantPolicy,
+            deltas: Optional[Dict] = None, dtype=torch.bfloat16,
+            remat: str = "layer", attn_chunk: int = 1024,
+            matmul_mode: str = "auto"):
+    """Training / eval forward over ``batch["tokens"]`` (B, S) (and the
+    frontend prefix): (logits (B, S', V) fp32, aux loss fp32 0-d, the MoE
+    layers' load-balancing losses summed). Attention is the chunked
+    reference, causal, and the projections are ``x @ w`` of the float
+    master (its fake-quant view under a quantizing policy, with ``deltas``
+    frozen or refitted), as the reference leaves them to XLA. ``remat``
+    other than 'none' checkpoints each layer."""
+    _check_supported(cfg)
+    h = _embed_input(params, batch, cfg, policy, deltas, dtype)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, h.device)
+
+    def body(lp, ld, hh):
+        hh, a, _ = _layer_forward(lp, ld, hh, cfg, policy, positions,
+                                  inv_freq, attn_chunk, matmul_mode)
+        return hh, a
+
+    body = remat_layer(body, remat)
+    n = cfg.num_layers
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp, ld in zip(unstack(params["layers"], n),
+                      unstack(dget(deltas, "layers"), n)):
+        h, a = body(lp, ld, h)
+        if a is not None:
+            aux = aux + a
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return _logits(params, h, cfg, policy, matmul_mode, deltas), aux
 
 
 # --- serving: cache, prefill, decode ---------------------------------------------
@@ -329,9 +428,10 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, h.device)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        h, k, v = _prefill_layer(_layer(params["layers"], i), h, cfg, policy,
-                                 positions, inv_freq, lengths, attn_chunk,
-                                 matmul_mode, attn_mode)
+        h, _, (k, v) = _layer_forward(_layer(params["layers"], i), None, h,
+                                      cfg, policy, positions, inv_freq,
+                                      attn_chunk, matmul_mode, attn_mode,
+                                      lengths)
         ks.append(k[:, -cs:])
         vs.append(v[:, -cs:])
     ks, vs = torch.stack(ks), torch.stack(vs)              # (L, B, S, KV, D)

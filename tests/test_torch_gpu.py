@@ -1394,3 +1394,125 @@ def test_hybrid_captured_spec_engine_matches_greedy(cuda):
         g = generate(master, [p], cfg, policy=FLOAT, max_new_tokens=9,
                      dtype=torch.float32, device=cuda).cpu()
         assert outs[0][i] == ("ok", g[0, len(p):].tolist()), i
+
+
+# --- LM training on the card -----------------------------------------------------
+
+def _train_setup(device, capture, policy_name="w3a8", frozen=True,
+                 steps=4, ckpt=None):
+    """A reduced qwen2 W3A8 train step (frozen per-layer deltas in the
+    state) and its state, bf16 compute, on ``device``."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.models import get_model
+    from repro_torch.training.loop import make_train_step
+    cfg = reduced(get_config("qwen2-1.5b"), layers=3, d_model=128, vocab=512)
+    policy = W3A8 if policy_name == "w3a8" else FLOAT
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=steps,
+                       grad_clip=1.0)
+    params = get_model(cfg).init(torch.Generator(device=device).manual_seed(0),
+                                 cfg, device=device)
+    extra = ({"deltas": quant_dense.fit_deltas_stacked(params, policy)}
+             if frozen and policy_name == "w3a8" else None)
+    step, init = make_train_step(cfg, tcfg, policy, capture=capture)
+    return cfg, step, init(params, extra)
+
+
+def _train_batches(cfg, device, n, start=0):
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.data.synthetic import lm_batch
+    return [shard_batch(lm_batch(0, start + i, batch=4, seq=32,
+                                 vocab=cfg.vocab_size), device)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("policy", ["w3a8", "float"])
+def test_train_step_captured_equals_eager(cuda, policy):
+    """4 replayed steps of one captured graph equal 4 eager steps bit for
+    bit (metrics, parameters, AdamW state, step), and the lr changes at
+    every replay: it is computed on the card from the step counter, not
+    frozen at capture."""
+    from repro_torch.core.treeutil import flatten_with_path
+    out = {}
+    for capture in (True, False):
+        cfg, step, state = _train_setup(cuda, capture, policy)
+        ms = []
+        for b in _train_batches(cfg, cuda, 4):
+            state, m = step(state, b)
+            ms.append({k: float(v) for k, v in m.items()})
+        out[capture] = (ms, flatten_with_path(state), step.captures)
+    (cm, cs, ccap), (em, es, ecap) = out[True], out[False]
+    assert list(ccap.values()) == [1] and ecap == {}
+    assert cm == em
+    assert len({m["lr"] for m in cm}) == 4
+    for path, v in es.items():
+        assert torch.equal(cs[path], v), path
+    assert int(cs["step"]) == 4
+
+
+def test_train_step_lr_frozen_at_capture_shows(cuda):
+    """The trap the schedule avoids: an lr read on the host at capture is
+    frozen into the graph (replays keep it), while the step's own device
+    lr follows the step counter."""
+    cfg, step, state = _train_setup(cuda, True)
+    seen = []
+    sched = step.sched
+
+    def host_lr(s):
+        lr = sched(s)
+        seen.append(lr)
+        return lr
+    step.sched = host_lr
+    lrs = []
+    for b in _train_batches(cfg, cuda, 4):
+        state, m = step(state, b)
+        lrs.append(float(m["lr"]))
+    # the schedule ran at the warm-ups and the capture only, yet every
+    # replay's lr is its own step's
+    assert len(seen) == 3 and len(set(lrs)) == 4
+
+
+def test_trainer_async_checkpoints_restore_under_replay(cuda, tmp_path):
+    """Trainer with save_async every 2 steps on a replayed step: restored
+    at step 4 (onto the card) and continued by a fresh captured step, the
+    state after 6 steps equals an uninterrupted run's bit for bit."""
+    from repro_torch import checkpoint
+    from repro_torch.core.treeutil import flatten_with_path
+    from repro_torch.data.pipeline import HostLoader
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.training.loop import Trainer
+
+    def loader(cfg, start=0):
+        return HostLoader(lambda seed, s: lm_batch(
+            seed, s, batch=4, seq=32, vocab=cfg.vocab_size),
+            start_step=start, device=cuda)
+
+    cfg, step, state = _train_setup(cuda, True, steps=6)
+    full = Trainer(step, state, log_every=1)
+    full.run(loader(cfg), 6)
+    cfg, step, state = _train_setup(cuda, True, steps=6)
+    ck = checkpoint.Checkpointer(str(tmp_path), keep=3)
+    part = Trainer(step, state, checkpointer=ck, ckpt_every=2, log_every=1)
+    part.run(loader(cfg), 4)
+    assert checkpoint.all_steps(str(tmp_path)) == [2, 4]
+    tree, meta = checkpoint.restore(str(tmp_path), device=cuda)
+    assert meta["step"] == 4
+    _, step, _ = _train_setup(cuda, True, steps=6)
+    resumed = Trainer(step, tree, log_every=1)
+    resumed.run(loader(cfg, meta["step"]), 2)
+    assert list(step.captures.values()) == [1]
+    want = flatten_with_path(full.state)
+    for path, v in flatten_with_path(resumed.state).items():
+        assert torch.equal(v, want[path]), path
+    assert resumed.history[-1]["loss"] == full.history[-1]["loss"]
+
+
+def test_train_launcher_on_the_card(cuda):
+    """``launch/train.py --reduced --steps 8`` on cuda: captured, finite,
+    its loss falls."""
+    from repro_torch.launch import train
+    tr = train.main(["--arch", "qwen2-1.5b", "--reduced", "--steps", "8"])
+    first, last = tr.history[0]["loss"], tr.history[-1]["loss"]
+    assert torch.isfinite(torch.tensor([first, last])).all() and last < first
+    assert list(tr.train_step.captures.values()) == [1]
