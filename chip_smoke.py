@@ -5,6 +5,8 @@
     python3 chip_smoke.py --rehearse   # CPU rehearsal: reduced models (MLP
                                        # hidden 64), the kernels' plain
                                        # versions, no result line
+    python3 chip_smoke.py --phase dist # the card phase (the build) and
+                                       # phase 13 alone, no result line
 
 Phases, each printing one JSON line:
 
@@ -270,7 +272,33 @@ Phases, each printing one JSON line:
              W3A8 step of phi3.5-moe (1 of 32 layers), mamba2-2.7b (32 of
              64) and zamba2-1.2b (full) at full width: finite, loss and
              gnorm of the twins equal bit for bit, peak GB.
-13. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
+13. dist     the distributed layer (run after phase 12): a one-process
+             NCCL group and a (1, 1) (data, model) mesh (make_host_mesh;
+             every placement Replicate on its size-1 dims). (a) The train
+             cell of launch/steps.build_cell, qwen2-1.5b at full width and
+             depth, W3A8 frozen deltas, state placed by state_specs,
+             captured, DIST_TRAIN_STEPS steps of lm_batch 8 x 256 beside
+             the same steps of training.loop without a mesh: losses,
+             gnorms and lrs equal bit for bit; then DIST_COMPRESSED_STEPS
+             eager steps with the int8 gradient compressor as
+             grad_transform (finite losses), and the compressor's levels,
+             scale and residual on the card equal to the CPU's bit for bit
+             on every leaf of the last step's gradients. (b) The decode
+             cell (qp export, 8 rows, a 4096-entry bf16 cache with 4000
+             entries filled, 16 steps) and (c) the prefill cell (q export,
+             8 x 512) equal transformer.decode_step / prefill without a
+             mesh bit for bit, logits and caches; the launches of the
+             cells alone: qmatvec, qmatmul's k_lanes and n_lanes,
+             attn_decode and attn_prefill all above 0, no plain version.
+             (d) The train state's params, step and deltas saved and
+             restored with checkpoint.restore(shardings=): every leaf
+             bit-identical on the asked placements. (e) pipeline_apply
+             over a one-rank stage mesh: the forward bit for bit, the
+             gradient within 1e-6 x max|grad| of each microbatch through
+             the stage. Prints ms a step and tokens/s beside the
+             one-device step, the decode and prefill cells' ms beside the
+             one-device calls, peak GB.
+14. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path; then one entry for each of
              qmatmul's n_lanes and the fp32 attn_prefill, with their
@@ -3953,12 +3981,375 @@ def train_phase(device, seed, rehearse):
     return launches, variants
 
 
+# --- phase 13 ---------------------------------------------------------------------
+
+DIST_TRAIN_STEPS = 6           # the mesh train cell's steps, and the one-device
+DIST_COMPRESSED_STEPS = 3      # then steps with the int8 gradient compressor
+DIST_DECODE = (8, 4096, 16)    # batch, cache length, decode steps
+DIST_DECODE_FILLED = 4000      # cache entries filled before the decode steps
+DIST_PREFILL = (8, 512)        # batch, prompt length
+DIST_PIPELINE = (6, 2, 8)      # microbatches, rows, width (one stage)
+
+
+def _whole(t):
+    from repro_torch.distributed.shards import whole
+    return whole(t)
+
+
+def _bit_diff(got, want, what):
+    """Fails unless ``got`` (a DTensor or a tensor) equals ``want`` bit for
+    bit, in shape and dtype."""
+    import torch
+    g = _whole(got)
+    if g.dtype != want.dtype or g.shape != want.shape \
+            or not torch.equal(g, want):
+        d = (g.double() - want.double()).abs().max().item() \
+            if g.shape == want.shape else None
+        fail(f"dist: {what} differs from the one-device path (max |diff| "
+             f"{d}, {g.dtype}{tuple(g.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)})")
+
+
+def _placements_of(tree):
+    from repro_torch.core.treeutil import flatten_with_path
+    return {k: [repr(p) for p in v.placements]
+            for k, v in flatten_with_path(tree).items()
+            if hasattr(v, "placements")}
+
+
+def _dist_train(cfg, mesh, device, seed, rehearse):
+    """(a) the mesh train cell beside training.loop's one-device step, then
+    steps with the compressor and the compressor's arithmetic against the
+    CPU; returns (record, the cell's state)."""
+    import math
+
+    import torch
+    from repro_torch.configs import ShapeConfig, TrainConfig
+    from repro_torch.core.precision import W3A8
+    from repro_torch.core.treeutil import flatten_with_path
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    b, t = (2, 16) if rehearse else TRAIN_TOKENS
+    n = DIST_TRAIN_STEPS
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=n,
+                       grad_clip=1.0, optimizer="adamw", remat="layer")
+    batches = _train_batches(cfg.vocab_size, n + DIST_COMPRESSED_STEPS,
+                             device, rehearse)
+    _fresh(device)
+    step, state = _train_state(cfg, device, seed, W3A8, tcfg, None)
+    state, ref, ref_first, ref_ms = _train_run(step, state, batches[:n],
+                                               device)
+    del step, state
+    _fresh(device)
+    shape = ShapeConfig("train", t, b, "train")
+    cell = steps.build_cell(cfg, shape, mesh, quant="w3", tcfg=tcfg)
+    _, state = _train_state(cfg, device, seed, W3A8, tcfg, False)
+    state = steps.place(state, cell.in_shardings[0])
+    placed = [steps.place(x, cell.in_shardings[1]) for x in batches]
+    state, rows, first, ms = _train_run(cell.fn, state, placed[:n], device)
+    for k in ("loss", "gnorm", "lr"):
+        if rows[k] != ref[k]:
+            fail(f"dist: the mesh train cell's {k} differs from the "
+                 f"one-device step's: {rows[k]} vs {ref[k]}")
+    want = 1 if device.type == "cuda" else 0
+    if len(cell.fn.captures) != want:
+        fail(f"dist: the mesh train cell captured "
+             f"{len(cell.fn.captures)} times, want {want}")
+    peak = _peak_gb(device)
+    del cell
+    _fresh(device)
+    # the compressor as grad_transform, from the cell's state: "ef" (made
+    # before the first call, as a captured step needs) takes the params'
+    # specs; these steps run eagerly (capture=False): the warm-ups of a
+    # capture would keep another copy of the 31 GB the steps write
+    state["ef"] = compression.init_error_feedback(state["params"])
+    ccell = steps.build_cell(cfg, shape, mesh, quant="w3", tcfg=tcfg,
+                             grad_transform=compression.make_grad_compressor(),
+                             capture=False)
+    state, crows, _, cms = _train_run(ccell.fn, state, placed[n:], device)
+    if not all(math.isfinite(x) for x in crows["loss"]):
+        fail(f"dist: non-finite loss under the compressor: {crows['loss']}")
+    # the compressor on the card against the CPU on the last step's
+    # gradients (the step's fp32 buffers) and carried residuals
+    grads = ccell.fn.step.grads
+    ef = flatten_with_path(state["ef"])
+    checked = 0
+    for path, g in grads.items():
+        gc, ec = _whole(g), _whole(ef[path])
+        x = gc.to(torch.float32) + ec
+        q, s = compression.quantize_grad(x)
+        r = x - compression.dequantize_grad(q, s)
+        xh = gc.cpu().to(torch.float32) + ec.cpu()
+        qh, sh = compression.quantize_grad(xh)
+        rh = xh - compression.dequantize_grad(qh, sh)
+        for got, want_, what in ((q, qh, "q"), (s, sh, "scale"),
+                                 (r, rh, "residual")):
+            if not torch.equal(got.cpu(), want_):
+                fail(f"dist: the compressor's {what} of {path} on the card "
+                     f"differs from the CPU's")
+        checked += 1
+    tokens = b * t
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "batch": [b, t],
+           "policy": "W3A8, frozen fit_deltas_stacked deltas",
+           "steps": n, "loss": rows["loss"], "gnorm": rows["gnorm"],
+           "lr": rows["lr"],
+           "equal_to_one_device": "loss, gnorm and lr bit for bit",
+           "ms_per_step": round(ms, 3),
+           "one_device_ms_per_step": round(ref_ms, 3),
+           "tokens_per_s": round(tokens / ms * 1e3, 1),
+           "one_device_tokens_per_s": round(tokens / ref_ms * 1e3, 1),
+           "first_call_s": round(first, 3),
+           "one_device_first_call_s": round(ref_first, 3), "captures": want,
+           "peak_gb": peak,
+           "compressed": {"steps": DIST_COMPRESSED_STEPS, "capture": False,
+                          "loss": crows["loss"], "gnorm": crows["gnorm"],
+                          "ms_per_step": round(cms, 3),
+                          "leaves_checked_against_cpu": checked},
+           "state_placements": {k: v for k, v in _placements_of(
+               state["params"]).items() if k.startswith("layers/attn")}}
+    del ccell
+    _fresh(device)
+    return rec, state
+
+
+def _dist_restore(state, mesh, cfg, device):
+    """(d) the cell's params, step and deltas saved, restored with
+    ``shardings=``: bit-identical leaves on the asked placements."""
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.core.treeutil import flatten_with_path
+    from repro_torch.distributed import sharding as shd
+    part = {k: state[k] for k in ("params", "step", "deltas")}
+    sh = shd.tree_shardings(mesh, {k: v for k, v in shd.state_specs(
+        cfg, part, mesh).items() if k in part})
+    td = tempfile.mkdtemp(prefix="dist_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save(td, int(_whole(state["step"])), part)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, meta = checkpoint.restore(td, shardings=sh)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    want_sh = flatten_with_path(sh)
+    got, old = flatten_with_path(tree), flatten_with_path(part)
+    if sorted(got) != sorted(old):
+        fail("dist: the restore's leaves differ from the saved tree's")
+    nbytes = 0
+    for k, v in old.items():
+        _bit_diff(got[k], _whole(v).to(got[k].device), f"restored {k}")
+        if list(got[k].placements) != want_sh[k][1]:
+            fail(f"dist: restored {k} on {got[k].placements}, asked for "
+                 f"{want_sh[k][1]}")
+        nbytes += v.numel() * v.element_size()
+    del tree
+    return {"saved": "params, step and deltas of the train cell's state "
+                     "(not the AdamW moments or the residual)",
+            "gb": round(nbytes / 1e9, 3), "step": meta["step"],
+            "save_s": round(save_s, 3), "restore_s": round(restore_s, 3),
+            "bit_identical": True, "placements_as_asked": True}
+
+
+def _dist_serve(cfg, mesh, device, seed, rehearse):
+    """(b) the decode cell (qp, bf16 cache) and (c) the prefill cell (q)
+    beside transformer.decode_step / prefill without a mesh: logits and
+    caches bit for bit; the launches of the cells' runs alone."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.distributed import shards
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    from repro_torch.models.api import init_cache
+    mod = get_model(cfg)
+    b, s, n = (2, 64, 4) if rehearse else DIST_DECODE
+    filled = 48 if rehearse else DIST_DECODE_FILLED
+    pb, pt = (2, 16) if rehearse else DIST_PREFILL
+    _fresh(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    master = mod.init(gen, cfg, device=device)
+    words = quant_dense.export_container(master, W3A8)
+    levels = quant_dense.export_levels(master, W3A8)
+    del master
+    _fresh(device)
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    cache0 = init_cache(cfg, b, s, torch.bfloat16, device=device)
+    for name in ("k", "v"):
+        cache0[name][:, :, :filled] = torch.randn(
+            cache0[name][:, :, :filled].shape, generator=g, device=device
+        ).to(torch.bfloat16)
+    cache0["len"].fill_(filled)
+    toks = torch.randint(0, cfg.vocab_size, (n, b, 1), generator=g,
+                         device=device, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab_size, (pb, pt), generator=g,
+                           device=device, dtype=torch.int32)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    # one device
+    ref_cache = {k: v.clone() for k, v in cache0.items()}
+    ref_logits = []
+    sync()
+    t0 = time.perf_counter()
+    for i in range(n):
+        lg, ref_cache = mod.decode_step(words, ref_cache, toks[i], cfg,
+                                        policy=W3A8, dtype=torch.bfloat16)
+        ref_logits.append(lg)
+    sync()
+    ref_dec_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    ref_pl, ref_pc = mod.prefill(levels, {"tokens": prompt}, cfg,
+                                 policy=W3A8, dtype=torch.bfloat16,
+                                 max_len=pt)
+    sync()
+    ref_pre_ms = (time.perf_counter() - t0) * 1e3
+    # the cells on the mesh
+    dcell = steps.build_cell(cfg, ShapeConfig("decode", s, b, "decode"),
+                             mesh, quant="w3")
+    pcell = steps.build_cell(cfg, ShapeConfig("prefill", pt, pb, "prefill"),
+                             mesh, quant="w3")
+    dparams = steps.place(words, dcell.in_shardings[0])
+    dcache = steps.place({k: v.clone() for k, v in cache0.items()},
+                         dcell.in_shardings[1])
+    pparams = steps.place(levels, pcell.in_shardings[0])
+    shards.gathers.clear()
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    logits = []
+    for i in range(n):
+        lg, dcache = dcell.fn(dparams, dcache, steps.place(
+            {"tokens": toks[i]}, dcell.in_shardings[2]))
+        logits.append(lg)
+    sync()
+    dec_ms = (time.perf_counter() - t0) * 1e3 / n
+    t0 = time.perf_counter()
+    pl, pc = pcell.fn(pparams, steps.place({"tokens": prompt},
+                                           pcell.in_shardings[1]))
+    sync()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    launches, plain = read_counts()
+    variants = read_variants()
+    gathers = dict(shards.gathers)
+    for i, (got, want) in enumerate(zip(logits, ref_logits)):
+        _bit_diff(got, want, f"decode step {i}'s logits")
+    for name in ("k", "v", "len"):
+        _bit_diff(dcache[name], ref_cache[name], f"decode cache {name}")
+        _bit_diff(pc[name], ref_pc[name], f"prefill cache {name}")
+    _bit_diff(pl, ref_pl, "prefill logits")
+    if not rehearse:
+        routes = {"qmatvec": launches["qmatvec"],
+                  "qmatmul k_lanes": variants["qmatmul"]["k_lanes"],
+                  "attn_decode": launches["attn_decode"],
+                  "qmatmul n_lanes": variants["qmatmul"]["n_lanes"],
+                  "attn_prefill": launches["attn_prefill"]}
+        idle = [k for k, v in routes.items() if v <= 0]
+        if idle:
+            fail(f"dist: no launch of {idle} in the mesh cells")
+        if any(plain.values()):
+            fail(f"dist: plain versions ran in the mesh cells: {plain}")
+    rec = {"decode": {"form": "qp", "batch": b, "cache": s,
+                      "filled": filled, "steps": n,
+                      "kv": "bf16", "ms_per_step": round(dec_ms, 3),
+                      "one_device_ms_per_step": round(ref_dec_ms, 3),
+                      "equal_to_one_device": "logits and cache bit for bit",
+                      "cache_placements": [repr(p) for p in
+                                           dcache["k"].placements]},
+           "prefill": {"form": "q", "batch": pb, "tokens": pt,
+                       "ms": round(pre_ms, 3),
+                       "one_device_ms": round(ref_pre_ms, 3),
+                       "equal_to_one_device": "logits and cache bit for bit"},
+           "launches": launches, "plain_calls": plain,
+           "launches_by_variant": {k: variants[k] for k in
+                                   ("qmatvec", "qmatmul", "attn_prefill")},
+           "gathers": gathers, "peak_gb": _peak_gb(device)}
+    del dparams, dcache, pparams, words, levels
+    _fresh(device)
+    return rec, launches, variants
+
+
+def _dist_pipeline(device):
+    """(e) pipeline_apply over a one-rank stage mesh against each
+    microbatch through the stage: forward and gradient."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.pipeline import pipeline_apply
+    m, b, d = DIST_PIPELINE
+    g = torch.Generator(device=device).manual_seed(5)
+    w = (torch.randn(1, d, d, generator=g, device=device) * 0.3) \
+        .requires_grad_(True)
+    bias = torch.randn(1, d, generator=g, device=device) * 0.1
+    x = torch.randn(m, b, d, generator=g, device=device)
+    mesh = init_device_mesh(device.type, (1,), mesh_dim_names=("stage",))
+    fn = lambda p, h: torch.tanh(h @ p["w"] + p["b"])
+    out = pipeline_apply(fn, {"w": w, "b": bias}, x, mesh)
+    (out ** 2).sum().backward()
+    w2 = w.detach().clone().requires_grad_(True)
+    seq = torch.stack([fn({"w": w2[0], "b": bias[0]}, x[i])
+                       for i in range(m)])
+    (seq ** 2).sum().backward()
+    _bit_diff(out.detach(), seq.detach(), "pipeline forward")
+    # the gradient sums the microbatches' terms in the backward's order
+    err = float((w.grad - w2.grad).abs().max() / w2.grad.abs().max())
+    if not err <= 1e-6:
+        fail(f"dist: the pipeline's gradient is {err} x max|grad| from "
+             f"sequential application's (tolerance 1e-6)")
+    return {"stages": 1, "microbatches": m, "rows": b, "width": d,
+            "forward": "bit for bit", "grad_rel_err": err,
+            "grad_tolerance": 1e-6}
+
+
+def dist_phase(device, seed, rehearse, smi):
+    """The distributed layer on a one-process group (NCCL on the card,
+    gloo in the rehearsal) and a (1, 1) (data, model) mesh: (a) the train
+    cell, (b) the decode cell, (c) the prefill cell, (d) the elastic
+    restore, (e) the pipeline. Returns the serve cells' launches and
+    variants."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import init_single_process, make_host_mesh
+    t0 = time.perf_counter()
+    backend = init_single_process(device)
+    mesh = make_host_mesh(1, 1, device=device)
+    cfg = get_config("qwen2-1.5b")
+    if rehearse:
+        cfg = reduced(cfg)
+    rec = {"phase": "dist", "card": smi, "backend": backend,
+           "mesh": {"data": 1, "model": 1}, "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size}
+    rec["train"], state = _dist_train(cfg, mesh, device, seed, rehearse)
+    rec["restore"] = _dist_restore(state, mesh, cfg, device)
+    del state
+    _fresh(device)
+    rec["serve"], launches, variants = _dist_serve(cfg, mesh, device, seed,
+                                                   rehearse)
+    rec["pipeline"] = _dist_pipeline(device)
+    peaks = [rec["train"]["peak_gb"], rec["serve"]["peak_gb"]]
+    rec["peak_gb"] = None if None in peaks else max(peaks)
+    rec["seconds"] = round(time.perf_counter() - t0, 1)
+    emit(rec)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return launches, variants
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="CPU rehearsal at reduced size through the plain "
                          "versions; prints no result line")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=["dist"],
+                    help="build the kernels and run this phase alone (no "
+                         "kernels line, no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3973,6 +4364,10 @@ def main(argv=None) -> int:
     if args.rehearse:
         cfg = reduced(cfg)
     smi = card_phase(device, args.rehearse)
+    if args.phase == "dist":
+        dist_phase(device, args.seed, args.rehearse, smi)
+        print(smi, flush=True)
+        return 0
     headline, routes = parity_phase(cfg, device, args.rehearse)
     master, params, build_s = build_model(cfg, device, args.seed)
     emit({"phase": "model", "arch": cfg.name, "layers": cfg.num_layers,
@@ -4003,6 +4398,8 @@ def main(argv=None) -> int:
     ssm_launches, ssm_variants = ssm_phase(device, args.seed, args.rehearse)
     train_launches, train_variants = train_phase(device, args.seed,
                                                  args.rehearse)
+    dist_launches, dist_variants = dist_phase(device, args.seed,
+                                              args.rehearse, smi)
     master, params = _on(master, device), _on(params, device)
     res_launches, res_variants = resilience_phase(cfg, master, params,
                                                   device, args.rehearse)
@@ -4021,6 +4418,7 @@ def main(argv=None) -> int:
                        moe=moe_launches[name],
                        ssm=ssm_launches[name],
                        train=train_launches[name],
+                       dist=dist_launches[name],
                        resilience=res_launches[name])
         entry = {
             "name": name, "route": "cuda", "source": src,
@@ -4045,6 +4443,7 @@ def main(argv=None) -> int:
                                      "moe": moe_variants[name],
                                      "ssm": ssm_variants[name],
                                      "train": train_variants[name],
+                                     "dist": dist_variants[name],
                                      "resilience": res_variants[name]})
         kernels.append(entry)
     # the redesigned routes: their headline case, their launches on the

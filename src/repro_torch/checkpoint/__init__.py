@@ -13,9 +13,11 @@ stored as its raw 2-byte words (``|V2``, as ``np.savez`` writes the
 reference's ``ml_dtypes`` arrays) with ``"bfloat16"`` in ``_dtypes``, and
 read back through a ``uint16`` view into ``torch.bfloat16``.
 
-``restore(..., device=)`` takes the place of the reference's
-``shardings=``: leaves come back as torch tensors on one device; the
-sharded restore waits for the distributed port.
+``restore(..., device=)`` puts leaves on one device; ``shardings=`` (the
+reference's elastic restore) places every leaf it names as a DTensor on
+its ``(mesh, placements)``, whatever mesh wrote the file: a DTensor leaf is
+saved as its whole value, so files are the same bit for bit whatever the
+layout that wrote them.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.treeutil import flatten_with_path, unflatten
+from repro_torch.core.treeutil import flatten_with_path, tree_get, unflatten
 
 __all__ = ["save", "restore", "latest_step", "all_steps", "Checkpointer",
            "dtype_name"]
@@ -45,6 +47,9 @@ def dtype_name(t) -> str:
 def _to_numpy(v) -> np.ndarray:
     """A host copy of one leaf in its logical C order; bf16 as ``|V2``."""
     if isinstance(v, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(v, DTensor):         # its whole value (a gather)
+            v = v.full_tensor()
         t = v.detach().to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
@@ -119,9 +124,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, *,
-            device="cpu") -> tuple:
-    """Load (tree of torch tensors on ``device``, meta); every leaf comes
-    back with the dtype ``_dtypes`` records, bf16 included."""
+            device="cpu", shardings: Any = None) -> tuple:
+    """Load (tree of torch tensors, meta); every leaf comes back with the
+    dtype ``_dtypes`` records, bf16 included. ``shardings``: a tree (a
+    prefix of the checkpoint's) of ``(mesh, placements)``; each leaf it
+    names is placed there as a DTensor (``distribute_tensor`` on the
+    mesh's device type: the elastic restore onto any mesh), every other
+    leaf goes to ``device``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -132,9 +141,22 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *,
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     dtypes = meta.pop("_dtypes", {})
-    tree = unflatten({k: _to_torch(a, dtypes.get(k, str(a.dtype)), device)
-                      for k, a in flat.items()})
-    return tree, meta
+    out = {}
+    for k, a in flat.items():
+        want = dtypes.get(k, str(a.dtype))
+        try:
+            sh = None if shardings is None else tree_get(shardings, k)
+        except KeyError:                 # a leaf the shardings do not name
+            sh = None
+        if sh is None:
+            out[k] = _to_torch(a, want, device)
+            continue
+        from torch.distributed.tensor import distribute_tensor
+        mesh, placements = sh
+        # every rank reads the whole file: each keeps its own chunk
+        out[k] = distribute_tensor(_to_torch(a, want, mesh.device_type),
+                                   mesh, placements, src_data_rank=None)
+    return unflatten(out), meta
 
 
 class Checkpointer:

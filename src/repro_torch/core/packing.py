@@ -38,9 +38,10 @@ def _check_levels(q: torch.Tensor, bits: int) -> None:
     """Enforce the pack contract: every level must lie in the b-bit two's-
     complement range [-(2^(b-1)), 2^(b-1)-1]. Out-of-range values would be
     silently truncated to their low b bits (a wrong but plausible-looking
-    weight) — reject them instead."""
+    weight) — reject them instead. A meta tensor (a shape-only template)
+    has no values to check."""
     lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
-    if q.numel():
+    if q.numel() and not q.is_meta:
         qmin, qmax = int(q.min()), int(q.max())
         if qmin < lo or qmax > hi:
             raise ValueError(

@@ -33,6 +33,7 @@ Serve-form matmuls dispatch on ``mode``:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -43,6 +44,7 @@ from repro_torch.core import quantizer as qz
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.core.treeutil import (flatten_with_path, map_with_path,
                                        role_of, unflatten)
+from repro_torch.distributed import shards
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.qmatmul.ref import qmatmul_ref
 from repro_torch.kernels.qmatvec import ops as qmv_ops
@@ -115,25 +117,36 @@ def serve_apply(params: Dict[str, Any], x: torch.Tensor, *,
     """Dense forward for a 2D serve-form leaf ({"q"} or {"qp"}, + "delta",
     optional "b"). Never materializes a dequantized weight matrix in
     'kernel' mode. fp32 accumulate, fp32 epilogue, one cast to
-    ``out_dtype`` (default the activation dtype)."""
+    ``out_dtype`` (default the activation dtype). A DTensor weight or
+    activation runs the same call on each rank's shards
+    (``distributed.shards.matmul_on_shards``)."""
     mode = resolve_matmul_mode(mode, x.device)
-    k = x.shape[-1]
-    bias = params.get("b")
+    packed = "qp" in params
+    w = params["qp"] if packed else params["q"]
     delta = params["delta"].reshape(-1)          # (1, N) -> (N,)
+    run = functools.partial(_serve_local, mode=mode, packed=packed)
+    if shards.any_dtensor(x, w):
+        return shards.matmul_on_shards(x, w, run, delta=delta,
+                                       bias=params.get("b"), k=x.shape[-1],
+                                       packed=packed, out_dtype=out_dtype)
+    return run(x, w, delta, params.get("b"), x.shape[-1], out_dtype)
+
+
+def _serve_local(x, w, delta, bias, k: int, out_dtype, *, mode: str,
+                 packed: bool) -> torch.Tensor:
+    """x (..., k) against one device's container words (``packed``) or
+    int8 levels: the kernel's wrapper ('kernel') or its plain version."""
     if mode == "kernel":
-        if "qp" in params:
-            return qmv_ops.qmatvec(x, params["qp"], delta, k=k, bias=bias,
+        if packed:
+            return qmv_ops.qmatvec(x, w, delta, k=k, bias=bias,
                                    out_dtype=out_dtype)
-        return qmm_ops.qmatmul(x, params["q"], delta, bias=bias,
-                               out_dtype=out_dtype)
+        return qmm_ops.qmatmul(x, w, delta, bias=bias, out_dtype=out_dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k)
-    if "qp" in params:
-        out = qmatvec_ref(x2, params["qp"], delta, k, bias=bias,
-                          out_dtype=out_dtype)
+    if packed:
+        out = qmatvec_ref(x2, w, delta, k, bias=bias, out_dtype=out_dtype)
     else:
-        out = qmatmul_ref(x2, params["q"], delta, bias=bias,
-                          out_dtype=out_dtype)
+        out = qmatmul_ref(x2, w, delta, bias=bias, out_dtype=out_dtype)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -146,11 +159,12 @@ def tied_logits(params: Dict[str, Any], h: torch.Tensor, *,
     mode = resolve_matmul_mode(mode, h.device)
     d1 = params["delta"].reshape(-1).to(torch.float32)        # (D,)
     hs = (h.to(torch.float32) * d1).to(h.dtype)
-    if mode == "kernel":
-        return qmm_ops.qmatmul(hs, params["q"].T, 1.0)
-    lead = h.shape[:-1]
-    out = qmatmul_ref(hs.reshape(-1, hs.shape[-1]), params["q"].T, 1.0)
-    return out.reshape(*lead, params["q"].shape[0])
+    run = functools.partial(_serve_local, mode=mode, packed=False)
+    if shards.any_dtensor(hs, params["q"]):
+        return shards.matmul_on_shards(hs, params["q"].T, run, delta=1.0,
+                                       bias=None, k=hs.shape[-1],
+                                       packed=False, out_dtype=None)
+    return run(hs, params["q"].T, 1.0, None, hs.shape[-1], None)
 
 
 def apply(params: Dict[str, Any], x: torch.Tensor, *, policy: QuantPolicy,
@@ -239,6 +253,12 @@ def fit_deltas_stacked(params: Any, policy: QuantPolicy) -> Any:
         if spec is None:
             return None
         nd = _stacked_dims(path)
+        if leaf.is_meta:         # a shape-only template: the fit's shape
+            inner = leaf.shape[nd:]
+            tail = (() if spec.per_channel is None
+                    else (inner[spec.per_channel % len(inner)],))
+            return torch.empty(tuple(leaf.shape[:nd]) + tail,
+                               dtype=torch.float32, device="meta")
         if nd == 0:
             return qz.optimal_uniform_delta(leaf, spec)
         flat = leaf.reshape((-1,) + tuple(leaf.shape[nd:]))
@@ -267,11 +287,16 @@ def _quantize_leaf(leaf: torch.Tensor, spec: qz.QuantSpec, nd: int):
     fitted by stacked index and block of output columns. Returns (q int8
     same shape, delta broadcastable against q)."""
     cspec = qz.QuantSpec(bits=spec.bits, per_channel=-1, iters=spec.iters)
+    n = leaf.shape[-1]
+    if leaf.is_meta:             # a shape-only template: the fit's shapes
+        lead = leaf.shape[:nd] if nd else ()
+        dshape = tuple(lead) + (1,) * (leaf.dim() - len(lead) - 1) + (n,)
+        return (torch.empty(leaf.shape, dtype=torch.int8, device="meta"),
+                torch.empty(dshape, dtype=torch.float32, device="meta"))
     if nd == 0:
         d = qz.optimal_uniform_delta(leaf, cspec)
         q = qz.quantize_levels(leaf, d, cspec)
         return q, d.reshape([1] * (leaf.dim() - 1) + [leaf.shape[-1]])
-    n = leaf.shape[-1]
     flat = leaf.reshape(-1, math.prod(leaf.shape[nd:-1]), n)   # (P, K, N)
     q = torch.empty(flat.shape, dtype=torch.int8, device=leaf.device)
     d = torch.empty((flat.shape[0], 1, n), dtype=torch.float32,

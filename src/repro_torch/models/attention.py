@@ -20,12 +20,16 @@ reference paths add to the kernels' plain-version counters
 (``kernels.<name>.ref.calls``), so a run can show it never left the
 kernels. A sliding window (``prefill_attention(window=)``) raises the
 kernel's lower bound to ``lo = max(t - window + 1, 0)``; its reference is
-``sliding_window_attention``.
+``sliding_window_attention``. DTensor operands run the kernels on their
+shards (``distributed.shards.attention_on_shards``, the key sequence
+gathered); the reference paths first gather query heads that the keys'
+heads are not sharded alike with (``shards.align_heads``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import shards
 from repro_torch.kernels.attn_decode import ops as dec_ops
 from repro_torch.kernels.attn_decode import ref as dec_ref
 from repro_torch.kernels.attn_decode.ref import scale_q
@@ -156,7 +160,12 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lo = None
         if window:
             lo = torch.clamp(pos - (window - 1), min=0)[None, :].expand(b, t)
+        if shards.any_dtensor(q, k, v):
+            return shards.attention_on_shards(
+                lambda q_, k_, v_, hi_, lo_: pf_ops.attn_prefill(
+                    q_, k_, v_, hi_, lo=lo_), q, k, v, rows=(hi, lo))
         return pf_ops.attn_prefill(q, k, v, hi, lo=lo)
+    q, k, v = shards.align_heads(q, k, v)
     pf_ref.calls += 1
     if window:
         return sliding_window_attention(q, k, v, window=window, chunk=chunk)
@@ -177,8 +186,16 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     same int8 scale factoring) with the guarded softmax, so a query with no
     valid key gives zeros."""
     if resolve_attn_mode(mode, q.device) == "kernel":
+        if shards.any_dtensor(q, k_cache, v_cache):
+            return shards.attention_on_shards(
+                lambda q_, k_, v_, hi_, ks_, vs_: pf_ops.attn_prefill(
+                    q_, k_, v_, hi_, k_scale=ks_, v_scale=vs_),
+                q, k_cache, v_cache, rows=(valid,),
+                row_seq=(k_scale, v_scale))
         return pf_ops.attn_prefill(q, k_cache, v_cache, valid,
                                    k_scale=k_scale, v_scale=v_scale)
+    q, k_cache, v_cache, k_scale, v_scale = shards.align_heads(
+        q, k_cache, v_cache, k_scale, v_scale)
     pf_ref.calls += 1
     b, t, h, d = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
@@ -210,8 +227,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     per-token ``k_scale``/``v_scale`` (B, S), which factor exactly through
     the score and value contractions."""
     if resolve_attn_mode(mode, q.device) == "kernel":
+        if shards.any_dtensor(q, k_cache, v_cache):
+            return shards.attention_on_shards(
+                dec_ops.attn_decode, q, k_cache, v_cache,
+                rows=(torch.as_tensor(cache_len, device=q.device),),
+                row_seq=(k_scale, v_scale))
         return dec_ops.attn_decode(q, k_cache, v_cache, cache_len, k_scale,
                                    v_scale)
+    q, k_cache, v_cache, k_scale, v_scale = shards.align_heads(
+        q, k_cache, v_cache, k_scale, v_scale)
     dec_ref.calls += 1
     b, _, h, d = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]

@@ -39,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.distributed.context import constrain
 from repro_torch.core.treeutil import flatten_with_path, tree_map
 from repro_torch.models import mamba2, transformer
 from repro_torch.models.attention import (decode_attention,
@@ -123,6 +124,7 @@ def forward(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
     n_groups, n_tail = _counts(cfg)
     h = embed_lookup(params["embed"], batch["tokens"], policy=policy,
                      delta=dget(deltas, "embed", "w"), dtype=dtype)
+    h = constrain(h, "act")
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, h.device)
 

@@ -5,8 +5,9 @@ through ``quant_dense.apply`` so the W3A8 policy applies uniformly; norms
 and biases stay fp32. ``deltas`` / ``delta`` (default None) are frozen
 step sizes for a float master under a quantizing policy
 (``quant_dense.fit_deltas_stacked``, one layer's slice of them here); None
-refits each weight's delta in every forward. The reference's sharding
-constraint on the logits is dropped: one card has nothing to constrain.
+refits each weight's delta in every forward. The logits pass through the
+``"logits"`` sharding constraint (``distributed.context.constrain``), a
+no-op outside a mesh.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import qat, quant_dense
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.distributed.context import constrain
 
 __all__ = ["rmsnorm_init", "rmsnorm", "head_rmsnorm", "rope_freqs",
            "apply_rope", "mlp_init", "mlp_apply", "embed_init", "embed_lookup",
@@ -157,4 +159,4 @@ def logits_readout(params: Dict[str, Any], h: torch.Tensor, cfg, *,
         out = quant_dense.apply(params["head"], h, policy=policy,
                                 role="output", delta=head_delta,
                                 mode=matmul_mode)
-    return out.to(torch.float32)
+    return constrain(out.to(torch.float32), "logits")

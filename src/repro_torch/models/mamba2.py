@@ -36,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.distributed.context import constrain
 from repro_torch.models.layers import (dget, embed_init, embed_lookup,
                                        rmsnorm, rmsnorm_init)
 from repro_torch.models.transformer import (_last_hidden, _layer, _logits,
@@ -176,7 +177,7 @@ def _gate_out(lp, y, z, h_in, cfg: ModelConfig, policy, mm: str, ld=None):
     """y (B, L, di) in the activation dtype -> h_in + out_proj(gated
     rmsnorm)."""
     y = rmsnorm(lp["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return h_in + _proj(lp, "out_proj", y, policy, mm, ld)
+    return constrain(h_in + _proj(lp, "out_proj", y, policy, mm, ld), "act")
 
 
 # --- chunked SSD core ---------------------------------------------------------------
@@ -343,6 +344,7 @@ def forward(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
     ``attn_chunk`` is unused (no attention)."""
     h = embed_lookup(params["embed"], batch["tokens"], policy=policy,
                      delta=dget(deltas, "embed", "w"), dtype=dtype)
+    h = constrain(h, "act")
 
     def body(lp, ld, hh):
         return block_apply(lp, hh, cfg, policy=policy, deltas=ld, chunk=chunk,

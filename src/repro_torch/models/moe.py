@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.qmatmul import ref as qmm_ref
 from repro_torch.models.layers import act_fn, dget
@@ -167,6 +168,7 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     slot = torch.where(keep, pos, torch.full_like(pos, -1))
     disp = (slot[..., None] == torch.arange(cap, device=x.device)) \
         .to(x.dtype)                                           # (ng, kg, E, C)
+    disp = constrain(disp, "moe_dispatch")
     wts = top_p.transpose(1, 2).reshape(ng, k * g).to(x.dtype)
     comb = disp * wts[..., None, None]
     if _trace is not None:
@@ -175,7 +177,7 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
 
     xk = xg.repeat(1, k, 1)                                    # (ng, kg, d)
     buf = torch.bmm(disp.reshape(ng, k * g, e * cap).transpose(1, 2), xk)
-    buf = buf.reshape(ng, e, cap, d)
+    buf = constrain(buf.reshape(ng, e, cap, d), "moe_buffer")
 
     act = act_fn(cfg.mlp_act)
     h = _expert_matmul(params, "up", buf, policy, matmul_mode, deltas)
@@ -185,6 +187,7 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     else:
         h = act(h)
     out_buf = _expert_matmul(params, "down", h, policy, matmul_mode, deltas)
+    out_buf = constrain(out_buf, "moe_buffer")
 
     yk = torch.bmm(comb.reshape(ng, k * g, e * cap),
                    out_buf.reshape(ng, e * cap, d))            # (ng, kg, d)

@@ -46,6 +46,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.distributed import shards
+from repro_torch.distributed.context import constrain
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (decode_attention, prefill_attention,
                                           resolve_attn_mode, verify_attention)
@@ -235,10 +237,10 @@ def _layer_forward(lp, ld, h, cfg: ModelConfig, policy, positions, inv_freq,
     o = prefill_attention(q, k, v, lengths=lengths,
                           window=cfg.sliding_window or 0, mode=attn_mode,
                           chunk=min(attn_chunk, s))
-    h = h + _attn_out(lp, o, cfg, policy, b, s, mm, ld)
+    h = constrain(h + _attn_out(lp, o, cfg, policy, b, s, mm, ld), "act")
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
     f, aux = _ffn(lp, hn, cfg, policy, mm, ld)
-    return h + f, aux, (k, v)
+    return constrain(h + f, "act"), aux, (k, v)
 
 
 def _cached_layer(lp, h, kv, i: int, write, valid, attend, cfg: ModelConfig,
@@ -283,6 +285,10 @@ def decode_writer(pos: torch.Tensor, cs: int, ring: bool):
     keep = pos < cs
 
     def write(buf, i, new):
+        if shards.is_dtensor(buf):
+            shards.write_on_shards(buf, i, rows, slot, new[:, 0],
+                                   None if ring else keep)
+            return
         new = new[:, 0].to(buf.dtype)
         if not ring:
             k_ = keep.reshape((b,) + (1,) * (new.dim() - 1))
@@ -312,6 +318,11 @@ def verify_writer(pos0: torch.Tensor, t: int, cs: int, ring: bool):
     keep = pos0[:, None] + src < cs
 
     def write(buf, i, new):
+        if shards.is_dtensor(buf):
+            shards.write_on_shards(buf, i, rows, slot, new,
+                                   None if ring else keep,
+                                   src=None if ring else src)
+            return
         if ring:
             buf[i, rows, slot] = new.to(buf.dtype)
             return
@@ -348,7 +359,8 @@ def forward(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     frozen or refitted), as the reference leaves them to XLA. ``remat``
     other than 'none' checkpoints each layer."""
     _check_supported(cfg)
-    h = _embed_input(params, batch, cfg, policy, deltas, dtype)
+    h = constrain(_embed_input(params, batch, cfg, policy, deltas, dtype),
+                  "act")
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, h.device)
 
@@ -473,7 +485,8 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     dev = tokens.device
     attn_mode = resolve_attn_mode(attn_mode, dev)
     pos = cache["len"].to(torch.int32).reshape(-1).expand(b)       # (B,)
-    h = embed_lookup(params["embed"], tokens, policy=policy, dtype=dtype)
+    h = constrain(embed_lookup(params["embed"], tokens, policy=policy,
+                               dtype=dtype), "dec_act")
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, dev)
     write, valid = decode_writer(pos, cache["k"].shape[2],
                                  bool(cfg.sliding_window))
@@ -507,7 +520,8 @@ def verify_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     dev = tokens.device
     attn_mode = resolve_attn_mode(attn_mode, dev)
     pos0 = cache["len"].to(torch.int32).reshape(-1).expand(b)      # (B,)
-    h = embed_lookup(params["embed"], tokens, policy=policy, dtype=dtype)
+    h = constrain(embed_lookup(params["embed"], tokens, policy=policy,
+                               dtype=dtype), "dec_act")
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, dev)
     write, valid, positions = verify_writer(pos0, t, cache["k"].shape[2],
                                             bool(cfg.sliding_window))

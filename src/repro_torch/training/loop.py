@@ -48,6 +48,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.graphs import Graphs, kept
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.core.treeutil import flatten_with_path, unflatten
+from repro_torch.distributed import shards
 from repro_torch.models.api import get_model
 from repro_torch.training.losses import IGNORE, accuracy, softmax_xent
 
@@ -72,16 +73,23 @@ def TrainState(params, opt_state, step=0, extra=None) -> Dict[str, Any]:
 
 
 def make_loss_fn(cfg: ModelConfig, policy: QuantPolicy,
-                 dtype=torch.bfloat16, remat: str = "layer"):
+                 dtype=torch.bfloat16, remat: str = "layer",
+                 model_kwargs: Optional[Dict] = None):
     """``loss_fn(params, batch, deltas=None) -> (loss + AUX_WEIGHT * aux,
     {"loss", "aux", "acc"})``; ``deltas`` None refits the policy's step
     sizes from the weights; with a frontend the labels are padded with
-    IGNORE over its prefix."""
+    IGNORE over its prefix. ``model_kwargs`` go to the model's
+    ``forward`` (``attn_chunk``, an SSD ``chunk``)."""
     mod = get_model(cfg)
+    mkw = dict(model_kwargs or {})
 
     def loss_fn(params, batch, deltas=None):
         logits, aux = mod.forward(params, batch, cfg, policy=policy,
-                                  deltas=deltas, dtype=dtype, remat=remat)
+                                  deltas=deltas, dtype=dtype, remat=remat,
+                                  **mkw)
+        # a vocab-sharded DTensor is gathered: DTensor's gather of the
+        # label logits (a masked partial) fails on the indexing after it
+        logits = shards.replicate_dims(logits, [-1], "loss over the vocab")
         labels = batch["labels"]
         if cfg.frontend is not None:
             pad = torch.full(tuple(labels.shape[:1]) + (cfg.frontend_tokens,),
@@ -119,10 +127,11 @@ class _TrainStep:
                       for p, t in self._params.items()}
         self.metrics = {k: torch.zeros((), dtype=torch.float32,
                                        device=self.device) for k in METRICS}
-        # what a step writes, and so what its graph's warm-ups must keep
-        self._written = (list(self._params.values())
-                         + list(flatten_with_path(state["opt"]).values())
-                         + [state["step"]])
+        # what a step writes, and so what its graph's warm-ups must keep:
+        # every leaf but the frozen deltas (params, optimizer state, step,
+        # a grad_transform's state such as the compressor's "ef")
+        self._written = [t for p, t in flatten_with_path(state).items()
+                         if not p.startswith("deltas/")]
 
     def _load(self, state):
         """Copy ``state`` (a restore) into the step's own tensors."""
@@ -142,8 +151,8 @@ class _TrainStep:
         key = ("step",) + tuple((k, tuple(v.shape), v.dtype) for k, v in
                                 sorted(batch.items()))
         if key not in self._inputs:
-            self._inputs[key] = {k: torch.empty(v.shape, dtype=v.dtype,
-                                                device=self.device)
+            # empty_like keeps a DTensor batch's mesh and placements
+            self._inputs[key] = {k: torch.empty_like(v, device=self.device)
                                  for k, v in batch.items()}
         bufs = self._inputs[key]
         for k, v in batch.items():
@@ -177,7 +186,8 @@ class _TrainStep:
                 gs = torch.autograd.grad(total, list(leaves.values()),
                                          allow_unused=True,
                                          materialize_grads=True)
-            parts = list(gs) + [m[k].detach().to(torch.float32)
+            # a sharded step's metrics are plain tensors: their whole values
+            parts = list(gs) + [shards.whole(m[k]).detach().to(torch.float32)
                                 for k in ("loss", "aux", "acc")]
             for acc, part in zip(sums, parts):
                 if i == 0:
@@ -196,8 +206,8 @@ class _TrainStep:
         lr = self.sched(state["step"])
         self.opt.update_(g_tree, state["opt"], state["params"], lr)
         state["step"].add_(1)
-        self.metrics["gnorm"].copy_(gnorm)
-        self.metrics["lr"].copy_(lr)
+        self.metrics["gnorm"].copy_(shards.whole(gnorm))
+        self.metrics["lr"].copy_(shards.whole(lr))
 
     def __call__(self, state, batch):
         if self.state is None:
@@ -213,7 +223,8 @@ class _TrainStep:
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, policy: QuantPolicy,
                     *, dtype=torch.bfloat16,
                     grad_transform: Optional[Callable] = None,
-                    capture: Optional[bool] = None):
+                    capture: Optional[bool] = None,
+                    model_kwargs: Optional[Dict] = None):
     """Returns (train_step, init_state). ``init_state(params, extra=None)``
     builds the state around ``params`` (no copy: the step updates them in
     place); ``extra={"deltas": fit_deltas_stacked(...)}`` trains with
@@ -222,12 +233,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, policy: QuantPolicy,
     ``capture``: None captures on a CUDA device; False is the eager twin.
     ``grad_transform(grads, state) -> (grads, state)`` runs before
     clipping; any state it keeps must be written in place (a captured step
-    reads fixed tensors)."""
+    reads fixed tensors). ``model_kwargs`` go to the model's forward."""
     opt = optim_lib.make(tcfg.optimizer, momentum=tcfg.momentum,
                          weight_decay=tcfg.weight_decay)
     sched = optim_lib.warmup_cosine(tcfg.learning_rate, tcfg.warmup_steps,
                                     tcfg.total_steps)
-    loss_fn = make_loss_fn(cfg, policy, dtype, tcfg.remat)
+    loss_fn = make_loss_fn(cfg, policy, dtype, tcfg.remat, model_kwargs)
 
     def init_state(params, extra=None):
         return TrainState(params, opt.init(params), extra=extra)

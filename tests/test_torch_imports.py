@@ -31,5 +31,6 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"engine.py", "transformer.py", "quant_dense.py", "bridge.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "sharding.py", "compression.py", "pipeline.py",
+            "steps.py"} <= names
     assert len(FILES) >= 30
