@@ -298,7 +298,27 @@ Phases, each printing one JSON line:
              the stage. Prints ms a step and tokens/s beside the
              one-device step, the decode and prefill cells' ms beside the
              one-device calls, peak GB.
-14. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
+14. analysis the contract linter and the dry run (run after phase 11):
+             (a) the contract sweep (repro_torch.analysis, 4
+             families x 2 forms x 2 modes on fake "cuda" tensors, one
+             subprocess a family): 0 violations; (b) the qp engine's
+             decode tick and one bucket-256 admission at full width traced
+             on fake tensors: their kernel ops by name and variant equal
+             the launch counters of the same calls run eagerly (tick: 7 x
+             28 qmatvec decode, 28 attn_decode, 1 k_lanes; admission: 7 x
+             28 qmatvec prefill, 28 wgmma attn_prefill, 1 k_lanes); (c)
+             the on-chip table, one launch of every kernel route at its
+             main shape: dynamic and static shared bytes, registers and
+             spills (ptxas), blocks per SM by shared memory; every
+             function within 227 KiB, every static size equal to ptxas's;
+             (d) --exercise's capture budgets (a reduced spec engine on
+             the card: the tick and its bucket captured once); (e)
+             launch/dryrun.py's qwen2-1.5b decode_32k and train_4k on the
+             fake 16 x 16 mesh (subprocesses): status ok, collectives and
+             peak estimate printed; the dist phase's train cell dry-run on
+             a (1, 1) mesh: its peak estimate beside the peak the dist
+             phase measured. Then the script's seconds.
+15. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path; then one entry for each of
              qmatmul's n_lanes and the fp32 attn_prefill, with their
@@ -536,30 +556,9 @@ def compare_exact(got, ref, what: str) -> float:
 
 # --- phase 1 ----------------------------------------------------------------------
 
-def ptxas_summary(log: str) -> list:
-    """One line per compiled CUDA kernel from nvcc's -Xptxas -v output: its
-    mangled name, then registers and spill bytes (stores/loads)."""
-    import re
-    out, name = [], None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:                    # the kernel and its template arguments
-            tail = m.group(1).split("_cu_")[-1]
-            name = re.search(r"[a-z_]*_kernel\w*", tail).group(0)
-            name = name.split("EEv")[0]
-            spill = None
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and name:
-            spill = f"{m.group(1)}/{m.group(2)} B spill"
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} regs, {spill}")
-            name = None
-    return out
-
-
 def card_phase(device, rehearse: bool):
     import torch
+    from repro_torch.analysis.smem import ptxas_summary
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4311,7 +4310,7 @@ def dist_phase(device, seed, rehearse, smi):
     gloo in the rehearsal) and a (1, 1) (data, model) mesh: (a) the train
     cell, (b) the decode cell, (c) the prefill cell, (d) the elastic
     restore, (e) the pipeline. Returns the serve cells' launches and
-    variants."""
+    variants and the train cell's peak GB."""
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.mesh import init_single_process, make_host_mesh
@@ -4338,7 +4337,350 @@ def dist_phase(device, seed, rehearse, smi):
     emit(rec)
     import torch.distributed as dist
     dist.destroy_process_group()
-    return launches, variants
+    return launches, variants, rec["train"]["peak_gb"]
+
+
+# --- phase 14 ---------------------------------------------------------------------
+
+ANALYSIS_BUCKET = 256          # (b): the admission round traced and launched
+# (e): the dry-run cells on the fake 16 x 16 mesh, run as subprocesses
+DRYRUN_CELLS = ("decode_32k", "train_4k")
+ANALYSIS_TIMEOUT = 600         # seconds the subprocesses may take, at most
+
+
+def _analysis_procs(device, rehearse):
+    """(a) and (e) in the background, each a subprocess of its own (fake
+    tensors on the host's cores; nothing runs on the card): the contract
+    sweep, one process a family, and the dry runs of DRYRUN_CELLS.
+    Returns {name: (process, log path, report path)}."""
+    import os
+    import subprocess
+    out = ROOT / "build" / "analysis"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dev = "cpu" if rehearse else "cuda"
+    cmds = {}
+    from repro_torch.analysis.contracts import FAMILIES
+    for fam in FAMILIES:
+        rep = out / f"sweep_{fam}.json"
+        cmds[f"sweep/{fam}"] = ([sys.executable, "-m", "repro_torch.analysis",
+                                 "--families", fam, "--out", str(rep)], rep)
+    for shape in DRYRUN_CELLS:
+        rep = (ROOT / "build" / "dryrun"
+               / f"qwen2-1.5b__{shape}__single__w3.json")
+        cmds[f"dryrun/{shape}"] = ([sys.executable, "-m",
+                                    "repro_torch.launch.dryrun", "--arch",
+                                    "qwen2-1.5b", "--shape", shape, "--mesh",
+                                    "single", "--no-aux", "--force",
+                                    "--device", dev], rep)
+    procs = {}
+    for name, (cmd, rep) in cmds.items():
+        rep.unlink(missing_ok=True)          # no report of an earlier run
+        log = out / (name.replace("/", "_") + ".log")
+        procs[name] = (subprocess.Popen(cmd, stdout=open(log, "w"),
+                                        stderr=subprocess.STDOUT, env=env,
+                                        cwd=ROOT), log, rep)
+    return procs
+
+
+def _analysis_wait(procs):
+    """Wait for the background subprocesses; a failed or late one fails
+    the phase (every one is stopped first). Returns {name: report}."""
+    deadline = time.perf_counter() + ANALYSIS_TIMEOUT
+    try:
+        for name, (p, log, _) in procs.items():
+            rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            if name.startswith("sweep") and rc != 0:
+                fail(f"analysis {name}: rc {rc}\n"
+                     f"{log.read_text()[-3000:]}")
+    except Exception:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
+    reports = {}
+    for name, (_, log, rep) in procs.items():
+        if not rep.exists():
+            fail(f"analysis {name}: no report\n{log.read_text()[-3000:]}")
+        reports[name] = json.loads(rep.read_text())
+    return reports
+
+
+def _launch_counts():
+    """Every kernel's launch counters by the names a trace gives its kernel
+    ops (``analysis.contracts.kernel_op_counts(by_variant=True)``); a
+    call's launches are the difference of two readings."""
+    c = _counters()
+    qmv, qmm, dec, pf, sig = (c[k][0] for k in (
+        "qmatvec", "qmatmul", "attn_decode", "attn_prefill", "sigmoid_pw"))
+    out = {f"qmatvec/{v}": n for v, n in qmv.launches_by_variant.items()}
+    out.update({f"qmatmul/n_lanes/{v}": n
+                for v, n in qmm.launches_by_variant.items()})
+    out.update({f"qmatmul/k_lanes/{o}": n
+                for o, n in qmm.launches_by_orientation.items()})
+    out.update({f"attn_prefill/{v}": n
+                for v, n in pf.launches_by_variant.items()})
+    out.update({"attn_decode": dec.launches, "sigmoid_pw": sig.launches,
+                "sigmoid_pw_bwd": sig.bwd_launches})
+    return out
+
+
+def _analysis_trace_gate(cfg, params, device, rehearse):
+    """(b) The decode tick and one bucket-256 admission of the qp engine
+    (8 slots, max_len 512) traced on fake tensors: their kernel ops by
+    name and variant equal the launch counters of the same calls run
+    eagerly on the card, and the tick's structure (7 projections a layer
+    in qmatvec's decode variant, an attn_decode a layer, one k_lanes
+    readout; the admission's in qmatvec's prefill variant and the wgmma
+    attn_prefill)."""
+    import torch
+    from repro_torch.analysis.contracts import kernel_op_counts
+    from repro_torch.analysis.trace import fake_mode, fake_tree, trace
+    from repro_torch.core.precision import W3A8
+    from repro_torch.serving.engine import ServingEngine
+    kw = dict(policy=W3A8, slots=8, max_len=512, dtype=torch.bfloat16,
+              capture=False)
+    t0 = time.perf_counter()
+    fm = fake_mode()
+    # fake CUDA tensors, in the CPU rehearsal too (a CPU tensor takes the
+    # plain versions, so its graph has no kernel op)
+    cuda0 = torch.device("cuda", 0)
+    fparams = fake_tree(params, fm, None if device.type == "cuda" else cuda0)
+    with fm:
+        feng = ServingEngine(fparams, cfg, device=cuda0, **kw)
+        pts = {p["name"]: p for p in feng.contract_points(ANALYSIS_BUCKET)}
+    traced = {}
+    for name in ("decode_tick", "prefill_bucketed"):
+        p = pts[name]
+        tr = trace(p["fn"], inputs=p["inputs"], carry=p["carry"], mode=fm)
+        traced[name] = kernel_op_counts(tr, by_variant=True)
+    trace_s = time.perf_counter() - t0
+    L = cfg.num_layers
+    want = {"decode_tick": {"qmatvec/decode": 7 * L, "attn_decode": L,
+                            "qmatmul/k_lanes/k_major": 1},
+            "prefill_bucketed": {"qmatvec/prefill": 7 * L,
+                                 "attn_prefill/wgmma": L,
+                                 "qmatmul/k_lanes/k_major": 1}}
+    out = {"traced": traced, "trace_s": round(trace_s, 3)}
+    for name, counts in traced.items():
+        if counts != want[name]:
+            fail(f"analysis (b): the traced {name} runs {counts}, the "
+                 f"engine's structure {want[name]}")
+    if rehearse:
+        return out
+    eng = ServingEngine(params, cfg, device=device, **kw)
+    buf = torch.zeros((8, ANALYSIS_BUCKET), dtype=torch.int32, device=device)
+    launched = {}
+    with torch.no_grad():
+        for name, fn in (("decode_tick", eng._tick),
+                         ("prefill_bucketed", lambda: eng._admit(buf))):
+            before = _launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            after = _launch_counts()
+            launched[name] = {k: n - before.get(k, 0)
+                              for k, n in after.items()
+                              if n != before.get(k, 0)}
+    del eng
+    out["launched"] = launched
+    for name in traced:
+        if traced[name] != launched[name]:
+            fail(f"analysis (b): {name} traced {traced[name]} but launched "
+                 f"{launched[name]}")
+    return out
+
+
+def _route_cases(device):
+    """One launch of every kernel route at its main shape (PERF.md's
+    kernel table): (label, call)."""
+    import torch
+    from repro_torch.kernels.attn_decode import ops as dec_ops
+    from repro_torch.kernels.attn_prefill import ops as pf_ops
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+    from repro_torch.kernels.qmatvec import ops as qmv_ops
+    from repro_torch.kernels.sigmoid_pw import kernel as sig_k
+    g = torch.Generator(device=device).manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    def ri(lo, hi, *shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=device,
+                             dtype=dtype)
+    words = ri(-2 ** 31, 2 ** 31 - 1, 154, 8960, dtype=torch.int32)
+    delta = rn(8960, dtype=f32).abs()
+    lv = ri(-127, 128, 1536, 8960, dtype=torch.int8)
+    table = ri(-127, 128, 151936, 1536, dtype=torch.int8)
+    router = ri(-127, 128, 4096, 16, dtype=torch.int8)
+    q1, kc = rn(8, 1, 12, 128), rn(8, 512, 2, 128)
+    lens = torch.full((8,), 400, dtype=torch.int32, device=device)
+    qp, kp = rn(8, 256, 12, 128), rn(8, 256, 2, 128)
+    hi = torch.minimum(torch.arange(256, device=device, dtype=torch.int32)
+                       [None] + 1, torch.full((8, 1), 256, device=device,
+                                              dtype=torch.int32))
+    x1 = rn(100, 1022, dtype=f32)
+    return (
+        ("qmatvec decode M=8 K=1536 N=8960",
+         lambda: qmv_ops.qmatvec(rn(8, 1536), words, delta, k=1536)),
+        ("qmatvec prefill M=512 K=1536 N=8960",
+         lambda: qmv_ops.qmatvec(rn(512, 1536), words, delta, k=1536)),
+        ("qmatmul k_lanes k_major readout M=8 K=1536 N=151936",
+         lambda: qmm_ops.qmatmul(rn(8, 1536), table.T, 1.0)),
+        ("qmatmul k_lanes row_major router M=8 K=4096 N=16",
+         lambda: qmm_ops.qmatmul(rn(8, 4096), router, delta[:16],
+                                 out_dtype=f32)),
+        ("qmatmul n_lanes decode M=8 K=1536 N=8960",
+         lambda: qmm_ops.qmatmul(rn(8, 1536), lv, delta)),
+        ("qmatmul n_lanes prefill M=512 K=1536 N=8960",
+         lambda: qmm_ops.qmatmul(rn(512, 1536), lv, delta)),
+        ("attn_decode B=8 S=512 KV=2 G=6 D=128",
+         lambda: dec_ops.attn_decode(q1, kc, kc, lens)),
+        ("attn_prefill wgmma B=8 T=S=256 KV=2 G=6 D=128",
+         lambda: pf_ops.attn_prefill(qp, kp, kp, hi)),
+        ("attn_prefill simt B=8 T=S=256 KV=2 G=6 D=128 fp32",
+         lambda: pf_ops.attn_prefill(qp.float(), kp.float(), kp.float(),
+                                     hi)),
+        ("sigmoid_pw (100, 1022) fp32", lambda: sig_k.sigmoid_pw_cuda(x1)),
+        ("sigmoid_pw_bwd (100, 1022) fp32",
+         lambda: sig_k.sigmoid_pw_bwd_cuda(x1, x1)))
+
+
+def _analysis_smem_table(device, rehearse):
+    """(c) Every kernel route's launch at its main shape: the plan's
+    dynamic shared memory, the static bytes of analysis.smem (checked
+    against ptxas for every compiled function), registers, spill bytes and
+    blocks per SM by shared memory; every function within the 227 KiB a
+    block may use."""
+    import types
+
+    import torch
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import _build, _ops
+    entries = {}
+    for log in _build.build_log.values():
+        for e in smem.ptxas_entries(log):
+            entries.setdefault(e["function"], []).append(e)
+    bad = sorted({(fn, e["smem"]) for fn, es in entries.items() for e in es
+                  if e["smem"] != smem.STATIC_SMEM.get(fn, 0)})
+    if bad:
+        fail(f"analysis (c): ptxas's static shared memory differs from "
+             f"analysis.smem.STATIC_SMEM: {bad}")
+    if not rehearse:
+        missing = set(smem.STATIC_SMEM) - set(entries)
+        if missing or not entries:
+            fail(f"analysis (c): ptxas reported no {sorted(missing)}")
+    rows = []
+    if rehearse:
+        return {"routes": rows, "ptxas_functions": len(entries)}
+    for label, call in _route_cases(device):
+        with torch.no_grad(), _ops.recording() as notes:
+            call()
+        torch.cuda.synchronize()
+        note = notes[-1]
+        est = smem.kernel_smem_estimate(types.SimpleNamespace(kernel=note))
+        for fn, dyn, static in est["functions"]:
+            es = entries.get(fn, [])
+            regs = sorted({e["registers"] for e in es})
+            spill = max((sum(e["spill"] or (0, 0)) for e in es), default=None)
+            if dyn + static > smem.DEFAULT_SMEM_BUDGET:
+                fail(f"analysis (c): {label} {fn} asks for {dyn + static} B "
+                     f"of shared memory, over {smem.DEFAULT_SMEM_BUDGET}")
+            rows.append({"route": label, "variant": est["variant"],
+                         "function": fn, "grid": list(note["grid"])
+                         if fn == est["function"] else None,
+                         "dynamic_smem": dyn, "static_smem": static,
+                         "registers": f"{regs[0]}-{regs[-1]}" if regs
+                         else None,
+                         "spill_bytes_max": spill,
+                         "blocks_per_sm_by_smem": smem.blocks_per_sm(
+                             dyn + static)})
+    return {"routes": rows, "ptxas_functions": len(entries)}
+
+
+def _analysis_host_dryrun(device, rehearse, dist_peak):
+    """(e) The dist phase's train cell (qwen2-1.5b, W3A8, 8 x 256, its
+    TrainConfig) dry-run on a (1, 1) mesh of a fake group: its peak
+    estimate beside the peak the dist phase measured."""
+    from repro_torch.configs import ShapeConfig, TrainConfig, get_config, \
+        reduced
+    from repro_torch.launch import dryrun
+    cfg = get_config("qwen2-1.5b")
+    b, t = (2, 16) if rehearse else TRAIN_TOKENS
+    if rehearse:
+        cfg = reduced(cfg)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=DIST_TRAIN_STEPS, grad_clip=1.0,
+                       optimizer="adamw", remat="layer")
+    name = f"train_{b}x{t}"
+    rec = dryrun.run_cell(cfg.name, name, "host", "w3", force=True,
+                          device=device.type, cfg=cfg,
+                          shape=ShapeConfig(name, t, b, "train"), tcfg=tcfg,
+                          with_aux=False)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if rec["status"] != "ok":
+        fail(f"analysis (e): the (1, 1) train cell's dry run: {rec['error']}"
+             f"\n{rec.get('traceback', '')}")
+    return {"cell": dryrun.cell_id(cfg.name, name, "host", "w3"),
+            "peak_bytes_est_gb": round(
+                rec["full"]["memory"]["peak_bytes_est"] / 1e9, 3),
+            "memory": rec["full"]["memory"],
+            "measured_peak_gb": dist_peak, "trace_s": rec["full"]["compile_s"]}
+
+
+def analysis_phase(cfg, params, device, rehearse, dist_peak):
+    """14. The contract linter and the dry run: (a) the sweep, 4 families
+    x 2 forms x 2 modes on fake "cuda" tensors, 0 violations; (b) the
+    traced tick and admission equal the launch counters; (c) the on-chip
+    table; (d) the capture budgets of --exercise; (e) the dry runs on the
+    fake 16 x 16 mesh, status ok, and the (1, 1) train cell's peak
+    estimate beside the dist phase's measured peak."""
+    t0 = time.perf_counter()
+    procs = _analysis_procs(device, rehearse)
+    try:
+        rec = {"phase": "analysis"}
+        rec["trace_vs_launches"] = _analysis_trace_gate(cfg, params, device,
+                                                        rehearse)
+        rec["smem"] = _analysis_smem_table(device, rehearse)
+        if not rehearse:
+            from repro_torch.analysis.__main__ import _exercise_captures
+            cap = _exercise_captures()
+            if cap["violations"] or cap["counts"].get("tick") != 1:
+                fail(f"analysis (d): capture budgets: {cap}")
+            rec["captures"] = cap
+        rec["host_dryrun"] = _analysis_host_dryrun(device, rehearse,
+                                                   dist_peak)
+        reports = _analysis_wait(procs)
+    except BaseException:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
+    sweeps = [r for n, r in reports.items() if n.startswith("sweep")]
+    rec["sweep"] = {"checks": sum(r["checks"] for r in sweeps),
+                    "violations": sum(r["violations"] for r in sweeps),
+                    "combos": sum(len(r["combos"]) for r in sweeps)}
+    if rec["sweep"]["violations"] or rec["sweep"]["combos"] != 16:
+        fail(f"analysis (a): {rec['sweep']}")
+    rec["dryrun"] = {}
+    for shape in DRYRUN_CELLS:
+        r = reports[f"dryrun/{shape}"]
+        if r["status"] != "ok":
+            fail(f"analysis (e): dry run {shape}: {r.get('error')}\n"
+                 f"{r.get('traceback', '')}")
+        rec["dryrun"][shape] = {
+            "collectives": r["full"]["collectives"],
+            "peak_bytes_est_gb": round(
+                r["full"]["memory"]["peak_bytes_est"] / 1e9, 3),
+            "flops": r["full"]["cost"]["flops"],
+            "trace_s": r["full"]["compile_s"]}
+    rec["seconds"] = round(time.perf_counter() - t0, 1)
+    emit(rec)
+    return rec
 
 
 def main(argv=None) -> int:
@@ -4347,11 +4689,12 @@ def main(argv=None) -> int:
                     help="CPU rehearsal at reduced size through the plain "
                          "versions; prints no result line")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=["dist"],
+    ap.add_argument("--phase", choices=["dist", "analysis"],
                     help="build the kernels and run this phase alone (no "
                          "kernels line, no result line)")
     args = ap.parse_args(argv)
 
+    t_script = time.perf_counter()
     import torch
     if not args.rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4366,6 +4709,11 @@ def main(argv=None) -> int:
     smi = card_phase(device, args.rehearse)
     if args.phase == "dist":
         dist_phase(device, args.seed, args.rehearse, smi)
+        print(smi, flush=True)
+        return 0
+    if args.phase == "analysis":
+        _, params, _ = build_model(cfg, device, args.seed)
+        analysis_phase(cfg, params, device, args.rehearse, None)
         print(smi, flush=True)
         return 0
     headline, routes = parity_phase(cfg, device, args.rehearse)
@@ -4398,12 +4746,15 @@ def main(argv=None) -> int:
     ssm_launches, ssm_variants = ssm_phase(device, args.seed, args.rehearse)
     train_launches, train_variants = train_phase(device, args.seed,
                                                  args.rehearse)
-    dist_launches, dist_variants = dist_phase(device, args.seed,
+    dist_launches, dist_variants, dist_peak = dist_phase(device, args.seed,
                                               args.rehearse, smi)
     master, params = _on(master, device), _on(params, device)
     res_launches, res_variants = resilience_phase(cfg, master, params,
                                                   device, args.rehearse)
-    del master, params
+    del master
+    _fresh(device)
+    analysis_phase(cfg, params, device, args.rehearse, dist_peak)
+    del params
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
@@ -4475,6 +4826,8 @@ def main(argv=None) -> int:
                 "shape", "dtype", "variant", "err", "ms", "device_ms",
                 "plain_ms", "library_ms", "library_device_ms", "bound_ms",
                 "bound_by") if k in c_} for c_ in cases]})
+    emit({"phase": "script", "seconds": round(time.perf_counter() - t_script,
+                                              1)})
     emit({"kernels": kernels})
     print(smi, flush=True)
     if args.rehearse:

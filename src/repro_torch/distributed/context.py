@@ -20,7 +20,11 @@ import contextlib
 import threading
 from typing import Dict, Optional
 
-__all__ = ["sharding_rules", "constrain", "guarded", "cost_exact_mode",
+import torch
+
+__all__ = ["sharding_rules", "constrain", "guarded", "split_last",
+           "merge_last",
+           "cost_exact_mode",
            "is_cost_exact", "inner_unroll"]
 
 _state = threading.local()
@@ -91,3 +95,38 @@ def constrain(x, name: str):
     if list(x.placements) == want:
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def split_last(x, shape):
+    """``x.reshape(shape)``, where ``shape`` splits ``x``'s last dim (d ->
+    heads x head_dim). A DTensor sharded on that dim over a mesh dim whose
+    size does not divide the leading split (12 heads over a model axis of
+    16) is first gathered on that mesh dim: XLA's partitioner reshards
+    such a reshape by itself, DTensor refuses it. A plain tensor is only
+    reshaped."""
+    if type(x) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if isinstance(x, DTensor):
+            last, lead = x.dim() - 1, shape[x.dim() - 1]
+            mesh = x.device_mesh
+            want = [Replicate() if isinstance(p, Shard) and p.dim == last
+                    and lead % mesh.size(i) else p
+                    for i, p in enumerate(x.placements)]
+            if want != list(x.placements):
+                x = x.redistribute(mesh, want)
+    return x.reshape(shape)
+
+
+def merge_last(x, shape):
+    """``x.reshape(shape)``, where ``shape`` merges ``x``'s last dims
+    (heads x head_dim -> d), with the gradient brought back to the
+    result's own layout: a gradient that arrives sharded on the merged dim
+    (from a row-sharded projection after it) would otherwise meet, in the
+    reshape's backward, the uneven split DTensor refuses (see
+    :func:`split_last`). Forward it is the reshape alone."""
+    y = x.reshape(shape)
+    if type(y) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(y, DTensor) and y.requires_grad:
+            y = y.redistribute(y.device_mesh, y.placements)
+    return y

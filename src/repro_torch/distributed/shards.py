@@ -17,6 +17,12 @@ result as a DTensor.
   where the keys' heads are sharded alike; the key sequence is gathered.
 * :func:`write_on_shards`: a cache write on the rows and positions each
   rank holds (a sequence-sharded cache included), in place.
+* :func:`einsum` / :func:`matmul`: a batched product of DTensors on the
+  local shards, each mesh dim sharding one of the output's letters (the
+  batch and head dims of the SSM state update), for the serve paths:
+  DTensor itself flattens such operands into a strided sharding that its
+  ``bmm`` cannot propagate. Plain tensors, and operands that need a
+  gradient, take ``torch.einsum`` / ``torch.matmul``.
 
 A mesh dim of size 1 holds the whole tensor on its one rank, whatever its
 placement says, so it is read as ``Replicate`` with no communication: on
@@ -32,7 +38,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 __all__ = ["is_dtensor", "any_dtensor", "whole", "gathers",
-           "matmul_on_shards",
+           "matmul_on_shards", "einsum", "matmul",
            "attention_on_shards", "write_on_shards", "replicate_dims",
            "align_heads"]
 
@@ -145,6 +151,62 @@ def _rows_local(t, mesh, row_pl):
             for p in row_pl]
     return _redistribute(_as_dtensor(t, mesh), want,
                          "per-row operand").to_local()
+
+
+def einsum(eq: str, *ops):
+    """``torch.einsum(eq, *ops)``; with a DTensor operand, on the local
+    shards. Each mesh dim keeps sharding the letter the first operand
+    sharded on it there, where that letter is one of the output's: every
+    operand holding the letter is sharded on it alike (a replicated one
+    takes its local slice, no communication), the others are replicated on
+    that mesh dim. A sharded contracted letter is gathered. The result is
+    a DTensor sharded on those letters. Only without autograd (the serve
+    paths): an operand that needs a gradient takes DTensor's own einsum."""
+    if not any_dtensor(*ops) or (torch.is_grad_enabled() and any(
+            getattr(o, "requires_grad", False) for o in ops)):
+        return torch.einsum(eq, *ops)
+    from torch.distributed.tensor import Replicate, Shard
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    if "." in eq or len(ins) != len(ops):
+        raise ValueError(f"shards.einsum: explicit letters only, got {eq!r}")
+    mesh = next(o for o in ops if is_dtensor(o)).device_mesh
+    ops = [_as_dtensor(o, mesh) for o in ops]
+    size = {c: n for o, letters in zip(ops, ins)
+            for c, n in zip(letters, o.shape)}
+    keep = []                        # the letter each mesh dim shards
+    for i in range(mesh.ndim):
+        letter = None
+        for o, letters in zip(ops, ins):
+            p = o.placements[i]
+            if isinstance(p, Shard) and type(p) is Shard:
+                letter = letters[p.dim]
+                break
+        keep.append(letter if letter is not None and letter in out
+                    else None)
+    local = []
+    for o, letters in zip(ops, ins):
+        want = [Shard(letters.index(c)) if c is not None and c in letters
+                else Replicate() for c in keep]
+        local.append(_redistribute(o, want, "einsum operand").to_local())
+    pl = [Shard(out.index(c)) if c is not None else Replicate()
+          for c in keep]
+    return _wrap(torch.einsum(eq, *local), mesh, pl,
+                 [size[c] for c in out])
+
+
+def matmul(a, b):
+    """``a @ b`` for operands of one rank >= 3 (batch dims, then the
+    matrices); with a DTensor operand and no autograd, on the local shards
+    (see :func:`einsum`)."""
+    if not any_dtensor(a, b) or (torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad)):
+        return torch.matmul(a, b)
+    if a.dim() != b.dim() or a.dim() < 3 or a.dim() > 24:
+        raise ValueError(f"shards.matmul: operands of one rank >= 3, got "
+                         f"{a.dim()} and {b.dim()}")
+    batch = "abcdefghijklmnopqrstuvw"[:a.dim() - 2]
+    return einsum(f"{batch}xy,{batch}yz->{batch}xz", a, b)
 
 
 def align_heads(q, k, v, *scales):

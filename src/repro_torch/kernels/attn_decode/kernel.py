@@ -5,8 +5,11 @@ partial softmax in a second kernel, launched by the same C entry point.
 :func:`plan` (pure Python, so the CPU tests reach it) picks the split
 length from the cache's static length S, never from ``cache_len``;
 :func:`split_softmax` is the arithmetic of the split and the merge in
-plain torch, for the CPU tests. ``launches`` counts wrapper calls that
-launched (one per call, the merge included); nothing else touches it.
+plain torch, for the CPU tests. The launch is the CUDA implementation of
+the registered op ``torch.ops.repro_torch.attn_decode``
+(``kernels/_ops.py``), whose fake implementation allocates the same
+output and split partials. ``launches`` counts launches (one per call,
+the merge included); nothing else touches it.
 """
 from __future__ import annotations
 
@@ -16,10 +19,10 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 
 __all__ = ["attn_decode_cuda", "check_head", "check_kv", "launches", "plan",
-           "Plan", "split_softmax"]
+           "Plan", "split_softmax", "attention_flops"]
 
 launches = 0
 
@@ -52,7 +55,7 @@ def plan(b: int, s: int, kv: int, g: int, d: int,
     split_len = _BK
     while split_len < want or -(-max(s, 1) // split_len) > _MAX_SPLITS:
         split_len *= 2
-    row = d * torch.empty((), dtype=kv_dtype).element_size() + _PAD
+    row = d * kv_dtype.itemsize + _PAD
     kv_buf = 2 * _BK * row + (2 * _BK * 4 if kv_dtype == torch.int8 else 0)
     smem = g * d * 4 + _WARPS * _HPW * _BK * 4 + 2 * kv_buf
     return Plan(split_len, -(-max(s, 1) // split_len), smem)
@@ -148,23 +151,48 @@ def attn_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B, KV, G, D) fp32/bf16, multiplied by ``q_scale`` (a scalar
     already rounded to q's dtype) in q's dtype as the kernel reads it; k/v
     cache (B, S, KV, D) in q's dtype, or int8 with (B, S) fp32 scales;
-    cache_len (B,) int32 -> (B, KV, G, D) in q's dtype."""
-    global launches
+    cache_len (B,) int32 -> (B, KV, G, D) in q's dtype. Checks what the
+    kernel does not handle, then calls the registered op
+    ``torch.ops.repro_torch.attn_decode``."""
     if not q.is_cuda or q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"attn_decode q: need a contiguous (B, KV, G, D) "
                          f"CUDA tensor, got {tuple(q.shape)} on {q.device}")
     b, kv, g, d = q.shape
     s = k_cache.shape[1]
-    quantized = check_kv(q, k_cache, v_cache, k_scale, v_scale,
-                         (b, s, kv, d), "attn_decode")
+    check_kv(q, k_cache, v_cache, k_scale, v_scale, (b, s, kv, d),
+             "attn_decode")
     _build.require(cache_len, (b,), (torch.int32,), q.device,
                    "attn_decode cache_len")
+    return _ops.op("attn_decode")(q, k_cache, v_cache, cache_len, k_scale,
+                                  v_scale, float(q_scale))
+
+
+def _alloc(q, k_cache):
+    """The launch's plan, its output and its split partials (the m, l and
+    accumulator of every split, one fp32 buffer), noted for a recording;
+    shared by both implementations of the op."""
+    b, kv, g, d = q.shape
     out = torch.empty_like(q)
     if b * kv == 0:
-        return out
-    p = plan(b, s, kv, g, d, k_cache.dtype)
+        return None, out, None
+    p = plan(b, k_cache.shape[1], kv, g, d, k_cache.dtype)
     parts = torch.empty((b * kv * p.splits * g * (d + 2),),
                         dtype=torch.float32, device=q.device)
+    _ops.note("attn_decode", "", (p.splits, b * kv), p.dynamic_smem,
+              [(parts.shape, parts.dtype)], p)
+    return p, out, parts
+
+
+def _launch(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale):
+    """The op's CUDA implementation: the split and merge kernels on the
+    current stream."""
+    global launches
+    p, out, parts = _alloc(q, k_cache)
+    if p is None:
+        return out
+    b, kv, g, d = q.shape
+    s = k_cache.shape[1]
+    quantized = k_scale is not None
     pm = parts[:b * kv * p.splits * g]
     pl = parts[pm.numel():2 * pm.numel()]
     pacc = parts[2 * pm.numel():]
@@ -181,3 +209,25 @@ def attn_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     _build.check(rc, "attn_decode")
     launches += 1
     return out
+
+
+def _fake(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale):
+    """The op's fake implementation: the launch's allocations, no work."""
+    return _alloc(q, k_cache)[1]
+
+
+def attention_flops(b: int, h: int, t: int, s: int, d: int) -> int:
+    """4 B H T S D: the score product and the value product, each
+    2 B H T S D, over every key position before masking."""
+    return 4 * b * h * t * s * d
+
+
+def _flops(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale,
+           out_shape=None):
+    b, kv, g, d = q
+    return attention_flops(b, kv * g, 1, k_cache[1], d)
+
+
+_ops.define("attn_decode", "(Tensor q, Tensor k_cache, Tensor v_cache, "
+            "Tensor cache_len, Tensor? k_scale, Tensor? v_scale, "
+            "float q_scale) -> Tensor", _launch, _fake, _flops)

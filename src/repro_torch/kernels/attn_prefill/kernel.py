@@ -13,7 +13,9 @@ Both take every head_dim that is a multiple of 16 from 16 to 256
 ``launches`` counts wrapper calls that launched (one a call) and
 ``launches_by_variant`` splits them by kernel; ``merges`` counts the simt
 split's second kernel, one for each call that splits S. Nothing else
-touches them.
+touches them. Both kernels are the CUDA implementation of one registered
+op, ``torch.ops.repro_torch.attn_prefill`` (``kernels/_ops.py``), whose
+fake implementation allocates the same output and split partials.
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.attn_decode.kernel import check_head, check_kv
+from repro_torch.kernels import _build, _ops
+from repro_torch.kernels.attn_decode.kernel import (attention_flops,
+                                                   check_head, check_kv)
 
 __all__ = ["attn_prefill_cuda", "plan", "Plan", "launches",
            "launches_by_variant", "merges", "VARIANTS"]
@@ -112,22 +115,52 @@ def attn_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, T, KV, G, D) fp32/bf16 pre-scaled by 1/sqrt(D); k/v
     (B, S, KV, D) in q's dtype, or int8 with (B, S) fp32 scales; lo/hi
     (B, T) int32, lo None for all zeros -> (B, T, KV, G, D) in q's
-    dtype."""
-    global launches, merges
+    dtype. Checks what the kernels do not handle, then calls the
+    registered op ``torch.ops.repro_torch.attn_prefill``."""
     if not q.is_cuda or q.dim() != 5 or not q.is_contiguous():
         raise ValueError(f"attn_prefill q: need a contiguous (B, T, KV, G, D)"
                          f" CUDA tensor, got {tuple(q.shape)} on {q.device}")
     b, t, kv, g, d = q.shape
     s = k.shape[1]
-    p = plan(q.dtype, k.dtype, g, d, b, t, kv, s)
-    quantized = check_kv(q, k, v, k_scale, v_scale, (b, s, kv, d),
-                         "attn_prefill")
+    plan(q.dtype, k.dtype, g, d, b, t, kv, s)
+    check_kv(q, k, v, k_scale, v_scale, (b, s, kv, d), "attn_prefill")
     if lo is not None:
         _build.require(lo, (b, t), (torch.int32,), q.device, "attn_prefill lo")
     _build.require(hi, (b, t), (torch.int32,), q.device, "attn_prefill hi")
+    return _ops.op("attn_prefill")(q, k, v, lo, hi, k_scale, v_scale)
+
+
+def _alloc(q, k):
+    """The launch's plan, its output and the simt split's partials (the m,
+    l and accumulator of every split, one fp32 buffer; None without a
+    split), noted for a recording; shared by both implementations."""
+    b, t, kv, g, d = q.shape
+    s = k.shape[1]
     out = torch.empty_like(q)
     if b * t * kv == 0:
+        return None, out, None
+    p = plan(q.dtype, k.dtype, g, d, b, t, kv, s)
+    part = None
+    if p.variant == "simt" and p.splits > 1:
+        part = torch.empty((p.splits * b * kv * t * g * (d + 2),),
+                           dtype=torch.float32, device=q.device)
+    rows = _TC_ROWS if p.variant == "wgmma" else _SIMT_ROWS
+    _ops.note("attn_prefill", p.variant,
+              (b * kv * -(-(t * g) // rows), p.splits), p.dynamic_smem,
+              [] if part is None else [(part.shape, part.dtype)], p)
+    return p, out, part
+
+
+def _launch(q, k, v, lo, hi, k_scale, v_scale):
+    """The op's CUDA implementation: the launch on the current stream (and
+    the simt split's merge)."""
+    global launches, merges
+    p, out, part = _alloc(q, k)
+    if p is None:
         return out
+    b, t, kv, g, d = q.shape
+    s = k.shape[1]
+    quantized = k_scale is not None
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
@@ -139,11 +172,7 @@ def attn_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 *ptrs, b, t, s, kv, g, d, _build.dtype_code(k.dtype),
                 p.dynamic_smem, _build.stream_ptr(q.device))
         else:
-            part = None
-            if p.splits > 1:             # m, l and the accumulator a split
-                rows = p.splits * b * kv * t * g
-                part = torch.empty((rows * (d + 2),), dtype=torch.float32,
-                                   device=q.device)
+            rows = p.splits * b * kv * t * g
             rc = _build.function("attn_prefill", _SIMT_ARGTYPES)(
                 *ptrs, None if part is None else part.data_ptr(),
                 None if part is None else part[2 * rows:].data_ptr(),
@@ -157,3 +186,17 @@ def attn_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         merges += 1
     return out
 
+
+def _fake(q, k, v, lo, hi, k_scale, v_scale):
+    """The op's fake implementation: the launch's allocations, no work."""
+    return _alloc(q, k)[1]
+
+
+def _flops(q, k, v, lo, hi, k_scale, v_scale, out_shape=None):
+    b, t, kv, g, d = q
+    return attention_flops(b, kv * g, t, k[1], d)
+
+
+_ops.define("attn_prefill", "(Tensor q, Tensor k, Tensor v, Tensor? lo, "
+            "Tensor hi, Tensor? k_scale, Tensor? v_scale) -> Tensor",
+            _launch, _fake, _flops)

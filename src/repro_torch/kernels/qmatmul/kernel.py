@@ -12,7 +12,10 @@ kernel included), ``launches_by_layout`` splits them by layout,
 ``launches_by_variant`` the ``n_lanes`` ones by variant and
 ``launches_by_orientation`` the ``k_lanes`` ones by W's orientation
 (``k_major``: the readout and the container head; ``row_major``: the MLP
-heads and the MoE router); nothing else touches them.
+heads and the MoE router); nothing else touches them. The launch is the
+CUDA implementation of the registered op ``torch.ops.repro_torch.qmatmul``
+(``kernels/_ops.py``), whose fake implementation allocates the same
+output and K-split partials.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 
 __all__ = ["qmatmul_cuda", "plan", "Plan", "launches", "launches_by_layout",
            "launches_by_variant", "launches_by_orientation", "LAYOUTS",
@@ -41,6 +44,7 @@ launches_by_orientation = dict.fromkeys(K_LANES_ORIENTATIONS, 0)  # k_lanes
 _KL_STEP, _KL_PAD = 128, 8
 _KL_X_BYTES = 96 * 1024      # staged x per block: leaves room for 2 blocks/SM
 _KN_MAX_N = 64               # k_lanes, row-major W: N <= 64
+_KN_COLS, _KL_WARPS = 16, 8  # row-major: columns a block; K-major: warps
 
 # n_lanes, as csrc/qmatmul.cu: K in chunks (decode) or steps (prefill) of
 # 64; decode blocks of 64 columns, each warp two int8 stages of a chunk and
@@ -163,13 +167,34 @@ def decode_tile_row(r: int) -> int:
     return 16 * s + (2 * t + q if q < 2 else 8 + 2 * t + q - 2)
 
 
+def _grid(p: Plan, m: int, n: int) -> tuple:
+    """The main kernel's grid as ``csrc/qmatmul.cu`` sizes it. k_lanes with
+    a K-contiguous W is a persistent grid sized by the blocks an SM holds,
+    which the launcher asks the CUDA runtime for; here they are estimated
+    from the shared memory and the 2048 threads of an SM."""
+    if p.layout == "k_lanes" and p.orientation == "row_major":
+        return (m, _cdiv(n, _KN_COLS))
+    if p.layout == "k_lanes":
+        gy = _cdiv(m, 8 * p.p0)
+        per_sm = max(1, min(2048 // (32 * _KL_WARPS),
+                            _ops.SM_SMEM // (p.dynamic_smem
+                                             + _ops.BLOCK_RESERVED)))
+        tiles = _cdiv(n, 16)
+        resident = max(1, _TARGET_BLOCKS * per_sm // gy)
+        rounds = _cdiv(tiles, resident * _KL_WARPS)
+        return (_cdiv(tiles, rounds * _KL_WARPS), gy)
+    if p.variant == "decode":
+        return (_cdiv(n, _ND_COLS), p.ksplit)
+    return (_cdiv(n, _NP_BN), _cdiv(m, _NP_BM), p.ksplit)
+
+
 def qmatmul_cuda(x: torch.Tensor, w_q: torch.Tensor, delta: torch.Tensor,
                  bias: torch.Tensor | None = None,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x (M, K) fp32/bf16, w_q (K, N) int8 of any non-negative strides,
     delta (N,) fp32, bias (N,) fp32 or None -> (M, N) in ``out_dtype``
-    (default x's)."""
-    global launches
+    (default x's). Checks what the kernel does not handle, then calls the
+    registered op ``torch.ops.repro_torch.qmatmul``."""
     if not x.is_cuda or x.dim() != 2:
         raise ValueError(f"qmatmul x: need a 2-D CUDA tensor, got "
                          f"{tuple(x.shape)} on {x.device}")
@@ -188,13 +213,39 @@ def qmatmul_cuda(x: torch.Tensor, w_q: torch.Tensor, delta: torch.Tensor,
     out_dtype = out_dtype or x.dtype
     if out_dtype not in _FLOATS:
         raise TypeError(f"qmatmul output must be fp32/bf16, got {out_dtype}")
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    return _ops.op("qmatmul")(x, w_q, delta, bias, out_dtype)
+
+
+def _alloc(x, w_q, out_dtype):
+    """The launch's plan, its output and its K-split partials (None
+    without a split), noted for a recording; shared by both
+    implementations of the op."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
-        return out
+        return None, out, None
     sk, sn = w_q.stride()
     p = plan(m, k, n, sk, sn, x.dtype)
-    part = (torch.empty((p.ksplit, m, n), dtype=torch.float32, device=dev)
-            if p.ksplit > 1 else None)
+    part = (torch.empty((p.ksplit, m, n), dtype=torch.float32,
+                        device=x.device) if p.ksplit > 1 else None)
+    _ops.note("qmatmul", "/".join(v for v in (p.layout, p.variant
+                                              or p.orientation)),
+              _grid(p, m, n), p.dynamic_smem,
+              [] if part is None else [(part.shape, part.dtype)], p)
+    return p, out, part
+
+
+def _launch(x, w_q, delta, bias, out_dtype):
+    """The op's CUDA implementation: the launch on the current stream."""
+    global launches
+    p, out, part = _alloc(x, w_q, out_dtype)
+    if p is None:
+        return out
+    dev = x.device
+    m, k = x.shape
+    n = w_q.shape[1]
+    sk, sn = w_q.stride()
     with torch.cuda.device(dev):
         rc = _build.function("qmatmul", _ARGTYPES)(
             x.data_ptr(), w_q.data_ptr(), sk, sn, delta.data_ptr(),
@@ -212,3 +263,17 @@ def qmatmul_cuda(x: torch.Tensor, w_q: torch.Tensor, delta: torch.Tensor,
     else:
         launches_by_orientation[p.orientation] += 1
     return out
+
+
+def _fake(x, w_q, delta, bias, out_dtype):
+    """The op's fake implementation: the launch's allocations, no work."""
+    return _alloc(x, w_q, out_dtype)[1]
+
+
+def _flops(x, w_q, delta, bias, out_dtype, out_shape=None):
+    """2 M K N."""
+    return 2 * x[0] * x[1] * w_q[1]
+
+
+_ops.define("qmatmul", "(Tensor x, Tensor w_q, Tensor delta, Tensor? bias, "
+            "ScalarType out_dtype) -> Tensor", _launch, _fake, _flops)

@@ -5,9 +5,12 @@ not handle itself, allocates the output and launches on the current stream.
 :func:`plan` (pure Python, so the CPU tests reach it) picks the variant by
 M — ``decode`` (M <= 16) or ``prefill`` — and the tile shape and K split
 of the launch. :func:`fragment_product` is the kernel's K permutation and
-level decoding in plain torch, for the CPU tests. ``launches`` counts
-launches and ``launches_by_variant`` splits them by variant; nothing else
-touches either.
+level decoding in plain torch, for the CPU tests. The launch is the CUDA
+implementation of the registered op ``torch.ops.repro_torch.qmatvec``
+(``kernels/_ops.py``), whose fake implementation allocates the same output
+and K-split partials. ``launches`` counts launches and
+``launches_by_variant`` splits them by variant; nothing else touches
+either.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _ops
 
 __all__ = ["qmatvec_cuda", "launches", "launches_by_variant", "VARIANTS",
            "FIELDS", "plan", "Plan", "x_planes", "fragment_product"]
@@ -169,8 +172,9 @@ def qmatvec_cuda(x: torch.Tensor, w_packed: torch.Tensor, delta: torch.Tensor,
                  bias: torch.Tensor | None = None,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x (M, K) fp32/bf16, w_packed (ceil(K/10), N) int32, delta (N,) fp32,
-    bias (N,) fp32 or None -> (M, N) in ``out_dtype`` (default x's)."""
-    global launches
+    bias (N,) fp32 or None -> (M, N) in ``out_dtype`` (default x's).
+    Checks what the kernel does not handle, then calls the registered op
+    ``torch.ops.repro_torch.qmatvec``."""
     if not x.is_cuda or x.dim() != 2:
         raise ValueError(f"qmatvec x: need a 2-D CUDA tensor, got "
                          f"{tuple(x.shape)} on {x.device}")
@@ -185,21 +189,61 @@ def qmatvec_cuda(x: torch.Tensor, w_packed: torch.Tensor, delta: torch.Tensor,
     out_dtype = out_dtype or x.dtype
     if out_dtype not in _FLOATS:
         raise TypeError(f"qmatvec output must be fp32/bf16, got {out_dtype}")
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    return _ops.op("qmatvec")(x, w_packed, delta, bias, out_dtype)
+
+
+def _alloc(x, w_packed, out_dtype):
+    """The launch's plan, its output and its K-split partials (None
+    without a split), noted for a recording; shared by both
+    implementations of the op."""
+    m, k = x.shape
+    n = w_packed.shape[-1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
-        return out
+        return None, out, None
     p = plan(m, k, n, x.dtype)
-    part = (torch.empty((p.ksplit, m, n), dtype=torch.float32, device=dev)
-            if p.ksplit > 1 else None)
+    part = (torch.empty((p.ksplit, m, n), dtype=torch.float32,
+                        device=x.device) if p.ksplit > 1 else None)
+    _ops.note("qmatvec", p.variant,
+              (_cdiv(n, 32 * p.cg), _cdiv(m, 8 * p.nt), p.ksplit),
+              p.dynamic_smem,
+              [] if part is None else [(part.shape, part.dtype)], p)
+    return p, out, part
+
+
+def _launch(x, w_packed, delta, bias, out_dtype):
+    """The op's CUDA implementation: the launch on the current stream."""
+    global launches
+    p, out, part = _alloc(x, w_packed, out_dtype)
+    if p is None:
+        return out
+    dev = x.device
+    m, k = x.shape
+    kp, n = w_packed.shape
     with torch.cuda.device(dev):
         rc = _build.function("qmatvec", _ARGTYPES)(
             x.data_ptr(), w_packed.data_ptr(), delta.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), m, k, kp, n, _build.dtype_code(x.dtype),
-            _build.dtype_code(out_dtype), VARIANTS.index(p.variant), p.nt,
-            p.cg, p.ksplit, p.cps, p.piece, p.dynamic_smem,
-            _build.stream_ptr(dev))
+            None if part is None else part.data_ptr(), m, k, kp, n,
+            _build.dtype_code(x.dtype), _build.dtype_code(out_dtype),
+            VARIANTS.index(p.variant), p.nt, p.cg, p.ksplit, p.cps, p.piece,
+            p.dynamic_smem, _build.stream_ptr(dev))
     _build.check(rc, f"qmatvec ({p.variant})")
     launches += 1
     launches_by_variant[p.variant] += 1
     return out
+
+
+def _fake(x, w_packed, delta, bias, out_dtype):
+    """The op's fake implementation: the launch's allocations, no work."""
+    return _alloc(x, w_packed, out_dtype)[1]
+
+
+def _flops(x, w_packed, delta, bias, out_dtype, out_shape=None):
+    """2 M K N: the product against the unpacked (K, N) levels."""
+    return 2 * x[0] * x[1] * w_packed[1]
+
+
+_ops.define("qmatvec", "(Tensor x, Tensor w_packed, Tensor delta, "
+            "Tensor? bias, ScalarType out_dtype) -> Tensor",
+            _launch, _fake, _flops)

@@ -296,6 +296,14 @@ def _redistributed(tree, shardings):
     return map_with_path(put, tree)
 
 
+def _mode_kwargs(cfg, matmul_mode: str, attn_mode: str) -> Dict[str, str]:
+    """The serve cells' kernel knobs: ``ssm`` has no attention, so no
+    ``attn_mode`` (as the engine's ``_serve_kwargs``)."""
+    if cfg.family == "ssm":
+        return {"matmul_mode": matmul_mode}
+    return {"matmul_mode": matmul_mode, "attn_mode": attn_mode}
+
+
 def _build_prefill(cfg, shape, mesh, quant, attn_chunk,
                    matmul_mode: str = "auto",
                    attn_mode: str = "auto") -> CellSpec:
@@ -319,8 +327,8 @@ def _build_prefill(cfg, shape, mesh, quant, attn_chunk,
                                         dtype=COMPUTE_DTYPE,
                                         attn_chunk=attn_chunk,
                                         max_len=shape.seq_len,
-                                        matmul_mode=matmul_mode,
-                                        attn_mode=attn_mode)
+                                        **_mode_kwargs(cfg, matmul_mode,
+                                                       attn_mode))
             return (_redistributed(logits, out_shardings[0]),
                     _redistributed(cache, out_shardings[1]))
 
@@ -350,8 +358,8 @@ def _build_decode(cfg, shape, mesh, quant, kv8: bool = False,
         with _on_mesh(rules):
             return mod.decode_step(params, cache, batch["tokens"], cfg,
                                    policy=policy, dtype=COMPUTE_DTYPE,
-                                   matmul_mode=matmul_mode,
-                                   attn_mode=attn_mode)
+                                   **_mode_kwargs(cfg, matmul_mode,
+                                                  attn_mode))
 
     logits_spec = shd.activation_rules(cfg, shape, mesh)["logits"]
     return CellSpec(

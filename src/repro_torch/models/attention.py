@@ -87,7 +87,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, kvh, g, lq, d), dtype=torch.float32, device=q.device)
     for c0 in range(0, lkv, chunk):
         kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        s = torch.einsum("bqkgd,bckd->bkgqc", qr, kb.float())
+        s = shards.einsum("bqkgd,bckd->bkgqc", qr, kb.float())
         kv_pos = c0 + torch.arange(kb.shape[1], device=q.device)
         mask = kv_pos[None, :] <= q_pos[:, None]
         s = torch.where(mask[None, None, None], s, _neg_inf(s))
@@ -98,8 +98,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         torch.zeros_like(s))
         corr = torch.where(alive, torch.exp(m - m_new), torch.ones_like(m))
         l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(v.dtype).float(),
-                          vb.float()).to(v.dtype).float()
+        pv = shards.einsum("bkgqc,bckd->bkgqd", p.to(v.dtype).float(),
+                           vb.float()).to(v.dtype).float()
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)

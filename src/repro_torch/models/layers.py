@@ -132,7 +132,25 @@ def embed_lookup(params: Dict[str, Any], tokens: torch.Tensor, *,
         rows = params["q"][tokens].to(torch.float32) * params["delta"]
         return rows.to(dtype)
     w = quant_dense.effective_weight(params, policy, "embed", delta)
-    return w.to(dtype)[tokens]
+    return _rows(w.to(dtype), tokens)
+
+
+def _rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A DTensor lookup on a mesh of more than one
+    device goes through ``F.embedding`` instead: torch 2.11's DTensor
+    cannot propagate the index's backward there (``index_put`` with a
+    sharded, partial gradient fails on an unnormalized ``Shard(-1)``),
+    while the embedding op over the gathered table has a sharding
+    strategy of its own (DTensor gathers a vocab-sharded table for the
+    index too). One device keeps the index, whose gradient bits the
+    one-device step has."""
+    if type(tokens) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor, Replicate
+        if isinstance(tokens, DTensor) and tokens.device_mesh.size() > 1:
+            mesh = tokens.device_mesh
+            table = table.redistribute(mesh, [Replicate()] * mesh.ndim)
+            return F.embedding(tokens, table)
+    return table[tokens]
 
 
 def embed_logits(params: Dict[str, Any], h: torch.Tensor, *,

@@ -36,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.distributed import shards
 from repro_torch.distributed.context import constrain
 from repro_torch.models.layers import (dget, embed_init, embed_lookup,
                                        rmsnorm, rmsnorm_init)
@@ -227,21 +228,21 @@ def _ssd_chunked(x, b_mat, c_mat, dt, a_log, chunk: int, bf16: bool = False):
         ltot = lcum[:, -1]                                      # (B,H)
         # intra-chunk: att[i, j] = (C_i . B_j) exp(lcum_i - lcum_j), j <= i;
         # the EXPONENT is masked (exp of a future entry overflows)
-        scores = torch.einsum("bihn,bjhn->bhij", ch, bh)
+        scores = shards.einsum("bihn,bjhn->bhij", ch, bh)
         decay = (lcum.transpose(1, 2)[:, :, :, None]
                  - lcum.transpose(1, 2)[:, :, None, :])         # (B,H,i,j)
         w = rnd(torch.exp(torch.where(causal, decay, neg_inf)))
-        y_intra = torch.matmul(rnd(scores) * w,
-                               xc.transpose(1, 2))              # (B,H,i,P)
+        y_intra = shards.matmul(rnd(scores) * w,
+                                xc.transpose(1, 2))             # (B,H,i,P)
         # inter-chunk: the carried state's contribution
-        y_inter = (torch.einsum("bihn,bhpn->bhip", ch, state)
+        y_inter = (shards.einsum("bihn,bhpn->bhip", ch, state)
                    * torch.exp(lcum).transpose(1, 2)[..., None])
         ys.append((y_intra + y_inter).transpose(1, 2))          # (B,q,H,P)
         # state update
         carry_w = torch.exp(ltot[:, None, :] - lcum)            # (B,q,H)
         state = (state * torch.exp(ltot)[..., None, None]
-                 + torch.einsum("bjhp,bjhn->bhpn", xc * carry_w[..., None],
-                                bh))
+                 + shards.einsum("bjhp,bjhn->bhpn", xc * carry_w[..., None],
+                                 bh))
     y = torch.cat(ys, dim=1) if nchunks > 1 else ys[0]
     return y[:, :ln], state
 
@@ -327,7 +328,7 @@ def block_decode(lp, h_in: torch.Tensor, state: Dict, cfg: ModelConfig, *,
     # S <- decay S + dt x B^T ;  y = S C + D x
     s_new = (state["ssm"] * decay[..., None, None]
              + (dt1[..., None] * x)[..., None] * b1[:, :, None, :])
-    y = torch.matmul(s_new, c1[..., None])[..., 0] + lp["ssm_d"][:, None] * x
+    y = shards.matmul(s_new, c1[..., None])[..., 0] + lp["ssm_d"][:, None] * x
     y = y.reshape(bsz, 1, cfg.d_inner).to(h_in.dtype)
     out = _gate_out(lp, y, z, h_in, cfg, policy, matmul_mode)
     return out, {"ssm": s_new, "conv": conv_state.to(state["conv"].dtype)}

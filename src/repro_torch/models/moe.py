@@ -38,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant_dense
 from repro_torch.core.precision import QuantPolicy
+from repro_torch.distributed import shards
 from repro_torch.distributed.context import constrain
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.kernels.qmatmul import ref as qmm_ref
@@ -159,7 +160,10 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     aux = (density * density_p).sum(-1).mean() * (e ** 2) / k
 
     # choice-major flattening: choice 0 of every token outranks choice 1
-    choice = top_i.transpose(1, 2).reshape(ng, k * g)          # (ng, kg)
+    # (a DTensor's token dim is gathered first: merging it with the choice
+    # dim would make a strided sharding no op after it takes)
+    choice = shards.replicate_dims(top_i, [1], "moe routing") \
+        .transpose(1, 2).reshape(ng, k * g)                    # (ng, kg)
     sel = (choice[..., None] == torch.arange(e, device=x.device)) \
         .to(torch.int32)                                       # (ng, kg, E)
     pos = torch.cumsum(sel, dim=1, dtype=torch.int32) - 1      # slot in expert
@@ -169,7 +173,8 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     disp = (slot[..., None] == torch.arange(cap, device=x.device)) \
         .to(x.dtype)                                           # (ng, kg, E, C)
     disp = constrain(disp, "moe_dispatch")
-    wts = top_p.transpose(1, 2).reshape(ng, k * g).to(x.dtype)
+    wts = shards.replicate_dims(top_p, [1], "moe routing") \
+        .transpose(1, 2).reshape(ng, k * g).to(x.dtype)
     comb = disp * wts[..., None, None]
     if _trace is not None:
         kept = keep.any(dim=-1).reshape(ng, k, g).transpose(1, 2)

@@ -47,7 +47,8 @@ from repro_torch.core import quant_dense
 from repro_torch.core.graphs import index_drop_
 from repro_torch.core.precision import QuantPolicy
 from repro_torch.distributed import shards
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import (constrain, merge_last,
+                                             split_last)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (decode_attention, prefill_attention,
                                           resolve_attn_mode, verify_attention)
@@ -122,6 +123,9 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     for i in range(cfg.num_layers):
         layers = _stack_into(layers, _layer_init(gen, cfg, dtype, device), i,
                              cfg.num_layers)
+    if layers is None:        # no layer: the dry run's zero-depth lowering
+        layers = _empty_stack(_layer_init(torch.Generator(), cfg, dtype,
+                                          "meta"), device)
     params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                                   device),
               "layers": layers, "final_norm": rmsnorm_init(cfg.d_model, device)}
@@ -130,6 +134,15 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                                           bias=False, dtype=dtype,
                                           device=device)
     return params
+
+
+def _empty_stack(tree, device):
+    """(0, ...) stacks of a layer tree's leaves (None stays None)."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return torch.empty((0, *tree.shape), dtype=tree.dtype, device=device)
 
 
 # --- per-layer views and remat ------------------------------------------------------
@@ -180,9 +193,9 @@ def _qkv(lp, h, cfg: ModelConfig, policy, positions, inv_freq, mm: str,
     def proj(name):
         return quant_dense.apply(a[name], h, policy=policy, role="hidden",
                                  delta=dget(ld, "attn", name, "w"), mode=mm)
-    q = proj("wq").reshape(b, s, cfg.num_heads, hd)
-    k = proj("wk").reshape(b, s, cfg.num_kv_heads, hd)
-    v = proj("wv").reshape(b, s, cfg.num_kv_heads, hd)
+    q = split_last(proj("wq"), (b, s, cfg.num_heads, hd))
+    k = split_last(proj("wk"), (b, s, cfg.num_kv_heads, hd))
+    v = split_last(proj("wv"), (b, s, cfg.num_kv_heads, hd))
     if cfg.qk_norm:
         q = head_rmsnorm(a["q_norm"]["scale"], q, cfg.norm_eps)
         k = head_rmsnorm(a["k_norm"]["scale"], k, cfg.norm_eps)
@@ -190,7 +203,7 @@ def _qkv(lp, h, cfg: ModelConfig, policy, positions, inv_freq, mm: str,
 
 
 def _attn_out(lp, o, cfg, policy, b, s, mm: str, ld=None):
-    o = o.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    o = merge_last(o, (b, s, cfg.num_heads * cfg.head_dim))
     return quant_dense.apply(lp["attn"]["wo"], o, policy=policy,
                              role="hidden", delta=dget(ld, "attn", "wo", "w"),
                              mode=mm)
@@ -446,7 +459,11 @@ def prefill(params, batch, cfg: ModelConfig, *, policy: QuantPolicy,
                                       lengths)
         ks.append(k[:, -cs:])
         vs.append(v[:, -cs:])
-    ks, vs = torch.stack(ks), torch.stack(vs)              # (L, B, S, KV, D)
+    if ks:
+        ks, vs = torch.stack(ks), torch.stack(vs)          # (L, B, S, KV, D)
+    else:                 # no layer: the dry run's zero-depth (L0) lowering
+        ks = vs = h.new_zeros((0, h.shape[0], min(s, cs), cfg.num_kv_heads,
+                               cfg.head_dim))
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=h.device).to(torch.int32)
     h = rmsnorm(params["final_norm"], _last_hidden(h, lengths), cfg.norm_eps)

@@ -135,6 +135,18 @@ def _sample(gen: torch.Generator, logits: torch.Tensor,
     return categorical(probs, gen)
 
 
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    """The sampling generator on ``device``. A build of torch without CUDA
+    has no CUDA generator: there a ``"cuda"`` engine can only hold fake
+    tensors (``repro_torch.analysis`` traces its graphs under
+    ``FakeTensorMode``, and its sampling draws nothing), and it gets a CPU
+    generator of the same seed in its place. An engine on a real card
+    always draws from a CUDA generator."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        return torch.Generator().manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def check_family(cfg: ModelConfig, *, kv_bits: Optional[int] = None,
                  spec_k: int = 0):
     """Refuse the knobs ``cfg``'s family cannot take, with the engine's
@@ -209,7 +221,7 @@ def generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     prompts = torch.as_tensor(prompts).to(device=device, dtype=torch.int32)
     b, p = prompts.shape
     kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
-    gen = torch.Generator(device=prompts.device).manual_seed(seed)
+    gen = _generator(prompts.device, seed)
     logits, cache = mod.prefill(params, {"tokens": prompts}, cfg,
                                 policy=policy, dtype=dtype,
                                 max_len=p + max_new_tokens, **kw["prefill"])
@@ -276,7 +288,7 @@ def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     _no_ring_wrap(dmod, draft_cfg, max_len)
     kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
     mkw = dict(policy=policy, dtype=dtype)
-    gen = torch.Generator(device=prompts.device).manual_seed(seed)
+    gen = _generator(prompts.device, seed)
     logits, cache = mod.prefill(params, {"tokens": prompts}, cfg,
                                 max_len=max_len, **mkw, **kw["prefill"])
     _, dcache = dmod.prefill(draft_params, {"tokens": prompts}, draft_cfg,
@@ -401,7 +413,7 @@ class ServingEngine:
             if val is not None and val < 1:
                 raise ValueError(f"{name} must be >= 1 or None, got {val}")
         self.device = torch.device(device)
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._gen = _generator(self.device, seed)
         self.graphs = Graphs(self.device, capture=capture,
                              generator=self._gen)
         self.params = _to_device(params, self.device)
@@ -623,9 +635,9 @@ class ServingEngine:
         them into slots ``_in_map`` and sample each row's first token; rows
         whose slot is ``>= slots`` are batch padding, dropped on the device.
         With speculation the drafter's prefill rides the same round."""
-        lens, slot_map, bud = self._in_lens, self._in_map, self._in_budget
+        lens = self._in_lens
         logits0, src = self._prefill(toks, lens)
-        self.mod.insert_prefill_many(self.cache, slot_map, src)
+        dsrc = None
         if self.spec_k:
             # the drafter needs the prompt in ITS cache too (its logits are
             # unused: the target samples every committed token)
@@ -634,8 +646,17 @@ class ServingEngine:
                 policy=self.policy, dtype=self.dtype, max_len=self.max_len,
                 lengths=lens, attn_chunk=self.attn_chunk,
                 **self._kw["prefill"])
+        self._admit_many(logits0, src, dsrc)
+
+    def _admit_many(self, logits0: torch.Tensor, src, dsrc=None):
+        """The reference's ``admit_many``: insert prefilled rows ``src`` (and
+        the drafter's ``dsrc``) into slots ``_in_map`` with one multi-slot
+        scatter each, then seat them on their first tokens."""
+        slot_map = self._in_map
+        self.mod.insert_prefill_many(self.cache, slot_map, src)
+        if dsrc is not None:
             self.dmod.insert_prefill_many(self.draft_cache, slot_map, dsrc)
-        self._seat(logits0, slot_map, bud)
+        self._seat(logits0, slot_map, self._in_budget)
 
     def _seat(self, logits0: torch.Tensor, slot_map: torch.Tensor,
               bud: torch.Tensor):
@@ -658,6 +679,61 @@ class ServingEngine:
         """One canary pass over the protected weight leaves into the fixed
         ``_probe_out`` (a graph of its own on the card)."""
         self._probe_out.copy_(self._probe_fn(self.params))
+
+    # --- the graphs, described for the contract linter -----------------------
+
+    def contract_points(self, bucket: Optional[int] = None
+                        ) -> List[Dict[str, Any]]:
+        """The engine's graph bodies, described for ``repro_torch.analysis``
+        (the reference's ``contract_points``). Build the engine on fake
+        tensors (``capture=False``) and call this under the same
+        ``FakeTensorMode``: the admission point's inputs come from one
+        abstract prefill, and nothing executes.
+
+        Each point: ``name``; ``fn``, a call with no arguments (the bodies
+        read and write the engine's fixed tensors); ``inputs``, the tensors
+        it reads; ``carry``, getters of the tensors that must leave it with
+        their shape, dtype and storage (the carry pass); ``donate``, the
+        names among them the reference donates (written in place here);
+        ``score_dims``, the (T, S) a quadratic score tensor would trail
+        with, or None. ``bucket`` is the admission bucket to describe
+        prefill at (default: the largest)."""
+        bucket = bucket or self._bucket_cap
+        toks = torch.zeros((self.slots, bucket), dtype=torch.int32,
+                           device=self.device)
+        state = {"cache": lambda: self.cache, "tokens": lambda: self._tokens,
+                 "active": lambda: self._active,
+                 "emitted": lambda: self._emitted}
+        inputs = {"params": self.params, "cache": self.cache,
+                  "tokens": self._tokens, "active": self._active,
+                  "emitted": self._emitted, "budget": self._budget,
+                  "poison": self._poison, "record": self._rec}
+        points: List[Dict[str, Any]] = []
+        if self.spec_k:
+            points.append(dict(
+                name="spec_tick", fn=self._spec_tick,
+                inputs=dict(inputs, draft_params=self.draft_params,
+                            draft_cache=self.draft_cache),
+                carry=dict(state, draft_cache=lambda: self.draft_cache),
+                donate=("cache", "draft_cache"),
+                score_dims=(self.spec_k + 1, self._bucket_cap)))
+        else:
+            points.append(dict(name="decode_tick", fn=self._tick,
+                               inputs=inputs, carry=state, donate=("cache",),
+                               score_dims=None))
+        lens = self._in_lens
+        points.append(dict(
+            name="prefill_bucketed", fn=lambda: self._prefill(toks, lens),
+            inputs={"params": self.params, "tokens": toks, "lengths": lens},
+            carry={}, donate=(), score_dims=(bucket, bucket)))
+        logits0, src = self._prefill(toks, lens)
+        points.append(dict(
+            name="admit_many", fn=lambda: self._admit_many(logits0, src),
+            inputs=dict(inputs, src=src, logits0=logits0,
+                        slot_map=self._in_map),
+            carry=dict(state, budget=lambda: self._budget),
+            donate=("cache",), score_dims=None))
+        return points
 
     # --- degradation ladder (called through resilience.degrade_step) -------
 

@@ -1516,3 +1516,78 @@ def test_train_launcher_on_the_card(cuda):
     first, last = tr.history[0]["loss"], tr.history[-1]["loss"]
     assert torch.isfinite(torch.tensor([first, last])).all() and last < first
     assert list(tr.train_step.captures.values()) == [1]
+
+
+# --- the kernels as registered ops ------------------------------------------------
+
+def _op_cases(dev):
+    """(label, inputs, call) of every kernel route at its main shape; the
+    call takes the inputs, real or fake."""
+    g = _gen(24)
+    bf, f32 = torch.bfloat16, torch.float32
+    rn = lambda *s, dt=bf: torch.randn(s, generator=g).to(dt).to(dev)  # noqa
+    ri = lambda lo, hi, *s, dt: torch.randint(  # noqa: E731
+        lo, hi, s, generator=g, dtype=dt).to(dev)
+    words = ri(-2 ** 31, 2 ** 31 - 1, 154, 8960, dt=torch.int32)
+    delta = rn(8960, dt=f32).abs()
+    lv = ri(-127, 128, 1536, 8960, dt=torch.int8)
+    table = ri(-127, 128, 151936, 1536, dt=torch.int8)
+    hi = torch.minimum(torch.arange(256, dtype=torch.int32)[None] + 1,
+                       torch.tensor([[256], [7], [100], [1]],
+                                    dtype=torch.int32)).to(dev)
+    lens = torch.tensor([512, 3, 400, 1], dtype=torch.int32).to(dev)
+    x1 = rn(100, 1022, dt=f32)
+    return [
+        ("qmatvec decode", (rn(8, 1536), words, delta),
+         lambda x, w, d: qmv_ops.qmatvec(x, w, d, k=1536)),
+        ("qmatvec prefill", (rn(512, 1536), words, delta),
+         lambda x, w, d: qmv_ops.qmatvec(x, w, d, k=1536)),
+        ("qmatmul k_lanes", (rn(8, 1536), table),
+         lambda x, t: qmm_ops.qmatmul(x, t.T, 1.0)),
+        ("qmatmul n_lanes decode", (rn(8, 1536), lv, delta),
+         lambda x, w, d: qmm_ops.qmatmul(x, w, d)),
+        ("qmatmul n_lanes prefill", (rn(512, 1536), lv, delta),
+         lambda x, w, d: qmm_ops.qmatmul(x, w, d)),
+        ("attn_decode", (rn(4, 1, 12, 128), rn(4, 512, 2, 128), lens),
+         lambda q, k, n: dec_ops.attn_decode(q, k, k, n)),
+        ("attn_prefill wgmma", (rn(4, 256, 12, 128), rn(4, 256, 2, 128), hi),
+         lambda q, k, h: pf_ops.attn_prefill(q, k, k, h)),
+        ("attn_prefill simt", (rn(4, 256, 12, 128, dt=f32),
+                               rn(4, 256, 2, 128, dt=f32), hi),
+         lambda q, k, h: pf_ops.attn_prefill(q, k, k, h)),
+        ("sigmoid_pw", (x1,), sig_k.sigmoid_pw_cuda),
+        ("sigmoid_pw_bwd", (x1, x1), sig_k.sigmoid_pw_bwd_cuda)]
+
+
+def _meta(t):
+    return tuple(t.shape), t.dtype, t.device, t.stride()
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_fake_op_allocates_what_the_real_launch_allocates(cuda, case):
+    """Each op's fake implementation gives the real launch's output
+    (shape, dtype, device, strides) and notes the same plan: variant,
+    grid, dynamic shared memory and scratch."""
+    from repro_torch.analysis.trace import fake_mode, fake_tree
+    from repro_torch.kernels import _ops
+    label, inputs, call = _op_cases(cuda)[case]
+    with torch.no_grad(), _ops.recording() as real_notes:
+        real = call(*inputs)
+    torch.cuda.synchronize()
+    fm = fake_mode()
+    fake_in = fake_tree(list(inputs), fm)
+    with fm, torch.no_grad(), _ops.recording() as fake_notes:
+        fake = call(*fake_in)
+    assert _meta(fake) == _meta(real), label
+    assert len(real_notes) == len(fake_notes) == 1, label
+    keep = ("kernel", "variant", "grid", "dynamic_smem", "scratch", "plan")
+    assert ({k: fake_notes[0][k] for k in keep}
+            == {k: real_notes[0][k] for k in keep}), label
+
+
+def test_a_real_cpu_tensor_reaching_a_kernel_op_raises(cuda):
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.attn_decode(
+            torch.zeros((1, 1, 2, 16)), torch.zeros((1, 4, 1, 16)),
+            torch.zeros((1, 4, 1, 16)), torch.ones(1, dtype=torch.int32),
+            None, None, 1.0)
