@@ -33,7 +33,11 @@ Phases, each printing one JSON line:
              K-major; for the ssm phase qmatvec at every projection of
              mamba2-2.7b and zamba2-1.2b at M = 8 and 2048, their tied
              readouts, and both attention kernels at zamba2's shared
-             block, MHA, D = 64, with the verify shape), each case naming
+             block, MHA, D = 64, with the verify shape; the MoE routers
+             in the row-major k_lanes at M = 8 and 32768 in bf16 and fp32
+             x, and attn_decode at phi3.5-moe's G = 4; every attn_decode
+             case also holds the log-sum-exp beside its output against
+             the plain version's), each case naming
              the variant, layout or kernel it
              took and gated that it is the one its plan gives (qmatvec:
              decode for M <= 16, else prefill; qmatmul: k_lanes / n_lanes;
@@ -386,7 +390,8 @@ SIMT_MERGE = "attn_prefill/merge"
 # their kernel's headline entry (n_lanes at M = 8, N = d_ff, bf16; simt at
 # the largest bucket, fp32 K/V): (kernel, variant, source)
 ROUTES = (("qmatmul", "n_lanes", "src/repro_torch/csrc/qmatmul.cu"),
-          ("attn_prefill", "simt", "src/repro_torch/csrc/attn_prefill.cu"))
+          ("attn_prefill", "simt", "src/repro_torch/csrc/attn_prefill.cu"),
+          ("qmatmul", "row_major", "src/repro_torch/csrc/qmatmul.cu"))
 # the M at which the parity phase holds the q form's projections: decode,
 # an admission (8 slots x bucket 64) and the largest admission
 Q_MS = (8, 512, 2048)
@@ -710,6 +715,27 @@ def _kv(g, device, b, s, kvh, hd, kvname, dt):
     return k_, v_, None, None, k_, v_
 
 
+def _lse_check(kernel, plain, out, what) -> float:
+    """The log-sum-exp the merge kernel writes beside its output, held
+    against the plain version's: -inf exactly on the rows with no visible
+    key, elsewhere within 1e-4 (absolute: the weights e^lse are then
+    within 1e-4 relative); the output beside it the same bits as without
+    it. Returns the max abs difference."""
+    import torch
+    (o, lse), (_, want) = kernel, plain
+    if not torch.equal(o, out):
+        fail(f"{what}: the output with the log-sum-exp differs from the "
+             f"output without it")
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(lse), fin) or bool(
+            (lse[~fin] != float("-inf")).any()):
+        fail(f"{what}: log-sum-exp is not -inf exactly on the empty rows")
+    err = float((lse[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    if err > 1e-4:
+        fail(f"{what}: log-sum-exp differs from the plain version's by {err}")
+    return err
+
+
 def _decode_case(g, device, b, s, h, kvh, hd, kvname, dname, dt,
                  headline=False):
     """attn_decode of b slots against an s-entry cache, ragged lengths with
@@ -732,6 +758,10 @@ def _decode_case(g, device, b, s, h, kvh, hd, kvname, dname, dt,
     ref = attn_decode_ref(q, kc, vc, lens, ks, vs)
     if bool((got[lens == 0] != 0).any()):
         fail(f"{what}: an empty row is not exactly zero")
+    lse_err = _lse_check(dec_ops.attn_decode(q, kc, vc, lens, ks, vs,
+                                             with_lse=True),
+                         attn_decode_ref(q, kc, vc, lens, ks, vs,
+                                         with_lse=True), got, what)
     # library yardstick: SDPA over the (dequantized) cache, KV heads
     # expanded to the query heads beforehand
     qs = q.transpose(1, 2)
@@ -748,7 +778,8 @@ def _decode_case(g, device, b, s, h, kvh, hd, kvname, dname, dt,
                                   f"lens ragged (one 0)",
         dtype=f"{dname}/kv-{kvname}",
         splits=dec_k.plan(b, s, kvh, grp, hd, kc.dtype).splits,
-        err=compare(got, ref, dname, what),
+        kv_heads_a_block=dec_k.plan(b, s, kvh, grp, hd, kc.dtype).hb,
+        lse_err=lse_err, err=compare(got, ref, dname, what),
         run=(lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs)),
         plain=(lambda: attn_decode_ref(q, kc, vc, lens, ks, vs)),
         library=(lambda: F.scaled_dot_product_attention(
@@ -1031,7 +1062,8 @@ def _qmatmul_head_case(g, device, clock, m, k, n, dname, dt):
         run=(lambda: qmm_ops.qmatmul(x, w, delta, bias=bias)),
         plain=(lambda: qmatmul_ref(x, w, delta, bias=bias)),
         library=(lambda: torch.addmm(bx, x, wdq)),
-        bound=bound_ms(nbytes, 2 * m * k * n, dname), headline=False)
+        bound=tc_bound_ms(nbytes, 2 * m * k * n, dname), headline=False,
+        summary="row_major")
 
 
 def _parts_case(parts, name, label, gate=None, twice=True, row_dims=1,
@@ -1042,6 +1074,8 @@ def _parts_case(parts, name, label, gate=None, twice=True, row_dims=1,
     variant) names, two runs the same bits where ``twice``, against its
     plain version."""
     what = f"{name} {parts['shape']} {label}"
+    import torch
+    tol = "float32" if parts.get("tol") == torch.float32 else "bfloat16"
     fn = (lambda: same_bits(parts["run"], what)) if twice else parts["run"]
     if gate:
         counter, want = gate
@@ -1053,7 +1087,7 @@ def _parts_case(parts, name, label, gate=None, twice=True, row_dims=1,
         got = fn()
     return dict(
         name=name, shape=f"{parts['shape']} ({label})", dtype=parts["dtype"],
-        err=compare(got, parts["plain"](), "bfloat16", what, row_dims),
+        err=compare(got, parts["plain"](), tol, what, row_dims),
         run=parts["run"], plain=parts["plain"], library=parts["library"],
         library_call=parts["library_call"],
         bound=bound_ms(parts["nbytes"], parts["ops"], parts["peak"]),
@@ -1090,9 +1124,20 @@ def _moe_cases(device, clock, rehearse):
                                    False, *bf, label=f"{arch} expert, "
                                    f"{t} tokens")
         for m in (8, 8 * 4096) if c.sliding_window else (8,):
-            yield _parts_case(bk.router_parts(
-                g, device, max(1, m // cut), c.d_model // cut,
-                c.num_experts), "qmatmul", arch, gate=(K_LANES, "row_major"))
+            for dt in (torch.bfloat16, torch.float32):
+                r = _parts_case(bk.router_parts(
+                    g, device, max(1, m // cut), c.d_model // cut,
+                    c.num_experts, dt), "qmatmul", arch,
+                    gate=(K_LANES, "row_major"), summary="row_major")
+                r["summary_headline"] = m > 8 and dt == torch.bfloat16
+                yield r
+        if not c.sliding_window:
+            # attn_decode at phi3.5-moe's G = 4 (KV = 8, D = 128): two KV
+            # heads a block
+            for kvname, dname, dt in (("bf16", *bf), ("int8", *bf)):
+                yield _decode_case(g, device, 8, 512 // cut, c.num_heads,
+                                   c.num_kv_heads, c.head_dim, kvname,
+                                   dname, dt)
         if c.sliding_window:
             kv = dict(kvh=c.num_kv_heads, grp=c.num_heads // c.num_kv_heads,
                       hd=c.head_dim)
@@ -4345,6 +4390,7 @@ def dist_phase(device, seed, rehearse, smi):
 ANALYSIS_BUCKET = 256          # (b): the admission round traced and launched
 # (e): the dry-run cells on the fake 16 x 16 mesh, run as subprocesses
 DRYRUN_CELLS = ("decode_32k", "train_4k")
+DRYRUN_DECODE_PEAK_GB = 8.0    # decode_32k's peak estimate a rank, at most
 ANALYSIS_TIMEOUT = 600         # seconds the subprocesses may take, at most
 
 
@@ -4677,7 +4723,16 @@ def analysis_phase(cfg, params, device, rehearse, dist_peak):
             "peak_bytes_est_gb": round(
                 r["full"]["memory"]["peak_bytes_est"] / 1e9, 3),
             "flops": r["full"]["cost"]["flops"],
+            "gathers": r["full"]["gathers"],
             "trace_s": r["full"]["compile_s"]}
+    # decode attention on the sequence-sharded cache: no gather of the
+    # cache, and a rank's peak a fraction of the 60.68 GB of the gather
+    d32 = rec["dryrun"]["decode_32k"]
+    if {"attention keys", "attention values"} & set(d32["gathers"]) \
+            or d32["peak_bytes_est_gb"] >= DRYRUN_DECODE_PEAK_GB:
+        fail(f"analysis (e): decode_32k gathers {d32['gathers']}, peak "
+             f"{d32['peak_bytes_est_gb']} GB a rank (limit "
+             f"{DRYRUN_DECODE_PEAK_GB})")
     rec["seconds"] = round(time.perf_counter() - t0, 1)
     emit(rec)
     return rec
@@ -4805,7 +4860,9 @@ def main(argv=None) -> int:
                    "simt": ("resilience", {
                        "simt": res_variants["attn_prefill"]["simt"],
                        "merge": res_variants[SIMT_MERGE]["merge"]},
-                       res_variants["attn_prefill"]["simt"])}
+                       res_variants["attn_prefill"]["simt"]),
+                   "row_major": ("moe", moe_variants[K_LANES],
+                                 moe_variants[K_LANES]["row_major"])}
     for name, variant, src in ROUTES:
         cases = routes[variant]
         c = next(c for c in cases if c.get("summary_headline"))

@@ -169,10 +169,12 @@ def tied_logits(params: Dict[str, Any], h: torch.Tensor, *,
 
 def apply(params: Dict[str, Any], x: torch.Tensor, *, policy: QuantPolicy,
           role: str = "hidden", delta: Optional[torch.Tensor] = None,
-          quantize_input: bool = False, mode: str = "auto") -> torch.Tensor:
+          quantize_input: bool = False, mode: str = "auto",
+          matmul=None) -> torch.Tensor:
     """Dense forward under any weight form: serve forms go through
     :func:`serve_apply`, float and fake-quant master weights through
-    ``torch.matmul`` (as the reference leaves them to XLA)."""
+    ``torch.matmul`` (as the reference leaves them to XLA), or through
+    ``matmul(x, w)`` where given."""
     if not isinstance(params, dict):
         params = {"w": params}
     if quantize_input and policy.act_bits:
@@ -180,7 +182,7 @@ def apply(params: Dict[str, Any], x: torch.Tensor, *, policy: QuantPolicy,
     if "qp" in params or "q" in params:
         return serve_apply(params, x, mode=mode)
     w = effective_weight(params, policy, role, delta, k=x.shape[-1])
-    y = x @ w.to(x.dtype)
+    y = (matmul or torch.matmul)(x, w.to(x.dtype))
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y

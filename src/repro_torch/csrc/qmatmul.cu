@@ -47,11 +47,23 @@
 //   the SMs hold at once, each staging x once and walking tiles in rounds
 //   sized so every block gets the same number (no half-empty last wave).
 //   A block serves 8 * NT rows of x; M beyond that is a grid dimension.
-//   Row-major W with N <= 64 (the MLP heads). Lane = K row: a warp reads 32
-//   consecutive rows of W, 32 * N contiguous bytes. One block per row of x
-//   and group of 16 columns, its 8 warps splitting K; each lane keeps a
-//   partial sum per column, reduced across the warp with shuffles and
-//   across the warps in shared memory.
+//   Row-major W with N <= 64 (the MoE routers, the MLP heads). W is small
+//   (48 KB for mixtral-8x22b's router) and x is not: at an admission of
+//   32768 tokens the router reads 403 MB of x for 2 M K N = 3.2 GFLOP, so
+//   it is bound by the bytes of x (0.12 ms at 3.35 TB/s); at a tick (M =
+//   8) by latency. The kernel (qmatmul_kernel_klanes_rows) gives a block
+//   tiles of 16 rows (rw of them, one a warp, at large M) and stages W in
+//   shared memory once a block (int8, n-major), so W is read from device
+//   memory once and from L2 once a block rather than once a row; x streams
+//   through each warp's own cp.async stages in 16-byte copies, two or three
+//   steps of 64 K ahead, and the sum runs on the tensor cores (mma.sync
+//   m16n8k16: the 16 rows are A, an n8 tile of W's columns is B, so N = 8
+//   is one tile and 64 eight), fp32 x as three bf16 planes, each step
+//   promoted into fp32. Where a tile of rows is all there is (M <= 16, a
+//   decode tick, or too few tiles for the SMs), the 8 warps of a block
+//   split K, and K is also split across the blocks of a cluster, whose
+//   sums meet in distributed shared memory in a fixed order, so the grid
+//   fills more of the card with one launch and reruns give the same bits.
 //
 // n_lanes (any other W: a row-major (K, N) matrix, the q form's
 //   projections). Lanes along N: each lane reads 16 contiguous columns of a
@@ -101,7 +113,11 @@
 //   rt::promotes).
 //   W with other strides (or unaligned rows) is read one byte at a time
 //   into the same stages.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -850,48 +866,310 @@ qmatmul_kernel_klanes(const TIn* __restrict__ x, const int8_t* __restrict__ w,
 
 // --- k_lanes, row-major W with narrow N --------------------------------------
 
-constexpr int KN_THREADS = 256;
-constexpr int KN_COLS = 16;                       // output columns per block
+constexpr int KR_WARPS = 8;
+constexpr int KR_SUB = 64;            // K values a warp step (a promoted run)
+constexpr int KR_MAX_CLUSTER = 8;     // K slices: a portable cluster's blocks
 
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(KN_THREADS)
-qmatmul_kernel_klanes_narrow(const TIn* __restrict__ x,
-                             const int8_t* __restrict__ w, long long stride_k,
-                             const float* __restrict__ delta,
-                             const float* __restrict__ bias,
-                             TOut* __restrict__ y, int K, int N) {
-  __shared__ float part[KN_THREADS / 32][KN_COLS];
-  const int m = blockIdx.x;                       // one row of x per block
-  const int n0 = blockIdx.y * KN_COLS;
-  const int nn = min(KN_COLS, N - n0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float acc[KN_COLS];
-#pragma unroll
-  for (int n = 0; n < KN_COLS; ++n) acc[n] = 0.f;
-  const TIn* xr = x + (size_t)m * K;
-  for (int k = threadIdx.x; k < K; k += KN_THREADS) {   // lane = K row
-    const float xv = rt::to_f(xr[k]);
-    const int8_t* wk = w + (size_t)k * stride_k + n0;
-#pragma unroll
-    for (int n = 0; n < KN_COLS; ++n)
-      if (n < nn) acc[n] = fmaf(xv, (float)wk[n], acc[n]);
+// Shared memory of the row-major kernel: the staged W chunk (int8 levels,
+// n-major: NT * 8 rows of kch + pad bytes, the row stride 32 past a
+// multiple of 128 so a quad's 8-byte reads of four rows hit distinct
+// banks), then each warp's x stages (XQ 16-byte slots a lane a stage,
+// lane-major so a warp's slots are contiguous); the cross-warp sum, then
+// the block's sums of its rows, reuse it from 0 at the end.
+template <typename TIn>
+struct KrSmem {
+  static constexpr int XQ = sizeof(TIn) == 4 ? 8 : 4;   // uint4 a lane
+  static constexpr int STAGES = sizeof(TIn) == 4 ? 2 : 4;
+  static constexpr int WARP_X = STAGES * XQ * 32 * 16;  // bytes a warp
+  static __host__ __device__ int w_ld(int kch) {
+    return kch + ((32 - kch) % 128 + 128) % 128;
   }
+  static __host__ __device__ int w_bytes(int nt, int kch) {
+    return nt * 8 * w_ld(kch);
+  }
+  static __host__ __device__ int bytes(int nt, int kch, int rw) {
+    const int a = w_bytes(nt, kch) + KR_WARPS * WARP_X;
+    const int red = (KR_WARPS + rw) * 16 * nt * 8 * 4;
+    return a > red ? a : red;
+  }
+};
+
+// y = (x . W) * delta + bias for a row-major (K, N) W of N <= 64 columns
+// (the MoE routers and the MLP heads), on the tensor cores.
+//
+// A block of 8 warps is rw row warps x kw = 8 / rw K warps: row warp r
+// owns 16 rows of x (one m16 tile: NT n8 tiles of W span every column),
+// K warp j the 64-wide steps j, j + kw, ... of the block's slice of K
+// (blockIdx.y of ksplit slices). Each step a lane takes 16 values of its
+// two rows (g, g + 8): x[k + 8 t .. + 8) and x[k + 32 + 8 t .. + 8), so a
+// quad of lanes covers 64 contiguous K of a row. Where x's rows are
+// 16-byte aligned (VEC) they stream through the lane's own slots of its
+// warp's cp.async stages, STAGES - 1 steps ahead (a lane reads back only
+// what it copied, so no barrier orders them); else they are loaded one
+// value at a time a step ahead. The 16 values' order is the A fragments'
+// K order (pair w of a lane's 8 words is k16 step w / 2, slot 2 t or
+// 2 t + 8), and W is read through the same permutation, so the sum is
+// unchanged; fp32 x enters as three bf16 planes. A step's four mma are
+// summed into an fp32 total on the CUDA cores (rt::promote). W is staged
+// in the block's shared memory as int8 levels, n-major, in chunks of kch
+// K (once a block where it fits; 16-byte loads where W's rows are
+// packed), after the first steps of x are in flight, and widened exactly
+// to bf16 fragments as it is read (two 8-byte reads of row n a step).
+// (Each warp reading its own W from L2 instead, with no barrier, measured
+// slower at every shape but one.) At the end the K warps' totals are
+// summed in shared memory in warp order and written as y; with K split
+// across the blocks of a cluster (grid y, the cluster's shape), each
+// block's sums are read by the cluster's blocks through distributed shared
+// memory and added in rank order, each block writing its share of y (no
+// atomics, no second kernel: every run gives the same bits).
+template <typename TIn, typename TOut, int NT, bool VEC>
+__global__ void __launch_bounds__(KR_WARPS * 32)
+qmatmul_kernel_klanes_rows(const TIn* __restrict__ x,
+                           const int8_t* __restrict__ w, long long sk,
+                           const float* __restrict__ delta,
+                           const float* __restrict__ bias,
+                           TOut* __restrict__ y, int M, int K, int N, int rw,
+                           int kch) {
+  constexpr int P = sizeof(TIn) == 4 ? 3 : 1;       // bf16 planes of x
+  constexpr int EL = 16 / sizeof(TIn);              // x values a 16-byte slot
+  constexpr int XW = 16 * sizeof(TIn) / 4;          // words of a row a step
+  using SM = KrSmem<TIn>;
+  constexpr int XQ = SM::XQ, XS = SM::STAGES;
+  constexpr int NP = NT * 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* wt = reinterpret_cast<int8_t*>(smem);
+  const int wld = SM::w_ld(kch);                    // bytes a staged W row
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = KR_WARPS / rw;
+  const int rwi = warp % rw, kwi = warp / rw;
+  const int row0 = (blockIdx.x * rw + rwi) * 16;
+  uint4* xs = reinterpret_cast<uint4*>(smem + SM::w_bytes(NT, kch)
+                                       + warp * SM::WARP_X);
+  // the block's slice of K, in whole steps
+  const int nsub = (K + KR_SUB - 1) / KR_SUB;
+  const int spz = (nsub + gridDim.y - 1) / gridDim.y;
+  const int kz0 = blockIdx.y * spz * KR_SUB;
+  const int kz1 = min((blockIdx.y + 1) * spz, nsub) * KR_SUB;
+
+  float tot[NT][4], run[NT][4];
 #pragma unroll
-  for (int n = 0; n < KN_COLS; ++n) {
-    if (n < nn) {
-      const float v = rt::warp_sum(acc[n]);
-      if (lane == 0) part[warp][n] = v;
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tot[nt][i] = run[nt][i] = 0.f;
+
+  // slot q of a lane: row g (q < XQ / 2) or g + 8, 16 bytes at K offset
+  // 8 t + 32 (q / (XQ / 4) odd) + EL (q % (XQ / 4)) of the step
+  auto slot_k = [&](int q) {
+    const int qq = q % (XQ / 2);
+    return 8 * t + 32 * (qq / (XQ / 4)) + EL * (qq % (XQ / 4));
+  };
+  auto issue = [&](int k, int stage) {        // x[.., k .. k + 64) to stage
+#pragma unroll
+    for (int q = 0; q < XQ; ++q) {
+      const int r = row0 + g + 8 * (q / (XQ / 2));
+      const int kk = k + slot_k(q);
+      const bool ok = r < M && kk < K;
+      const TIn* src = x + (ok ? (size_t)r * K + kk : 0);
+      // L2 fetches 256 bytes: the row's next step is on its way too
+      // (without the hint, or with 128, or with an explicit prefetch
+      // further ahead, mixtral's 32768-row router measured slower)
+      asm volatile(
+          "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+              smem_u32(xs + (stage * XQ + q) * 32 + lane)),
+          "l"(src), "r"(ok ? 16 : 0)
+          : "memory");
     }
-  }
-  __syncthreads();
-  if ((int)threadIdx.x < nn) {
-    const int n = n0 + threadIdx.x;
-    float s = 0.f;
+  };
+  // a lane's 16 values of row g + 8 h as raw 32-bit words, one at a time
+  auto direct = [&](int k, int h, uint32_t (&r)[XW]) {
+    const int m = row0 + g + 8 * h;
 #pragma unroll
-    for (int q = 0; q < KN_THREADS / 32; ++q) s += part[q][threadIdx.x];
-    y[(size_t)m * N + n] = rt::from_f<TOut>(s * delta[n] + (bias ? bias[n] : 0.f));
+    for (int q = 0; q < XQ / 2; ++q) {
+      __align__(16) TIn e[EL];
+      const int kk = k + slot_k(q);
+#pragma unroll
+      for (int i = 0; i < EL; ++i)
+        e[i] = m < M && kk + i < K ? x[(size_t)m * K + kk + i]
+                                   : rt::from_f<TIn>(0.f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        r[4 * q + i] = reinterpret_cast<const uint32_t*>(e)[i];
+    }
+  };
+
+  for (int kc0 = kz0; kc0 < kz1; kc0 += kch) {
+    const int kc1 = min(kc0 + kch, kz1);
+    const int nsc = (kc1 - kc0) / KR_SUB;        // steps in the chunk
+    const int mine = kwi < nsc ? (nsc - kwi + kw - 1) / kw : 0;
+    auto step_k = [&](int i) { return kc0 + (kwi + i * kw) * KR_SUB; };
+    uint32_t ra[XW], rb[XW];
+    if constexpr (VEC) {                         // x in flight first
+#pragma unroll
+      for (int i = 0; i < XS - 1; ++i) {
+        if (i < mine) issue(step_k(i), i);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+    } else if (mine > 0) {                       // a step ahead in registers
+      direct(step_k(0), 0, ra);
+      direct(step_k(0), 1, rb);
+    }
+    {
+      __syncthreads();                   // the last chunk's W is read
+      // W[kc0 .. kc1) n-major, zero past K (the rows past N are never
+      // written: their columns are not stored); 16 bytes a load where the
+      // chunk's rows are packed and aligned
+      const int nk = kc1 - kc0;
+      const int8_t* src = w + (size_t)kc0 * sk;
+      if (sk == N && (uintptr_t)src % 16 == 0) {
+        const int have = max(0, min(nk, K - kc0)) * N;   // bytes inside K
+        for (int f0 = 16 * tid; f0 < nk * N; f0 += 16 * KR_WARPS * 32) {
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (f0 + 16 <= have) {
+            v = __ldg(reinterpret_cast<const uint4*>(src + f0));
+          } else {
+            uint32_t wd[4] = {0u, 0u, 0u, 0u};
+            for (int i = 0; i < 16 && f0 + i < have; ++i)
+              wd[i >> 2] |= (uint32_t)(uint8_t)src[f0 + i] << (8 * (i & 3));
+            v = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+          }
+          const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+          int kk = f0 / N, n = f0 - kk * N;
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            if (kk < nk) wt[n * wld + kk] = b[i];
+            if (++n == N) {
+              n = 0;
+              ++kk;
+            }
+          }
+        }
+      } else {
+        for (int i = tid; i < nk * N; i += KR_WARPS * 32) {
+          const int kk = i / N, n = i - kk * N;
+          const int k = kc0 + kk;
+          wt[n * wld + kk] = k < K ? w[(size_t)k * sk + n] : (int8_t)0;
+        }
+      }
+      __syncthreads();
+    }
+    for (int i = 0; i < mine; ++i) {
+      const int kk = step_k(i) - kc0;            // the step's offset
+      uint32_t na[XW], nb[XW];
+      if constexpr (!VEC) {
+        if (i + 1 < mine) {
+          direct(step_k(i + 1), 0, na);
+          direct(step_k(i + 1), 1, nb);
+        }
+      } else {
+        if (i + XS - 1 < mine) issue(step_k(i + XS - 1), (i + XS - 1) % XS);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(XS - 1) : "memory");
+        const uint4* sl = xs + (i % XS) * XQ * 32 + lane;
+#pragma unroll
+        for (int q = 0; q < XQ / 2; ++q) {
+          const uint4 va = sl[q * 32], vb = sl[(q + XQ / 2) * 32];
+          ra[4 * q] = va.x; ra[4 * q + 1] = va.y;
+          ra[4 * q + 2] = va.z; ra[4 * q + 3] = va.w;
+          rb[4 * q] = vb.x; rb[4 * q + 1] = vb.y;
+          rb[4 * q + 2] = vb.z; rb[4 * q + 3] = vb.w;
+        }
+      }
+      // the A fragments of the four k16 steps, per plane
+      uint32_t a[4][P][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        uint32_t p0[P], p1[P], p2[P], p3[P];
+        raw_planes<TIn, P>(ra, 4 * s, p0);       // row g, slot 2 t
+        raw_planes<TIn, P>(rb, 4 * s, p1);       // row g + 8, slot 2 t
+        raw_planes<TIn, P>(ra, 4 * s + 2, p2);   // row g, slot 2 t + 8
+        raw_planes<TIn, P>(rb, 4 * s + 2, p3);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          a[s][p][0] = p0[p];
+          a[s][p][1] = p1[p];
+          a[s][p][2] = p2[p];
+          a[s][p][3] = p3[p];
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        // W row n = 8 nt + g at the lane's 16 K, widened exactly to bf16
+        const int8_t* wr = wt + (nt * 8 + g) * wld + kk + 8 * t;
+        const uint2 w0 = *reinterpret_cast<const uint2*>(wr);
+        const uint2 w1 = *reinterpret_cast<const uint2*>(wr + 32);
+        const uint32_t u[4] = {w0.x, w0.y, w1.x, w1.y};
+        uint32_t wv[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t uj = u[j] ^ 0x80808080u;
+          wv[2 * j] = rt::bf16x2_of_levels(uj, 0x7440, 0x7441);
+          wv[2 * j + 1] = rt::bf16x2_of_levels(uj, 0x7442, 0x7443);
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            mma_bf16_16816(run[nt], a[s][p][0], a[s][p][1], a[s][p][2],
+                           a[s][p][3], wv[2 * s], wv[2 * s + 1]);
+      }
+      rt::promote(tot, run);
+      if constexpr (!VEC) {
+        if (i + 1 < mine) {
+#pragma unroll
+          for (int j = 0; j < XW; ++j) {
+            ra[j] = na[j];
+            rb[j] = nb[j];
+          }
+        }
+      }
+    }
+    if constexpr (VEC) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
+
+  // the K warps' totals, summed in warp order: c0, c1 row g, columns 2 t,
+  // 2 t + 1 of each n8 tile; c2, c3 row g + 8
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);   // [kw][rw][16][NP]
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 8 * (i >> 1), c = nt * 8 + 2 * t + (i & 1);
+      red[((kwi * rw + rwi) * 16 + r) * NP + c] = tot[nt][i];
+    }
+  __syncthreads();
+  const int rows = rw * 16;
+  // the block's sums of its rows; with a K split across the blocks of a
+  // cluster, summed over the cluster's blocks in rank order through
+  // distributed shared memory (no atomics: every run the same bits), each
+  // block writing its share of the outputs
+  float* fin = red + KR_WARPS * 16 * NP;          // [rows][N]
+  for (int i = tid; i < rows * N; i += KR_WARPS * 32) {
+    const int rr = i / N, n = i - rr * N;
+    float v = 0.f;
+    for (int j = 0; j < kw; ++j) v += red[(j * rows + rr) * NP + n];
+    const int m = blockIdx.x * rows + rr;
+    if (gridDim.y > 1)
+      fin[i] = v;
+    else if (m < M)
+      y[(size_t)m * N + n] = rt::from_f<TOut>(v * delta[n] + (bias ? bias[n] : 0.f));
+  }
+  if (gridDim.y == 1) return;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                                 // every block's sums
+  const int ks = gridDim.y, z = blockIdx.y;
+  const int per = (rows * N + ks - 1) / ks;
+  for (int i = z * per + tid; i < min((z + 1) * per, rows * N);
+       i += KR_WARPS * 32) {
+    const int rr = i / N, n = i - rr * N;
+    const int m = blockIdx.x * rows + rr;
+    if (m >= M) continue;
+    float v = 0.f;
+    for (int r = 0; r < ks; ++r) v += cluster.map_shared_rank(fin, r)[i];
+    y[(size_t)m * N + n] = rt::from_f<TOut>(v * delta[n] + (bias ? bias[n] : 0.f));
+  }
+  cluster.sync();                                 // reads done: may exit
 }
 
 // --- launch -----------------------------------------------------------------
@@ -941,6 +1219,57 @@ int launch_klanes(const void* x, const void* w, long long sn, const void* delta,
       (const TIn*)x, (const int8_t*)w, sn, (const float*)delta,
       (const float*)bias, (TOut*)y, M, K, N, kc);
   return 0;
+}
+
+// k_lanes, row-major W of N <= 64 columns: rw row warps a block (1, 2, 4
+// or 8), kch K values of W staged a chunk (a multiple of 64), ksplit slices
+// of K across the blocks of a cluster (1 to 8; grid y), summed through
+// distributed shared memory.
+template <typename TIn, typename TOut>
+int launch_klanes_rows(const void* x, const void* w, long long sk,
+                       long long sn, const void* delta, const void* bias,
+                       void* y, int M, int K, int N, int rw, int kch,
+                       int ksplit, int smem, cudaStream_t st) {
+  const int nt = N <= 8 ? 1 : N <= 16 ? 2 : N <= 32 ? 4 : 8;
+  const int nsub = (K + KR_SUB - 1) / KR_SUB;
+  if (sn != 1 || N < 1 || N > 64 || (rw != 1 && rw != 2 && rw != 4 &&
+      rw != 8) || kch <= 0 || kch % KR_SUB || ksplit < 1 ||
+      ksplit > KR_MAX_CLUSTER || ksplit > nsub ||
+      smem < KrSmem<TIn>::bytes(nt, kch, rw))
+    return (int)cudaErrorInvalidValue;
+  const int spz = (nsub + ksplit - 1) / ksplit;
+  if ((long long)(ksplit - 1) * spz >= nsub)       // an empty slice
+    return (int)cudaErrorInvalidValue;
+  const bool vec = (uintptr_t)x % 16 == 0 &&
+                   ((long long)K * (long long)sizeof(TIn)) % 16 == 0;
+  void (*kern)(const TIn*, const int8_t*, long long, const float*,
+               const float*, TOut*, int, int, int, int, int) = nullptr;
+#define RT_KR(NT_)                                                         \
+  if (nt == NT_)                                                           \
+    kern = vec ? qmatmul_kernel_klanes_rows<TIn, TOut, NT_, true>          \
+               : qmatmul_kernel_klanes_rows<TIn, TOut, NT_, false>;
+  RT_KR(1) RT_KR(2) RT_KR(4) RT_KR(8)
+#undef RT_KR
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + 16 * rw - 1) / (16 * rw), ksplit);
+  cfg.blockDim = dim3(KR_WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = ksplit;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, (const TIn*)x, (const int8_t*)w,
+                                 sk, (const float*)delta, (const float*)bias,
+                                 (TOut*)y, M, K, N, rw, kch);
 }
 
 // n_lanes: variant 0 decode (p0 = warps a block splitting K, NT 8-row
@@ -1024,12 +1353,9 @@ int launch(int layout, int variant, const void* x, const void* w, long long sk,
 #undef RT_KL
     return (int)cudaErrorInvalidValue;
   }
-  if (sn != 1 || N > 4 * KN_COLS) return (int)cudaErrorInvalidValue;
-  dim3 grid(M, (N + KN_COLS - 1) / KN_COLS);    // row-major W, narrow N
-  qmatmul_kernel_klanes_narrow<TIn, TOut><<<grid, KN_THREADS, 0, st>>>(
-      (const TIn*)x, (const int8_t*)w, sk, (const float*)delta,
-      (const float*)bias, (TOut*)y, K, N);
-  return 0;
+  // row-major W, N <= 64: p0 = row warps a block, p1 = K staged a chunk
+  return launch_klanes_rows<TIn, TOut>(x, w, sk, sn, delta, bias, y, M, K,
+                                       N, p0, p1, ksplit, smem, st);
 }
 
 }  // namespace
@@ -1042,9 +1368,12 @@ int launch(int layout, int variant, const void* x, const void* w, long long sk,
 // bytes. layout 1: k_lanes, whose kernel follows W's strides: stride_k ==
 // 1 takes the tensor-core kernel (p0 = 8-row tiles of x per block, 1 / 2 /
 // 4; p1 = K values staged per chunk, a multiple of 64; smem = its dynamic
-// shared memory bytes), stride_n == 1 with N <= 64 the narrow one (p0, p1,
-// smem unused); variant, ksplit and part are unused. Returns the CUDA error
-// code of the launch (0 on success).
+// shared memory bytes; variant, ksplit and part unused), stride_n == 1
+// with N <= 64 the row-major one (p0 = row warps a block, 1 / 2 / 4 / 8;
+// p1 = K values of W staged a chunk, a multiple of 64; ksplit slices of K
+// across the blocks of a cluster, 1 to 8; part unused; smem its dynamic
+// shared memory bytes). Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int qmatmul_launch(const void* x, const void* w, long long stride_k,
                               long long stride_n, const void* delta,
                               const void* bias, void* y, void* part, int M,

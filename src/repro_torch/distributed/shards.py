@@ -13,16 +13,24 @@ result as a DTensor.
   container, or the levels of a ``q`` leaf) gives fp32 partial sums that
   are all-reduced (``Partial`` -> ``Replicate``), then the bias, then the
   one cast. A replicated weight keeps the activation's batch sharding.
-* :func:`attention_on_shards`: batch and query heads keep their sharding
-  where the keys' heads are sharded alike; the key sequence is gathered.
+* :func:`decode_on_shards`: one-token attention on the cache as it is
+  placed (``sharding.cache_specs``: batch over the data axes, sequence
+  over ``model``): q takes the local rows, each rank attends over its own
+  keys and the ranks merge their softmax statistics by all-reduces, as
+  XLA's partitioner does (the kernel by its log-sum-exp, the plain
+  versions by the softmax's max, sum and P . V sums); the cache is never
+  gathered.
+* :func:`attention_on_shards` (prefill, verify): batch and query heads
+  keep their sharding where the keys' heads are sharded alike; the key
+  sequence is gathered.
 * :func:`write_on_shards`: a cache write on the rows and positions each
   rank holds (a sequence-sharded cache included), in place.
 * :func:`einsum` / :func:`matmul`: a batched product of DTensors on the
   local shards, each mesh dim sharding one of the output's letters (the
-  batch and head dims of the SSM state update), for the serve paths:
-  DTensor itself flattens such operands into a strided sharding that its
-  ``bmm`` cannot propagate. Plain tensors, and operands that need a
-  gradient, take ``torch.einsum`` / ``torch.matmul``.
+  batch and head dims of the SSM state update, the experts of an MoE
+  layer), forward and backward: DTensor itself flattens such operands
+  into a strided sharding that its ``bmm`` / ``mm`` cannot propagate.
+  Plain tensors take ``torch.einsum`` / ``torch.matmul``.
 
 A mesh dim of size 1 holds the whole tensor on its one rank, whatever its
 placement says, so it is read as ``Replicate`` with no communication: on
@@ -38,9 +46,9 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 __all__ = ["is_dtensor", "any_dtensor", "whole", "gathers",
-           "matmul_on_shards", "einsum", "matmul",
+           "matmul_on_shards", "einsum", "matmul", "decode_on_shards",
            "attention_on_shards", "write_on_shards", "replicate_dims",
-           "align_heads"]
+           "align_heads", "layer"]
 
 gathers: Dict[str, int] = {}
 
@@ -153,23 +161,55 @@ def _rows_local(t, mesh, row_pl):
                          "per-row operand").to_local()
 
 
-def einsum(eq: str, *ops):
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a local
+    gradient that ``torch.einsum``'s backward leaves permuted becomes a
+    DTensor (``to_local``'s backward) whose later ``view`` fails on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def einsum(eq: str, *ops, grad_on_shards: bool = True):
     """``torch.einsum(eq, *ops)``; with a DTensor operand, on the local
     shards. Each mesh dim keeps sharding the letter the first operand
     sharded on it there, where that letter is one of the output's: every
     operand holding the letter is sharded on it alike (a replicated one
     takes its local slice, no communication), the others are replicated on
     that mesh dim. A sharded contracted letter is gathered. The result is
-    a DTensor sharded on those letters. Only without autograd (the serve
-    paths): an operand that needs a gradient takes DTensor's own einsum."""
-    if not any_dtensor(*ops) or (torch.is_grad_enabled() and any(
-            getattr(o, "requires_grad", False) for o in ops)):
+    a DTensor sharded on those letters.
+
+    Differentiable, under the same rule: the local product is
+    ``torch.einsum`` (its own backward, on the shards), the output's
+    gradient comes back to the output's placements, and each operand's
+    local gradient is declared with the placements it has
+    (``to_local(grad_placements=)``): sharded on a kept letter it holds,
+    ``Partial`` on a mesh dim whose kept letter it lacks (it met only its
+    rank's slice of that letter), which the redistribution that placed the
+    operand reduces. Every rank issues the same collectives in the same
+    order, an empty shard included: none depends on a shard's size.
+    DTensor's own einsum flattens such operands into a strided sharding
+    that its ``bmm`` (and, in a backward, ``mm``) cannot propagate. With
+    ``grad_on_shards=False`` an operand that needs a gradient takes
+    DTensor's own einsum (whose backward runs the global product's
+    decomposition on the shards, as one process would round it)."""
+    if not any_dtensor(*ops) or (not grad_on_shards and torch.is_grad_enabled()
+                                 and any(getattr(o, "requires_grad", False)
+                                         for o in ops)):
         return torch.einsum(eq, *ops)
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     ins, out = eq.replace(" ", "").split("->")
     ins = ins.split(",")
-    if "." in eq or len(ins) != len(ops):
-        raise ValueError(f"shards.einsum: explicit letters only, got {eq!r}")
+    if "." in eq or len(ins) != len(ops) or any(
+            len(set(x)) != len(x) for x in ins + [out]):
+        raise ValueError(f"shards.einsum: explicit letters only, each "
+                         f"once an operand, got {eq!r}")
     mesh = next(o for o in ops if is_dtensor(o)).device_mesh
     ops = [_as_dtensor(o, mesh) for o in ops]
     size = {c: n for o, letters in zip(ops, ins)
@@ -188,7 +228,11 @@ def einsum(eq: str, *ops):
     for o, letters in zip(ops, ins):
         want = [Shard(letters.index(c)) if c is not None and c in letters
                 else Replicate() for c in keep]
-        local.append(_redistribute(o, want, "einsum operand").to_local())
+        grad_pl = [Replicate() if c is None else
+                   Shard(letters.index(c)) if c in letters else Partial()
+                   for c in keep]
+        local.append(_ContiguousGrad.apply(_redistribute(
+            o, want, "einsum operand").to_local(grad_placements=grad_pl)))
     pl = [Shard(out.index(c)) if c is not None else Replicate()
           for c in keep]
     return _wrap(torch.einsum(eq, *local), mesh, pl,
@@ -197,10 +241,9 @@ def einsum(eq: str, *ops):
 
 def matmul(a, b):
     """``a @ b`` for operands of one rank >= 3 (batch dims, then the
-    matrices); with a DTensor operand and no autograd, on the local shards
-    (see :func:`einsum`)."""
-    if not any_dtensor(a, b) or (torch.is_grad_enabled() and (
-            a.requires_grad or b.requires_grad)):
+    matrices); with a DTensor operand, on the local shards (see
+    :func:`einsum`)."""
+    if not any_dtensor(a, b):
         return torch.matmul(a, b)
     if a.dim() != b.dim() or a.dim() < 3 or a.dim() > 24:
         raise ValueError(f"shards.matmul: operands of one rank >= 3, got "
@@ -213,10 +256,12 @@ def align_heads(q, k, v, *scales):
     """q, k, v with their head dims (2) sharded alike on every mesh dim,
     as a GQA reshape of q needs; where they differ (KV heads that the
     model axis does not divide are replicated by the rules) the heads are
-    gathered. With ``scales`` (a decode or verify against a cache: the
-    int8 cache's (B, S) scales, or None) the cache's sequence is gathered
-    too, as the kernels' path gathers it, so no partial sum over keys is
-    rounded before its reduction. Returns (q, k, v, *scales)."""
+    gathered. With ``scales`` (a verify against a cache: the int8 cache's
+    (B, S) scales, or None) the cache's sequence is gathered too, as the
+    kernels' verify gathers it, so no partial sum over keys is rounded
+    before its reduction. A decode takes :func:`decode_on_shards`
+    instead, which keeps the sequence sharded. Returns (q, k, v,
+    *scales)."""
     from torch.distributed.tensor import Shard
     if not any_dtensor(q, k, v):
         return (q, k, v) + scales
@@ -332,6 +377,95 @@ def attention_on_shards(run: Callable, q, k, v, *, rows=(), row_seq=()):
     extra += [_rows_local(t, mesh, row_pl) for t in row_seq]
     out = run(ql, kl, vl, *extra)
     return _wrap(out, mesh, q_pl, tuple(q.shape[:3]) + (v.shape[-1],))
+
+
+def layer(buf, i: int):
+    """``buf[i]`` of a stacked (L, ...) cache leaf: for a DTensor, the
+    local shard's entry wrapped with the same placements on the remaining
+    dims (no communication, and no global-shape propagation, which for a
+    long cache allocates a whole-cache meta tensor a call). A leaf
+    sharded on its layer dim is indexed by DTensor itself."""
+    if not is_dtensor(buf):
+        return buf[i]
+    from torch.distributed.tensor import Shard
+    if any(isinstance(p, Shard) and p.dim == 0 for p in buf.placements):
+        return buf[i]
+    pl = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+          for p in buf.placements]
+    return _wrap(buf.to_local()[i], buf.device_mesh, pl, buf.shape[1:])
+
+
+def _reduce(t, mesh, dims, op: str):
+    """``t`` all-reduced with ``op`` over each mesh dim in ``dims`` (every
+    rank calls it, in the same order)."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+    return t
+
+
+def decode_on_shards(run: Callable, q, k, v, cache_len, k_scale=None,
+                     v_scale=None):
+    """One-token attention of q (B, 1, H, D) against a (B, S, KV, D)
+    cache on each rank's shards, the cache left as it is placed.
+
+    Per mesh dim: where the cache's batch is sharded, q takes its local
+    rows (a slice where q is replicated there); where its sequence is, q
+    is replicated there and the ranks of that dim reduce together; where
+    both q's and the cache's heads are sharded alike, they stay; else the
+    cache follows q's batch sharding (a local slice) or q is replicated
+    (the cache's heads, where only they are sharded, are gathered). Each
+    rank attends over its own keys with its local lengths, ``clamp(len -
+    s0, 0, S_local)``: ``run(q, k, v, lens, k_scale, v_scale, reduce=)``
+    -> (B_l, 1, H_l, D), where ``reduce(t, op)`` all-reduces ``t`` (``op``
+    "max" or "sum") over the mesh dims that shard the sequence, in the
+    same order on every rank, and is None where none does (then ``run``
+    is the unsharded call on the local tensors). Returns a DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
+    q, k, v = (_as_dtensor(t, mesh) for t in (q, k, v))
+    v = _redistribute(v, list(k.placements), "attention values")
+    q_pl, kv_pl, row_pl, merge = [], [], [], []
+    for i in range(mesh.ndim):
+        qp, kp = q.placements[i], k.placements[i]
+        if kp == Shard(0) or (kp == Replicate() and qp == Shard(0)):
+            q_pl.append(Shard(0))                         # local rows
+            kv_pl.append(Shard(0))
+            row_pl.append(Shard(0))
+        elif kp == Shard(1):                              # local keys
+            q_pl.append(Replicate())
+            kv_pl.append(Shard(1))
+            row_pl.append(Replicate())
+            merge.append(i)
+        elif kp == Shard(2) and qp == Shard(2):           # local heads
+            q_pl.append(Shard(2))
+            kv_pl.append(Shard(2))
+            row_pl.append(Replicate())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            row_pl.append(Replicate())
+    qd = _redistribute(q, q_pl, "attention q")
+    kd = _redistribute(k, kv_pl, "attention keys")
+    ql, kl = qd.to_local(), kd.to_local()
+    vl = _redistribute(v, kv_pl, "attention values").to_local()
+    sc_pl = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+             for p in kv_pl]
+    scales = [None if t is None else _redistribute(
+        _as_dtensor(t, mesh), sc_pl, "attention keys").to_local()
+        for t in (k_scale, v_scale)]
+    if not is_dtensor(cache_len):
+        cache_len = torch.as_tensor(cache_len, device=ql.device)
+    lens = _rows_local(cache_len, mesh, row_pl).reshape(-1).expand(
+        ql.shape[0])
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    reduce = None
+    if merge:
+        lens = torch.clamp(lens.to(torch.int32) - _offsets(kd)[1], 0,
+                           kl.shape[1])
+        reduce = lambda t, op: _reduce(t, mesh, merge, op)     # noqa: E731
+    return _wrap(run(ql, kl, vl, lens, *scales, reduce=reduce), mesh, q_pl,
+                 shape)
 
 
 def write_on_shards(buf, i: int, rows, slot, vals,

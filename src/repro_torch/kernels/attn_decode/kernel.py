@@ -9,7 +9,9 @@ plain torch, for the CPU tests. The launch is the CUDA implementation of
 the registered op ``torch.ops.repro_torch.attn_decode``
 (``kernels/_ops.py``), whose fake implementation allocates the same
 output and split partials. ``launches`` counts launches (one per call,
-the merge included); nothing else touches it.
+the merge included); nothing else touches it. With ``with_lse`` the merge
+also returns each head's log-sum-exp of its scores (fp32, (B, KV, G)), the
+part a merge of a sequence split across ranks needs.
 """
 from __future__ import annotations
 
@@ -22,43 +24,67 @@ import torch
 from repro_torch.kernels import _build, _ops
 
 __all__ = ["attn_decode_cuda", "check_head", "check_kv", "launches", "plan",
-           "Plan", "split_softmax", "attention_flops"]
+           "Plan", "split_smem", "split_softmax", "attention_flops"]
 
 launches = 0
 
 _BK, _WARPS, _HPW, _PAD = 32, 8, 4, 16    # as csrc/attn_decode.cu
 _TARGET_BLOCKS = 8 * 132                   # eight blocks for each SM
 _MAX_SPLITS = 1024                         # as csrc/attn_decode.cu
+# KV heads a block (G < 5): at most 4, and as many as keep two blocks on
+# an SM (measured on the H100: 8 heads a block, one block an SM, ran no
+# faster at G = 1 and slower with int8 K/V)
+_HB_MAX = 4
+_HB_SMEM = _ops.SM_SMEM // 2 - _ops.BLOCK_RESERVED
 
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_float]
-             + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_float]
+             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 class Plan(NamedTuple):
     """One launch: keys per split, the number of splits (the grid is
-    splits x B * KV blocks) and the split kernel's dynamic shared memory
-    (bytes)."""
+    splits x B * KV / hb blocks), the split kernel's dynamic shared memory
+    (bytes) and hb, the KV heads a block serves."""
     split_len: int
     splits: int
     dynamic_smem: int
+    hb: int = 1
+
+
+def split_smem(hb: int, g: int, d: int, kv_dtype: torch.dtype) -> int:
+    """The split kernel's dynamic shared memory (csrc/attn_decode.cu,
+    ``Smem``): q of hb * g heads in fp32, each warp's P rows, two buffers
+    of BK keys of K and V (a row the hb heads' d values, padded) and, for
+    int8, their scales."""
+    row = hb * d * kv_dtype.itemsize + _PAD
+    kv_buf = 2 * _BK * row + (2 * _BK * 4 if kv_dtype == torch.int8 else 0)
+    return hb * g * d * 4 + _WARPS * _HPW * _BK * 4 + 2 * kv_buf
 
 
 @functools.lru_cache(maxsize=None)
 def plan(b: int, s: int, kv: int, g: int, d: int,
          kv_dtype: torch.dtype) -> Plan:
-    """The split of a (b, s, kv, d) cache for G heads per KV head: the
-    shortest split length (a power of two from 32 keys, one staged block)
-    that keeps the grid within about eight blocks per SM: a block's time
-    grows with its keys, so short splits win until the blocks queue; and at
-    most 1024 splits, the merge's shared memory. Depends on shapes only."""
-    want = -(-max(s, 1) * b * kv // _TARGET_BLOCKS)
+    """The launch for a (b, s, kv, d) cache and G heads per KV head.
+    hb: 1 for G >= 5; below, 8 // G KV heads a block (at most 4), so the
+    warps have heads, as a power of two that divides KV, halved until the
+    block's buffers leave room for two blocks on an SM. The split: the
+    shortest length (a power of two from 32 keys, one staged block) that
+    keeps the grid within about eight blocks per SM (four where a block
+    serves 4 KV heads): a block's time grows with its keys, so short
+    splits win until the blocks queue; and at most 1024 splits, the
+    merge's shared memory. Depends on shapes only."""
+    hb = 1
+    while 2 * hb * g <= _WARPS and hb < _HB_MAX:
+        hb *= 2
+    while hb > 1 and (kv % hb or split_smem(hb, g, d, kv_dtype) > _HB_SMEM):
+        hb //= 2
+    target = _TARGET_BLOCKS * min(hb, 2) // hb
+    want = -(-max(s, 1) * b * (kv // hb) // target)
     split_len = _BK
     while split_len < want or -(-max(s, 1) // split_len) > _MAX_SPLITS:
         split_len *= 2
-    row = d * kv_dtype.itemsize + _PAD
-    kv_buf = 2 * _BK * row + (2 * _BK * 4 if kv_dtype == torch.int8 else 0)
-    smem = g * d * 4 + _WARPS * _HPW * _BK * 4 + 2 * kv_buf
-    return Plan(split_len, -(-max(s, 1) // split_len), smem)
+    return Plan(split_len, -(-max(s, 1) // split_len),
+                split_smem(hb, g, d, kv_dtype), hb)
 
 
 def split_softmax(scores: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
@@ -147,12 +173,14 @@ def attn_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor,
                      k_scale: torch.Tensor | None = None,
                      v_scale: torch.Tensor | None = None,
-                     q_scale: float = 1.0) -> torch.Tensor:
+                     q_scale: float = 1.0, with_lse: bool = False):
     """q (B, KV, G, D) fp32/bf16, multiplied by ``q_scale`` (a scalar
     already rounded to q's dtype) in q's dtype as the kernel reads it; k/v
     cache (B, S, KV, D) in q's dtype, or int8 with (B, S) fp32 scales;
-    cache_len (B,) int32 -> (B, KV, G, D) in q's dtype. Checks what the
-    kernel does not handle, then calls the registered op
+    cache_len (B,) int32 -> (B, KV, G, D) in q's dtype, and with
+    ``with_lse`` also the (B, KV, G) fp32 log-sum-exp of each head's
+    visible scores (-inf where none is visible). Checks what the kernel
+    does not handle, then calls the registered op
     ``torch.ops.repro_torch.attn_decode``."""
     if not q.is_cuda or q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"attn_decode q: need a contiguous (B, KV, G, D) "
@@ -163,33 +191,39 @@ def attn_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
              "attn_decode")
     _build.require(cache_len, (b,), (torch.int32,), q.device,
                    "attn_decode cache_len")
-    return _ops.op("attn_decode")(q, k_cache, v_cache, cache_len, k_scale,
-                                  v_scale, float(q_scale))
+    out, lse = _ops.op("attn_decode")(q, k_cache, v_cache, cache_len,
+                                      k_scale, v_scale, float(q_scale),
+                                      bool(with_lse))
+    return (out, lse) if with_lse else out
 
 
-def _alloc(q, k_cache):
-    """The launch's plan, its output and its split partials (the m, l and
+def _alloc(q, k_cache, with_lse):
+    """The launch's plan, its output, its log-sum-exp ((B, KV, G) fp32
+    with ``with_lse``, else empty) and its split partials (the m, l and
     accumulator of every split, one fp32 buffer), noted for a recording;
     shared by both implementations of the op."""
     b, kv, g, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, kv, g) if with_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     if b * kv == 0:
-        return None, out, None
+        return None, out, lse, None
     p = plan(b, k_cache.shape[1], kv, g, d, k_cache.dtype)
     parts = torch.empty((b * kv * p.splits * g * (d + 2),),
                         dtype=torch.float32, device=q.device)
-    _ops.note("attn_decode", "", (p.splits, b * kv), p.dynamic_smem,
+    _ops.note("attn_decode", "", (p.splits, b * kv // p.hb), p.dynamic_smem,
               [(parts.shape, parts.dtype)], p)
-    return p, out, parts
+    return p, out, lse, parts
 
 
-def _launch(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale):
+def _launch(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale,
+            with_lse=False):
     """The op's CUDA implementation: the split and merge kernels on the
     current stream."""
     global launches
-    p, out, parts = _alloc(q, k_cache)
+    p, out, lse, parts = _alloc(q, k_cache, with_lse)
     if p is None:
-        return out
+        return out, lse
     b, kv, g, d = q.shape
     s = k_cache.shape[1]
     quantized = k_scale is not None
@@ -202,18 +236,21 @@ def _launch(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale):
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             cache_len.data_ptr(), out.data_ptr(), pm.data_ptr(),
-            pl.data_ptr(), pacc.data_ptr(), q_scale, b, s, kv, g, d,
+            pl.data_ptr(), pacc.data_ptr(),
+            lse.data_ptr() if with_lse else None, q_scale, b, s, kv, g, d,
             _build.dtype_code(q.dtype), _build.dtype_code(k_cache.dtype),
-            p.split_len, p.splits, p.dynamic_smem,
+            p.hb, p.split_len, p.splits, p.dynamic_smem,
             _build.stream_ptr(q.device))
     _build.check(rc, "attn_decode")
     launches += 1
-    return out
+    return out, lse
 
 
-def _fake(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale):
+def _fake(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale,
+          with_lse=False):
     """The op's fake implementation: the launch's allocations, no work."""
-    return _alloc(q, k_cache)[1]
+    _, out, lse, _ = _alloc(q, k_cache, with_lse)
+    return out, lse
 
 
 def attention_flops(b: int, h: int, t: int, s: int, d: int) -> int:
@@ -223,11 +260,12 @@ def attention_flops(b: int, h: int, t: int, s: int, d: int) -> int:
 
 
 def _flops(q, k_cache, v_cache, cache_len, k_scale, v_scale, q_scale,
-           out_shape=None):
+           with_lse=False, out_shape=None):
     b, kv, g, d = q
     return attention_flops(b, kv * g, 1, k_cache[1], d)
 
 
 _ops.define("attn_decode", "(Tensor q, Tensor k_cache, Tensor v_cache, "
             "Tensor cache_len, Tensor? k_scale, Tensor? v_scale, "
-            "float q_scale) -> Tensor", _launch, _fake, _flops)
+            "float q_scale, bool with_lse=False) -> (Tensor, Tensor)", _launch,
+            _fake, _flops)

@@ -34,12 +34,20 @@ def _q_scale(d: int, dtype: torch.dtype) -> float:
 
 def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 cache_len, k_scale: torch.Tensor | None = None,
-                v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                v_scale: torch.Tensor | None = None, with_lse: bool = False,
+                reduce=None):
     """Fused one-token GQA attention: q (B, 1, H, D) x cache (B, S, KV, D)
-    -> (B, 1, H, D) in q's dtype."""
+    -> (B, 1, H, D) in q's dtype; with ``with_lse`` also the (B, H) fp32
+    log-sum-exp of each head's visible scores (-inf where none is).
+    ``reduce(t, op)``, where given, all-reduces across the ranks holding
+    the rest of a sequence-sharded cache (``shards.decode_on_shards``):
+    the kernel's output and log-sum-exp are merged, out = sum w o / sum w
+    with w = e^(lse - max lse) in fp32 (0 for a rank with no visible key);
+    the plain version reduces its softmax statistics as it goes."""
     if q.device.type == "cpu":
         return ref.attn_decode_ref(q, k_cache, v_cache, cache_len,
-                                   k_scale, v_scale)
+                                   k_scale, v_scale, with_lse=with_lse,
+                                   reduce=reduce)
     if not q.is_cuda:
         raise ValueError(f"attn_decode: no path for device {q.device}")
     b, _, h, d = q.shape
@@ -47,6 +55,22 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     q4 = q.reshape(b, kv, h // kv, d).contiguous()
     lens = torch.as_tensor(cache_len, device=q.device).to(torch.int32)
     lens = lens.reshape(-1).expand(b).contiguous()
-    out = kernel.attn_decode_cuda(q4, k_cache, v_cache, lens, k_scale, v_scale,
-                                  q_scale=_q_scale(d, q.dtype))
-    return out.reshape(b, 1, h, d)
+    want_lse = with_lse or reduce is not None
+    res = kernel.attn_decode_cuda(q4, k_cache, v_cache, lens, k_scale,
+                                  v_scale, q_scale=_q_scale(d, q.dtype),
+                                  with_lse=want_lse)
+    if not want_lse:
+        return res.reshape(b, 1, h, d)
+    out, lse = res[0].reshape(b, 1, h, d), res[1].reshape(b, h)
+    if reduce is not None:
+        big = reduce(lse, "max")
+        w = torch.where(lse > float("-inf"), torch.exp(lse - big),
+                        torch.zeros((), device=q.device))
+        num = reduce(out.float() * w[:, None, :, None], "sum")
+        den = reduce(w, "sum")
+        out = torch.where(den[:, None, :, None] > 0, num / torch.where(
+            den > 0, den, 1.0)[:, None, :, None],
+            torch.zeros((), device=q.device)).to(q.dtype)
+        lse = torch.where(den > 0, big + torch.log(torch.where(
+            den > 0, den, 1.0)), torch.full_like(den, float("-inf")))
+    return (out, lse) if with_lse else out

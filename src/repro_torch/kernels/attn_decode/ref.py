@@ -31,9 +31,16 @@ def scale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
 def attn_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, cache_len,
                     k_scale: torch.Tensor | None = None,
-                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                    v_scale: torch.Tensor | None = None,
+                    with_lse: bool = False, reduce=None):
     """q (B, 1, H, D); k/v cache (B, S, KV, D); cache_len scalar or (B,);
-    optional (B, S) per-token scales for an int8 cache -> (B, 1, H, D)."""
+    optional (B, S) per-token scales for an int8 cache -> (B, 1, H, D); with
+    ``with_lse`` also the (B, H) fp32 log-sum-exp of each head's visible
+    scores, m + log(l) (-inf for a row with none), as the kernel's merge
+    gives it. ``reduce(t, op)``, where given, all-reduces the row max, the
+    sum and the P . V sums across the ranks that hold the rest of a
+    sequence-sharded cache (``shards.decode_on_shards``), so the ranks
+    compute what one process would, to fp32 summation order."""
     global calls
     calls += 1
     b, _, h, d = q.shape
@@ -49,8 +56,13 @@ def attn_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     sc = torch.where(valid[:, None, None, None], sc,
                      torch.tensor(NEG_INF, device=q.device))
     m = sc.amax(dim=-1, keepdim=True)
+    if reduce is not None:
+        m = reduce(m, "max")
     p = torch.where(m > NEG_INF / 2, torch.exp(sc - m), torch.zeros_like(sc))
-    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    l = p.sum(dim=-1, keepdim=True)
+    if reduce is not None:
+        l = reduce(l, "sum")
+    l = torch.clamp(l, min=1e-30)
     if v_scale is not None:
         p = (p * v_scale[:, None, None, None, :].float()).to(q.dtype)
         vc = v_cache.to(q.dtype)
@@ -58,5 +70,11 @@ def attn_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
         p = p.to(v_cache.dtype)
         vc = v_cache
     out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), vc.float())
-    out = out / l.permute(0, 3, 1, 2, 4)
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    if reduce is not None:
+        out = reduce(out, "sum")
+    out = (out / l.permute(0, 3, 1, 2, 4)).reshape(b, 1, h, d).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(m > NEG_INF / 2, m + torch.log(l),
+                      torch.tensor(float("-inf"), device=q.device))
+    return out, lse.reshape(b, h)

@@ -4,7 +4,9 @@ W is passed by pointer and element strides, so a transposed view (the tied
 readout's ``q.T``) is read in place, never copied. :func:`plan` picks the
 kernel's layout from the strides and N (pure Python, so the CPU tests reach
 it): ``k_lanes`` (lanes along K) for a K-contiguous W (the readout) and for
-a row-major W of at most 64 columns (the paper MLP's heads), ``n_lanes``
+a row-major W of at most 64 columns (the paper MLP's heads and the MoE
+routers: tiles of rows on the tensor cores, K split across the blocks of a
+cluster where the tiles are few), ``n_lanes``
 (lanes along N) for any other (the ``q`` form's projections), and for
 ``n_lanes`` its variant by M, ``decode`` (M <= 16) or ``prefill``, and its
 split of K. ``launches`` counts launches (one a call, a K split's second
@@ -44,7 +46,14 @@ launches_by_orientation = dict.fromkeys(K_LANES_ORIENTATIONS, 0)  # k_lanes
 _KL_STEP, _KL_PAD = 128, 8
 _KL_X_BYTES = 96 * 1024      # staged x per block: leaves room for 2 blocks/SM
 _KN_MAX_N = 64               # k_lanes, row-major W: N <= 64
-_KN_COLS, _KL_WARPS = 16, 8  # row-major: columns a block; K-major: warps
+_KL_WARPS = 8                # k_lanes, K-major: warps a block
+# k_lanes, row-major W (csrc/qmatmul.cu, KrSmem): 8 warps, 64-K steps, at
+# most 8 K slices (a cluster); each warp's x stages (4 stages of 4 16-byte
+# slots a lane for bf16 x, 2 of 8 for fp32); W staged as int8
+_KR_WARPS, _KR_SUB, _KR_MAX_CLUSTER = 8, 64, 8
+_KR_WARP_X = {torch.bfloat16: 4 * 4 * 32 * 16, torch.float32: 2 * 8 * 32 * 16}
+_KR_SMEM = _ops.SM_SMEM // 2 - _ops.BLOCK_RESERVED
+_KR_W_CHUNK = 32 * 1024      # staged W a chunk, at most (where K allows)
 
 # n_lanes, as csrc/qmatmul.cu: K in chunks (decode) or steps (prefill) of
 # 64; decode blocks of 64 columns, each warp two int8 stages of a chunk and
@@ -71,11 +80,13 @@ class Plan(NamedTuple):
     memory it asks for (bytes), the n_lanes variant and the slices of K
     across blocks, and the k_lanes orientation of W (``k_major`` or
     ``row_major``). k_lanes with a K-contiguous W: p0 = 8-row tiles of x a
-    block, p1 = K values staged a chunk; with a row-major W: 0, 0. n_lanes:
-    p0 = warps a block (decode; 0 for prefill), p1 = 64-K chunks a
-    slice.
+    block, p1 = K values staged a chunk; with a row-major W: p0 = 16-row
+    tiles a block (row warps; the other warps of the 8 split K), p1 = K
+    values of W staged a chunk. n_lanes: p0 = warps a block (decode; 0 for
+    prefill), p1 = 64-K chunks a slice.
     The launcher sizes the grid: decode ceil(N / 64) x ksplit, prefill
-    ceil(N / 128) x ceil(M / 128) x ksplit."""
+    ceil(N / 128) x ceil(M / 128) x ksplit, row-major k_lanes
+    ceil(M / (16 p0)) x ksplit."""
     layout: str
     p0: int
     p1: int
@@ -138,6 +149,48 @@ def _np_smem(x_dtype: torch.dtype) -> int:
             + (3 * _NP_BM * _NP_X_ROW * 2 if fp32 else 0))
 
 
+def rows_smem(nt: int, kch: int, rw: int, x_dtype: torch.dtype) -> int:
+    """Row-major k_lanes' shared memory (csrc/qmatmul.cu, ``KrSmem``):
+    the staged int8 W chunk, nt * 8 rows of kch bytes padded to 32 past a
+    multiple of 128, and every warp's x stages; at least the cross-warp
+    sum's 8 x 16 x nt * 8 fp32 and the block's rw x 16 x nt * 8 sums."""
+    ld = kch + (32 - kch) % 128
+    return max(nt * 8 * ld + _KR_WARPS * _KR_WARP_X[x_dtype],
+               (_KR_WARPS + rw) * 16 * nt * 8 * 4)
+
+
+def _rows_plan(m: int, k: int, n: int, x_dtype: torch.dtype) -> Plan:
+    """Row-major k_lanes (N <= 64: the routers, the MLP heads): blocks
+    of rw 16-row tiles, the largest rw (8, 4, 2) that still gives a block
+    for each SM. Else one tile a block (rw = 1), its 8 warps splitting K,
+    and K also split across the blocks of a cluster, up to two blocks for
+    each SM, 8 slices (a portable cluster) and two 64-K steps a slice (a
+    tick's M = 8 and the MLP heads: fewer blocks, each a longer chain of
+    steps, measured slower). W is staged in chunks of at most 32 KB (two
+    blocks an SM; mixtral's 48 KB router in two chunks measured faster
+    than in one)."""
+    nt = next(v for v in (1, 2, 4, 8) if 8 * v >= n)
+    nsub = _cdiv(max(k, 1), _KR_SUB)
+    tiles = _cdiv(max(m, 1), 16)
+    rw = next((r for r in (8, 4, 2) if _cdiv(tiles, r) >= _TARGET_BLOCKS),
+              1)
+    ks = 1
+    if rw == 1:
+        ks = max(1, min(_KR_MAX_CLUSTER, nsub // 2,
+                        _cdiv(2 * _TARGET_BLOCKS, tiles)))
+    spz, ks = _slices(nsub, ks)
+    span = spz * _KR_SUB                      # K a block walks
+    room = min(_KR_W_CHUNK, _KR_SMEM - _KR_WARPS * _KR_WARP_X[x_dtype])
+    chunks = 1
+    while True:
+        kch = _cdiv(_cdiv(span, chunks), _KR_SUB) * _KR_SUB
+        if kch == _KR_SUB or nt * 8 * (kch + (32 - kch) % 128) <= room:
+            break
+        chunks += 1
+    return Plan("k_lanes", rw, kch, rows_smem(nt, kch, rw, x_dtype),
+                ksplit=ks, orientation="row_major")
+
+
 @functools.lru_cache(maxsize=None)
 def plan(m: int, k: int, n: int, stride_k: int, stride_n: int,
          x_dtype: torch.dtype) -> Plan:
@@ -154,7 +207,7 @@ def plan(m: int, k: int, n: int, stride_k: int, stride_n: int,
         return Plan("k_lanes", nt, kc, per_k * (kc + _KL_PAD),
                     orientation="k_major")
     if stride_n == 1 and n <= _KN_MAX_N:
-        return Plan("k_lanes", 0, 0, 0, orientation="row_major")
+        return _rows_plan(m, k, n, x_dtype)
     return _n_lanes_plan(m, k, n, x_dtype)
 
 
@@ -173,7 +226,7 @@ def _grid(p: Plan, m: int, n: int) -> tuple:
     which the launcher asks the CUDA runtime for; here they are estimated
     from the shared memory and the 2048 threads of an SM."""
     if p.layout == "k_lanes" and p.orientation == "row_major":
-        return (m, _cdiv(n, _KN_COLS))
+        return (_cdiv(m, 16 * p.p0), p.ksplit)
     if p.layout == "k_lanes":
         gy = _cdiv(m, 8 * p.p0)
         per_sm = max(1, min(2048 // (32 * _KL_WARPS),
@@ -228,7 +281,8 @@ def _alloc(x, w_q, out_dtype):
     sk, sn = w_q.stride()
     p = plan(m, k, n, sk, sn, x.dtype)
     part = (torch.empty((p.ksplit, m, n), dtype=torch.float32,
-                        device=x.device) if p.ksplit > 1 else None)
+                        device=x.device)
+            if p.ksplit > 1 and p.layout == "n_lanes" else None)
     _ops.note("qmatmul", "/".join(v for v in (p.layout, p.variant
                                               or p.orientation)),
               _grid(p, m, n), p.dynamic_smem,

@@ -3,7 +3,7 @@ the ``q`` form's projections) and the fp32 ``attn_prefill`` at the serving
 path's shapes, through their public wrappers, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_kernels [--tag T]
-        [--groups qwen,dense,head,q,prefill32,moe,fp32sum]
+        [--groups qwen,dense,head,q,prefill32,moe,fp32sum,router,decode_g]
 
 Groups: ``qwen`` (the default) qwen2-1.5b's projections and decode
 attention and the paper MLP's layers; ``dense`` qmatvec at the decode
@@ -33,7 +33,13 @@ precision of fp32 x through the tensor cores (qmatvec, qmatmul's n_lanes
 and K-major k_lanes) at the shapes of mixtral's path check, and of bf16 x
 at mixtral's longest K (16384, the expert down projection; fp32 and bf16
 output, so the sum's error shows apart from the output's rounding),
-against a float64 product, beside the plain version's.
+against a float64 product, beside the plain version's; ``router`` the
+row-major k_lanes kernel (the MoE routers at M = 8, 16, 512 and 32768,
+the digit and phoneme heads) in bf16 and fp32 x beside ``addmm`` on the
+dequantized W in x's dtype; ``decode_g`` attn_decode at G = 1 (D = 80
+and 64, bf16 / int8 / fp32), G = 4 (KV = 8, D = 128) and G = 6, beside
+SDPA, with the plan's KV heads a block. Lines carry a hash of the
+kernel's output (``out_sha``), so two trees' runs compare bit for bit.
 
 Uses only the wrappers (``kernels/*/ops.py``), their plain versions and
 ``core/packing.py``, so the same file times two trees of the port in one
@@ -53,6 +59,7 @@ and the library call's CUDA-event ms, and the launch counters' variant.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 
@@ -60,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.packing import pack_matrix, unpack_matrix
+from repro_torch.kernels.attn_decode import kernel as dec_k
 from repro_torch.kernels.attn_decode import ops as dec_ops
 from repro_torch.kernels.attn_decode.ref import attn_decode_ref, scale_q
 from repro_torch.kernels.attn_prefill import kernel as pf_k
@@ -106,6 +114,28 @@ MOE_EXPERT_CASES = ([(m, k, n) for m in (1, 80)
                     + [(m, k, n) for m in (2, 1406, 10240)
                        for k, n in ((6144, 16384), (16384, 6144))])
 MOE_ROUTER_CASES = ((8, 4096, 16), (8, 6144, 8), (32768, 6144, 8))
+# row-major k_lanes (the routers and the MLP heads), bf16 and fp32 x: the
+# routers at a tick (M = 8, 16), an admission round (8 x 64 tokens) and
+# mixtral's 4096 bucket; the digit (N = 10) and phoneme (N = 61) heads
+ROUTER_CASES = [(m, k, n, dt, what) for dt in (torch.bfloat16, torch.float32)
+                for m, k, n, what in (
+                    (8, 4096, 16, "MoE router"), (8, 6144, 8, "MoE router"),
+                    (16, 4096, 16, "MoE router"),
+                    (512, 4096, 16, "MoE router"),
+                    (32768, 6144, 8, "MoE router"),
+                    (100, 1022, 10, "digit head"),
+                    (128, 1022, 61, "phoneme head"))]
+# attn_decode by query heads a KV head: G = 1 (stablelm-3b's D = 80,
+# zamba2-1.2b's and musicgen-large's D = 64), G = 4 (phi3.5-moe), G = 6
+# (qwen2-1.5b): (B, S, cache, KV, G, D, q dtype)
+DECODE_G_CASES = ([(8, 512, c, 32, 1, d, torch.bfloat16)
+                   for d in (80, 64) for c in ("bf16", "int8")]
+                  + [(8, 512, "fp32", 32, 1, d, torch.float32)
+                     for d in (80, 64)]
+                  + [(8, 512, c, 8, 4, 128, torch.bfloat16)
+                     for c in ("bf16", "int8")]
+                  + [(8, 512, c, 2, 6, 128, torch.bfloat16)
+                     for c in ("bf16", "int8")])
 MOE_WINDOW = (4500, 4096)            # mixtral's solo prompt and its window
 # fp32 x through the tensor cores at the MoE path check's shapes: mixtral's
 # attention projections over 2 x 4608 tokens and at a decode tick (M = 2),
@@ -156,6 +186,13 @@ def _device_ms(fn):
     return us / 1e3 / REPS
 
 
+def _digest(t) -> str:
+    """The output's bytes, hashed: two trees' runs of the same case (the
+    same file, the same seeds) compare bit for bit by it."""
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()[:16]
+
+
 def _planes(dtype):
     """bf16 planes a tensor-core kernel splits x into (qmatvec, qmatmul):
     fp32 x runs as three, each product at the bf16 tensor-core peak."""
@@ -194,23 +231,22 @@ def qmatvec_case(g, m, k, n, dtype):
             "library": "addmm", "library_device_ms": _device_ms(lib)}
 
 
-def decode_case(g, b, s, cache):
+def decode_case(g, b, s, cache, kvh=2, grp=6, hd=128, dtype=torch.bfloat16):
     dev = torch.device("cuda")
-    kvh, grp, hd = 2, 6, 128
     lens = torch.linspace(0, s, b, device=dev).round().to(torch.int32)
     q = torch.randn((b, 1, kvh * grp, hd), generator=g,
-                    device=dev).to(torch.bfloat16)
+                    device=dev).to(dtype)
     if cache == "int8":
         kc, vc = (torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
                                 device=dev, dtype=torch.int8)
                   for _ in range(2))
         ks, vs = (torch.rand((b, s), generator=g, device=dev) * 0.02
                   for _ in range(2))
-        kl = (kc.float() * ks[..., None, None]).to(torch.bfloat16)
-        vl = (vc.float() * vs[..., None, None]).to(torch.bfloat16)
+        kl = (kc.float() * ks[..., None, None]).to(dtype)
+        vl = (vc.float() * vs[..., None, None]).to(dtype)
     else:
         kc, vc = (torch.randn((b, s, kvh, hd), generator=g,
-                              device=dev).to(torch.bfloat16)
+                              device=dev).to(dtype)
                   for _ in range(2))
         ks = vs = None
         kl, vl = kc, vc
@@ -222,13 +258,22 @@ def decode_case(g, b, s, cache):
     run = lambda: dec_ops.attn_decode(q, kc, vc, lens, ks, vs)
     lib = lambda: F.scaled_dot_product_attention(
         qs, kh, vh, attn_mask=mask)
-    err = _err(run(), attn_decode_ref(q, kc, vc, lens, ks, vs),
-               torch.bfloat16, f"attn_decode B={b} S={s} {cache}")
+    out = run()
+    err = _err(out, attn_decode_ref(q, kc, vc, lens, ks, vs),
+               dtype, f"attn_decode B={b} S={s} G={grp} D={hd} {cache}")
+    tot = int(lens.sum())
+    nbytes = (2 * b * kvh * grp * hd * q.element_size()
+              + 2 * tot * kvh * hd * kc.element_size()
+              + (2 * tot * 4 if ks is not None else 0) + b * 4)
     return {"kernel": "attn_decode",
             "shape": f"B={b} S={s} KV={kvh} G={grp} D={hd} lens 0..S",
-            "dtype": f"bfloat16/kv-{cache}", "max_abs_err": err,
+            "dtype": f"{str(dtype).removeprefix('torch.')}/kv-{cache}",
+            "hb": getattr(dec_k.plan(b, s, kvh, grp, hd, kc.dtype), "hb", 1),
+            "out_sha": _digest(out),
+            "max_abs_err": err, "bound_ms": nbytes / 3.35e9,
             "ms": _event_ms(run), "device_ms": _device_ms(run),
-            "library": "SDPA", "library_device_ms": _device_ms(lib)}
+            "library": "SDPA", "library_ms": _event_ms(lib),
+            "library_device_ms": _device_ms(lib)}
 
 
 def head_case(g, m, k, n, layout):
@@ -379,25 +424,27 @@ def prefill32_case(g, b, t, s, kvh, grp, hd, cache):
 _PEAK_OPS_MS = {"float32": 67e9, "bfloat16": 989e9}    # operations a ms
 
 
-def router_parts(g, dev, m, k, n):
-    """An MoE router: (K, E) row-major int8 levels with E <= 64 columns,
-    per-channel delta, bf16 x, fp32 logits: qmatmul's row-major k_lanes
-    kernel, whose sums run on the CUDA cores in fp32 (so its operations
-    take the fp32 peak); ``addmm`` on the dequantized bf16 router."""
+def router_parts(g, dev, m, k, n, dtype=torch.bfloat16, what="MoE router"):
+    """A row-major (K, N) int8 W of N <= 64 columns (an MoE router, (d, E);
+    an MLP head), per-channel delta, x in ``dtype``, fp32 out: qmatmul's
+    row-major k_lanes kernel, its products on the tensor cores (fp32 x as
+    three bf16 planes, so three times the bf16 operations); ``addmm`` on
+    the dequantized W in x's dtype (TF32 off)."""
     w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
                       dtype=torch.int8)
     delta = torch.rand(n, generator=g, device=dev) * 0.01
-    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-    wdq = (w.float() * delta).to(torch.bfloat16)
-    zero = torch.zeros(n, device=dev, dtype=torch.bfloat16)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    wdq = (w.float() * delta).to(dtype)
+    zero = torch.zeros(n, device=dev, dtype=dtype)
+    name = str(dtype).removeprefix("torch.")
     return dict(
-        shape=f"M={m} K={k} N={n} (MoE router, fp32 out)", dtype="bfloat16",
+        shape=f"M={m} K={k} N={n} ({what}, fp32 out)", dtype=name,
         run=lambda: qmm_ops.qmatmul(x, w, delta, out_dtype=torch.float32),
         plain=lambda: qmatmul_ref(x, w, delta, out_dtype=torch.float32),
         library=lambda: torch.addmm(zero, x, wdq),
-        library_call="addmm on the dequantized bf16 router",
-        nbytes=m * k * 2 + k * n + n * 4 + m * n * 4, ops=2 * m * k * n,
-        peak="float32")
+        library_call=f"addmm on the dequantized {name} W",
+        nbytes=m * k * x.element_size() + k * n + n * 4 + m * n * 4,
+        ops=2 * m * k * n * _planes(dtype), peak="bfloat16", tol=dtype)
 
 
 def window_prefill_parts(g, dev, t, window, kvh=8, grp=6, hd=128):
@@ -457,10 +504,12 @@ def _timed(kernel, parts, **extra):
     max|plain|): the bound, the kernel's, its plain version's and the
     library call's times."""
     run, lib = parts["run"], parts["library"]
-    err = _err(run(), parts["plain"](), torch.bfloat16,
+    out = run()
+    err = _err(out, parts["plain"](), parts.get("tol", torch.bfloat16),
                f"{kernel} {parts['shape']}")
     return {"kernel": kernel, **extra, "shape": parts["shape"],
             "dtype": parts["dtype"], "max_abs_err": err,
+            "out_sha": _digest(out),
             "bound_ms": max(parts["nbytes"] / 3.35e9,
                             parts["ops"] / _PEAK_OPS_MS[parts["peak"]]),
             "ms": _event_ms(run), "device_ms": _device_ms(run),
@@ -469,8 +518,8 @@ def _timed(kernel, parts, **extra):
             "library_device_ms": _device_ms(lib)}
 
 
-def router_case(g, m, k, n):
-    c = router_parts(g, torch.device("cuda"), m, k, n)
+def router_case(g, m, k, n, dtype=torch.bfloat16, what="MoE router"):
+    c = router_parts(g, torch.device("cuda"), m, k, n, dtype, what)
     return _timed("qmatmul", c, orientation=_counted(
         c["run"], qmm_k, "launches_by_orientation"))
 
@@ -524,7 +573,7 @@ def main(argv=None):
     ap.add_argument("--tag", default="", help="a label printed on each line")
     ap.add_argument("--groups", default="qwen",
                     help="comma-separated: qwen, dense, head, q, "
-                         "prefill32, moe, fp32sum")
+                         "prefill32, moe, fp32sum, router, decode_g")
     args = ap.parse_args(argv)
     groups = set(args.groups.split(","))
     if not torch.cuda.is_available():
@@ -555,6 +604,10 @@ def main(argv=None):
                       g, torch.device("cuda")))]
     if "fp32sum" in groups:
         cases += [lambda c=c: fp32sum_case(g, *c) for c in FP32SUM_CASES]
+    if "router" in groups:
+        cases += [lambda c=c: router_case(g, *c) for c in ROUTER_CASES]
+    if "decode_g" in groups:
+        cases += [lambda c=c: decode_case(g, *c) for c in DECODE_G_CASES]
     for case in cases:
         print(json.dumps({"tag": args.tag, **case()}), flush=True)
         torch.cuda.empty_cache()

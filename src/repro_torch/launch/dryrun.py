@@ -92,11 +92,15 @@ def _device(device: str) -> torch.device:
 def lower_one(cfg, shape, mesh, quant, layers_override=None, tcfg=None,
               device="cuda"):
     """Trace one cell on fake tensors -> ``{cost, memory, collectives,
-    compile_s}``: its meta templates become fake tensors on ``device``,
-    placed by the cell's layouts, and its step runs once (eagerly: a CUDA
-    graph needs real tensors)."""
+    compile_s, gathers}``: its meta templates become fake tensors on
+    ``device``, placed by the cell's layouts, and its step runs once
+    (eagerly: a CUDA graph needs real tensors); ``gathers`` counts the
+    trace's explicit gathers to ``Replicate`` by reason
+    (``distributed.shards.gathers``)."""
+    from repro_torch.distributed import shards
     from repro_torch.launch.steps import place
     t0 = time.time()
+    before = dict(shards.gathers)
     cell = build_cell(cfg, shape, mesh, quant=quant,
                       num_layers_override=layers_override, tcfg=tcfg,
                       cost_exact=layers_override is not None, capture=False)
@@ -108,7 +112,10 @@ def lower_one(cfg, shape, mesh, quant, layers_override=None, tcfg=None,
     rec = {"cost": costs.cost_summary(tr),
            "memory": costs.memory_summary(tr),
            "collectives": costs.collective_bytes(tr),
-           "compile_s": round(time.time() - t0, 1)}
+           "compile_s": round(time.time() - t0, 1),
+           "gathers": {k: n - before.get(k, 0)
+                       for k, n in shards.gathers.items()
+                       if n > before.get(k, 0)}}
     del tr, args, cell
     return rec
 

@@ -21,9 +21,12 @@ reference paths add to the kernels' plain-version counters
 kernels. A sliding window (``prefill_attention(window=)``) raises the
 kernel's lower bound to ``lo = max(t - window + 1, 0)``; its reference is
 ``sliding_window_attention``. DTensor operands run the kernels on their
-shards (``distributed.shards.attention_on_shards``, the key sequence
-gathered); the reference paths first gather query heads that the keys'
-heads are not sharded alike with (``shards.align_heads``).
+shards: decode on the cache as it is placed, a sequence-sharded cache's
+ranks merged (``distributed.shards.decode_on_shards``: the kernel by its
+log-sum-exp, the reference by all-reduced softmax statistics); prefill
+and verify through ``shards.attention_on_shards``, the
+key sequence gathered, whose reference paths first gather query heads
+that the keys' heads are not sharded alike with (``shards.align_heads``).
 """
 from __future__ import annotations
 
@@ -87,7 +90,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, kvh, g, lq, d), dtype=torch.float32, device=q.device)
     for c0 in range(0, lkv, chunk):
         kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        s = shards.einsum("bqkgd,bckd->bkgqc", qr, kb.float())
+        # training keeps DTensor's own backward here (it propagates, and
+        # rounds a data-parallel step as one process does)
+        s = shards.einsum("bqkgd,bckd->bkgqc", qr, kb.float(),
+                          grad_on_shards=False)
         kv_pos = c0 + torch.arange(kb.shape[1], device=q.device)
         mask = kv_pos[None, :] <= q_pos[:, None]
         s = torch.where(mask[None, None, None], s, _neg_inf(s))
@@ -99,7 +105,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         corr = torch.where(alive, torch.exp(m - m_new), torch.ones_like(m))
         l = l * corr + p.sum(dim=-1)
         pv = shards.einsum("bkgqc,bckd->bkgqd", p.to(v.dtype).float(),
-                           vb.float()).to(v.dtype).float()
+                           vb.float(), grad_on_shards=False
+                           ).to(v.dtype).float()
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
@@ -219,24 +226,14 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, t, h, d).to(q.dtype)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len, k_scale=None,
-                     v_scale=None, *, mode: str = "auto") -> torch.Tensor:
-    """One-token attention against a (B, S, KV, D) cache. q: (B, 1, H, D);
-    ``cache_len`` scalar or (B,) valid entries; for an int8 cache pass the
-    per-token ``k_scale``/``v_scale`` (B, S), which factor exactly through
-    the score and value contractions."""
-    if resolve_attn_mode(mode, q.device) == "kernel":
-        if shards.any_dtensor(q, k_cache, v_cache):
-            return shards.attention_on_shards(
-                dec_ops.attn_decode, q, k_cache, v_cache,
-                rows=(torch.as_tensor(cache_len, device=q.device),),
-                row_seq=(k_scale, v_scale))
-        return dec_ops.attn_decode(q, k_cache, v_cache, cache_len, k_scale,
-                                   v_scale)
-    q, k_cache, v_cache, k_scale, v_scale = shards.align_heads(
-        q, k_cache, v_cache, k_scale, v_scale)
-    dec_ref.calls += 1
+def _decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, cache_len, k_scale=None, v_scale=None,
+                reduce=None):
+    """``decode_attention``'s reference on plain tensors. ``reduce(t,
+    op)``, where given, all-reduces the softmax's max and sum and the
+    P . V sums across the ranks holding the rest of a sequence-sharded
+    cache (XLA's partitioning of the same softmax), so the ranks compute
+    what one process would, to fp32 summation order."""
     b, _, h, d = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
@@ -248,12 +245,38 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = torch.arange(s, device=q.device)[None, :] < lens.expand(b, s)
     sc = torch.where(valid[:, None, None, None], sc, _neg_inf(sc))
-    p = torch.softmax(sc, dim=-1)
+    if reduce is None:
+        p = torch.softmax(sc, dim=-1)
+    else:
+        e = torch.exp(sc - reduce(sc.amax(dim=-1, keepdim=True), "max"))
+        p = e / reduce(e.sum(dim=-1, keepdim=True), "sum")
     if v_scale is not None:
         p = (p * v_scale[:, None, None, None, :]).to(q.dtype)
         vc = v_cache.to(q.dtype)
     else:
         p = p.to(v_cache.dtype)
         vc = v_cache
-    out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), vc.float()).to(vc.dtype)
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), vc.float())
+    if reduce is not None:
+        out = reduce(out, "sum")
+    return out.to(vc.dtype).reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, k_scale=None,
+                     v_scale=None, *, mode: str = "auto") -> torch.Tensor:
+    """One-token attention against a (B, S, KV, D) cache. q: (B, 1, H, D);
+    ``cache_len`` scalar or (B,) valid entries; for an int8 cache pass the
+    per-token ``k_scale``/``v_scale`` (B, S), which factor exactly through
+    the score and value contractions. DTensor operands attend on the
+    cache's shards as it is placed, a sequence-sharded cache merged across
+    ranks (``shards.decode_on_shards``: the kernel by its log-sum-exp, the
+    reference by its softmax's all-reduced statistics), in both modes."""
+    kernel = resolve_attn_mode(mode, q.device) == "kernel"
+    run = dec_ops.attn_decode if kernel else _decode_ref
+    if not kernel:
+        dec_ref.calls += 1
+    if shards.any_dtensor(q, k_cache, v_cache):
+        return shards.decode_on_shards(run, q, k_cache, v_cache, cache_len,
+                                       k_scale, v_scale)
+    return run(q, k_cache, v_cache, cache_len, k_scale, v_scale)

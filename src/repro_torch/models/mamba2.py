@@ -112,9 +112,21 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 # --- projections ------------------------------------------------------------------
 
+def _local_matmul(x, w):
+    """x (..., K) @ w (K, N) on DTensor shards (``shards.einsum``, forward
+    and backward): DTensor's own matmul flattens x's leading dims, and in
+    the backward a gradient whose sequence dim came out sharded becomes a
+    strided sharding its ``mm`` cannot take; a plain ``@`` otherwise."""
+    if not shards.any_dtensor(x, w):
+        return x @ w
+    lead = "abcdefgh"[:x.dim() - 1]
+    return shards.einsum(f"{lead}k,kn->{lead}n", x, w)
+
+
 def _proj(lp, name: str, x, policy, mm: str, ld=None):
     return quant_dense.apply(lp[name], x, policy=policy, role="hidden",
-                             delta=dget(ld, name, "w"), mode=mm)
+                             delta=dget(ld, name, "w"), mode=mm,
+                             matmul=_local_matmul)
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):

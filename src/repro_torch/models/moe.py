@@ -123,7 +123,29 @@ def _expert_matmul(params, name: str, buf: torch.Tensor, policy: QuantPolicy,
         return (acc * delta[None].to(torch.float32)).to(buf.dtype)
     w = quant_dense.effective_weight(leaf, policy, "hidden",
                                      dget(deltas, name, "w"))
-    return torch.einsum("necd,edf->necf", buf, w.to(buf.dtype))
+    return shards.einsum("necd,edf->necf", buf, w.to(buf.dtype))
+
+
+def _grouped(x: torch.Tensor, ng: int, g: int):
+    """x (B, S, d) as (ng, g, d) token groups, and the placements to give
+    the layer's output back (None: as it comes). A DTensor whose batch is
+    sharded over more ranks than divide ng (a short global batch: fewer
+    groups than data ranks) is first replicated on those mesh dims, as
+    XLA reshards such a reshape; the output then returns to x's
+    placements (a local chunk), so the backward gathers the gradient
+    before the groups' view. Else the groups keep the batch's
+    sharding."""
+    back = None
+    if shards.is_dtensor(x):
+        from torch.distributed.tensor import Shard
+        n = 1
+        for i, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim == 0:
+                n *= x.device_mesh.size(i)
+        if ng % n:
+            back = list(x.placements)
+            x = shards.replicate_dims(x, [0], "moe groups")
+    return x.reshape(ng, g, x.shape[-1]), back
 
 
 def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
@@ -136,7 +158,7 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     ng, g, cap = groups(cfg, b * s)
-    xg = x.reshape(ng, g, d)
+    xg, back = _grouped(x, ng, g)
 
     router = params["router"]
     if "q" in router:
@@ -181,7 +203,7 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
         _trace.append({"top_i": top_i, "probs": probs, "keep": kept})
 
     xk = xg.repeat(1, k, 1)                                    # (ng, kg, d)
-    buf = torch.bmm(disp.reshape(ng, k * g, e * cap).transpose(1, 2), xk)
+    buf = shards.matmul(disp.reshape(ng, k * g, e * cap).transpose(1, 2), xk)
     buf = constrain(buf.reshape(ng, e, cap, d), "moe_buffer")
 
     act = act_fn(cfg.mlp_act)
@@ -194,7 +216,9 @@ def moe_apply(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     out_buf = _expert_matmul(params, "down", h, policy, matmul_mode, deltas)
     out_buf = constrain(out_buf, "moe_buffer")
 
-    yk = torch.bmm(comb.reshape(ng, k * g, e * cap),
-                   out_buf.reshape(ng, e * cap, d))            # (ng, kg, d)
-    y = yk.reshape(ng, k, g, d).sum(dim=1)
-    return y.reshape(b, s, d), aux.to(torch.float32)
+    yk = shards.matmul(comb.reshape(ng, k * g, e * cap),
+                       out_buf.reshape(ng, e * cap, d))        # (ng, kg, d)
+    y = yk.reshape(ng, k, g, d).sum(dim=1).reshape(b, s, d)
+    if back is not None:
+        y = y.redistribute(x.device_mesh, back)
+    return y, aux.to(torch.float32)

@@ -273,12 +273,12 @@ def _cached_layer(lp, h, kv, i: int, write, valid, attend, cfg: ModelConfig,
         for name, new in (("k", kq), ("v", vq), ("k_scale", ksc),
                           ("v_scale", vsc)):
             write(kv[name], i, new)
-        ks_, vs_ = kv["k_scale"][i], kv["v_scale"][i]
+        ks_, vs_ = (shards.layer(kv[n], i) for n in ("k_scale", "v_scale"))
     else:
         write(kv["k"], i, k)
         write(kv["v"], i, v)
-    o = attend(q, kv["k"][i], kv["v"][i], valid, k_scale=ks_, v_scale=vs_,
-               mode=attn_mode)
+    o = attend(q, shards.layer(kv["k"], i), shards.layer(kv["v"], i), valid,
+               k_scale=ks_, v_scale=vs_, mode=attn_mode)
     h = h + _attn_out(lp, o, cfg, policy, b, t, mm)
     hn = rmsnorm(lp["ln2"], h, cfg.norm_eps)
     return h + _ffn(lp, hn, cfg, policy, mm)[0]

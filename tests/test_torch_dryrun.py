@@ -25,12 +25,32 @@ SUMMARY = {"cost": {"flops", "bytes", "transcendentals"},
                       "alias_bytes", "peak_bytes_est"}}
 
 
+TIMEOUT_S = 240      # a cell that runs past this fails, not the suite
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _no_group_left():
     yield
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+@pytest.fixture(autouse=True)
+def _timeout(request):
+    """Each test's own time limit (SIGALRM in the test's thread): a trace
+    that hangs fails its test instead of eating the suite's clock."""
+    import signal
+
+    def expire(signum, frame):
+        raise TimeoutError(f"{request.node.name} ran past {TIMEOUT_S} s")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, TIMEOUT_S)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def _check_lowering(rec):
@@ -81,8 +101,7 @@ def test_a_reduced_cell_of_each_kind_on_the_fake_16x16_mesh(shape_name,
 def test_the_other_families_decode_cells_on_the_host_mesh(arch, tmp_path):
     """The ssm, hybrid and MoE decode cells build and trace on the (1, 1)
     mesh of a fake one-rank group (the ssm cell once passed ``attn_mode``
-    to a model without attention). Their 16 x 16 train cells still fail
-    in DTensor's sharding propagation (ROADMAP Queue 3)."""
+    to a model without attention)."""
     cfg = reduced(get_config(arch), layers=4 if arch.startswith("zamba")
                   else 2, d_model=64, vocab=128)
     rec = dryrun.run_cell(arch, "decode_32k", "host", "w3", force=True,
@@ -94,6 +113,49 @@ def test_the_other_families_decode_cells_on_the_host_mesh(arch, tmp_path):
     assert "aux_scheme" not in rec          # aux lowerings: single pod only
     assert rec["full"]["collectives"] == {"total": 0, "count": 0}
     assert rec["full"]["cost"]["flops"] > 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_the_other_families_train_cells_on_the_fake_16x16_mesh(arch,
+                                                               tmp_path):
+    """The ssm, hybrid and MoE train cells trace on the 16 x 16 mesh,
+    backward included: the SSD core, the mamba2 projections and the MoE
+    experts and dispatch run as local-shard products (``shards.einsum``,
+    whose backward reduces over the sharded letters explicitly), where
+    DTensor's own ``mm`` / ``bmm`` refused a strided sharding; and a
+    global batch of fewer token groups (4) than data ranks (16) is
+    grouped after a gather, as XLA reshards it."""
+    cfg = reduced(get_config(arch), layers=4 if arch.startswith("zamba")
+                  else 2, d_model=64, vocab=128)
+    rec = dryrun.run_cell(arch, "train_4k", "single", "w3", force=True,
+                          device="cpu", cfg=cfg, out_dir=tmp_path,
+                          with_aux=False,
+                          shape=dataclasses.replace(
+                              shape_by_name("train_4k"), seq_len=64,
+                              global_batch=32))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["full"]["collectives"]["count"] > 0
+    assert rec["full"]["cost"]["flops"] > 0
+
+
+def test_decode_keeps_the_cache_where_it_is_placed(tmp_path):
+    """A reduced decode_32k cell (batch over data, sequence over model):
+    attention runs on each rank's keys and merges the ranks by
+    log-sum-exp, so nothing of the cache's batch or sequence is gathered
+    (the only gathers: one token's K/V for the cache write, and a
+    projection's activation)."""
+    rec = dryrun.run_cell("qwen2-1.5b", "decode_32k", "single", "w3",
+                          force=True, device="cpu", cfg=CFG,
+                          shape=dataclasses.replace(
+                              shape_by_name("decode_32k"), seq_len=256,
+                              global_batch=32),
+                          out_dir=tmp_path, with_aux=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    gathers = rec["full"]["gathers"]
+    assert gathers and not {"attention keys", "attention values",
+                            "per-row operand"} & set(gathers), gathers
+    assert rec["full"]["collectives"]["all-reduce"] > 0    # the merge
 
 
 def test_a_failing_cell_is_recorded_not_raised(tmp_path):

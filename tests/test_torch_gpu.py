@@ -231,6 +231,9 @@ def _decode_lens(b, s, split_len):
                                           (256, 1, 4, 3, 77),
                                           (32, 2, 32, 2, 100),
                                           (80, 32, 1, 8, 512),
+                                          (64, 32, 1, 8, 512),
+                                          (128, 8, 4, 8, 512),
+                                          (64, 6, 3, 3, 100),
                                           (80, 8, 5, 4, 300),
                                           (48, 2, 6, 3, 100),
                                           (16, 2, 3, 3, 77),
@@ -239,8 +242,11 @@ def test_attn_decode(cuda, dtype, quantized, d, kv, grp, b, s):
     """The split kernel and its merge: S not a multiple of the split
     length, S = 1, B = 1 and 16, lengths on split boundaries, an empty row
     (exact zeros); head dims that are not multiples of 32 (16, 48, 80,
-    240: lanes past D idle), stablelm-3b's MHA (D = 80, G = 1) and D = 80
-    at G = 5; two runs give the same bits."""
+    240: lanes past D idle), stablelm-3b's MHA (D = 80, G = 1), zamba2's
+    (D = 64, G = 1), phi3.5-moe's G = 4 and a G = 3 (several KV heads a
+    block), D = 80 at G = 5 (one); two runs give the same bits, and the
+    log-sum-exp beside the output is the plain version's and leaves the
+    output's bits as they are."""
     g = _gen(2)
     q = torch.randn((b, 1, kv * grp, d), generator=g).to(dtype)
     k, v, ks, vs = _cache(g, b, s, kv, d, dtype, quantized)
@@ -254,6 +260,12 @@ def test_attn_decode(cuda, dtype, quantized, d, kv, grp, b, s):
     _check(got, ref, dtype)
     assert (got.cpu()[lens == 0] == 0).all()          # empty rows: zeros
     assert torch.equal(got, dec_ops.attn_decode(*args))
+    o, lse = dec_ops.attn_decode(*args, with_lse=True)
+    _, want = dec_ops.attn_decode(q, k, v, lens, ks, vs, with_lse=True)
+    assert torch.equal(o, got)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(lse.cpu()), fin)
+    assert (lse.cpu()[fin] - want[fin]).abs().max() <= 1e-4
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -992,12 +1004,17 @@ def test_moe_expert_products(cuda, m, k, n):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 16), (8, 6144, 8),
-                                   (32768, 6144, 8), (3, 64, 4)])
+                                   (16, 4096, 16), (512, 4096, 16),
+                                   (32768, 6144, 8), (3, 64, 4),
+                                   (100, 1022, 10), (128, 1022, 61)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_moe_router(cuda, m, k, n, dtype):
     """The MoE routers: (d, E) row-major int8 levels, E <= 64 columns,
-    fp32 logits, in qmatmul's row-major k_lanes kernel, at a tick's M = 8,
-    the 4096 bucket's 32768 rows and a reduced model's shape."""
+    fp32 logits, in qmatmul's row-major k_lanes kernel, at a tick's M = 8
+    and 16, an admission round's 512 rows, the 4096 bucket's 32768 rows
+    and a reduced model's shape; and the MLP's digit (N = 10) and phoneme
+    (N = 61) heads on the same route. Reruns give the same bits (the K
+    split's sums meet in a fixed order)."""
     from repro_torch.kernels.qmatmul.ref import qmatmul_ref
     g = torch.Generator(device=cuda).manual_seed(m + n)
     w = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
@@ -1009,6 +1026,7 @@ def test_moe_router(cuda, m, k, n, dtype):
     assert qmm_k.launches_by_orientation["row_major"] == o0 + 1
     _check(got, qmatmul_ref(x, w, d, out_dtype=torch.float32).cpu(),
            torch.float32)
+    assert torch.equal(got, qmm_ops.qmatmul(x, w, d, out_dtype=torch.float32))
 
 
 @pytest.mark.parametrize("t,window,dtype", [(4500, 4096, torch.bfloat16),
@@ -1117,14 +1135,15 @@ def test_mixtral_ring_engine_captured_matches_eager(cuda):
 @pytest.mark.parametrize("kernel,m,k,n", [
     ("qmatvec", 512, 6144, 1024), ("qmatvec", 2, 6144, 6144),
     ("n_lanes", 512, 16384, 1024), ("n_lanes", 2, 16384, 6144),
-    ("k_lanes", 8, 6144, 4096)])
+    ("k_lanes", 8, 6144, 4096), ("row_major", 8, 6144, 8),
+    ("row_major", 32768, 6144, 8), ("row_major", 100, 1022, 10)])
 def test_fp32_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
     """fp32 x on the tensor cores (three bf16 planes) at a long K: the sum
     is promoted to an fp32 total on the CUDA cores every run of K, so the
     output stays within 3e-6 x max|out| of a float64 product (unpromoted,
     mma.sync's truncating accumulator gave 1e-5 to 3e-5 at these K), in
-    qmatvec, qmatmul's n_lanes (decode and prefill) and its K-major
-    k_lanes."""
+    qmatvec, qmatmul's n_lanes (decode and prefill), its K-major k_lanes
+    and its row-major k_lanes (the MoE routers and the digit head)."""
     g = torch.Generator(device=cuda).manual_seed(11)
     x = torch.randn((m, k), generator=g, device=cuda)
     delta = torch.rand(n, generator=g, device=cuda) * 0.05 + 0.01
@@ -1134,8 +1153,10 @@ def test_fp32_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
     if kernel == "qmatvec":
         out = qmv_ops.qmatvec(x, pack_matrix(lv, 3), delta, k=k)
     else:
-        w = lv if kernel == "n_lanes" else lv.T.contiguous().T
-        assert qmm_k.plan(m, k, n, *w.stride(), x.dtype).layout == kernel
+        w = lv if kernel in ("n_lanes", "row_major") else lv.T.contiguous().T
+        p = qmm_k.plan(m, k, n, *w.stride(), x.dtype)
+        assert (p.orientation if kernel == "row_major" else p.layout) \
+            == kernel
         out = qmm_ops.qmatmul(x, w, delta)
     ref = x.double() @ (lv.double() * delta.double())
     err = float((out.double() - ref).abs().max() / ref.abs().max())
@@ -1144,13 +1165,16 @@ def test_fp32_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
 
 @pytest.mark.parametrize("kernel,m,k,n", [
     ("qmatvec", 512, 16384, 1024), ("n_lanes", 512, 16384, 1024),
-    ("n_lanes", 2, 16384, 6144), ("k_lanes", 8, 16384, 4096)])
+    ("n_lanes", 2, 16384, 6144), ("k_lanes", 8, 16384, 4096),
+    ("row_major", 8, 6144, 8), ("row_major", 32768, 6144, 8),
+    ("row_major", 8, 4096, 16)])
 def test_bf16_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
     """bf16 x at K = 16384 with an fp32 output: the mma sums are promoted
     into an fp32 total as for fp32 x, so the output stays within 1e-6 x
     max|out| of a float64 product, as an fp32 matmul of the same bf16 x
     does (unpromoted: 2.3e-6 in qmatvec prefill, 1.8e-5 in n_lanes prefill
-    and 2.1e-5 in the K-major k_lanes)."""
+    and 2.1e-5 in the K-major k_lanes); the row-major k_lanes (the MoE
+    routers) the same."""
     g = torch.Generator(device=cuda).manual_seed(12)
     x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
     delta = torch.rand(n, generator=g, device=cuda) * 0.05 + 0.01
@@ -1162,8 +1186,10 @@ def test_bf16_x_sums_keep_fp32_precision(cuda, kernel, m, k, n):
         out = qmv_ops.qmatvec(x, pack_matrix(lv, 3), delta, k=k,
                               out_dtype=f32)
     else:
-        w = lv if kernel == "n_lanes" else lv.T.contiguous().T
-        assert qmm_k.plan(m, k, n, *w.stride(), x.dtype).layout == kernel
+        w = lv if kernel in ("n_lanes", "row_major") else lv.T.contiguous().T
+        p = qmm_k.plan(m, k, n, *w.stride(), x.dtype)
+        assert (p.orientation if kernel == "row_major" else p.layout) \
+            == kernel
         out = qmm_ops.qmatmul(x, w, delta, out_dtype=f32)
     ref = x.double() @ (lv.double() * delta.double())
     err = float((out.double() - ref).abs().max() / ref.abs().max())
@@ -1548,6 +1574,9 @@ def _op_cases(dev):
          lambda x, w, d: qmm_ops.qmatmul(x, w, d)),
         ("qmatmul n_lanes prefill", (rn(512, 1536), lv, delta),
          lambda x, w, d: qmm_ops.qmatmul(x, w, d)),
+        ("qmatmul k_lanes row_major", (rn(8, 4096), lv[:, :16].contiguous()
+                                       .repeat(3, 1)[:4096], delta[:16]),
+         lambda x, w, d: qmm_ops.qmatmul(x, w, d, out_dtype=f32)),
         ("attn_decode", (rn(4, 1, 12, 128), rn(4, 512, 2, 128), lens),
          lambda q, k, n: dec_ops.attn_decode(q, k, k, n)),
         ("attn_prefill wgmma", (rn(4, 256, 12, 128), rn(4, 256, 2, 128), hi),
@@ -1563,7 +1592,7 @@ def _meta(t):
     return tuple(t.shape), t.dtype, t.device, t.stride()
 
 
-@pytest.mark.parametrize("case", range(10))
+@pytest.mark.parametrize("case", range(11))
 def test_fake_op_allocates_what_the_real_launch_allocates(cuda, case):
     """Each op's fake implementation gives the real launch's output
     (shape, dtype, device, strides) and notes the same plan: variant,

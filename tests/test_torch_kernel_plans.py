@@ -61,12 +61,20 @@ def test_readout_view_takes_k_lanes(dtype):
 @pytest.mark.parametrize("m,k,n", [(100, 1022, 10), (128, 1022, 61)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mlp_heads_take_k_lanes(m, k, n, dtype):
-    """The digit (N = 10) and phoneme (N = 61) heads are row-major: lanes
-    along K, no dynamic shared memory (x is read once, straight from
-    device memory)."""
+    """The digit (N = 10) and phoneme (N = 61) heads are row-major: the
+    row-major k_lanes kernel, one 16-row tile a block (too few tiles for
+    the SMs), K split across the blocks of a cluster in whole 64-K steps,
+    W staged whole for the block's slice, two blocks an SM."""
     p = _qplan(m, k, n, False, dtype)
-    assert p.layout == "k_lanes"
-    assert (p.p0, p.p1, p.dynamic_smem) == (0, 0, 0)
+    assert p.layout == "k_lanes" and p.orientation == "row_major"
+    assert p.p0 == 1 and p.ksplit > 1
+    steps = -(-k // 64)
+    spz = -(-steps // p.ksplit)
+    assert (p.ksplit - 1) * spz < steps                 # no empty slice
+    assert p.p1 == spz * 64                             # one W chunk
+    nt = next(v for v in (1, 2, 4, 8) if 8 * v >= n)
+    assert p.dynamic_smem == qmm_k.rows_smem(nt, p.p1, p.p0, dtype)
+    assert 2 * (p.dynamic_smem + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("m,k,n,transposed,orientation", [
@@ -126,8 +134,10 @@ def test_qmatmul_smem_within_the_card(m, k, dtype):
     per_k = (3 if dtype == torch.float32 else 1) * 8 * p.p0 * 2
     assert p.p1 >= k or per_k * (p.p1 + 128 + 8) > 96 * 1024  # chunk is full
     assert p.dynamic_smem <= 96 * 1024 and 2 * p.dynamic_smem <= SMEM
-    for n in (10, 61):                    # row-major, narrow: static only
-        assert _qplan(m, k, n, False, dtype).dynamic_smem == 0
+    for n in (10, 61):                    # row-major, narrow: two an SM
+        rp = _qplan(m, k, n, False, dtype)
+        assert rp.p1 % 64 == 0 and 0 < rp.dynamic_smem
+        assert 2 * (rp.dynamic_smem + 1024) <= 228 * 1024
     assert 0 < _qplan(m, k, 4099, False, dtype).dynamic_smem <= SMEM
 
 
@@ -384,10 +394,86 @@ def test_attn_decode_grid_fills_the_card_at_the_engine_shape():
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
                                       torch.int8])
 def test_attn_decode_smem_within_the_card(d, g, kv_dtype):
+    """The split kernel's buffers: q of the block's hb * G heads, two
+    stages of 32 keys of K and V, a staged row the hb KV heads' D values
+    and 16 bytes of padding; within one block's limit, and where a block
+    serves several KV heads, within two blocks an SM."""
     p = dec_k.plan(8, 512, 2, g, d, kv_dtype)
-    row = d * torch.tensor([], dtype=kv_dtype).element_size() + 16
-    assert p.dynamic_smem >= g * d * 4 + 2 * 2 * 32 * row
+    row = p.hb * d * torch.tensor([], dtype=kv_dtype).element_size() + 16
+    assert p.dynamic_smem >= p.hb * g * d * 4 + 2 * 2 * 32 * row
     assert p.dynamic_smem <= SMEM
+    if p.hb > 1:
+        assert 2 * (p.dynamic_smem + 1024) <= 228 * 1024
+
+
+def _parent_decode_plan(b, s, kv, g, d, kv_dtype):
+    """attn_decode's plan before KV heads were packed into a block: one KV
+    head a block, the shortest split that keeps about eight blocks an
+    SM; returns (grid, split_len, splits, dynamic_smem)."""
+    want = -(-max(s, 1) * b * kv // (8 * 132))
+    split_len = 32
+    while split_len < want or -(-max(s, 1) // split_len) > 1024:
+        split_len *= 2
+    row = d * kv_dtype.itemsize + 16
+    kv_buf = 2 * 32 * row + (2 * 32 * 4 if kv_dtype == torch.int8 else 0)
+    smem = g * d * 4 + 8 * 4 * 32 * 4 + 2 * kv_buf
+    splits = -(-max(s, 1) // split_len)
+    return (splits, b * kv), split_len, splits, smem
+
+
+@pytest.mark.parametrize("b,s,kv,g,d", [
+    (8, 512, 2, 6, 128),          # qwen2-1.5b
+    (8, 4096, 8, 6, 128),         # mixtral-8x22b, the full ring
+    (8, 512, 8, 5, 128),          # qwen2.5-14b
+    (8, 512, 8, 8, 128),          # qwen3-32b
+    (8, 512, 8, 7, 128), (16, 2048, 4, 12, 64), (1, 1, 1, 32, 256)])
+@pytest.mark.parametrize("kv_dtype", _FLOATS + (torch.int8,))
+def test_attn_decode_plan_at_g5_and_above_is_the_parents(b, s, kv, g, d,
+                                                         kv_dtype):
+    """With five or more query heads a KV head, a block keeps one KV head:
+    the grid, split and shared memory of the launch are what they were
+    before KV heads were packed (hb = 1)."""
+    p = dec_k.plan(b, s, kv, g, d, kv_dtype)
+    grid = (p.splits, b * kv // p.hb)
+    assert p.hb == 1
+    assert (grid, p.split_len, p.splits, p.dynamic_smem) == \
+        _parent_decode_plan(b, s, kv, g, d, kv_dtype)
+
+
+@pytest.mark.parametrize("kv,g,hb", [(32, 1, 4), (8, 4, 2), (16, 2, 4),
+                                     (6, 3, 2), (1, 1, 1), (2, 1, 2),
+                                     (3, 1, 1)])
+def test_attn_decode_packs_kv_heads_below_g5(kv, g, hb):
+    """Below five query heads a KV head, a block serves hb neighbouring KV
+    heads (a power of two dividing KV, at most 4, hb * G <= 8), and the
+    grid still fills the card at the engine's shape."""
+    p = dec_k.plan(8, 512, kv, g, 80, torch.bfloat16)
+    assert p.hb == hb
+    assert kv % p.hb == 0 and p.hb * g <= 8
+    if kv * 8 >= 64:
+        assert p.splits * 8 * kv // p.hb >= 132
+
+
+@pytest.mark.parametrize("m,k,n,rw,ksplit", [
+    (8, 4096, 16, 1, 8),          # phi3.5-moe's router at a tick
+    (8, 6144, 8, 1, 8),           # mixtral-8x22b's
+    (16, 4096, 16, 1, 8),
+    (512, 4096, 16, 1, 8),        # an admission round of 8 x 64 tokens
+    (32768, 6144, 8, 8, 1),       # mixtral's 4096 bucket
+    (3, 64, 4, 1, 1)])
+@pytest.mark.parametrize("dtype", _FLOATS)
+def test_router_plan_tiles_rows_and_splits_k(m, k, n, rw, ksplit, dtype):
+    """The MoE routers take the row-major k_lanes: eight 16-row tiles a
+    block where that still gives a block for each SM, else one tile a
+    block with K split across the blocks of a cluster (at most 8, no slice
+    empty); W staged in as few 64-K-aligned chunks as keep two blocks on
+    an SM; no K-split scratch (the cluster sums in shared memory)."""
+    p = _qplan(m, k, n, False, dtype)
+    assert (p.layout, p.orientation) == ("k_lanes", "row_major")
+    assert (p.p0, p.ksplit) == (rw, ksplit)
+    assert qmm_k._grid(p, m, n) == (-(-m // (16 * rw)), ksplit)
+    assert p.p1 % 64 == 0 and p.p1 > 0 and ksplit <= 8
+    assert 2 * (p.dynamic_smem + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("s,split_len", [(1, 32), (77, 32), (300, 64),
