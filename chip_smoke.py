@@ -37,7 +37,13 @@ Phases, each printing one JSON line:
              in the row-major k_lanes at M = 8 and 32768 in bf16 and fp32
              x, and attn_decode at phi3.5-moe's G = 4; every attn_decode
              case also holds the log-sum-exp beside its output against
-             the plain version's), each case naming
+             the plain version's; attn_prefill with with_lse at the
+             verify shape, bf16, int8 K/V and fp32: its log-sum-exp
+             within the tolerance x max|plain lse|, -inf exactly where a
+             query sees no key, its output the same bits as without it,
+             and the cache cut into two shard-local halves, each on its
+             clamped windows, merged by merge_lse within the tolerance of
+             the whole call), each case naming
              the variant, layout or kernel it
              took and gated that it is the one its plan gives (qmatvec:
              decode for M <= 16, else prefill; qmatmul: k_lanes / n_lanes;
@@ -77,7 +83,16 @@ Phases, each printing one JSON line:
              slots active): host ms over STEADY_TICKS ticks, and device ms by
              kernel and the card's idle share over PROFILED_TICKS more under
              torch.profiler, which must name qmatvec, qmatmul and attn_decode
-             in the captured engine's replayed ticks.
+             in the captured engine's replayed ticks. With the bf16 KV cache
+             also one serve of the requests on a warmed captured engine
+             with profile=True: its prefill_secs / decode_secs, and the
+             unprofiled serve's tokens.
+   generate  generate() of the same qp export, 8 prompts x 16 tokens, 32
+             new, bf16: its decode step captured once a call and replayed
+             (the default on the card) beside capture=False, timed in turns
+             E C C E (host ms a call, synchronised): token-identical; the
+             captured calls' launches zeroed just before and read just
+             after: every engine kernel launched, no plain version.
    q engine  the same fp32 master's export_levels (int8 levels at full
              shape, 1.31 GB of projections and the 233 MB embedding, made
              on the card) served by ServingEngine(slots=8, max_len=512,
@@ -98,7 +113,9 @@ Phases, each printing one JSON line:
              (no activation quant) with all kernels, then with the plain
              paths (matmul_mode="dequant", attn_mode="ref") on the same
              weights: logits must agree (max |diff| <= 2e-3 x max |logit|).
-5. spec      self-speculative serving at full width: the same seeded fp32
+5. spec      self-speculative serving at full width and 14 of the 28
+             layers (SPEC_LAYERS, a cut of depth for the script's time
+             limit): the same seeded fp32
              master, its weights cast once to bf16, is the target (FLOAT
              policy); its W3A8 container export (api.draft_of) drafts
              spec_k = 4 tokens a tick. ServingEngine(slots=8, max_len=512,
@@ -117,8 +134,9 @@ Phases, each printing one JSON line:
              engine's (not gated: verify and decode round in different
              orders), and each twin's steady tick, the profiler naming all
              four serving kernels in the replayed spec ticks. Then the fp32
-             gate: generate(spec_k=4) on the fp32 master must be
-             token-identical to greedy generate (8 prompts x 16 new tokens,
+             gate: generate(spec_k=4) on the fp32 master, its speculative
+             tick captured, must be token-identical to greedy generate,
+             captured too (8 prompts x 16 new tokens,
              TF32 off, every attn_prefill on simt); on a mismatch it prints
              the top-2 logit margin where they part. The captured fp32 spec
              engine must serve greedy's tokens, and the captured fp32 plain
@@ -218,7 +236,9 @@ Phases, each printing one JSON line:
              into a fresh engine (tokens of the uninterrupted run).
 11. resilience overload hardening and durability on the full-width
              qwen2-1.5b of phases 3 and 5 (its qp export and fp32 master,
-             parked on the host during phases 6-8), every engine
+             parked on the host during phases 6-8), at 14 of its 28
+             layers (RES_LAYERS, a cut of depth for the script's time
+             limit), every engine
              ServingEngine(slots=8, max_len=512), every case captured and
              as its capture=False twin under the same FaultPlan, the twins
              gated equal in tokens, statuses, counters, fallback_events and
@@ -319,10 +339,16 @@ Phases, each printing one JSON line:
              the card: the tick and its bucket captured once); (e)
              launch/dryrun.py's qwen2-1.5b decode_32k and train_4k on the
              fake 16 x 16 mesh (subprocesses): status ok, collectives and
-             peak estimate printed; the dist phase's train cell dry-run on
-             a (1, 1) mesh: its peak estimate beside the peak the dist
-             phase measured. Then the script's seconds.
-15. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
+             peak estimate printed; a spec_k 4 verify (5 tokens a row) on
+             decode_32k's cache, gated like decode: no gather of the
+             cache's keys or values, its peak under the same limit; the
+             dist phase's train cell dry-run on a (1, 1) mesh: its peak
+             estimate beside the peak the dist phase measured.
+16. examples python -m repro_torch.launch.quickstart and
+             repro_torch.launch.serve_quantized, each once on the card in
+             a subprocess of its own (--device cpu in the rehearsal): a
+             non-zero exit fails the run. Then the script's seconds.
+17. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
              qmatmul and attn_prefill add their launches by variant /
              layout / kernel on each path; then one entry for each of
              qmatmul's n_lanes and the fp32 attn_prefill, with their
@@ -428,6 +454,12 @@ SSM_ARCHS = tuple(a for a, _ in SSM)
 SSM_NEW = 16
 SSM_PREEMPT = 4            # preempt_after of the hybrid's resilience case
 SSM_SNAPSHOT_TICK = 8      # the tick its snapshot is taken at
+# the generate phase: rows, prompt tokens and new tokens of a call
+GEN_ROWS, GEN_PROMPT, GEN_NEW = 8, 16, 32
+# the depth the spec and resilience phases keep of the engine phase's
+# qwen2-1.5b (28 layers, full width): a cut of depth that keeps the script
+# within its time limit (their eager twins are its longest serves)
+SPEC_LAYERS = RES_LAYERS = 14
 SPEC_K = 4                                  # drafts a speculative tick
 SPEC_GATE = dict(prompts=8, prompt_len=16, max_new=16)   # fp32 identity gate
 WARM_NEW = 2 * (SPEC_K + 1)     # new tokens a request of a warm-up serve
@@ -438,7 +470,14 @@ SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, 0.99999994,
            float("inf"), float("-inf"), float("nan")]
 
 
+_T0 = time.perf_counter()      # the script's start, for the phase lines' t_s
+
+
 def emit(obj):
+    """Print one JSON line; a phase line also carries ``t_s``, the
+    script's seconds when it was printed."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -668,6 +707,13 @@ def _kernel_cases(cfg, device, clock):
                               ("fp32", "float32", torch.float32),
                               ("int8", "float32", torch.float32)):
         yield _verify_case(g, device, cfg, kvname, dname, dt)
+
+    # the same with the log-sum-exp that a sequence-sharded cache's ranks
+    # merge by, on both kernels
+    for kvname, dname, dt in (("bf16", "bfloat16", torch.bfloat16),
+                              ("int8", "bfloat16", torch.bfloat16),
+                              ("fp32", "float32", torch.float32)):
+        yield _lse_case(g, device, cfg, kvname, dname, dt)
 
 
 def _readout_case(g, device, d, vocab, dname, dt, headline=False,
@@ -964,6 +1010,106 @@ def _verify_case(g, device, cfg, kvname, dname, dt, b=8, t=SPEC_K + 1,
         library_call="SDPA with the (B, H, T, S) mask of valid",
         bound=bound_ms(nbytes, 4 * hd * h * int(valid.sum()), dname),
         summary="simt" if simt else None, headline=False)
+
+
+def _lse_case(g, device, cfg, kvname, dname, dt, b=8, t=SPEC_K + 1, s=512):
+    """attn_prefill with ``with_lse`` at the verify shape (qwen2-1.5b's G = 6,
+    D = 128), the call a rank of a sequence-sharded cache makes: the
+    log-sum-exp against the plain version's within TOL x max|plain lse|,
+    -inf exactly where a query sees no key, the output the same bits as
+    without it; then the cache cut into two shard-local halves, each run
+    on its clamped windows (rows whose keys all lie in the other half see
+    nothing in it) and merged by ``merge_lse`` as two ranks are: within
+    TOL x max|plain| of the whole call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attn_decode.ops import merge_lse
+    from repro_torch.kernels.attn_decode.ref import scale_q
+    from repro_torch.kernels.attn_prefill import ops as pf_ops
+    from repro_torch.kernels.attn_prefill.ref import attn_prefill_ref
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    grp = h // kvh
+    lens = torch.tensor([0, 1, 37, 128, 200, 333, 480, s - t],
+                        dtype=torch.int32, device=device)
+    valid = torch.clamp(lens[:, None] + torch.arange(
+        1, t + 1, dtype=torch.int32, device=device)[None, :], max=s)
+    valid[1] = 0
+    q = torch.randn((b, t, h, hd), generator=g, device=device).to(dt)
+    k_, v_, ks, vs, kl, vl = _kv(g, device, b, s, kvh, hd, kvname, dt)
+    what = f"attn_prefill with_lse verify T={t} S={s} {dname} kv-{kvname}"
+    simt = dt == torch.float32
+
+    def run(k_=k_, v_=v_, hi=valid, ks=ks, vs=vs):
+        return pf_ops.attn_prefill(q, k_, v_, hi, k_scale=ks, v_scale=vs,
+                                   with_lse=True)
+    res = {}
+
+    def once():
+        res["pair"] = run()
+        return res["pair"][0]
+    got, variant = launched_variant("attn_prefill", once,
+                                    "simt" if simt else "wgmma")
+    lse = res["pair"][1]
+    if simt:
+        same_bits(lambda: torch.cat([x.flatten() for x in run()]), what)
+    plain_out = pf_ops.attn_prefill(q, k_, v_, valid, k_scale=ks,
+                                    v_scale=vs)
+    if not torch.equal(got, plain_out):
+        fail(f"{what}: the output with the log-sum-exp differs from the "
+             f"output without it")
+    qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
+    lo = torch.zeros_like(valid)
+    ref, ref_lse = attn_prefill_ref(qg, k_, v_, lo, valid, ks, vs,
+                                    with_lse=True)
+    ref, ref_lse = ref.reshape(b, t, h, hd), ref_lse.reshape(b, t, h)
+    fin = torch.isfinite(ref_lse)
+    if not torch.equal(torch.isfinite(lse), fin) or bool(
+            (lse[~fin] != float("-inf")).any()):
+        fail(f"{what}: log-sum-exp is not -inf exactly on the empty rows")
+    lse_err = compare(lse[fin][None], ref_lse[fin][None], dname,
+                      f"{what} log-sum-exp")
+    # two shard-local halves of the cache, merged by their log-sum-exp
+    half = s // 2
+    parts = [run(k_[:, s0:s0 + half].contiguous(),
+                 v_[:, s0:s0 + half].contiguous(),
+                 torch.clamp(valid - s0, 0, half),
+                 None if ks is None else ks[:, s0:s0 + half].contiguous(),
+                 None if vs is None else vs[:, s0:s0 + half].contiguous())
+             for s0 in (0, half)]
+    empty_in_half = int((~torch.isfinite(parts[1][1])).any(-1).sum())
+
+    def reduce(x, op):                  # the two halves as two ranks
+        r = x.amax(0, keepdim=True) if op == "max" else x.sum(0, keepdim=True)
+        return r.expand_as(x)
+    merged, _ = merge_lse(torch.stack([o for o, _ in parts]),
+                          torch.stack([l_ for _, l_ in parts]), reduce)
+    merge_err = compare(merged[0], ref, dname, f"{what} two-half merge",
+                        row_dims=2)
+    qs = q.transpose(1, 2)
+    kh = kl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    vh = vl.transpose(1, 2).repeat_interleave(grp, dim=1)
+    mask = (torch.arange(s, device=device)[None, None, :]
+            < valid[:, :, None])[:, None]                    # (B, 1, T, S)
+    keys = int(valid.amax(1).sum())
+    qb, kb = q.element_size(), k_.element_size()
+    nbytes = (2 * b * t * h * hd * qb + 2 * keys * kvh * hd * kb
+              + (2 * keys * 4 if ks is not None else 0) + b * t * 4
+              + b * t * h * 4)
+    return dict(
+        name="attn_prefill", shape=f"verify B={b} T={t} S={s} KV={kvh} "
+                                   f"G={grp} D={hd} hi=valid ragged, "
+                                   f"with_lse",
+        dtype=f"{dname}/kv-{kvname}", variant=variant, lse_err=lse_err,
+        merge_err=merge_err, rows_empty_in_second_half=empty_in_half,
+        err=compare(got, ref, dname, what, row_dims=2),
+        run=run,
+        plain=(lambda: attn_prefill_ref(qg, k_, v_, lo, valid, ks, vs,
+                                        with_lse=True)),
+        library=(lambda: F.scaled_dot_product_attention(
+            qs, kh, vh, attn_mask=mask)),
+        library_call="SDPA with the (B, H, T, S) mask of valid (no lse)",
+        bound=bound_ms(nbytes, 4 * hd * h * int(valid.sum()), dname),
+        headline=False)
 
 
 def _qmatvec_case(g, device, clock, m, k, n, dname, dt, headline=False):
@@ -1446,10 +1592,10 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
     reqs = prompts(cfg.vocab_size)
     what = f"engine kv-{'int8' if kv_bits else 'bf16'}"
 
-    def make(capture):
+    def make(capture, profile=False):
         return ServingEngine(params, cfg, policy=W3A8, slots=8, max_len=512,
                              dtype=torch.bfloat16, kv_bits=kv_bits,
-                             capture=capture, device=device)
+                             capture=capture, profile=profile, device=device)
     # the captured engine (capture defaults on for the card) and its eager
     # twin, each warmed, then timed in turn
     engines = {"captured": _warmed(make(None), reqs),
@@ -1480,9 +1626,93 @@ def engine_phase(cfg, params, device, kv_bits, rehearse):
     out["steady"] = {name: _steady(e, cfg, device, rehearse,
                                    names=("qmatvec", "qmatmul", "attn_decode"))
                      for name, e in engines.items()}
+    del engines, eng
+    if not kv_bits:
+        out["profile"] = _profiled_serve(make(None, profile=True), reqs,
+                                         done, device)
     emit(out)
-    del engines
     return run["launches"], run["variants"], out["tok_per_s"]
+
+
+def _profiled_serve(eng, reqs, done, device):
+    """The engine phase's requests on a warmed captured engine with
+    ``profile=True``: the phase timers of the timed serve (admissions and
+    ticks, the device synchronised after each), its wall seconds, and its
+    tokens, which must be the unprofiled serve's (``done``)."""
+    _warmed(eng, reqs)
+    p0, d0 = eng.prefill_secs, eng.decode_secs
+    run = _serve(eng, reqs, device)
+    rec = {"prefill_secs": eng.prefill_secs - p0,
+           "decode_secs": eng.decode_secs - d0, "wall_s": run["wall"],
+           "ticks": run["ticks"], "rounds": run["rounds"],
+           "captures": eng.captures,
+           "tokens_identical": [r.out for r in run["done"]]
+           == [r.out for r in done]}
+    if not rec["tokens_identical"]:
+        fail("engine profile=True: its tokens differ from the unprofiled "
+             "serve's")
+    if not (rec["prefill_secs"] > 0 and rec["decode_secs"] > 0):
+        fail(f"engine profile=True: the phase timers did not run: {rec}")
+    return rec
+
+
+def generate_phase(cfg, params, device, rehearse):
+    """``generate`` of the engine phase's qp export at full width, bf16:
+    GEN_ROWS prompts of GEN_PROMPT tokens, GEN_NEW new tokens, its decode
+    step captured once a call and replayed (``capture=None``, the default
+    on the card) beside ``capture=False``: token-identical; each timed
+    twice in turns (eager, captured, captured, eager), host clock
+    synchronised, a call being the prefill, the two warm-ups, the capture
+    and the replays. The captured calls' launches are the path's, counters
+    zeroed just before: every engine kernel launched, no plain version.
+    Returns the last captured call's launches and variants."""
+    import torch
+    from repro_torch.core.precision import W3A8
+    from repro_torch.launch.profile_engine import prompts
+    from repro_torch.serving.engine import generate
+    rows = [r[:GEN_PROMPT] for r in prompts(cfg.vocab_size)
+            if len(r) >= GEN_PROMPT][:GEN_ROWS]
+    gp = torch.tensor(rows, dtype=torch.int32, device=device)
+    ms = {"eager": [], "captured": []}
+    outs, launches = {}, {}
+    for name in ("eager", "captured", "captured", "eager"):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = generate(params, gp, cfg, policy=W3A8, max_new_tokens=GEN_NEW,
+                       dtype=torch.bfloat16,
+                       capture=None if name == "captured" else False,
+                       device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+        launches[name] = (*read_counts(), read_variants())
+        if name in outs and not torch.equal(outs[name], got):
+            fail(f"generate {name}: two calls differ")
+        outs[name] = got
+    same = bool(torch.equal(outs["captured"], outs["eager"]))
+    cap, plain, variants = launches["captured"]
+    rec = {"phase": "generate", "form": "qp (W3A8 containers), bf16",
+           "rows": GEN_ROWS, "prompt_len": GEN_PROMPT, "new": GEN_NEW,
+           "timing": "host ms a call, synchronised, eager/captured in turns "
+                     "E C C E" if not rehearse else
+                     "host ms (CPU rehearsal: both eager)",
+           "ms": ms, "captured_ms": min(ms["captured"]),
+           "eager_ms": min(ms["eager"]),
+           "captured_eager_token_identical": same, "launches": cap,
+           "plain_calls": plain, "launches_by_variant": variants,
+           "eager_launches": launches["eager"][0]}
+    emit(rec)
+    if not same:
+        fail("captured generate's tokens differ from capture=False")
+    if not rehearse:
+        if max(plain.values()) != 0:
+            fail(f"captured generate ran a plain version: {plain}")
+        if any(cap[k] <= 0 for k in ENGINE_KERNELS):
+            fail(f"captured generate did not launch every engine kernel: "
+                 f"{cap}")
+    return cap, variants
 
 
 def _q_launch_gate(eng, cfg, run, what):
@@ -3505,6 +3735,22 @@ def _flip_bit_index(leaf, elem, within):
     return flat * 8 * leaf.element_size() + within
 
 
+def _first_layers(cfg, trees, n):
+    """``cfg`` cut to its first ``n`` layers (at full width) and each tree
+    of ``trees`` with every stacked leaf under ``layers`` sliced to match
+    (views, no copy); unchanged where the model has ``n`` layers or fewer
+    (the CPU rehearsal's reduced model)."""
+    import dataclasses
+    if n >= cfg.num_layers:
+        return (cfg, *trees)
+
+    def cut(tree, top):
+        return {k: cut(v, top or k == "layers") if isinstance(v, dict)
+                else v[:n] if top else v for k, v in tree.items()}
+    return (dataclasses.replace(cfg, num_layers=n),
+            *(cut(t, False) for t in trees))
+
+
 def _on(tree, device):
     """``tree`` with every tensor on ``device`` (the K-major head keeps its
     layout)."""
@@ -4390,6 +4636,8 @@ def dist_phase(device, seed, rehearse, smi):
 ANALYSIS_BUCKET = 256          # (b): the admission round traced and launched
 # (e): the dry-run cells on the fake 16 x 16 mesh, run as subprocesses
 DRYRUN_CELLS = ("decode_32k", "train_4k")
+# and a speculative verify (spec_k + 1 tokens a row) on decode_32k's cache
+DRYRUN_VERIFY = ("decode_32k", SPEC_K + 1)
 DRYRUN_DECODE_PEAK_GB = 8.0    # decode_32k's peak estimate a rank, at most
 ANALYSIS_TIMEOUT = 600         # seconds the subprocesses may take, at most
 
@@ -4419,6 +4667,13 @@ def _analysis_procs(device, rehearse):
                                     "qwen2-1.5b", "--shape", shape, "--mesh",
                                     "single", "--no-aux", "--force",
                                     "--device", dev], rep)
+    shape, vt = DRYRUN_VERIFY
+    rep = (ROOT / "build" / "dryrun"
+           / f"qwen2-1.5b__{shape}_verify{vt}__single__w3.json")
+    cmds[f"dryrun/{shape}_verify{vt}"] = (
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2-1.5b", "--shape", shape, "--mesh", "single", "--no-aux",
+         "--force", "--device", dev, "--verify-tokens", str(vt)], rep)
     procs = {}
     for name, (cmd, rep) in cmds.items():
         rep.unlink(missing_ok=True)          # no report of an earlier run
@@ -4713,7 +4968,8 @@ def analysis_phase(cfg, params, device, rehearse, dist_peak):
     if rec["sweep"]["violations"] or rec["sweep"]["combos"] != 16:
         fail(f"analysis (a): {rec['sweep']}")
     rec["dryrun"] = {}
-    for shape in DRYRUN_CELLS:
+    vcell = f"{DRYRUN_VERIFY[0]}_verify{DRYRUN_VERIFY[1]}"
+    for shape in DRYRUN_CELLS + (vcell,):
         r = reports[f"dryrun/{shape}"]
         if r["status"] != "ok":
             fail(f"analysis (e): dry run {shape}: {r.get('error')}\n"
@@ -4733,9 +4989,50 @@ def analysis_phase(cfg, params, device, rehearse, dist_peak):
         fail(f"analysis (e): decode_32k gathers {d32['gathers']}, peak "
              f"{d32['peak_bytes_est_gb']} GB a rank (limit "
              f"{DRYRUN_DECODE_PEAK_GB})")
+    # the verify on the same cache: merged across ranks, never gathered
+    ver = rec["dryrun"][vcell]
+    if {"attention keys", "attention values"} & set(ver["gathers"]) \
+            or ver["peak_bytes_est_gb"] >= DRYRUN_DECODE_PEAK_GB:
+        fail(f"analysis (e): the verify on decode_32k's cache gathers "
+             f"{ver['gathers']}, peak {ver['peak_bytes_est_gb']} GB a rank "
+             f"(limit {DRYRUN_DECODE_PEAK_GB})")
     rec["seconds"] = round(time.perf_counter() - t0, 1)
     emit(rec)
     return rec
+
+
+# --- phase 16 ---------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "serve_quantized")
+EXAMPLE_TIMEOUT = 300          # seconds an example may take, at most
+
+
+def examples_phase(rehearse):
+    """The two example modules, each run once as a user runs it, in a
+    subprocess of its own (on the card; with ``--device cpu`` in the
+    rehearsal): a non-zero exit or a run past EXAMPLE_TIMEOUT fails the
+    phase. Prints each one's seconds and the last lines of its output."""
+    import os
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rec = {"phase": "examples"}
+    for name in EXAMPLES:
+        cmd = [sys.executable, "-m", f"repro_torch.launch.{name}"]
+        if rehearse:
+            cmd += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                               cwd=ROOT, timeout=EXAMPLE_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            fail(f"example {name}: past {EXAMPLE_TIMEOUT} s\n"
+                 f"{(e.stdout or '')[-2000:]}")
+        if p.returncode != 0:
+            fail(f"example {name}: rc {p.returncode}\n{p.stdout[-2000:]}"
+                 f"{p.stderr[-4000:]}")
+        rec[name] = {"seconds": round(time.perf_counter() - t0, 1),
+                     "tail": p.stdout.strip().splitlines()[-3:]}
+    emit(rec)
 
 
 def main(argv=None) -> int:
@@ -4779,14 +5076,17 @@ def main(argv=None) -> int:
           round(build_s, 3)})
     launches, variants, qp_tok_s = engine_phase(cfg, params, device, None,
                                                 args.rehearse)
+    gen_launches, gen_variants = generate_phase(cfg, params, device,
+                                                args.rehearse)
     launches8, variants8, _ = engine_phase(cfg, params, device, 8,
                                            args.rehearse)
     q_launches, q_variants, _ = q_engine_phase(cfg, master, device,
                                                args.rehearse)
     quarantine_phase(cfg, params, device, args.rehearse)
     path_phase(cfg, params, device)
-    spec_launches, spec_variants = spec_phase(cfg, master, params, device,
-                                              qp_tok_s, args.rehearse)
+    spec_launches, spec_variants = spec_phase(
+        *_first_layers(cfg, (master, params), SPEC_LAYERS), device,
+        qp_tok_s, args.rehearse)
     # parked on the host while the paper, deploy and dense phases hold the
     # card, back for the resilience phase
     master, params = _on(master, "cpu"), _on(params, "cpu")
@@ -4804,12 +5104,15 @@ def main(argv=None) -> int:
     dist_launches, dist_variants, dist_peak = dist_phase(device, args.seed,
                                               args.rehearse, smi)
     master, params = _on(master, device), _on(params, device)
-    res_launches, res_variants = resilience_phase(cfg, master, params,
+    res_launches, res_variants = resilience_phase(
+        *_first_layers(cfg, (master, params), RES_LAYERS),
                                                   device, args.rehearse)
     del master
     _fresh(device)
     analysis_phase(cfg, params, device, args.rehearse, dist_peak)
     del params
+    _fresh(device)
+    examples_phase(args.rehearse)
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         c = headline[name]
@@ -4818,6 +5121,7 @@ def main(argv=None) -> int:
                    "q_engine": q_launches[name]}
         if name in ENGINE_KERNELS:
             by_path["spec"] = spec_launches[name]
+            by_path["generate"] = gen_launches[name]
         by_path.update(paper=paper_launches[name],
                        deploy=deploy_launches[name],
                        dense=dense_launches[name],
@@ -4844,6 +5148,7 @@ def main(argv=None) -> int:
                                      "engine_int8_kv": variants8[name],
                                      "q_engine": q_variants[name],
                                      "spec": spec_variants[name],
+                                     "generate": gen_variants[name],
                                      "deploy": deploy_variants[name],
                                      "dense": dense_variants[name],
                                      "moe": moe_variants[name],

@@ -184,13 +184,14 @@ def _verify_point(family: str, form: str, mode: str, device, fm
 def _generate_point(cfg, serve_params, mode: str, device, fm
                     ) -> Dict[str, Any]:
     """The module-level ``generate`` loop: prefill + decode steps over a
-    (1, 4) prompt, 4 new tokens."""
+    (1, 4) prompt, 4 new tokens, eagerly (a CUDA graph needs real
+    tensors; the captured loop replays the same step)."""
     from repro_torch.serving.engine import generate
     params = fake_tree(serve_params, fm, device)
     with fm:
         prompts = torch.zeros((1, 4), dtype=torch.int32, device=device)
     kw = dict(policy=W3, max_new_tokens=4, dtype=torch.float32,
-              device=device, **_mode_kwargs(mode))
+              device=device, capture=False, **_mode_kwargs(mode))
     return dict(name="generate_loop",
                 fn=lambda: generate(params, prompts, cfg, **kw),
                 inputs={"params": params, "prompts": prompts}, carry={},

@@ -402,7 +402,7 @@ def _setitem(t: torch.Tensor, idx, value) -> None:
     if not isinstance(value, torch.Tensor):
         value = torch.full((), value, dtype=r.dtype, device=r.device)
     if adv is None:
-        r.copy_(value)
+        torch.ops.aten.copy_.default(r, value)
     else:
         torch.ops.aten.index_put_.default(r, adv, value.to(r.dtype))
 

@@ -10,8 +10,12 @@
 // (B, S, KV, D) fp32, or int8 with per-token fp32 scales k_scale, v_scale
 // (B, S). lo, hi (B, T) int32: query t of row b sees the key positions
 // lo[b, t] <= p < hi[b, t] (prefill: lo = 0, hi = min(t + 1, len[b])); lo
-// may be null, for all zeros. out (B, T, KV, G, D) fp32. D is a multiple
-// of 16 from 16 to 256.
+// may be null, for all zeros. out (B, T, KV, G, D) fp32. lse, where not
+// null, (B, T, KV, G) fp32: each query row's log-sum-exp m + log(l) of its
+// visible scores, -inf for a row with none (a sequence-sharded cache's
+// ranks merge by it); the store is a template parameter, so a launch
+// without lse runs the kernel that has none. D is a multiple of 16 from 16
+// to 256.
 //
 // Numerics, as the reference in fp32: fp32 scores; int8 k_scale after Q.K
 // and v_scale on the probabilities before P.V; an online softmax with m, l
@@ -99,7 +103,7 @@ struct Smem {
   }
 };
 
-template <bool QUANT, int CG, int BK>
+template <bool QUANT, int CG, int BK, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 attn_prefill_kernel(const float* __restrict__ q, const void* __restrict__ kp,
                     const void* __restrict__ vp,
@@ -107,8 +111,9 @@ attn_prefill_kernel(const float* __restrict__ q, const void* __restrict__ kp,
                     const float* __restrict__ v_scale,
                     const int32_t* __restrict__ lo,
                     const int32_t* __restrict__ hi, float* __restrict__ out,
-                    float* __restrict__ part_ml, float* __restrict__ part_acc,
-                    int Tq, int S, int KV, int G, int D, int split_len) {
+                    float* __restrict__ lse, float* __restrict__ part_ml,
+                    float* __restrict__ part_acc, int Tq, int S, int KV,
+                    int G, int D, int split_len) {
   constexpr int JN = BK / 16;                     // key groups a thread
   extern __shared__ __align__(16) float sm[];
   const Smem L(D, BK, QUANT);
@@ -359,6 +364,8 @@ attn_prefill_kernel(const float* __restrict__ q, const void* __restrict__ kp,
     if (splits == 1) {
       dst = out + row * D;
       scale = 1.f / fmaxf(l[i], 1e-30f);
+      if constexpr (LSE)
+        if (tx == 0) lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     } else {
       const size_t prow = ((size_t)split * (gridDim.x / tiles) + bh) * rows + r;
       dst = part_acc + prow * D;
@@ -380,12 +387,14 @@ attn_prefill_kernel(const float* __restrict__ q, const void* __restrict__ kp,
 
 // The merge where S was split: for each query row, the splits' sums
 // rescaled to their largest m over the splits that saw a key, in split
-// order; a row no split saw writes zeros.
+// order; a row no split saw writes zeros (and, with LSE, -inf).
+template <bool LSE>
 __global__ void __launch_bounds__(256)
 attn_prefill_kernel_merge(const float* __restrict__ part_ml,
                           const float* __restrict__ part_acc,
-                          float* __restrict__ out, int BH, int rows, int KV,
-                          int G, int Tq, int D, int splits) {
+                          float* __restrict__ out, float* __restrict__ lse,
+                          int BH, int rows, int KV, int G, int Tq, int D,
+                          int splits) {
   const size_t per = (size_t)BH * rows;           // rows of one split
   const size_t total = per * D;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
@@ -408,17 +417,20 @@ attn_prefill_kernel_merge(const float* __restrict__ part_ml,
     // prow = bh * rows + r, r = t * G + g: out row ((b T + t) KV + h) G + g
     const int bh = (int)(prow / rows), r = (int)(prow - (size_t)bh * rows);
     const int b = bh / KV, h = bh - b * KV, t = r / G, g = r - t * G;
-    out[((((size_t)b * Tq + t) * KV + h) * G + g) * D + d] =
-        den > 0.f ? num / den : 0.f;
+    const size_t orow = (((size_t)b * Tq + t) * KV + h) * G + g;
+    out[orow * D + d] = den > 0.f ? num / den : 0.f;
+    if constexpr (LSE)
+      if (d == 0) lse[orow] = den > 0.f ? big + logf(den) : -INFINITY;
   }
 }
 
-template <bool QUANT, int CG, int BK>
+template <bool QUANT, int CG, int BK, bool LSE>
 int launch_cfg(const void* q, const void* k, const void* v, const void* ks,
                const void* vs, const void* lo, const void* hi, void* out,
-               float* pml, float* pacc, int B, int Tq, int S, int KV, int G,
+               float* lse, float* pml, float* pacc, int B, int Tq, int S,
+               int KV, int G,
                int D, int split_len, int splits, int smem, cudaStream_t st) {
-  auto kern = attn_prefill_kernel<QUANT, CG, BK>;
+  auto kern = attn_prefill_kernel<QUANT, CG, BK, LSE>;
   static int smem_set = 48 * 1024;                // per instantiation
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -429,15 +441,15 @@ int launch_cfg(const void* q, const void* k, const void* v, const void* ks,
   const int rows = Tq * G, tiles = (rows + ROWS - 1) / ROWS;
   kern<<<dim3(B * KV * tiles, splits), THREADS, smem, st>>>(
       (const float*)q, k, v, (const float*)ks, (const float*)vs,
-      (const int32_t*)lo, (const int32_t*)hi, (float*)out, pml, pacc, Tq, S,
-      KV, G, D, split_len);
+      (const int32_t*)lo, (const int32_t*)hi, (float*)out, lse, pml, pacc, Tq,
+      S, KV, G, D, split_len);
   if (splits > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const long long total = (long long)B * KV * rows * D;
     const int blocks = (int)min((total + 255) / 256, 4096LL);
-    attn_prefill_kernel_merge<<<blocks, 256, 0, st>>>(
-        pml, pacc, (float*)out, B * KV, rows, KV, G, Tq, D, splits);
+    attn_prefill_kernel_merge<LSE><<<blocks, 256, 0, st>>>(
+        pml, pacc, (float*)out, lse, B * KV, rows, KV, G, Tq, D, splits);
   }
   return 0;
 }
@@ -449,12 +461,14 @@ int launch_cfg(const void* q, const void* k, const void* v, const void* ks,
 // launch is the wrapper's plan: key_block keys a staged block (64 or 32),
 // splits slices of split_len key positions across blocks (part_ml: fp32
 // splits x B x KV x T G x 2, part_acc: splits x B x KV x T G x D, null
-// when splits is 1), smem the dynamic shared memory bytes.
+// when splits is 1), smem the dynamic shared memory bytes; lse null, or
+// fp32 B x T x KV x G for each query row's log-sum-exp.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int attn_prefill_launch(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale,
                                    const void* lo, const void* hi, void* out,
-                                   void* part_ml, void* part_acc, int B,
+                                   void* lse, void* part_ml, void* part_acc,
+                                   int B,
                                    int Tq, int S, int KV, int G, int D,
                                    int kv_dtype, int key_block, int split_len,
                                    int splits, int smem, void* stream) {
@@ -473,9 +487,12 @@ extern "C" int attn_prefill_launch(const void* q, const void* k, const void* v,
   int rc = 0;
 #define RT_CFG(QQ, CC, BB)                                                    \
   if (quant == QQ && cg == CC && key_block == BB)                             \
-    rc = launch_cfg<QQ, CC, BB>(q, k, v, k_scale, v_scale, lo, hi, out, pml,  \
-                                pacc, B, Tq, S, KV, G, D, split_len, splits,  \
-                                smem, st);                                    \
+    rc = lse ? launch_cfg<QQ, CC, BB, true>(                                  \
+                   q, k, v, k_scale, v_scale, lo, hi, out, (float*)lse, pml,  \
+                   pacc, B, Tq, S, KV, G, D, split_len, splits, smem, st)     \
+             : launch_cfg<QQ, CC, BB, false>(                                 \
+                   q, k, v, k_scale, v_scale, lo, hi, out, nullptr, pml,      \
+                   pacc, B, Tq, S, KV, G, D, split_len, splits, smem, st);    \
   else
   RT_CFG(false, 1, 64) RT_CFG(false, 2, 64) RT_CFG(false, 3, 64)
   RT_CFG(false, 4, 64) RT_CFG(false, 1, 32) RT_CFG(false, 2, 32)

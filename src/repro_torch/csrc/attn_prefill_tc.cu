@@ -11,7 +11,11 @@
 // (B, S, KV, D) bf16, or int8 with per-token fp32 scales k_scale, v_scale
 // (B, S). lo, hi (B, T) int32: query t of row b sees the key positions
 // lo[b, t] <= p < hi[b, t] (lo may be null, for all zeros). out
-// (B, T, KV, G, D) bf16. D is a multiple of 16 from 16 to 256.
+// (B, T, KV, G, D) bf16. lse, where not null, (B, T, KV, G) fp32: each
+// query row's log-sum-exp m + log(l) from the final m and l, -inf for a
+// row with no visible key; the store is a template parameter, so a launch
+// without lse runs the kernel that has none. D is a multiple of 16 from
+// 16 to 256.
 //
 // Numerics, as the reference, per block of BK keys (the TPU kernel's are
 // 128): fp32 scores; int8 k_scale per key column after Q.K; an online
@@ -219,7 +223,7 @@ struct TileChunk {
       : row(((i >> 3) / (D / 8)) * 8 + (i & 7)), chunk((i >> 3) % (D / 8)) {}
 };
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 attn_prefill_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                           const TKV* __restrict__ k, const TKV* __restrict__ v,
@@ -227,8 +231,9 @@ attn_prefill_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ v_scale,
                           const int32_t* __restrict__ lo,
                           const int32_t* __restrict__ hi,
-                          __nv_bfloat16* __restrict__ out, int Tq, int S,
-                          int KV, int G) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int Tq, int S, int KV,
+                          int G) {
   constexpr bool QUANT = sizeof(TKV) == 1;
   constexpr int TILE = BK * D * 2;          // bytes of a bf16 K or V block
   constexpr int RAW = BK * D;               // bytes of an int8 K or V block
@@ -483,7 +488,10 @@ attn_prefill_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
     if (rr >= R) continue;
     const int tq = rr / G;
     const int gq = rr - tq * G;
-    __nv_bfloat16* dst = out + ((((size_t)b * Tq + tq) * KV + h) * G + gq) * D + 2 * t4;
+    const size_t orow = (((size_t)b * Tq + tq) * KV + h) * G + gq;
+    if constexpr (LSE)
+      if (t4 == 0) lse[orow] = l > 0.f ? m_run[jr] + logf(l) : -INFINITY;
+    __nv_bfloat16* dst = out + orow * D + 2 * t4;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
       *reinterpret_cast<uint32_t*>(dst + 8 * i) =
@@ -491,15 +499,16 @@ attn_prefill_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <typename TKV, int D>
+template <typename TKV, int D, bool LSE>
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* lo, const void* hi, void* out, int B,
-           int Tq, int S, int KV, int G, int smem, cudaStream_t st) {
+           const void* vs, const void* lo, const void* hi, void* out,
+           float* lse, int B, int Tq, int S, int KV, int G, int smem,
+           cudaStream_t st) {
   constexpr bool QUANT = sizeof(TKV) == 1;
   constexpr int need = ROWS * D * 2 + (QUANT ? 2 * BK * D * 2 + 4 * BK * D + 4 * BK * 4
                                              : 4 * BK * D * 2);
   if (smem < need) return (int)cudaErrorInvalidValue;
-  auto kern = attn_prefill_kernel_wgmma<TKV, D>;
+  auto kern = attn_prefill_kernel_wgmma<TKV, D, LSE>;
   static int smem_set = 48 * 1024;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -511,7 +520,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   kern<<<B * KV * ntile, THREADS, smem, st>>>(
       (const __nv_bfloat16*)q, (const TKV*)k, (const TKV*)v, (const float*)ks,
       (const float*)vs, (const int32_t*)lo, (const int32_t*)hi,
-      (__nv_bfloat16*)out, Tq, S, KV, G);
+      (__nv_bfloat16*)out, lse, Tq, S, KV, G);
   return 0;
 }
 
@@ -519,23 +528,27 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 // q bf16; kv_dtype: 1 bf16 or 2 int8 (then k_scale and v_scale are
 // required); D a multiple of 16 from 16 to 256. smem: the dynamic shared
-// memory bytes of the launch, as the wrapper's plan computed them. Returns
+// memory bytes of the launch, as the wrapper's plan computed them. lse:
+// null, or fp32 B x T x KV x G for each query row's log-sum-exp. Returns
 // the CUDA error code of the launch (0 on success).
 extern "C" int attn_prefill_tc_launch(const void* q, const void* k,
                                       const void* v, const void* k_scale,
                                       const void* v_scale, const void* lo,
-                                      const void* hi, void* out, int B, int Tq,
+                                      const void* hi, void* out, void* lse,
+                                      int B, int Tq,
                                       int S, int KV, int G, int D, int kv_dtype,
                                       int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   int rc;
+#define RT_LAUNCH(TT, DD, LL)                                                  \
+  launch<TT, DD, LL>(q, k, v, k_scale, v_scale, lo, hi, out, (float*)lse, B,   \
+                     Tq, S, KV, G, smem, st)
 #define RT_CASE(DD)                                                            \
   case DD:                                                                     \
     rc = kv_dtype == 1                                                         \
-        ? launch<__nv_bfloat16, DD>(q, k, v, k_scale, v_scale, lo, hi, out, B, \
-                                    Tq, S, KV, G, smem, st)                    \
-        : launch<int8_t, DD>(q, k, v, k_scale, v_scale, lo, hi, out, B, Tq, S, \
-                             KV, G, smem, st);                                 \
+        ? (lse ? RT_LAUNCH(__nv_bfloat16, DD, true)                            \
+               : RT_LAUNCH(__nv_bfloat16, DD, false))                          \
+        : (lse ? RT_LAUNCH(int8_t, DD, true) : RT_LAUNCH(int8_t, DD, false));  \
     break;
   if (kv_dtype != 1 && kv_dtype != 2) return (int)cudaErrorInvalidValue;
   switch (D) {
@@ -545,6 +558,7 @@ extern "C" int attn_prefill_tc_launch(const void* q, const void* k,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RT_CASE
+#undef RT_LAUNCH
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

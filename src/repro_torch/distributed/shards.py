@@ -20,9 +20,11 @@ result as a DTensor.
   XLA's partitioner does (the kernel by its log-sum-exp, the plain
   versions by the softmax's max, sum and P . V sums); the cache is never
   gathered.
-* :func:`attention_on_shards` (prefill, verify): batch and query heads
-  keep their sharding where the keys' heads are sharded alike; the key
-  sequence is gathered.
+* :func:`attention_on_shards` (prefill, verify): the same on the keys as
+  they are placed, T queries a row each with its own window: a
+  sequence-sharded cache is merged across ranks as decode merges it,
+  never gathered; batch and query heads keep their sharding where the
+  keys' heads are sharded alike.
 * :func:`write_on_shards`: a cache write on the rows and positions each
   rank holds (a sequence-sharded cache included), in place.
 * :func:`einsum` / :func:`matmul`: a batched product of DTensors on the
@@ -252,30 +254,23 @@ def matmul(a, b):
     return einsum(f"{batch}xy,{batch}yz->{batch}xz", a, b)
 
 
-def align_heads(q, k, v, *scales):
+def align_heads(q, k, v):
     """q, k, v with their head dims (2) sharded alike on every mesh dim,
     as a GQA reshape of q needs; where they differ (KV heads that the
     model axis does not divide are replicated by the rules) the heads are
-    gathered. With ``scales`` (a verify against a cache: the int8 cache's
-    (B, S) scales, or None) the cache's sequence is gathered too, as the
-    kernels' verify gathers it, so no partial sum over keys is rounded
-    before its reduction. A decode takes :func:`decode_on_shards`
-    instead, which keeps the sequence sharded. Returns (q, k, v,
-    *scales)."""
+    gathered. Attention against a cache takes :func:`decode_on_shards` or
+    :func:`attention_on_shards` instead, which keep the cache's sequence
+    sharded."""
     from torch.distributed.tensor import Shard
     if not any_dtensor(q, k, v):
-        return (q, k, v) + scales
+        return q, k, v
     mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
     q, k, v = (_as_dtensor(t, mesh) for t in (q, k, v))
-    if scales:
-        k, v = (replicate_dims(t, [1], "attention keys") for t in (k, v))
-        scales = tuple(None if t is None else replicate_dims(
-            _as_dtensor(t, mesh), [1], "attention keys") for t in scales)
     heads = [[p == Shard(2) for p in t.placements] for t in (q, k, v)]
     if heads[0] != heads[1] or heads[1] != heads[2]:
         q, k, v = (replicate_dims(t, [2], "attention heads (GQA)")
                    for t in (q, k, v))
-    return (q, k, v) + scales
+    return q, k, v
 
 
 def matmul_on_shards(x, w, run: Callable, *, delta, bias, k: int,
@@ -343,26 +338,43 @@ def matmul_on_shards(x, w, run: Callable, *, delta, bias, k: int,
     return out.to(want)
 
 
-def attention_on_shards(run: Callable, q, k, v, *, rows=(), row_seq=()):
-    """``run(q, k, v, *rows_local, *row_seq_local)`` on local shards of
-    q (B, T, H, D) and k / v (B, S, KV, D): batch rows stay sharded where
-    q's are (k, v and the per-row operands follow), query and key heads
-    stay sharded where both are sharded alike on a mesh dim, and every
-    other dim, the key sequence among them, is gathered. ``rows``: per-row
-    tensors (B, ...); ``row_seq``: per-row, per-key tensors (B, S) (int8
-    scales). Returns the (B, T, H, D) output as a DTensor."""
+def attention_on_shards(run: Callable, q, k, v, hi, lo=None, k_scale=None,
+                        v_scale=None):
+    """Windowed attention of q (B, T, H, D) against k / v (B, S, KV, D)
+    (prefill, verify) on each rank's shards, the keys left as they are
+    placed where q does not shard the same sequence.
+
+    Per mesh dim: where the keys' sequence is sharded and q's is not, q is
+    replicated there and the ranks of that dim reduce together; where
+    either batch is sharded, both take their local rows (a slice where one
+    is replicated there); where both q's and the keys' heads are sharded
+    alike, they stay; every other dim is gathered (q and the keys sharded
+    on the same sequence among them). Each rank attends over its own keys with its local window,
+    ``clamp(hi - s0, 0, S_local)`` and the same of ``lo``: ``run(q, k, v,
+    hi, lo, k_scale, v_scale, reduce=)`` -> (B_l, T, H_l, D), where
+    ``reduce(t, op)`` all-reduces ``t`` (``op`` "max" or "sum") over the
+    mesh dims that shard the keys' sequence, in the same order on every
+    rank, and is None where none does. ``hi`` / ``lo`` (B, T) per-row
+    windows (``lo`` None for all zeros); ``k_scale`` / ``v_scale`` (B, S)
+    int8 scales follow the keys. Returns the (B, T, H, D) output as a
+    DTensor."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
     q, k, v = (_as_dtensor(t, mesh) for t in (q, k, v))
-    q_pl, kv_pl, row_pl = [], [], []
+    v = _redistribute(v, list(k.placements), "attention values")
+    q_pl, kv_pl, row_pl, merge = [], [], [], []
     for i in range(mesh.ndim):
-        qp, kp, vp = q.placements[i], k.placements[i], v.placements[i]
-        if isinstance(qp, Shard) and qp.dim == 0:
+        qp, kp = q.placements[i], k.placements[i]
+        if kp == Shard(1) and qp != Shard(1):             # local keys
+            q_pl.append(Replicate())
+            kv_pl.append(Shard(1))
+            row_pl.append(Replicate())
+            merge.append(i)
+        elif qp == Shard(0) or kp == Shard(0):            # local rows
             q_pl.append(Shard(0))
             kv_pl.append(Shard(0))
             row_pl.append(Shard(0))
-        elif (isinstance(qp, Shard) and qp.dim == 2 and kp == Shard(2)
-              and vp == Shard(2)):
+        elif qp == Shard(2) and kp == Shard(2):           # local heads
             q_pl.append(Shard(2))
             kv_pl.append(Shard(2))
             row_pl.append(Replicate())
@@ -371,11 +383,22 @@ def attention_on_shards(run: Callable, q, k, v, *, rows=(), row_seq=()):
             kv_pl.append(Replicate())
             row_pl.append(Replicate())
     ql = _redistribute(q, q_pl, "attention q").to_local()
-    kl = _redistribute(k, kv_pl, "attention keys").to_local()
+    kd = _redistribute(k, kv_pl, "attention keys")
+    kl = kd.to_local()
     vl = _redistribute(v, kv_pl, "attention values").to_local()
-    extra = [_rows_local(t, mesh, row_pl) for t in rows]
-    extra += [_rows_local(t, mesh, row_pl) for t in row_seq]
-    out = run(ql, kl, vl, *extra)
+    sc_pl = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+             for p in kv_pl]
+    scales = [None if t is None else _redistribute(
+        _as_dtensor(t, mesh), sc_pl, "attention keys").to_local()
+        for t in (k_scale, v_scale)]
+    hi, lo = (_rows_local(t, mesh, row_pl) for t in (hi, lo))
+    reduce = None
+    if merge:
+        s0, sl = _offsets(kd)[1], kl.shape[1]
+        hi, lo = (None if t is None else torch.clamp(
+            t.to(torch.int32) - s0, 0, sl) for t in (hi, lo))
+        reduce = lambda t, op: _reduce(t, mesh, merge, op)     # noqa: E731
+    out = run(ql, kl, vl, hi, lo, *scales, reduce=reduce)
     return _wrap(out, mesh, q_pl, tuple(q.shape[:3]) + (v.shape[-1],))
 
 
@@ -407,65 +430,22 @@ def _reduce(t, mesh, dims, op: str):
 def decode_on_shards(run: Callable, q, k, v, cache_len, k_scale=None,
                      v_scale=None):
     """One-token attention of q (B, 1, H, D) against a (B, S, KV, D)
-    cache on each rank's shards, the cache left as it is placed.
-
-    Per mesh dim: where the cache's batch is sharded, q takes its local
-    rows (a slice where q is replicated there); where its sequence is, q
-    is replicated there and the ranks of that dim reduce together; where
-    both q's and the cache's heads are sharded alike, they stay; else the
-    cache follows q's batch sharding (a local slice) or q is replicated
-    (the cache's heads, where only they are sharded, are gathered). Each
-    rank attends over its own keys with its local lengths, ``clamp(len -
-    s0, 0, S_local)``: ``run(q, k, v, lens, k_scale, v_scale, reduce=)``
-    -> (B_l, 1, H_l, D), where ``reduce(t, op)`` all-reduces ``t`` (``op``
-    "max" or "sum") over the mesh dims that shard the sequence, in the
-    same order on every rank, and is None where none does (then ``run``
-    is the unsharded call on the local tensors). Returns a DTensor."""
-    from torch.distributed.tensor import Replicate, Shard
-    mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
-    q, k, v = (_as_dtensor(t, mesh) for t in (q, k, v))
-    v = _redistribute(v, list(k.placements), "attention values")
-    q_pl, kv_pl, row_pl, merge = [], [], [], []
-    for i in range(mesh.ndim):
-        qp, kp = q.placements[i], k.placements[i]
-        if kp == Shard(0) or (kp == Replicate() and qp == Shard(0)):
-            q_pl.append(Shard(0))                         # local rows
-            kv_pl.append(Shard(0))
-            row_pl.append(Shard(0))
-        elif kp == Shard(1):                              # local keys
-            q_pl.append(Replicate())
-            kv_pl.append(Shard(1))
-            row_pl.append(Replicate())
-            merge.append(i)
-        elif kp == Shard(2) and qp == Shard(2):           # local heads
-            q_pl.append(Shard(2))
-            kv_pl.append(Shard(2))
-            row_pl.append(Replicate())
-        else:
-            q_pl.append(Replicate())
-            kv_pl.append(Replicate())
-            row_pl.append(Replicate())
-    qd = _redistribute(q, q_pl, "attention q")
-    kd = _redistribute(k, kv_pl, "attention keys")
-    ql, kl = qd.to_local(), kd.to_local()
-    vl = _redistribute(v, kv_pl, "attention values").to_local()
-    sc_pl = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
-             for p in kv_pl]
-    scales = [None if t is None else _redistribute(
-        _as_dtensor(t, mesh), sc_pl, "attention keys").to_local()
-        for t in (k_scale, v_scale)]
+    cache on each rank's shards, the cache left as it is placed: the
+    T = 1 case of :func:`attention_on_shards`, ``cache_len`` (a scalar or
+    (B,)) its ``hi``. Each rank attends over its own keys with its local
+    lengths, ``clamp(len - s0, 0, S_local)``: ``run(q, k, v, lens,
+    k_scale, v_scale, reduce=)`` -> (B_l, 1, H_l, D), ``lens`` (B_l,).
+    Returns a DTensor."""
     if not is_dtensor(cache_len):
-        cache_len = torch.as_tensor(cache_len, device=ql.device)
-    lens = _rows_local(cache_len, mesh, row_pl).reshape(-1).expand(
-        ql.shape[0])
-    shape = tuple(q.shape[:3]) + (v.shape[-1],)
-    reduce = None
-    if merge:
-        lens = torch.clamp(lens.to(torch.int32) - _offsets(kd)[1], 0,
-                           kl.shape[1])
-        reduce = lambda t, op: _reduce(t, mesh, merge, op)     # noqa: E731
-    return _wrap(run(ql, kl, vl, lens, *scales, reduce=reduce), mesh, q_pl,
-                 shape)
+        dev = (q.to_local() if is_dtensor(q) else q).device
+        cache_len = torch.as_tensor(cache_len, device=dev)
+
+    def run_decode(ql, kl, vl, hi, lo, k_scale, v_scale, reduce):
+        lens = hi.reshape(-1).expand(ql.shape[0])
+        return run(ql, kl, vl, lens, k_scale, v_scale, reduce=reduce)
+
+    return attention_on_shards(run_decode, q, k, v, cache_len, None,
+                               k_scale, v_scale)
 
 
 def write_on_shards(buf, i: int, rows, slot, vals,

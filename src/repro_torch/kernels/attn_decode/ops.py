@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels.attn_decode import kernel, ref
 
-__all__ = ["attn_decode", "prescale_q"]
+__all__ = ["attn_decode", "prescale_q", "merge_lse"]
 
 
 def prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -41,8 +41,7 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     log-sum-exp of each head's visible scores (-inf where none is).
     ``reduce(t, op)``, where given, all-reduces across the ranks holding
     the rest of a sequence-sharded cache (``shards.decode_on_shards``):
-    the kernel's output and log-sum-exp are merged, out = sum w o / sum w
-    with w = e^(lse - max lse) in fp32 (0 for a rank with no visible key);
+    the kernel's output and log-sum-exp are merged (:func:`merge_lse`);
     the plain version reduces its softmax statistics as it goes."""
     if q.device.type == "cpu":
         return ref.attn_decode_ref(q, k_cache, v_cache, cache_len,
@@ -61,16 +60,27 @@ def attn_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                   with_lse=want_lse)
     if not want_lse:
         return res.reshape(b, 1, h, d)
-    out, lse = res[0].reshape(b, 1, h, d), res[1].reshape(b, h)
+    out, lse = res[0].reshape(b, 1, h, d), res[1].reshape(b, 1, h)
     if reduce is not None:
-        big = reduce(lse, "max")
-        w = torch.where(lse > float("-inf"), torch.exp(lse - big),
-                        torch.zeros((), device=q.device))
-        num = reduce(out.float() * w[:, None, :, None], "sum")
-        den = reduce(w, "sum")
-        out = torch.where(den[:, None, :, None] > 0, num / torch.where(
-            den > 0, den, 1.0)[:, None, :, None],
-            torch.zeros((), device=q.device)).to(q.dtype)
-        lse = torch.where(den > 0, big + torch.log(torch.where(
-            den > 0, den, 1.0)), torch.full_like(den, float("-inf")))
-    return (out, lse) if with_lse else out
+        out, lse = merge_lse(out, lse, reduce)
+    return (out, lse.reshape(b, h)) if with_lse else out
+
+
+def merge_lse(out: torch.Tensor, lse: torch.Tensor, reduce):
+    """Merge the ranks' attention over their own keys: ``out`` (..., D)
+    in q's dtype and its fp32 log-sum-exp ``lse`` (the leading dims of
+    ``out``; -inf where a rank saw no key), all-reduced by ``reduce(t,
+    op)`` as out = sum w o / sum w with w = e^(lse - max lse), in fp32.
+    Returns the merged (out, lse); a query no rank saw gives zeros and
+    -inf."""
+    big = reduce(lse, "max")
+    w = torch.where(lse > float("-inf"), torch.exp(lse - big),
+                    torch.zeros((), device=out.device))
+    num = reduce(out.float() * w[..., None], "sum")
+    den = reduce(w, "sum")
+    out = torch.where(den[..., None] > 0, num / torch.where(
+        den > 0, den, 1.0)[..., None],
+        torch.zeros((), device=out.device)).to(out.dtype)
+    lse = torch.where(den > 0, big + torch.log(torch.where(
+        den > 0, den, 1.0)), torch.full_like(den, float("-inf")))
+    return out, lse

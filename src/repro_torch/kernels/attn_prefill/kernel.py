@@ -15,7 +15,12 @@ Both take every head_dim that is a multiple of 16 from 16 to 256
 split's second kernel, one for each call that splits S. Nothing else
 touches them. Both kernels are the CUDA implementation of one registered
 op, ``torch.ops.repro_torch.attn_prefill`` (``kernels/_ops.py``), whose
-fake implementation allocates the same output and split partials.
+fake implementation allocates the same output, log-sum-exp and split
+partials. With ``with_lse`` each kernel also writes the fp32 log-sum-exp
+of every query row (wgmma and the unsplit simt kernel from their final m
+and l, the simt merge from the merged ones), which
+``shards.attention_on_shards`` merges across the ranks of a
+sequence-sharded cache; without it the launch is the same as before.
 """
 from __future__ import annotations
 
@@ -44,10 +49,10 @@ _SIMT_ROWS, _SIMT_BKS = 64, (64, 32)
 SMEM_LIMIT = 232448            # shared memory one block may use, H100
 _TARGET_BLOCKS = 132           # one block for each SM
 
-# the launch functions: 8 pointers, 8 ints (wgmma); 10 pointers, 11 ints
+# the launch functions: 9 pointers, 8 ints (wgmma); 11 pointers, 11 ints
 # (simt); the stream
-_TC_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_SIMT_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+_TC_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SIMT_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 11
                   + [ctypes.c_void_p])
 
 
@@ -111,12 +116,15 @@ def plan(q_dtype: torch.dtype, kv_dtype: torch.dtype, g: int, d: int,
 def attn_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lo: torch.Tensor | None, hi: torch.Tensor,
                       k_scale: torch.Tensor | None = None,
-                      v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                      v_scale: torch.Tensor | None = None,
+                      with_lse: bool = False):
     """q (B, T, KV, G, D) fp32/bf16 pre-scaled by 1/sqrt(D); k/v
     (B, S, KV, D) in q's dtype, or int8 with (B, S) fp32 scales; lo/hi
     (B, T) int32, lo None for all zeros -> (B, T, KV, G, D) in q's
-    dtype. Checks what the kernels do not handle, then calls the
-    registered op ``torch.ops.repro_torch.attn_prefill``."""
+    dtype, and with ``with_lse`` also the (B, T, KV, G) fp32 log-sum-exp
+    of each query's visible scores (-inf where none is visible). Checks
+    what the kernels do not handle, then calls the registered op
+    ``torch.ops.repro_torch.attn_prefill``."""
     if not q.is_cuda or q.dim() != 5 or not q.is_contiguous():
         raise ValueError(f"attn_prefill q: need a contiguous (B, T, KV, G, D)"
                          f" CUDA tensor, got {tuple(q.shape)} on {q.device}")
@@ -127,18 +135,23 @@ def attn_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lo is not None:
         _build.require(lo, (b, t), (torch.int32,), q.device, "attn_prefill lo")
     _build.require(hi, (b, t), (torch.int32,), q.device, "attn_prefill hi")
-    return _ops.op("attn_prefill")(q, k, v, lo, hi, k_scale, v_scale)
+    out, lse = _ops.op("attn_prefill")(q, k, v, lo, hi, k_scale, v_scale,
+                                       bool(with_lse))
+    return (out, lse) if with_lse else out
 
 
-def _alloc(q, k):
-    """The launch's plan, its output and the simt split's partials (the m,
+def _alloc(q, k, with_lse):
+    """The launch's plan, its output, its log-sum-exp ((B, T, KV, G) fp32
+    with ``with_lse``, else empty) and the simt split's partials (the m,
     l and accumulator of every split, one fp32 buffer; None without a
     split), noted for a recording; shared by both implementations."""
     b, t, kv, g, d = q.shape
     s = k.shape[1]
     out = torch.empty_like(q)
+    lse = torch.empty((b, t, kv, g) if with_lse else (0,),
+                      dtype=torch.float32, device=q.device)
     if b * t * kv == 0:
-        return None, out, None
+        return None, out, lse, None
     p = plan(q.dtype, k.dtype, g, d, b, t, kv, s)
     part = None
     if p.variant == "simt" and p.splits > 1:
@@ -148,16 +161,16 @@ def _alloc(q, k):
     _ops.note("attn_prefill", p.variant,
               (b * kv * -(-(t * g) // rows), p.splits), p.dynamic_smem,
               [] if part is None else [(part.shape, part.dtype)], p)
-    return p, out, part
+    return p, out, lse, part
 
 
-def _launch(q, k, v, lo, hi, k_scale, v_scale):
+def _launch(q, k, v, lo, hi, k_scale, v_scale, with_lse=False):
     """The op's CUDA implementation: the launch on the current stream (and
     the simt split's merge)."""
     global launches, merges
-    p, out, part = _alloc(q, k)
+    p, out, lse, part = _alloc(q, k, with_lse)
     if p is None:
-        return out
+        return out, lse
     b, t, kv, g, d = q.shape
     s = k.shape[1]
     quantized = k_scale is not None
@@ -165,7 +178,7 @@ def _launch(q, k, v, lo, hi, k_scale, v_scale):
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             None if lo is None else lo.data_ptr(), hi.data_ptr(),
-            out.data_ptr())
+            out.data_ptr(), lse.data_ptr() if with_lse else None)
     with torch.cuda.device(q.device):
         if p.variant == "wgmma":
             rc = _build.function("attn_prefill_tc", _TC_ARGTYPES)(
@@ -184,19 +197,22 @@ def _launch(q, k, v, lo, hi, k_scale, v_scale):
     launches_by_variant[p.variant] += 1
     if p.variant == "simt" and p.splits > 1:
         merges += 1
-    return out
+    return out, lse
 
 
-def _fake(q, k, v, lo, hi, k_scale, v_scale):
+def _fake(q, k, v, lo, hi, k_scale, v_scale, with_lse=False):
     """The op's fake implementation: the launch's allocations, no work."""
-    return _alloc(q, k)[1]
+    _, out, lse, _ = _alloc(q, k, with_lse)
+    return out, lse
 
 
-def _flops(q, k, v, lo, hi, k_scale, v_scale, out_shape=None):
+def _flops(q, k, v, lo, hi, k_scale, v_scale, with_lse=False,
+           out_shape=None):
     b, t, kv, g, d = q
     return attention_flops(b, kv * g, t, k[1], d)
 
 
 _ops.define("attn_prefill", "(Tensor q, Tensor k, Tensor v, Tensor? lo, "
-            "Tensor hi, Tensor? k_scale, Tensor? v_scale) -> Tensor",
+            "Tensor hi, Tensor? k_scale, Tensor? v_scale, "
+            "bool with_lse=False) -> (Tensor, Tensor)",
             _launch, _fake, _flops)

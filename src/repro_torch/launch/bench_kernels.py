@@ -3,7 +3,7 @@ the ``q`` form's projections) and the fp32 ``attn_prefill`` at the serving
 path's shapes, through their public wrappers, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.bench_kernels [--tag T]
-        [--groups qwen,dense,head,q,prefill32,moe,fp32sum,router,decode_g]
+        [--groups qwen,dense,head,q,prefill32,moe,fp32sum,router,decode_g,lse]
 
 Groups: ``qwen`` (the default) qwen2-1.5b's projections and decode
 attention and the paper MLP's layers; ``dense`` qmatvec at the decode
@@ -38,8 +38,11 @@ row-major k_lanes kernel (the MoE routers at M = 8, 16, 512 and 32768,
 the digit and phoneme heads) in bf16 and fp32 x beside ``addmm`` on the
 dequantized W in x's dtype; ``decode_g`` attn_decode at G = 1 (D = 80
 and 64, bf16 / int8 / fp32), G = 4 (KV = 8, D = 128) and G = 6, beside
-SDPA, with the plan's KV heads a block. Lines carry a hash of the
-kernel's output (``out_sha``), so two trees' runs compare bit for bit.
+SDPA, with the plan's KV heads a block; ``lse`` attn_prefill at the
+verify shape and the 256 bucket (bf16, int8 and fp32 K/V, both kernels)
+without and, where the tree's wrapper takes it, with ``with_lse``. Lines
+carry a hash of the kernel's output (``out_sha``), so two trees' runs
+compare bit for bit.
 
 Uses only the wrappers (``kernels/*/ops.py``), their plain versions and
 ``core/packing.py``, so the same file times two trees of the port in one
@@ -107,6 +110,13 @@ Q_CASES = [(m, k, n, bias, dtype) for dtype in (torch.bfloat16, torch.float32)
 # stablelm-3b's largest bucket, and the speculative verify shape
 PREFILL32_CASES = [(8, 256, 256, 2, 6, 128), (8, 256, 256, 32, 1, 80),
                    (8, 5, 512, 2, 6, 128)]
+# attn_prefill with and without its log-sum-exp: (B, T, S, KV, G, D), the
+# verify shape and qwen2-1.5b's largest bucket, in every K/V form
+LSE_CASES = [(c, kv, dt) for c in ((8, 5, 512, 2, 6, 128),
+                                   (8, 256, 256, 2, 6, 128))
+             for kv, dt in (("bf16", torch.bfloat16),
+                            ("int8", torch.bfloat16),
+                            ("fp32", torch.float32))]
 # the MoE family: expert products (M, K, N) at the capacity M of a decode
 # tick, an admission and mixtral's solo prefill; routers (M, K, N = E)
 MOE_EXPERT_CASES = ([(m, k, n) for m in (1, 80)
@@ -416,6 +426,71 @@ def prefill32_case(g, b, t, s, kvh, grp, hd, cache):
             "library_ms": _event_ms(lib), "library_device_ms": _device_ms(lib)}
 
 
+def lse_case(g, shape, cache, dtype):
+    """attn_prefill at ``shape`` (verify: hi = valid with one row without a
+    valid key; a bucket: ragged lengths) on the kernel ``dtype`` picks:
+    its time and output hash without ``with_lse`` (the same lines from two
+    trees compare the launch's time and bits), then, where the tree's
+    wrapper takes ``with_lse``, the call with it: its time, whether its
+    output is the same bits, and the bound with the (B, T, H) fp32
+    log-sum-exp written too."""
+    import inspect
+    b, t, s, kvh, grp, hd = shape
+    dev = torch.device("cuda")
+    q = torch.randn((b, t, kvh * grp, hd), generator=g, device=dev).to(dtype)
+    if cache == "int8":
+        kc, vc = (torch.randint(-127, 128, (b, s, kvh, hd), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand((b, s), generator=g, device=dev) * 0.02
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.randn((b, s, kvh, hd), generator=g,
+                              device=dev).to(dtype) for _ in range(2))
+        ks = vs = None
+    if t == s:
+        plen = torch.tensor([1, t, t // 2, 3, t - 1, min(17, t), t // 4,
+                             min(9, t)], dtype=torch.int32, device=dev)[:b]
+        hi = torch.minimum(torch.arange(t, dtype=torch.int32, device=dev)[None]
+                           + 1, plen[:, None])
+    else:
+        lens = torch.tensor([0, 1, 37, 128, 200, 333, 480, s - t],
+                            dtype=torch.int32, device=dev)[:b]
+        hi = torch.clamp(lens[:, None] + torch.arange(
+            1, t + 1, dtype=torch.int32, device=dev)[None], max=s)
+        hi[1] = 0
+    run = lambda: pf_ops.attn_prefill(q, kc, vc, hi, k_scale=ks, v_scale=vs)
+    qg = scale_q(q, hd ** -0.5).reshape(b, t, kvh, grp, hd)
+    out = run()
+    err = _err(out, attn_prefill_ref(qg, kc, vc, torch.zeros_like(hi), hi,
+                                     ks, vs).reshape(b, t, -1, hd), dtype,
+               f"attn_prefill {dtype} T={t} S={s} {cache}")
+    keys = int(hi.amax(1).sum())
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * keys * kvh * hd * kc.element_size()
+              + (2 * keys * 4 if ks is not None else 0) + b * t * 4)
+    ops = 4 * hd * kvh * grp * int(hi.sum())
+    peak = 989e9 if dtype == torch.bfloat16 else 67e9
+    rec = {"kernel": "attn_prefill",
+           "variant": _counted(run, pf_k, "launches_by_variant"),
+           "shape": f"B={b} T={t} S={s} KV={kvh} G={grp} D={hd}"
+                    + (" (verify, hi = valid)" if t != s else " lens ragged"),
+           "dtype": f"{str(dtype).removeprefix('torch.')}/kv-{cache}",
+           "max_abs_err": err, "out_sha": _digest(out),
+           "bound_ms": max(nbytes / 3.35e9, ops / peak),
+           "ms": _event_ms(run), "device_ms": _device_ms(run)}
+    if "with_lse" in inspect.signature(pf_ops.attn_prefill).parameters:
+        with_lse = lambda: pf_ops.attn_prefill(q, kc, vc, hi, k_scale=ks,
+                                               v_scale=vs, with_lse=True)
+        o2, _ = with_lse()
+        rec.update(lse_out_same_bits=bool(torch.equal(o2, out)),
+                   lse_bound_ms=max((nbytes + b * t * kvh * grp * 4) / 3.35e9,
+                                    ops / peak),
+                   lse_ms=_event_ms(with_lse),
+                   lse_device_ms=_device_ms(with_lse))
+    return rec
+
+
 # The MoE cases are built once here, as parts: ``shape``, ``dtype``, the
 # kernel call ``run``, its plain version ``plain`` (the same output shape),
 # the ``library`` call and its name ``library_call``, and what the bound
@@ -573,7 +648,7 @@ def main(argv=None):
     ap.add_argument("--tag", default="", help="a label printed on each line")
     ap.add_argument("--groups", default="qwen",
                     help="comma-separated: qwen, dense, head, q, "
-                         "prefill32, moe, fp32sum, router, decode_g")
+                         "prefill32, moe, fp32sum, router, decode_g, lse")
     args = ap.parse_args(argv)
     groups = set(args.groups.split(","))
     if not torch.cuda.is_available():
@@ -608,6 +683,8 @@ def main(argv=None):
         cases += [lambda c=c: router_case(g, *c) for c in ROUTER_CASES]
     if "decode_g" in groups:
         cases += [lambda c=c: decode_case(g, *c) for c in DECODE_G_CASES]
+    if "lse" in groups:
+        cases += [lambda c=c: lse_case(g, *c) for c in LSE_CASES]
     for case in cases:
         print(json.dumps({"tag": args.tag, **case()}), flush=True)
         torch.cuda.empty_cache()

@@ -24,6 +24,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
       --shape train_4k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b \\
+      --shape decode_32k --mesh single --verify-tokens 5   # spec_k 4 verify
 """
 from __future__ import annotations
 
@@ -90,20 +92,23 @@ def _device(device: str) -> torch.device:
 
 
 def lower_one(cfg, shape, mesh, quant, layers_override=None, tcfg=None,
-              device="cuda"):
+              device="cuda", verify_tokens=0):
     """Trace one cell on fake tensors -> ``{cost, memory, collectives,
     compile_s, gathers}``: its meta templates become fake tensors on
     ``device``, placed by the cell's layouts, and its step runs once
     (eagerly: a CUDA graph needs real tensors); ``gathers`` counts the
     trace's explicit gathers to ``Replicate`` by reason
-    (``distributed.shards.gathers``)."""
+    (``distributed.shards.gathers``). ``verify_tokens`` T > 0 traces a
+    decode cell's speculative verify of T tokens a row instead of its
+    decode step."""
     from repro_torch.distributed import shards
     from repro_torch.launch.steps import place
     t0 = time.time()
     before = dict(shards.gathers)
     cell = build_cell(cfg, shape, mesh, quant=quant,
                       num_layers_override=layers_override, tcfg=tcfg,
-                      cost_exact=layers_override is not None, capture=False)
+                      cost_exact=layers_override is not None, capture=False,
+                      verify_tokens=verify_tokens)
     fm = fake_mode()
     args = fake_tree(cell.args, fm, _device(device))
     with fm:
@@ -139,20 +144,26 @@ def prefill_seq_samples(cfg):
 
 def run_cell(arch, shape_name, mesh_name, quant, *, force=False,
              with_aux=True, device="cuda", cfg=None, shape=None, tcfg=None,
-             out_dir=None):
+             out_dir=None, verify_tokens=0):
     """Dry-run one cell and write its record (``cfg`` / ``shape`` override
     the named config and shape, e.g. a reduced config; ``tcfg`` the train
-    cell's TrainConfig). Returns the record; a failure is recorded with
-    its traceback, not raised."""
+    cell's TrainConfig; ``verify_tokens`` T > 0 a decode shape's verify of
+    T tokens, recorded as shape ``<shape>_verify<T>``). Returns the
+    record; a failure is recorded with its traceback, not raised."""
     out_dir = Path(out_dir or OUT_DIR)
     out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = cfg or get_config(arch)
+    shape = shape or shape_by_name(shape_name)
+    if verify_tokens:
+        if shape.kind != "decode":
+            raise ValueError(f"verify_tokens: {shape_name} is a "
+                             f"{shape.kind} shape, not a decode shape")
+        shape_name = f"{shape_name}_verify{verify_tokens}"
     cid = cell_id(arch, shape_name, mesh_name, quant)
     path = out_dir / f"{cid}.json"
     if path.exists() and not force:
         print(f"[skip] {cid} (cached)")
         return json.loads(path.read_text())
-    cfg = cfg or get_config(arch)
-    shape = shape or shape_by_name(shape_name)
     print(f"[run ] {cid} ...", flush=True)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "quant": quant, "num_layers": cfg.num_layers,
@@ -165,7 +176,7 @@ def run_cell(arch, shape_name, mesh_name, quant, *, force=False,
         mesh = mesh_for(mesh_name, "cuda" if _device(device).type == "cuda"
                         else "cpu")
         rec["full"] = lower_one(cfg, shape, mesh, quant, tcfg=tcfg,
-                                device=device)
+                                device=device, verify_tokens=verify_tokens)
         if with_aux and mesh_name == "single":
             aux_tcfg = (TrainConfig(microbatches=1) if shape.kind == "train"
                         else None)
@@ -184,7 +195,8 @@ def run_cell(arch, shape_name, mesh_name, quant, *, force=False,
                 for name, ov in aux_overrides(cfg).items():
                     rec[name] = lower_one(cfg, shape, mesh, quant,
                                           layers_override=ov, tcfg=aux_tcfg,
-                                          device=device)
+                                          device=device,
+                                          verify_tokens=verify_tokens)
         rec["status"] = "ok"
     except Exception as e:
         rec["status"] = "error"
@@ -212,6 +224,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the device of the fake tensors and the mesh "
                          "(default cuda: the card's graphs)")
+    ap.add_argument("--verify-tokens", type=int, default=0,
+                    help="trace a decode shape's speculative verify of this "
+                         "many tokens a row (spec_k + 1) instead of its "
+                         "decode step")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
@@ -226,7 +242,8 @@ def main(argv=None):
             for mname in meshes:
                 rec = run_cell(arch, sname, mname, args.quant,
                                force=args.force, with_aux=not args.no_aux,
-                               device=args.device)
+                               device=args.device,
+                               verify_tokens=args.verify_tokens)
                 failures += rec["status"] != "ok"
     print(f"done; failures={failures}")
     raise SystemExit(1 if failures else 0)

@@ -153,14 +153,16 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                ssd_chunk: int = 0, kv8: bool = False,
                grad_transform: Optional[Callable] = None,
                capture: Optional[bool] = None, matmul_mode: str = "auto",
-               attn_mode: str = "auto") -> CellSpec:
+               attn_mode: str = "auto", verify_tokens: int = 0) -> CellSpec:
     """The cell of ``cfg`` x ``shape`` on ``mesh`` (a named DeviceMesh;
     the rules alone also take a ``sharding.ShapeMesh``). The port's own
     keywords: ``grad_transform`` (the train step's, e.g. the gradient
     compressor), ``capture`` (the train step's CUDA graph: None captures
     on a CUDA device, False runs eagerly), and the serve cells'
     ``matmul_mode`` / ``attn_mode`` ('kernel' runs the kernels' wrappers
-    on the shards, which on the CPU run their plain versions)."""
+    on the shards, which on the CPU run their plain versions);
+    ``verify_tokens`` T > 0 makes a decode cell's step the speculative
+    verify of T tokens a row (spec_k + 1) against the same cache."""
     if num_layers_override is not None:
         kw = {"num_layers": num_layers_override}
         if cfg.attn_every:
@@ -175,7 +177,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                               matmul_mode, attn_mode)
     else:
         cell = _build_decode(cfg, shape, mesh, quant, kv8, matmul_mode,
-                             attn_mode)
+                             attn_mode, verify_tokens)
     if cost_exact:
         inner = cell.fn
 
@@ -342,11 +344,14 @@ def _build_prefill(cfg, shape, mesh, quant, attn_chunk,
 
 
 def _build_decode(cfg, shape, mesh, quant, kv8: bool = False,
-                  matmul_mode: str = "auto",
-                  attn_mode: str = "auto") -> CellSpec:
+                  matmul_mode: str = "auto", attn_mode: str = "auto",
+                  verify_tokens: int = 0) -> CellSpec:
     policy = _policy(quant)
     params_t = _params_template(cfg, quant, "decode")
     batch_t = input_specs(cfg, shape)
+    if verify_tokens:
+        batch_t["tokens"] = _sds((shape.global_batch, verify_tokens),
+                                 torch.int32)
     cache_t = _cache_template(cfg, shape, kv8=kv8)
     pspecs = shd.param_specs(cfg, params_t, mesh)
     bspecs = shd.batch_specs(cfg, shape, mesh, batch_t)
@@ -354,12 +359,13 @@ def _build_decode(cfg, shape, mesh, quant, kv8: bool = False,
     rules = _rules_ctx(cfg, shape, mesh)
     mod = get_model(cfg)
 
+    step = mod.verify_step if verify_tokens else mod.decode_step
+
     def serve_decode(params, cache, batch):
         with _on_mesh(rules):
-            return mod.decode_step(params, cache, batch["tokens"], cfg,
-                                   policy=policy, dtype=COMPUTE_DTYPE,
-                                   **_mode_kwargs(cfg, matmul_mode,
-                                                  attn_mode))
+            return step(params, cache, batch["tokens"], cfg, policy=policy,
+                        dtype=COMPUTE_DTYPE,
+                        **_mode_kwargs(cfg, matmul_mode, attn_mode))[:2]
 
     logits_spec = shd.activation_rules(cfg, shape, mesh)["logits"]
     return CellSpec(

@@ -23,10 +23,11 @@ kernel's lower bound to ``lo = max(t - window + 1, 0)``; its reference is
 ``sliding_window_attention``. DTensor operands run the kernels on their
 shards: decode on the cache as it is placed, a sequence-sharded cache's
 ranks merged (``distributed.shards.decode_on_shards``: the kernel by its
-log-sum-exp, the reference by all-reduced softmax statistics); prefill
-and verify through ``shards.attention_on_shards``, the
-key sequence gathered, whose reference paths first gather query heads
-that the keys' heads are not sharded alike with (``shards.align_heads``).
+log-sum-exp, the reference by all-reduced softmax statistics); verify
+the same way in both modes, and prefill's kernel path, through
+``shards.attention_on_shards``; prefill's reference path first gathers
+query heads that the keys' heads are not sharded alike with
+(``shards.align_heads``).
 """
 from __future__ import annotations
 
@@ -168,15 +169,21 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if window:
             lo = torch.clamp(pos - (window - 1), min=0)[None, :].expand(b, t)
         if shards.any_dtensor(q, k, v):
-            return shards.attention_on_shards(
-                lambda q_, k_, v_, hi_, lo_: pf_ops.attn_prefill(
-                    q_, k_, v_, hi_, lo=lo_), q, k, v, rows=(hi, lo))
+            return shards.attention_on_shards(_prefill_kernel, q, k, v, hi,
+                                              lo)
         return pf_ops.attn_prefill(q, k, v, hi, lo=lo)
     q, k, v = shards.align_heads(q, k, v)
     pf_ref.calls += 1
     if window:
         return sliding_window_attention(q, k, v, window=window, chunk=chunk)
     return chunked_attention(q, k, v, chunk=chunk)
+
+
+def _prefill_kernel(q, k, v, hi, lo, k_scale, v_scale, reduce=None):
+    """The ``attn_prefill`` kernel in ``shards.attention_on_shards``'s
+    calling convention."""
+    return pf_ops.attn_prefill(q, k, v, hi, lo=lo, k_scale=k_scale,
+                               v_scale=v_scale, reduce=reduce)
 
 
 def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -191,19 +198,29 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     with ``hi = valid``; 'ref' is the reference's einsum term for term (the
     T > 1 generalisation of ``decode_attention``'s reference, with the
     same int8 scale factoring) with the guarded softmax, so a query with no
-    valid key gives zeros."""
-    if resolve_attn_mode(mode, q.device) == "kernel":
-        if shards.any_dtensor(q, k_cache, v_cache):
-            return shards.attention_on_shards(
-                lambda q_, k_, v_, hi_, ks_, vs_: pf_ops.attn_prefill(
-                    q_, k_, v_, hi_, k_scale=ks_, v_scale=vs_),
-                q, k_cache, v_cache, rows=(valid,),
-                row_seq=(k_scale, v_scale))
-        return pf_ops.attn_prefill(q, k_cache, v_cache, valid,
-                                   k_scale=k_scale, v_scale=v_scale)
-    q, k_cache, v_cache, k_scale, v_scale = shards.align_heads(
-        q, k_cache, v_cache, k_scale, v_scale)
-    pf_ref.calls += 1
+    valid key gives zeros. DTensor operands attend on the cache as it is
+    placed (``shards.attention_on_shards``), a sequence-sharded cache's
+    ranks merged as decode merges them, in both modes."""
+    kernel = resolve_attn_mode(mode, q.device) == "kernel"
+    run = _prefill_kernel if kernel else _verify_ref
+    if not kernel:
+        pf_ref.calls += 1
+    if shards.any_dtensor(q, k_cache, v_cache):
+        return shards.attention_on_shards(run, q, k_cache, v_cache, valid,
+                                          k_scale=k_scale, v_scale=v_scale)
+    return run(q, k_cache, v_cache, valid, None, k_scale, v_scale)
+
+
+def _verify_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, valid, lo=None, k_scale=None,
+                v_scale=None, reduce=None):
+    """``verify_attention``'s reference on plain tensors (``lo`` must be
+    None: a verify window starts at 0). ``reduce(t, op)``, where given,
+    all-reduces the softmax's max and sum and the P . V sums across the
+    ranks holding the rest of a sequence-sharded cache, as
+    ``_decode_ref`` does."""
+    if lo is not None:
+        raise ValueError("verify attention: a window starts at key 0")
     b, t, h, d = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
@@ -215,15 +232,24 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     valid = torch.as_tensor(valid, device=q.device).reshape(b, t)
     mask = torch.arange(s, device=q.device)[None, None, :] < valid[:, :, None]
     sc = torch.where(mask[:, None, None], sc, _neg_inf(sc))
-    p = _guarded_softmax(sc)
+    if reduce is None:
+        p = _guarded_softmax(sc)
+    else:
+        m = reduce(sc.amax(dim=-1, keepdim=True), "max")
+        p = torch.where(m > NEG_INF / 2, torch.exp(sc - m),
+                        torch.zeros_like(sc))
+        p = p / torch.clamp(reduce(p.sum(dim=-1, keepdim=True), "sum"),
+                            min=1e-30)
     if v_scale is not None:
         p = (p * v_scale[:, None, None, None, :]).to(q.dtype)
         vc = v_cache.to(q.dtype)
     else:
         p = p.to(v_cache.dtype)
         vc = v_cache
-    out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), vc.float()).to(vc.dtype)
-    return out.reshape(b, t, h, d).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.float(), vc.float())
+    if reduce is not None:
+        out = reduce(out, "sum")
+    return out.to(vc.dtype).reshape(b, t, h, d).to(q.dtype)
 
 
 def _decode_ref(q: torch.Tensor, k_cache: torch.Tensor,

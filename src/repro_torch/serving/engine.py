@@ -120,6 +120,9 @@ __all__ = ["generate", "check_family", "Request", "ServingEngine",
 
 # smallest admission bucket: prompts of length 1..8 share one shape
 _MIN_BUCKET = 8
+# replays of speculative generate's tick between two host reads of its
+# done flag (the engine's default drain_every)
+_DRAIN_EVERY = 4
 # the cache subtrees that hold a recurrent (non-KV) state: ssm's layers,
 # hybrid's mamba groups and tail
 _RECURRENT = ("layers", "groups", "tail")
@@ -200,14 +203,27 @@ def generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
              attn_mode: str = "auto", kv_bits: Optional[int] = None,
              spec_k: int = 0, draft_params=None,
              draft_cfg: Optional[ModelConfig] = None,
+             capture: Optional[bool] = None,
              device="cuda") -> torch.Tensor:
     """prompts (B, P) int -> (B, P + max_new_tokens) on ``device``: one
     prefill, then one decode step per token.
 
+    The decode step is one CUDA graph (``core.graphs``), captured once a
+    call over the call's fixed cache, token and output buffers, which it
+    updates in place, and replayed ``max_new_tokens - 1`` times with no
+    host read in between: the reference's jitted ``lax.scan``. The graph
+    and its buffers live as long as the call, so every call pays its
+    warm-ups and one capture. ``capture`` (default: on for a CUDA
+    device) False runs the same work eagerly, the counterpart of
+    ``jax.disable_jit``; True on the CPU raises. A capture or replay that
+    fails raises.
+
     ``spec_k >= 1`` decodes speculatively: ``draft_params`` (default: the
     packed 3-bit ``api.draft_of`` export of ``params``) proposes spec_k
     tokens a step and the target verifies them in one multi-token pass —
-    the same output distribution, token-identical at T = 0."""
+    the same output distribution, token-identical at T = 0. Its tick is
+    captured the same way, and the host reads whether a row is still
+    running once every ``_DRAIN_EVERY`` replays."""
     if spec_k:
         return _spec_generate(params, prompts, cfg, policy=policy,
                               max_new_tokens=max_new_tokens,
@@ -215,25 +231,47 @@ def generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
                               dtype=dtype, matmul_mode=matmul_mode,
                               attn_mode=attn_mode, kv_bits=kv_bits,
                               spec_k=spec_k, draft_params=draft_params,
-                              draft_cfg=draft_cfg, device=device)
+                              draft_cfg=draft_cfg, capture=capture,
+                              device=device)
     mod = get_model(cfg)
     params = _to_device(params, device)
     prompts = torch.as_tensor(prompts).to(device=device, dtype=torch.int32)
     b, p = prompts.shape
     kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
     gen = _generator(prompts.device, seed)
+    graphs = Graphs(prompts.device, capture=capture, generator=gen)
     logits, cache = mod.prefill(params, {"tokens": prompts}, cfg,
                                 policy=policy, dtype=dtype,
                                 max_len=p + max_new_tokens, **kw["prefill"])
     tok = _sample(gen, logits[:, 0], temperature).to(torch.int32)[:, None]
-    out = [prompts, tok]
+    out = torch.empty((b, max_new_tokens), dtype=torch.int32,
+                      device=prompts.device)
+    out[:, :1] = tok
+    col = torch.ones((1,), dtype=torch.int64, device=prompts.device)
+
+    def step():
+        logits, new = mod.decode_step(params, cache, tok, cfg, policy=policy,
+                                      dtype=dtype, **kw["decode"])
+        cache["len"].copy_(new["len"])
+        nxt = _sample(gen, logits[:, 0], temperature).to(torch.int32)
+        out.index_copy_(1, col, nxt[:, None])
+        tok.copy_(nxt[:, None])
+        col.add_(1)
+
+    # warm-ups leave nothing behind: the token, the column, the length and
+    # any recurrent state come back (a K/V write at the held position is
+    # rewritten by the first real step)
     for _ in range(max_new_tokens - 1):
-        logits, cache = mod.decode_step(params, cache, tok, cfg,
-                                        policy=policy, dtype=dtype,
-                                        **kw["decode"])
-        tok = _sample(gen, logits[:, 0], temperature).to(torch.int32)[:, None]
-        out.append(tok)
-    return torch.cat(out, dim=1)
+        graphs.run("generate", step, idle=lambda: kept(
+            tok, col, *_generate_state(cache)))
+    return torch.cat([prompts, out], dim=1)
+
+
+def _generate_state(cache) -> List[torch.Tensor]:
+    """The cache tensors a decode step changes besides its K/V writes: the
+    length and the recurrent states."""
+    return [cache["len"]] + [v for p, v in flatten_with_path(cache).items()
+                             if p.split("/", 1)[0] in _RECURRENT]
 
 
 def _no_ring_wrap(mod, cfg: ModelConfig, max_len: int):
@@ -270,11 +308,13 @@ def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
                    max_new_tokens: int, temperature: float, seed: int, dtype,
                    matmul_mode: str, attn_mode: str, kv_bits: Optional[int],
                    spec_k: int, draft_params, draft_cfg: Optional[ModelConfig],
-                   device) -> torch.Tensor:
-    """Speculative ``generate``: an eager loop over the shared
-    ``spec_decode_tick``; each tick commits 1..spec_k+1 tokens per row into
-    a fixed output buffer. The loop reads one flag a tick from the device
-    to know when every row is done."""
+                   capture: Optional[bool], device) -> torch.Tensor:
+    """Speculative ``generate``: the shared ``spec_decode_tick`` as one
+    captured tick (the reference's jitted ``lax.while_loop``); each replay
+    commits 1..spec_k+1 tokens per running row into a fixed output buffer,
+    and a row that is done is frozen, so a replay writes nothing of it.
+    At most ``max_new_tokens - 1`` ticks are needed; the host reads
+    whether any row still runs once every ``_DRAIN_EVERY`` replays."""
     draft_params, draft_cfg = _spec_models(params, cfg, draft_params,
                                            draft_cfg)
     mod, dmod = get_model(cfg), get_model(draft_cfg)
@@ -289,6 +329,7 @@ def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
     mkw = dict(policy=policy, dtype=dtype)
     gen = _generator(prompts.device, seed)
+    graphs = Graphs(prompts.device, capture=capture, generator=gen)
     logits, cache = mod.prefill(params, {"tokens": prompts}, cfg,
                                 max_len=max_len, **mkw, **kw["prefill"])
     _, dcache = dmod.prefill(draft_params, {"tokens": prompts}, draft_cfg,
@@ -300,17 +341,18 @@ def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
     for c in (cache, dcache):
         c["len"] = c["len"].to(torch.int32).reshape(-1).expand(b).clone()
     # one spare column takes the writes of rows past their window
-    buf = torch.zeros((b, max_new_tokens + 1), dtype=torch.int32,
-                      device=prompts.device)
+    width = max_new_tokens + 1
+    buf = torch.zeros((b, width), dtype=torch.int32, device=prompts.device)
     buf[:, 0] = tok0[:, 0]
     budget = torch.full((b,), max_new_tokens, dtype=torch.int32,
                         device=prompts.device)
     emitted = torch.ones((b,), dtype=torch.int32, device=prompts.device)
-    rows = torch.arange(b, device=prompts.device)
-    pending = tok0
-    while bool((emitted < max_new_tokens).any()):
+    base = torch.arange(b, device=prompts.device) * width
+    pending = tok0.clone()
+
+    def tick():
         active = emitted < max_new_tokens
-        cache, dcache, a, out, pending, _ = spec_decode_tick(
+        c, dc, a, out, nxt, _ = spec_decode_tick(
             mod, dmod, params, draft_params, cfg, draft_cfg, cache, dcache,
             pending, active, spec_k=spec_k, temperature=temperature,
             generator=gen, mkw=mkw, dmkw=mkw, attn_kw=kw["decode"],
@@ -319,9 +361,26 @@ def _spec_generate(params, prompts, cfg: ModelConfig, *, policy: QuantPolicy,
                            budget=budget, eos_id=-1)
         for j in range(spec_k + 1):
             idx = torch.where(j < n, emitted + j, max_new_tokens)
-            buf[rows, idx.long()] = out[:, j]
-        emitted = emitted + n
+            buf.view(-1).index_copy_(0, base + idx, out[:, j].to(buf.dtype))
+        cache["len"].copy_(c["len"])
+        dcache["len"].copy_(dc["len"])
+        pending.copy_(nxt)
+        emitted.add_(n)
+
+    # warm-ups run with every row done: a frozen row's writes are rewound
+    for i in range(max_new_tokens - 1):
+        graphs.run("spec_generate", tick,
+                   idle=lambda: masked(emitted, max_new_tokens))
+        if (i + 1) % _DRAIN_EVERY == 0 and not _rows_left(emitted,
+                                                          max_new_tokens):
+            break
     return torch.cat([prompts, buf[:, :max_new_tokens]], dim=1)
+
+
+def _rows_left(emitted: torch.Tensor, max_new_tokens: int) -> bool:
+    """Whether a row of a speculative ``generate`` still runs: the one
+    host read of its loop."""
+    return bool((emitted < max_new_tokens).any())
 
 
 @dataclasses.dataclass
@@ -371,7 +430,11 @@ class ServingEngine:
 
     ``capture`` (default: on for a CUDA device) replays the tick, each
     admission bucket and the integrity probe as CUDA graphs; ``captures``
-    reports them. ``fault_plan`` injects a ``resilience.FaultPlan``. The
+    reports them. ``profile`` keeps the reference's phase timers:
+    ``prefill_secs`` (admissions, the drafter's included) and
+    ``decode_secs`` (ticks), each call's wall seconds with the device
+    synchronised after it; both stay 0.0 with it off, and no sync is
+    added. ``fault_plan`` injects a ``resilience.FaultPlan``. The
     overload and durability knobs are the reference's: ``queue_limit`` /
     ``shed_policy``, ``default_deadline``, ``preempt_after``,
     ``max_ticks``, ``degrade``, ``snapshot_dir`` / ``snapshot_every``,
@@ -397,7 +460,8 @@ class ServingEngine:
                  journal=None,
                  integrity_every: Optional[int] = None,
                  golden_dir: Optional[str] = None,
-                 capture: Optional[bool] = None, device="cuda"):
+                 capture: Optional[bool] = None, profile: bool = False,
+                 device="cuda"):
         self._kw = _serve_kwargs(cfg, matmul_mode, attn_mode, kv_bits)
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
@@ -531,6 +595,26 @@ class ServingEngine:
         if integrity_every is not None:
             self._init_integrity()
         self._bucket_cap = self.mod.cache_len_for(cfg, max_len)
+        # optional phase timers: wall seconds of admissions (prefill) and of
+        # ticks, for benchmarks. Each timed call blocks on its result, so
+        # it trades a little overlap for attribution: off by default
+        self.prefill_secs = 0.0
+        self.decode_secs = 0.0
+        self._profile = profile
+
+    @contextlib.contextmanager
+    def _timed(self, attr: str):
+        """With ``profile`` on, add the block's wall seconds to ``attr``,
+        the device synchronised after it (``jax.block_until_ready``); the
+        graphs inside are untouched."""
+        if not self._profile:
+            yield
+            return
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        setattr(self, attr, getattr(self, attr) + time.perf_counter() - t0)
 
     def _new_rec(self) -> torch.Tensor:
         """The record buffer, (slots, w + 4) int32 with w = spec_k + 1:
@@ -1038,8 +1122,9 @@ class ServingEngine:
                          (self._in_budget, budgets)):
             dst.copy_(torch.from_numpy(src))
         # warm-ups run with every row dropped, so they change no slot
-        self.graphs.run(("admit", bucket), lambda: self._admit(buf),
-                        idle=lambda: masked(self._in_map, self.slots))
+        with self._timed("prefill_secs"):
+            self.graphs.run(("admit", bucket), lambda: self._admit(buf),
+                            idle=lambda: masked(self._in_map, self.slots))
         self._record_admitted(slot_ids, reqs)
 
     def _admit_solo(self, slot: int, req: Request):
@@ -1051,11 +1136,12 @@ class ServingEngine:
         which no admitted prompt exceeds."""
         assert not self.spec_k
         toks = torch.tensor([req.admit_prompt], dtype=torch.int32)
-        logits0, src = self._prefill(toks.to(self.device), None)
-        self.mod.insert_prefill(self.cache, slot, src)
-        self._seat(logits0, torch.tensor([slot]).to(self.device),
-                   torch.tensor([req.remaining], dtype=torch.int32).to(
-                       self.device))
+        with self._timed("prefill_secs"):
+            logits0, src = self._prefill(toks.to(self.device), None)
+            self.mod.insert_prefill(self.cache, slot, src)
+            self._seat(logits0, torch.tensor([slot]).to(self.device),
+                       torch.tensor([req.remaining], dtype=torch.int32).to(
+                           self.device))
         self._record_admitted([slot], [req])
 
     def _record_admitted(self, slot_ids: List[int], reqs: List[Request]):
@@ -1146,8 +1232,10 @@ class ServingEngine:
             self._failed_ticks.add(self.decode_calls)
             raise resilience.InjectedFault(
                 f"injected tick failure at decode tick {self.decode_calls}")
-        self.graphs.run("tick", self._spec_tick if self.spec_k else self._tick,
-                        idle=self._tick_idle)
+        with self._timed("decode_secs"):
+            self.graphs.run("tick",
+                            self._spec_tick if self.spec_k else self._tick,
+                            idle=self._tick_idle)
 
     @contextlib.contextmanager
     def _tick_idle(self):

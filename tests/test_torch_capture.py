@@ -14,6 +14,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +24,7 @@ from repro.core.precision import FLOAT as JFLOAT, W3A8 as JW3A8
 from repro.models import api as japi
 from repro.models import get_model as jget_model
 from repro.serving.engine import ServingEngine as JServingEngine
+from repro.serving.engine import generate as jgenerate
 from repro.serving.resilience import FaultPlan as JFaultPlan
 
 from repro_torch import bridge
@@ -31,7 +33,8 @@ from repro_torch.core import graphs
 from repro_torch.core.precision import FLOAT, W3A8
 from repro_torch.kernels.qmatvec import kernel as qmv_k
 from repro_torch.kernels.qmatvec import ref as qmv_ref
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving import engine as engine_mod
+from repro_torch.serving.engine import ServingEngine, generate
 from repro_torch.serving.resilience import FaultPlan
 
 JW3 = dataclasses.replace(JW3A8, act_bits=None)
@@ -318,3 +321,75 @@ def test_replayed_training_step_matches_eager(pipeline_stand_in, policy):
     assert pipeline.evaluate(p1, task, policy=policy, batch=50,
                              capture=False) == \
         pipeline.evaluate(p1, task, policy=policy, batch=50)
+
+
+@pytest.fixture
+def captured_generate(stand_in, monkeypatch):
+    """``generate``'s graphs capture on the CPU through the stand-in unless
+    asked for ``capture=False``; returns the Graphs each call made, the
+    host reads of the speculative loop's done flag and the replays."""
+    made, reads, replays = [], [], []
+
+    class _Counted(_RecordedWork):
+        def replay(self):
+            replays.append(1)
+            super().replay()
+    monkeypatch.setattr(graphs, "_Graph", _Counted)
+
+    class _Captured(graphs.Graphs):
+        def __init__(self, device, *, capture=None, generator=None):
+            super().__init__(device, capture=capture, generator=generator)
+            self.capture = capture is not False
+            made.append(self)
+    monkeypatch.setattr(engine_mod, "Graphs", _Captured)
+    rows_left = engine_mod._rows_left
+
+    def counted(*args):
+        reads.append(1)
+        return rows_left(*args)
+    monkeypatch.setattr(engine_mod, "_rows_left", counted)
+    return made, reads, replays
+
+
+@pytest.mark.parametrize("spec_k", [0, 4])
+def test_captured_generate_token_identical(models, captured_generate,
+                                           spec_k):
+    """``generate`` with its decode step (spec_k 0) or speculative tick
+    (spec_k 4) captured once and replayed: at T = 0 token-identical to
+    ``capture=False`` and to JAX's ``generate`` (the float master, fp32);
+    at T > 0 the eager stream from the same seed. The plain loop reads
+    nothing from the device; the speculative one reads its done flag once
+    every 4 replays, not once a tick."""
+    jcfg, cfg, jp, tp, _, _ = models
+    made, reads, replays = captured_generate
+    prompts = np.array([[5, 6, 7, 8], [9, 1, 2, 3], [60, 61, 62, 63]],
+                       np.int32)
+    new = 9
+    kw = dict(policy=FLOAT, dtype=torch.float32, max_new_tokens=new,
+              spec_k=spec_k, device="cpu")
+    ref = jgenerate(jp, jnp.asarray(prompts), jcfg, policy=JFLOAT,
+                    dtype=jnp.float32, max_new_tokens=new, spec_k=spec_k)
+    eager = generate(tp, prompts, cfg, capture=False, **kw)
+    assert not made[-1].captures
+    del reads[:]
+    got = generate(tp, prompts, cfg, **kw)
+    assert list(made[-1].captures.values()) == [1]
+    if spec_k:
+        assert 1 <= len(replays) <= new - 1
+        assert len(reads) <= len(replays) // 4
+    else:
+        assert len(replays) == new - 1 and not reads
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.numpy(), eager.numpy())
+    hot = dict(kw, temperature=0.8, seed=3)
+    sampled = generate(tp, prompts, cfg, **hot)
+    assert torch.equal(sampled, generate(tp, prompts, cfg, capture=False,
+                                         **hot))
+    assert not torch.equal(sampled, got)            # it did sample
+
+
+def test_generate_capture_needs_a_card(models):
+    _, cfg, _, tp, _, _ = models
+    with pytest.raises(ValueError, match="capture=True needs a CUDA device"):
+        generate(tp, [[1, 2, 3]], cfg, policy=FLOAT, max_new_tokens=3,
+                 capture=True, device="cpu")

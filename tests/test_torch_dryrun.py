@@ -158,6 +158,33 @@ def test_decode_keeps_the_cache_where_it_is_placed(tmp_path):
     assert rec["full"]["collectives"]["all-reduce"] > 0    # the merge
 
 
+def test_verify_keeps_the_cache_where_it_is_placed(tmp_path):
+    """A speculative verify (spec_k 4: 5 tokens a row) against decode_32k's
+    cache at its own length and batch (32768 x 128 on 16 x 16, the reduced
+    config's layers): each rank attends over its own keys and the ranks
+    merge, so no key or value is gathered, and a rank's peak stays of the
+    decode cell's order, below what one layer's gathered K/V alone would
+    take (the parent gathered the whole key sequence of every row)."""
+    shape = shape_by_name("decode_32k")
+    recs = {vt: dryrun.run_cell("qwen2-1.5b", "decode_32k", "single", "w3",
+                                force=True, device="cpu", cfg=CFG,
+                                out_dir=tmp_path, with_aux=False,
+                                verify_tokens=vt) for vt in (0, 5)}
+    for rec in recs.values():
+        assert rec["status"] == "ok", rec.get("traceback")
+    ver = recs[5]["full"]
+    assert recs[5]["shape"] == "decode_32k_verify5"
+    assert not {"attention keys", "attention values",
+                "per-row operand"} & set(ver["gathers"]), ver["gathers"]
+    assert ver["collectives"]["all-reduce"] > 0              # the merge
+    peak = ver["memory"]["peak_bytes_est"]
+    assert peak <= 2 * recs[0]["full"]["memory"]["peak_bytes_est"]
+    rows = shape.global_batch // 16                     # a data rank's rows
+    gathered_kv = 2 * rows * shape.seq_len * CFG.num_kv_heads \
+        * CFG.head_dim * 2                              # one layer, bf16
+    assert peak < gathered_kv, (peak, gathered_kv)
+
+
 def test_a_failing_cell_is_recorded_not_raised(tmp_path):
     """A cell that does not build records its error and traceback."""
     bad = dataclasses.replace(CFG, num_heads=3)       # 64 % 3: no head_dim

@@ -22,7 +22,8 @@ from repro.serving.engine import generate as jgenerate
 from repro_torch import bridge
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.precision import W3A8
-from repro_torch.serving.engine import ServingEngine, SubmitRejected, generate
+from repro_torch.serving.engine import (FaultPlan, ServingEngine,
+                                        SubmitRejected, generate)
 
 JW3 = dataclasses.replace(JW3A8, act_bits=None)
 W3 = dataclasses.replace(W3A8, act_bits=None)
@@ -110,6 +111,45 @@ def test_kernel_dispatch_engine_matches_plain(qp_models):
                             attn_mode=am, device="cpu")
         outs.append(_staggered(eng))
     assert outs[0] == outs[1]
+
+
+def test_profile_phase_timers(qp_models):
+    """``profile=True`` keeps the reference's phase timers: the same tokens
+    as ``profile=False`` and as the JAX engine's ``profile=True``;
+    ``prefill_secs`` grows with an admission and ``decode_secs`` with a
+    tick, both 0.0 with profiling off; a degradation-ladder step (spec ->
+    plain, after an injected tick failure) keeps them running."""
+    jcfg, cfg, jp, tp = qp_models
+    kw = dict(slots=3, max_len=32, kv_bits=None)
+    jeng = JServingEngine(jp, jcfg, policy=JW3, dtype=jnp.float32,
+                          profile=True, **kw)
+    off = ServingEngine(tp, cfg, policy=W3, dtype=torch.float32,
+                        device="cpu", **kw)
+    eng = ServingEngine(tp, cfg, policy=W3, dtype=torch.float32,
+                        profile=True, device="cpu", **kw)
+    eng.submit(PROMPTS[0], max_new=5)
+    eng._spin_up()
+    assert eng.prefill_secs > 0 and eng.decode_secs == 0.0
+    eng.run_all()
+    assert eng.decode_secs > 0
+    ref, got = _staggered(jeng), _staggered(off)
+    eng = ServingEngine(tp, cfg, policy=W3, dtype=torch.float32,
+                        profile=True, device="cpu", **kw)
+    assert _staggered(eng) == got == ref
+    assert (off.prefill_secs, off.decode_secs) == (0.0, 0.0)
+    assert jeng.prefill_secs > 0 and jeng.decode_secs > 0
+    spec = ServingEngine(tp, cfg, policy=W3, dtype=torch.float32,
+                         profile=True, spec_k=2,
+                         fault_plan=FaultPlan(fail_ticks=[1]), device="cpu",
+                         **kw)
+    spec.submit(PROMPTS[1], max_new=8)
+    while not spec.fallback_events:
+        spec.step()
+    assert spec.spec_k == 0
+    secs = (spec.prefill_secs, spec.decode_secs)
+    spec.submit(PROMPTS[0], max_new=4)
+    spec.run_all()
+    assert spec.prefill_secs > secs[0] and spec.decode_secs > secs[1]
 
 
 def test_generate_matches_jax(qp_models):

@@ -340,6 +340,79 @@ def test_attn_prefill_verify_shape(cuda, dtype, quantized):
     assert (got.cpu()[1] == 0).all()
 
 
+@pytest.mark.parametrize("dtype,quantized", [(torch.bfloat16, False),
+                                             (torch.bfloat16, True),
+                                             (torch.float32, False),
+                                             (torch.float32, True)])
+@pytest.mark.parametrize("shape", ["T16", "verify"])
+def test_attn_prefill_lse(cuda, dtype, quantized, shape):
+    """``with_lse``: both kernels write each query's log-sum-exp (wgmma from
+    its final m and l; simt from them where S is not split, T = 16, and
+    from its merge where it is, the verify shape), held against the plain
+    version's within the file's tolerance x max|plain lse|, -inf exactly
+    where a query sees no key; the output beside it the same bits as
+    without it. Then the verify's S cut into two halves, each run alone on
+    its clamped windows (rows past a half see nothing there) and merged by
+    ``merge_lse``, as two ranks of a sequence-sharded cache are: within
+    the file's tolerance of the whole call."""
+    g = _gen(29)
+    kv, grp, d = 2, 6, 128
+    if shape == "verify":
+        b, t, s = 8, 5, 512
+        lens = torch.tensor([0, 1, 37, 128, 200, 333, 480, s - t],
+                            dtype=torch.int32)
+        hi = torch.clamp(lens[:, None] + torch.arange(1, t + 1,
+                                                      dtype=torch.int32),
+                         max=s)
+        hi[1] = 0
+    else:
+        b, t = 3, 16
+        s = t
+        lens = torch.tensor([t, 1, t // 2 + 1], dtype=torch.int32)
+        hi = torch.minimum(torch.arange(t, dtype=torch.int32)[None] + 1,
+                           lens[:, None])
+        hi[2, :4] = 0
+    q = torch.randn((b, t, kv * grp, d), generator=g).to(dtype)
+    k, v, ks, vs = _cache(g, b, s, kv, d, dtype, quantized)
+    p = pf_k.plan(dtype, k.dtype, grp, d, b, t, kv, s)
+    assert (p.variant == "simt" and p.splits > 1) == (
+        dtype == torch.float32 and shape == "verify")
+    ref, ref_lse = pf_ops.attn_prefill(q, k, v, hi, k_scale=ks, v_scale=vs,
+                                       with_lse=True)
+    args = _on(cuda, q, k, v, hi)
+    scales = dict(k_scale=None if ks is None else ks.to(cuda),
+                  v_scale=None if vs is None else vs.to(cuda))
+    n0 = pf_k.launches
+    got, lse = pf_ops.attn_prefill(*args, with_lse=True, **scales)
+    assert pf_k.launches == n0 + 1 and lse.dtype == torch.float32
+    assert torch.equal(got, pf_ops.attn_prefill(*args, **scales))
+    _check(got, ref, dtype)
+    fin = torch.isfinite(ref_lse)
+    assert (~fin).any() and torch.equal(torch.isfinite(lse.cpu()), fin)
+    assert (lse.cpu()[~fin] == float("-inf")).all()
+    _check(lse[fin.to(cuda)], ref_lse[fin], dtype)
+    if shape != "verify":
+        return
+    from repro_torch.kernels.attn_decode.ops import merge_lse
+    half = s // 2
+    parts = [pf_ops.attn_prefill(
+        args[0], args[1][:, s0:s0 + half].contiguous(),
+        args[2][:, s0:s0 + half].contiguous(),
+        torch.clamp(args[3] - s0, 0, half), with_lse=True,
+        **{n: None if x is None else x[:, s0:s0 + half].contiguous()
+           for n, x in scales.items()}) for s0 in (0, half)]
+    assert not torch.isfinite(parts[1][1][2]).any()     # row 2: none there
+
+    def reduce(x, op):                  # the two halves as two ranks
+        r = x.amax(0, keepdim=True) if op == "max" else x.sum(0, keepdim=True)
+        return r.expand_as(x)
+    out, mlse = merge_lse(torch.stack([o for o, _ in parts]),
+                          torch.stack([l_ for _, l_ in parts]), reduce)
+    _check(out[0], ref, dtype)
+    _check(mlse[0][fin.to(cuda)], ref_lse[fin], dtype)
+    assert (out[0].cpu()[hi <= 0] == 0).all()
+
+
 def test_attn_prefill_refuses_what_no_kernel_takes(cuda):
     """Mixed bf16 / fp32, fp16 and a head_dim that is not a multiple of 16
     raise before a launch; bf16 queries at head_dim 32, which the

@@ -167,6 +167,74 @@ def test_attn_prefill_plain_matches_jax(quantized):
     np.testing.assert_array_equal(got.numpy()[empty], 0.0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_attn_prefill_lse(dtype, quantized):
+    """``with_lse``: the output equals the reference's plain version (the
+    Pallas kernel in interpret mode too, in fp32) within the file's 1e-5 in
+    fp32, and within 1e-2 in bf16 (a few ulp of bf16 at |x| <= 1: the two
+    round the probabilities and the output at the same places, their sums
+    in another order); the log-sum-exp equals a float64 logsumexp of the
+    same pre-scaled scores within 1e-6 x max|lse|, -inf exactly where a
+    query sees no key. lo > 0 and empty windows come from the inputs."""
+    q, k, v, lo, hi, ks, vs = _prefill_inputs(quantized, seed=5)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    tq = _t(q).to(tdt)
+    tk, tv = _t(k), _t(v)
+    if not quantized:
+        tk, tv = tk.to(tdt), tv.to(tdt)
+    tks = None if ks is None else _t(ks)
+    tvs = None if vs is None else _t(vs)
+    got, lse = pf_ops.attn_prefill(tq, tk, tv, _t(hi), lo=_t(lo),
+                                   k_scale=tks, v_scale=tvs, with_lse=True)
+    assert got.dtype == tdt and lse.dtype == torch.float32
+    assert lse.shape == (b, t, h)
+    jq = jnp.asarray(q).astype(jdt)
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    if not quantized:
+        jk, jv = jk.astype(jdt), jv.astype(jdt)
+    jks = None if ks is None else jnp.asarray(ks)
+    jvs = None if vs is None else jnp.asarray(vs)
+    qg = (jq * jnp.asarray(d ** -0.5, jdt)).reshape(b, t, kv, h // kv, d)
+    ref = np.asarray(jpf_ref(qg, jk, jv, jnp.asarray(lo), jnp.asarray(hi),
+                             jks, jvs).reshape(b, t, h, d).astype(jnp.float32))
+    tol = TOL if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)
+    if dtype == "float32":
+        ref_k = jpf_ops.attn_prefill(jq, jk, jv, jnp.asarray(hi),
+                                     lo=jnp.asarray(lo), k_scale=jks,
+                                     v_scale=jvs, bt=8, bs=8, interpret=True)
+        _close(got, ref_k)
+    # float64 logsumexp of the same pre-scaled scores
+    qs = np.asarray(qg.astype(jnp.float32), np.float64)
+    kf = np.asarray(jk.astype(jnp.float32), np.float64)
+    sc = np.einsum("btkgd,bskd->btkgs", qs, kf)
+    if ks is not None:
+        sc = sc * ks.astype(np.float64)[:, None, None, None, :]
+    pos = np.arange(k.shape[1])
+    vis = (pos[None, None] >= lo[..., None]) & (pos[None, None] < hi[..., None])
+    sc = np.where(vis[:, :, None, None], sc, -np.inf)
+    mx = sc.max(-1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        want = mx + np.log(np.exp(sc - np.where(np.isfinite(mx), mx, 0)[
+            ..., None]).sum(-1))
+    want = want.reshape(b, t, h)
+    empty = np.broadcast_to((hi <= lo)[..., None], want.shape)
+    assert empty.any() and np.isneginf(want[empty]).all()
+    got_lse = lse.double().numpy()
+    assert np.isneginf(got_lse[empty]).all()
+    np.testing.assert_allclose(got_lse[~empty], want[~empty],
+                               atol=1e-6 * np.abs(want[~empty]).max())
+    np.testing.assert_array_equal(got.float().numpy()[
+        np.broadcast_to(empty[..., None], got.shape)], 0.0)
+    # with_lse leaves the output as it is without it
+    assert torch.equal(got, pf_ops.attn_prefill(tq, tk, tv, _t(hi),
+                                                lo=_t(lo), k_scale=tks,
+                                                v_scale=tvs))
+
+
 def test_attn_prefill_bucketed_rule():
     """hi = min(t+1, len) — the admission mask — with a length-1 dummy row."""
     q, k, v, _, _, _, _ = _prefill_inputs(False, seed=4)

@@ -33,6 +33,9 @@ against JAX.
   model) on (1, 4) and (2, 2), ragged lengths (a row with no key, one
   whose keys all lie on one rank), bf16 and int8 K/V, in both modes:
   within 1e-5 of the unsharded call, with no gather of the cache;
+- verify on a sequence-sharded cache: ``verify_step`` against the cache
+  placed as the decode cells place it on (2, 2), bf16 and int8 cache, in
+  both modes: within 1e-5 of one process, the cache never gathered;
 - ``constrain`` on DTensors: the table's placements, an axis that does
   not divide its dim dropped.
 """
@@ -270,6 +273,69 @@ def seq_decode(out):
     out["seq_decode"] = res
 
 
+def seq_verify(cfg, out):
+    """``verify_step`` (T = 5) of the reduced qwen2 (its qp export, fp32
+    compute) against a (4, 16) cache placed as the decode cells place it
+    on (2, 2): batch over data, sequence over model; ragged lengths (a row
+    with no cached key, one whose keys all lie on the first model rank,
+    one that spans both), bf16 and int8 cache, both attention modes."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import quant_dense
+    from repro_torch.core.precision import W3A8
+    from repro_torch.distributed import shards
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.api import init_cache
+    mod = get_model(cfg)
+    words = quant_dense.export_container(
+        mod.init(torch.Generator().manual_seed(0), cfg), W3A8)
+    b, s, t = 4, 16, 5
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (b, t), dtype=torch.int32,
+                         generator=g)
+    lens = torch.tensor([0, 2, 7, 11], dtype=torch.int32)
+    mesh = make_host_mesh(2, 2, device="cpu")
+    shape = ShapeConfig("d", s, b, "decode")
+    for kv in ("bf16", "int8"):
+        kv8 = kv == "int8"
+        cache = init_cache(cfg, b, s, torch.bfloat16,
+                           kv_bits=8 if kv8 else None)
+        for name in ("k", "v"):
+            cache[name].copy_(torch.randint(-127, 128, cache[name].shape,
+                                            generator=g).to(torch.int8)
+                              if kv8 else torch.randn(cache[name].shape,
+                                                      generator=g))
+        for name in ("k_scale", "v_scale"):
+            if name in cache:
+                cache[name].copy_(torch.rand(cache[name].shape,
+                                             generator=g) * 0.02)
+        cache["len"] = lens.clone()
+        for mode in ("kernel", "ref"):
+            kw = dict(matmul_mode=mode if mode == "kernel" else "dequant",
+                      attn_mode=mode)
+            cell = steps.build_cell(cfg, shape, mesh, kv8=kv8, **kw)
+            ref_c = {k: v.clone() for k, v in cache.items()}
+            want, _, _ = mod.verify_step(words, ref_c, toks, cfg,
+                                         policy=W3A8, dtype=torch.float32,
+                                         **kw)
+            shards.gathers.clear()
+            dc = steps.place({k: v.clone() for k, v in cache.items()},
+                             cell.in_shardings[1])
+            with steps._on_mesh(steps._rules_ctx(cfg, shape, mesh)):
+                got, dc, _ = mod.verify_step(
+                    steps.place(words, cell.in_shardings[0]), dc,
+                    steps.place({"tokens": toks},
+                                cell.in_shardings[2])["tokens"], cfg,
+                    policy=W3A8, dtype=torch.float32, **kw)
+            out[f"seq_verify_{kv}_{mode}"] = {
+                "rel_err": relerr(full(got), want),
+                "cache_rel": max(relerr(full(dc[n]).float(), ref_c[n].float())
+                                 for n in cache if n != "len"),
+                "cache_placements": [repr(p) for p in dc["k"].placements],
+                "gathers": dict(shards.gathers)}
+
+
 def mamba2_step(out):
     from repro_torch.configs import ShapeConfig, TrainConfig, get_config, \
         reduced
@@ -399,6 +465,7 @@ def checks(rank, world, port, q):
     pipeline(out)
     psum(out)
     seq_decode(out)
+    seq_verify(cfg, out)
     data_parallel(cfg, out)
     mamba2_step(out)
     constrain_check(out)
@@ -482,6 +549,23 @@ def test_decode_on_a_sequence_sharded_cache(results, case):
     r = results["seq_decode"][case]
     assert r["rel_err"] <= 1e-5, r
     assert r["empty_row_zero"] or case.endswith("_ref"), r
+    assert not {"attention keys", "attention values"} & set(r["gathers"]), r
+
+
+@pytest.mark.parametrize("case", [f"{kv}_{mode}" for kv in ("bf16", "int8")
+                                  for mode in ("kernel", "ref")])
+def test_verify_on_a_sequence_sharded_cache(results, case):
+    """Speculative verify against the cache as the decode cells place it:
+    each rank attends over its own keys with its clamped windows and the
+    ranks merge (the plain versions: all-reduced max, sum and P . V sums,
+    as the kernel's merge does by its log-sum-exp on the card), so the
+    logits equal one process within 1e-5 x max|logit| (fp32), and so does
+    the written cache (its int8 scales round the K / V that the sharded
+    projections sum in another order), with no gather of the cache."""
+    r = results[f"seq_verify_{case}"]
+    assert r["rel_err"] <= 1e-5, r
+    assert r["cache_rel"] <= 1e-5, r
+    assert "Shard(dim=2)" in r["cache_placements"], r
     assert not {"attention keys", "attention values"} & set(r["gathers"]), r
 
 
