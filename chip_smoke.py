@@ -62,9 +62,10 @@ Phases, each printing one JSON line:
              sigmoid (forward and backward) must be bit-identical, NaN where
              the plain version has NaN; its library column is torch.sigmoid
              (the same bytes, not the same function).
-3. engine    full-width qwen2-1.5b, fp32 master weights from a seeded
-             generator on the card, exported to W3A8 containers on the
-             card, served by ServingEngine(slots=8, max_len=512, bf16) for
+3. engine    full-width qwen2-1.5b, built from a seeded generator on
+             the card one layer at a time (api.init_export) into its fp32
+             master, a bf16 cast (phase 5's target) and W3A8 containers,
+             served by ServingEngine(slots=8, max_len=512, bf16) for
              16 requests x 32 new tokens, once with a bf16 KV cache and once
              with kv_bits=8: the engine replaying its tick and admissions as
              CUDA graphs, and its capture=False twin. Every timed engine
@@ -116,8 +117,9 @@ Phases, each printing one JSON line:
 5. spec      self-speculative serving at full width and 14 of the 28
              layers (SPEC_LAYERS, a cut of depth for the script's time
              limit): the same seeded fp32
-             master, its weights cast once to bf16, is the target (FLOAT
-             policy); its W3A8 container export (api.draft_of) drafts
+             master, its weights cast to bf16 in the layer-wise pass that
+             built it (api.init_export), is the target (FLOAT policy);
+             its W3A8 container export from that pass (api.draft_of) drafts
              spec_k = 4 tokens a tick. ServingEngine(slots=8, max_len=512,
              bf16, spec_k=4) serves the engine phase's 16 requests x 32
              tokens, captured and as its capture=False twin (identical
@@ -166,14 +168,17 @@ Phases, each printing one JSON line:
              >= 0.99 (8-bit signals off) and all but a few rows' argmax
              equal (on). Prints the deployed test MCR and images/s of the
              W3A8 kernel forward and of the float net, batch 100.
-8. dense     the rest of the dense family at full width: stablelm-3b at
-             full depth (32 layers, head_dim 80, MHA, untied head),
-             qwen2.5-14b (G = 5, QKV bias) and qwen3-32b (qk-norm) cut to
-             8 layers (the fp32 master the export is made from must fit
-             the card), and the audio / vlm decoders musicgen-large at
-             full depth (48 layers, gelu MLP, MHA) and internvl2-26b cut
-             to 8 of 48 layers, each from a seeded generator, exported to W3A8
-             containers, served for 8 requests (prompts 3-16 and
+8. dense     the rest of the dense family at full width and depth:
+             stablelm-3b (32 layers, head_dim 80, MHA, untied head),
+             qwen2.5-14b (48 layers, G = 5, QKV bias), qwen3-32b (64
+             layers, qk-norm), and the audio / vlm decoders
+             musicgen-large (48 layers, gelu MLP, MHA) and internvl2-26b
+             (48 layers), each built from a seeded generator one layer
+             at a time into W3A8 containers (api.init_export: the fp32
+             master is never whole on the card; the build's peak above
+             what the card held before gated at or under its export + 2
+             fp32 layers + the fp32 embedding + 4 GB), served for 8
+             requests (prompts 3-16 and
              100-250) x 16 new tokens by ServingEngine(slots=8,
              max_len=512, bf16) captured and as its capture=False twin:
              identical tokens, the timed serve replay only, every kernel
@@ -183,14 +188,14 @@ Phases, each printing one JSON line:
              twin's steady tick; then the path check of phase 4 on the
              model. Each model is freed before the next.
 9. moe       the MoE family and the sliding-window KV ring at full width:
-             phi3.5-moe (16 experts, top-2) cut to 8 of 32 layers and
+             phi3.5-moe (16 experts, top-2) at full depth (32 layers) and
              mixtral-8x22b (8 experts, top-2, window 4096) cut to 4 of 56
-             (the fp32 master the export is made from must fit the card),
-             each from a seeded generator on the card (its layers drawn
-             into preallocated stacks), exported to W3A8 containers (the
-             expert stacks as int8 levels, quantised a layer at a time),
-             the master freed, served by ServingEngine(slots=8, bf16, kv
-             bf16) captured and as its capture=False twin: phi3.5-moe 8
+             (its int8 expert levels alone are 136 GB), each built from a
+             seeded generator on the card one layer at a time into W3A8
+             containers (the expert stacks as int8 levels; the build's
+             peak gated as in phase 8), served by ServingEngine(slots=8,
+             bf16, kv bf16) captured and as its capture=False twin, one
+             engine on the card at a time: phi3.5-moe 8
              requests x 16 tokens at max_len 512; mixtral at max_len 8192
              (a 4096-slot ring) four short prompts, a 4060-token prompt
              admitted in the 4096 bucket that decodes 100 tokens (past
@@ -211,10 +216,11 @@ Phases, each printing one JSON line:
              products at a tick's, an admission's and the solo prompt's
              capacity M, the routers, the windowed attn_prefill at
              T = 4500, attn_decode over a full 4096-slot ring).
-10. ssm      the state-space and hybrid families at full width and
-             depth: mamba2-2.7b (64 layers) and zamba2-1.2b (38 mamba
-             blocks, 6 applications of its shared attention block, a
-             2-block tail), seeded fp32 masters exported to W3A8 `qp`,
+10. ssm      the state-space and hybrid families at full width, cut in
+             depth for the script's time limit: mamba2-2.7b at 32 of its
+             64 layers and zamba2-1.2b at 20 of its 38 (18 mamba blocks
+             in 3 groups, 3 applications of its shared attention block,
+             the 2-block tail), seeded fp32 masters exported to W3A8 `qp`,
              each served by ServingEngine(slots=8, max_len=512, bf16) for
              the dense phase's 8 requests x 16 tokens captured and as its
              capture=False twin (zamba2 also with an int8 KV cache):
@@ -344,6 +350,19 @@ Phases, each printing one JSON line:
              cache's keys or values, its peak under the same limit; the
              dist phase's train cell dry-run on a (1, 1) mesh: its peak
              estimate beside the peak the dist phase measured.
+15. wide_spec (run after phase 9) speculative serving of qwen2.5-14b at
+             full width and depth (48 layers) from an int8 KV cache: its
+             bf16 target (FLOAT policy) and its W3A8 qp drafter built in
+             one layer-wise pass (api.init_export(..., (to_bf16,
+             export_qp)); the build's peak gated as in phase 8 on both
+             trees), ServingEngine(slots=8, max_len=512, bf16, kv_bits 8,
+             spec_k 4) for the dense phase's 8 requests x 16 tokens,
+             captured and as its capture=False twin, gated as phase 5
+             gates its engines (every request its tokens, identical
+             tokens, replay only, launches as the tick's structure fixes,
+             no plain version); the accept rate and the captured
+             engine's steady tick (the eager twin's, 0.8 s of host a
+             tick, is left out for the script's time limit).
 16. examples python -m repro_torch.launch.quickstart and
              repro_torch.launch.serve_quantized, each once on the card in
              a subprocess of its own (--device cpu in the rehearsal): a
@@ -422,21 +441,22 @@ ROUTES = (("qmatmul", "n_lanes", "src/repro_torch/csrc/qmatmul.cu"),
 # an admission (8 slots x bucket 64) and the largest admission
 Q_MS = (8, 512, 2048)
 PAPER_EPOCHS = dict(pretrain_epochs=1, float_epochs=3, retrain_epochs=2)
-# the dense phase: (arch, layers kept on the card or None for all, the CPU
-# rehearsal's reduced() sizes); the depth cut keeps the fp32 master and its
-# stacked copy within the card's 80 GB (qwen3-32b's 8 layers: 15.6 GB, plus
-# 6.2 GB of embedding and head)
-DENSE = (("stablelm-3b", None, dict(d_model=320)),
-         ("qwen2.5-14b", 8, {}),
-         ("qwen3-32b", 8, {}),
-         ("musicgen-large", None, {}),
-         ("internvl2-26b", 8, {}))
+# the dense phase: (arch, the CPU rehearsal's reduced() sizes), each served
+# at full depth, built one layer at a time (qwen3-32b: a 14 GB export of a
+# 131 GB fp32 master that is never whole on the card)
+DENSE = (("stablelm-3b", dict(d_model=320)),
+         ("qwen2.5-14b", {}),
+         ("qwen3-32b", {}),
+         ("musicgen-large", {}),
+         ("internvl2-26b", {}))
 DENSE_PROMPTS = (0, 3, 4, 5, 8, 9, 10, 11)   # prompts 4, 12, 3, 16, 100-250
 DENSE_NEW = 16
-# the moe phase: (arch, layers kept on the card, engine max_len); the depth
-# cut keeps each fp32 master (phi3.5-moe 8 layers: 42 GB; mixtral 4: 41 GB)
-# and its export within the card's 80 GB
-MOE = (("phi3.5-moe-42b-a6.6b", 8, 512), ("mixtral-8x22b", 4, 8192))
+# the moe phase: (arch, layers kept on the card or None for all, engine
+# max_len); phi3.5-moe's 41 GB export fits the card, mixtral-8x22b's int8
+# expert levels alone are 136 GB, so it keeps 4 of its 56 layers
+MOE = (("phi3.5-moe-42b-a6.6b", None, 512), ("mixtral-8x22b", 4, 8192))
+MOE_CUT = ("its int8 expert levels alone are 136 GB at full depth, more "
+           "than one 80 GB card holds")
 MOE_NEW = 16
 MOE_BUCKET = 64            # the admission round the parity phase holds
 # mixtral's long requests (prompt tokens, new tokens): one admitted in the
@@ -447,10 +467,15 @@ MOE_SOLO = (4500, MOE_NEW)
 # the parity phase's MoE shapes: (arch, T of the windowed attn_prefill)
 MOE_PARITY = (("phi3.5-moe-42b-a6.6b", 0), ("mixtral-8x22b", MOE_SOLO[0]))
 MOE_PATH_STEPS = 4         # decode steps of the MoE path check
-# the ssm phase: (arch, the CPU rehearsal's reduced() sizes), both served
-# at full width and depth (mamba2-2.7b's fp32 master: 10.8 GB)
-SSM = (("mamba2-2.7b", dict(layers=2)), ("zamba2-1.2b", dict(layers=5)))
-SSM_ARCHS = tuple(a for a, _ in SSM)
+# the ssm phase: (arch, layers kept or None for all, the CPU rehearsal's
+# reduced() sizes), at full width; cuts of depth for the script's time
+# limit, which the full-depth dense, moe and wide spec serves share:
+# mamba2-2.7b keeps 32 of its 64 layers (the depth the train phase
+# steps), zamba2-1.2b 20 of its 38 (3 of its 6 groups, and its 2-block
+# tail)
+SSM = (("mamba2-2.7b", 32, dict(layers=2)),
+       ("zamba2-1.2b", 20, dict(layers=5)))
+SSM_ARCHS = tuple(a for a, _, _ in SSM)
 SSM_NEW = 16
 SSM_PREEMPT = 4            # preempt_after of the hybrid's resilience case
 SSM_SNAPSHOT_TICK = 8      # the tick its snapshot is taken at
@@ -461,6 +486,7 @@ GEN_ROWS, GEN_PROMPT, GEN_NEW = 8, 16, 32
 # within its time limit (their eager twins are its longest serves)
 SPEC_LAYERS = RES_LAYERS = 14
 SPEC_K = 4                                  # drafts a speculative tick
+WIDE_SPEC = "qwen2.5-14b"       # the wide spec serve: full depth, int8 KV
 SPEC_GATE = dict(prompts=8, prompt_len=16, max_new=16)   # fp32 identity gate
 WARM_NEW = 2 * (SPEC_K + 1)     # new tokens a request of a warm-up serve
 STEADY_TICKS = 10               # host-timed steady ticks a steady measurement
@@ -1501,20 +1527,73 @@ def launched_variant(name, fn, expect):
     return out, (ran[0] if ran else None)
 
 
-def build_model(cfg, device, seed):
-    """fp32 master weights from a seeded generator on the card and their
-    W3A8 container export: (master, params, seconds)."""
+def build_model(cfg, device, seed, exports):
+    """Weights from a seeded generator, built on the card one layer at a
+    time into ``exports`` (``api.init_export``; launch/serve.py's
+    ``as_master``, ``to_bf16``, ``export_qp``): (the tree, or the tuple of
+    trees, seconds, build_peak_gb — the most the build held on the card
+    beyond what was allocated before it; None on the CPU)."""
     import torch
-    from repro_torch.core import quant_dense
-    from repro_torch.core.precision import W3A8
-    from repro_torch.models import get_model
+    from repro_torch.models import api
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(seed)
-    master = get_model(cfg).init(gen, cfg, device=device)
-    params = quant_dense.export_container(master, W3A8)
-    if device.type == "cuda":
+    out = api.init_export(gen, cfg, exports, device=device)
+    if cuda:
         torch.cuda.synchronize()
-    return master, params, time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9 if cuda else None
+    return out, secs, peak
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, (tuple, list)):
+        return sum(_nbytes(t) for t in tree)
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _build_gate(cfg, trees, build_s, build_gb, what):
+    """The proof that a layer-wise build never held the fp32 master: its
+    peak (``build_model``) within the bytes of what it built, two fp32
+    layers, the fp32 embedding and 4 GB of the fit's temporaries and the
+    allocator's rounding. Returns the record's build fields (the limit
+    not held on the CPU, which has no peak counter)."""
+    import torch
+    from repro_torch.models import get_model
+    shapes = get_model(cfg).init(torch.Generator(), cfg, device="meta")
+    layer = _nbytes(shapes["layers"]) / cfg.num_layers / 1e9
+    embed = _nbytes(shapes["embed"]) / 1e9
+    export = _nbytes(trees) / 1e9
+    limit = export + 2 * layer + embed + 4.0
+    rec = {"init_export_s": round(build_s, 3),
+           "build_peak_gb": None if build_gb is None else round(build_gb, 2),
+           "export_gb": round(export, 2), "fp32_master_gb":
+           round(_nbytes(shapes) / 1e9, 2), "fp32_layer_gb": round(layer, 3),
+           "fp32_embed_gb": round(embed, 3),
+           "build_peak_limit_gb": round(limit, 2)}
+    if build_gb is not None and not build_gb <= limit:
+        fail(f"{what}: the build peaked at {build_gb:.2f} GB, over "
+             f"{limit:.2f} GB = its {export:.2f} GB export + 2 x "
+             f"{layer:.3f} GB fp32 layers + a {embed:.3f} GB fp32 "
+             f"embedding + 4 GB")
+    return rec
+
+
+def _seconds(t0, build_s, t1, t2, steady_s=None):
+    """Where a model's seconds in a phase went: the build, the twins'
+    serves and gates (t0 + build .. t1), their steady ticks (``steady_s``,
+    else t1 .. t2) and the path check (t2 .. now)."""
+    now = time.perf_counter()
+    steady_s = t2 - t1 if steady_s is None else steady_s
+    return {"build": round(build_s, 1),
+            "serve": round(t2 - t0 - build_s - steady_s, 1),
+            "steady": round(steady_s, 1), "path": round(now - t2, 1)}
 
 
 def _engine_launch_gate(eng, cfg, run, what):
@@ -1940,6 +2019,7 @@ def _steady(eng, cfg, device, rehearse, names, ticks=STEADY_TICKS):
     import torch
     from repro_torch.launch.profile_engine import device_ms_by_kernel
     k1 = eng.spec_k + 1
+    t_start = time.perf_counter()
     for i in range(eng.slots):
         eng.submit([(7 * i) % (cfg.vocab_size - 1) + 1] * 64,
                    max_new=(2 * (ticks + PROFILED_TICKS) + 4) * k1)
@@ -1953,8 +2033,10 @@ def _steady(eng, cfg, device, rehearse, names, ticks=STEADY_TICKS):
     for _ in range(ticks):
         eng.step()
     sync()
-    host_ms = (time.perf_counter() - t0) / ticks * 1e3
+    t1 = time.perf_counter()
+    host_ms = (t1 - t0) / ticks * 1e3
     out = {"ticks": ticks, "tick_host_ms": host_ms}
+    secs = {"admit": t0 - t_start, "ticks": t1 - t0}
     if not rehearse:
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -1964,7 +2046,10 @@ def _steady(eng, cfg, device, rehearse, names, ticks=STEADY_TICKS):
                 eng.step()
             sync()
             wall = (time.perf_counter() - t0) * 1e3
+        t2 = time.perf_counter()
         by = device_ms_by_kernel(prof)
+        secs.update(profiled=wall / 1e3, trace=t2 - t0 - wall / 1e3,
+                    by_kernel=time.perf_counter() - t2)
         dev = sum(by.values())
         out.update({"profiled_ticks": PROFILED_TICKS,
                     "tick_device_ms": dev / PROFILED_TICKS,
@@ -1981,6 +2066,7 @@ def _steady(eng, cfg, device, rehearse, names, ticks=STEADY_TICKS):
                 fail(f"the profiler saw no device time of {missing} in "
                      f"{PROFILED_TICKS} replayed ticks: {by}")
     eng.drain()
+    out["seconds"] = {k: round(v, 2) for k, v in secs.items()}
     return out
 
 
@@ -2101,53 +2187,47 @@ def _fp32_engine_gates(master, cfg, dcfg, dparams, gp, greedy, device):
     return res
 
 
-def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
-    """Self-speculative serving at full width: the float master is the
-    target (FLOAT policy), its packed 3-bit export the drafter."""
+def _spec_engines(cfg, target, dcfg, dparams, device, reqs, max_new,
+                  rehearse, kv_bits=None, steady=("captured", "eager")):
+    """The spec engine (the FLOAT ``target`` verifying ``dparams``' drafts,
+    spec_k SPEC_K, slots 8, max_len 512, bf16, ``kv_bits``) warmed,
+    captured and as its capture=False twin, each serving ``reqs`` for
+    ``max_new`` tokens, gated: every request its tokens, in the
+    vocabulary; the twins' tokens identical, the captured one replaying
+    only; ``_spec_launch_gate`` on both. Then the steady tick of each twin
+    named in ``steady``. Returns (the record, the captured run)."""
     import torch
     from repro_torch.core.precision import FLOAT
-    from repro_torch.launch.profile_engine import MAX_NEW, prompts
-    from repro_torch.launch.serve import cast_weights
-    from repro_torch.models import api
-    from repro_torch.serving.engine import ServingEngine, generate
-    dcfg, dparams = api.draft_of(cfg, params)       # already the qp export
-    target = cast_weights(master, torch.bfloat16)
-    reqs = prompts(cfg.vocab_size)
-    kw = dict(policy=FLOAT, slots=8, max_len=512, dtype=torch.bfloat16,
-              device=device)
+    from repro_torch.serving.engine import ServingEngine
 
     def make(capture):
-        return ServingEngine(target, cfg, spec_k=SPEC_K, draft_params=dparams,
-                             draft_cfg=dcfg, capture=capture, **kw)
+        return ServingEngine(target, cfg, policy=FLOAT, slots=8, max_len=512,
+                             dtype=torch.bfloat16, kv_bits=kv_bits,
+                             spec_k=SPEC_K, draft_params=dparams,
+                             draft_cfg=dcfg, capture=capture, device=device)
     engines = {"captured": _warmed(make(None), reqs),
                "eager": _warmed(make(False), reqs)}
-    runs = {name: _serve(e, reqs, device) for name, e in engines.items()}
-    eng, run = engines["captured"], runs["captured"]
+    runs = {name: _serve(e, reqs, device, max_new=max_new)
+            for name, e in engines.items()}
+    run = runs["captured"]
     done = run["done"]
     toks = sum(len(r.out) for r in done)
-    if len(done) != len(reqs) or any(len(r.out) != MAX_NEW for r in done):
-        fail(f"spec engine did not serve every request its {MAX_NEW} tokens")
+    if len(done) != len(reqs) or any(len(r.out) != max_new for r in done):
+        fail(f"spec engine of {cfg.name} did not serve every request its "
+             f"{max_new} tokens")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
-        fail("spec engine emitted a token id outside the vocabulary")
-    _twin_gate(runs, "spec")
-    want = _spec_launch_gate(eng, cfg, dcfg, run, rehearse)
+        fail(f"spec engine of {cfg.name} emitted a token id outside the "
+             "vocabulary")
+    _twin_gate(runs, f"spec {cfg.name}")
+    want = _spec_launch_gate(engines["captured"], cfg, dcfg, run, rehearse)
     _spec_launch_gate(engines["eager"], cfg, dcfg, runs["eager"], rehearse)
     hist: dict = {}
     for r in done:
         for n, c in r.accept_hist.items():
             hist[n] = hist.get(n, 0) + c
-    eng0 = _warmed(ServingEngine(target, cfg, **kw), reqs)
-    base = _serve(eng0, reqs, device)
-    del eng0
-    same = sum(a.out == b.out for a, b in zip(done, base["done"])) / len(done)
     slot_ticks = sum(r.ticks for r in done)
-    steady = {name: _steady(e, cfg, device, rehearse, names=ENGINE_KERNELS)
-              for name, e in engines.items()}
-    del engines, eng, target
-    out = {"phase": "spec", "target": "float master, FLOAT policy, bf16 "
-                                      "weights (cast once)",
-           "drafter": f"draft_of: qp export, {dcfg.num_layers} layers",
-           "spec_k": SPEC_K, "requests": len(done), **_run_line(run),
+    rec = {"spec_k": SPEC_K, "kv": "int8" if kv_bits == 8 else "bf16",
+           "requests": len(done), **_run_line(run),
            "eager_twin": _run_line(runs["eager"]),
            "captured_eager_token_identical": True,
            "tokens_per_tick": toks / run["ticks"],
@@ -2157,13 +2237,45 @@ def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
            "spec_drafted": run["spec_drafted"],
            "spec_accepted": run["spec_accepted"],
            "accept_hist_tokens_per_tick": dict(sorted(hist.items())),
+           "launches": run["launches"], "launches_want": want,
+           "launches_by_variant": run["variants"],
+           "plain_calls": run["plain"]}
+    rec["steady"] = {name: _steady(engines[name], cfg, device, rehearse,
+                                   names=ENGINE_KERNELS) for name in steady}
+    return rec, run
+
+
+def spec_phase(cfg, master, target, params, device, qp_tok_s, rehearse):
+    """Self-speculative serving at full width: the float master, cast to
+    bf16 (``target``), is the target (FLOAT policy), its packed 3-bit
+    export (``params``) the drafter, both from the one ``init_export``
+    pass that built ``master``."""
+    import torch
+    from repro_torch.core.precision import FLOAT
+    from repro_torch.launch.profile_engine import MAX_NEW, prompts
+    from repro_torch.models import api
+    from repro_torch.serving.engine import ServingEngine, generate
+    dcfg, dparams = api.draft_of(cfg, params)       # already the qp export
+    reqs = prompts(cfg.vocab_size)
+    rec, run = _spec_engines(cfg, target, dcfg, dparams, device, reqs,
+                             MAX_NEW, rehearse)
+    done = sorted(run["done"], key=lambda r: r.uid)
+    eng0 = _warmed(ServingEngine(target, cfg, policy=FLOAT, slots=8,
+                                 max_len=512, dtype=torch.bfloat16,
+                                 device=device), reqs)
+    base = _serve(eng0, reqs, device)
+    del eng0, target
+    same = sum(a.out == b.out for a, b in zip(done, base["done"])) / len(done)
+    steady = rec.pop("steady")
+    out = {"phase": "spec", "target": "float master, FLOAT policy, bf16 "
+                                      "weights (cast once)",
+           "drafter": f"draft_of: qp export, {dcfg.num_layers} layers",
+           **rec,
            "plain_float_engine_tok_per_s": _run_line(base)["tok_per_s"],
            "plain_float_engine_ticks": base["ticks"],
            "qp_engine_tok_per_s": round(qp_tok_s, 2),
            "bf16_share_of_requests_matching_plain_engine": same,
-           "launches": run["launches"], "launches_want": want,
-           "launches_by_variant": run["variants"],
-           "plain_calls": run["plain"], "steady": steady}
+           "steady": steady}
     # fp32 token identity: speculative and plain greedy generate on the
     # fp32 master (TF32 off), every attn_prefill on the simt kernel; then
     # the fp32 engines, captured, against greedy and their eager twin
@@ -2205,6 +2317,51 @@ def spec_phase(cfg, master, params, device, qp_tok_s, rehearse):
                 == launches32["attn_prefill"]:
             fail(f"an fp32 verify or admission did not run the simt "
                  f"attn_prefill: {variants32}")
+    return run["launches"], run["variants"]
+
+
+def wide_spec_phase(device, seed, rehearse):
+    """Speculative serving of a wide dense model at full depth with an int8
+    KV cache: WIDE_SPEC (qwen2.5-14b, 48 of 48 layers) built from a seed
+    in one ``init_export`` pass into its bf16 target (the FLOAT policy's
+    serve form, launch/serve.py's ``to_bf16``) and its W3A8 ``qp`` drafter
+    (``draft_of`` slices the export, at full depth), the build's peak
+    gated by ``_build_gate`` on both trees; served for the dense phase's 8
+    requests x DENSE_NEW tokens, spec_k SPEC_K, gated as the spec phase
+    gates its engines (``_spec_engines``); the captured engine's steady
+    tick. Returns the captured run's launches and variants."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.profile_engine import prompts
+    from repro_torch.launch.serve import export_qp, to_bf16
+    from repro_torch.models import api
+    cfg = get_config(WIDE_SPEC)
+    full = cfg.num_layers
+    if rehearse:
+        cfg = reduced(cfg)
+    what = f"wide spec {WIDE_SPEC}"
+    (target, qp), build_s, build_gb = build_model(cfg, device, seed,
+                                                  (to_bf16, export_qp))
+    build = _build_gate(cfg, (target, qp), build_s, build_gb, what)
+    dcfg, dparams = api.draft_of(cfg, qp)
+    reqs = [p for i, p in enumerate(prompts(cfg.vocab_size))
+            if i in DENSE_PROMPTS]
+    # the eager twin's steady tick (0.8 s of host a tick at 48 layers) is
+    # left out for the script's time limit: its tokens are still gated
+    rec, run = _spec_engines(cfg, target, dcfg, dparams, device, reqs,
+                             DENSE_NEW, rehearse, kv_bits=8,
+                             steady=("captured",))
+    out = {"phase": "wide_spec", "arch": WIDE_SPEC,
+           "layers": cfg.num_layers, "full_layers": full,
+           "cut": "CPU rehearsal: reduced()" if rehearse else "none",
+           "target": "bf16 cast (FLOAT policy), from the drafter's pass",
+           "drafter": f"draft_of: qp export, {dcfg.num_layers} layers",
+           **build, **rec}
+    if device.type == "cuda":
+        out["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+    del target, qp, dparams
+    _fresh(device)
+    emit(out)
     return run["launches"], run["variants"]
 
 
@@ -2501,40 +2658,37 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
 # --- phase 8 ----------------------------------------------------------------------
 
 def dense_phase(device, seed, rehearse):
-    """The rest of the dense family: each model of DENSE built from a
-    seeded generator on the card, exported to W3A8 containers (the fp32
-    master freed after the export), served for DENSE_REQUESTS requests x
-    DENSE_NEW tokens by ServingEngine(slots=8, max_len=512, bf16 KV)
-    captured and as its capture=False twin, gated as the engine phase
-    gates (identical tokens, replay only, every kernel launched in the
-    variant its plan gives, every readout of the untied head in qmatmul's
-    k_lanes layout), then the path check and each twin's steady tick.
-    Returns the summed launches and variants of the captured runs."""
-    import dataclasses
+    """The rest of the dense family at full depth: each model of DENSE
+    built from a seeded generator on the card one layer at a time into
+    W3A8 containers (``build_model``; its peak gated by ``_build_gate``),
+    served for DENSE_REQUESTS requests x DENSE_NEW tokens by
+    ServingEngine(slots=8, max_len=512, bf16 KV) captured and as its
+    capture=False twin, gated as the engine phase gates (identical tokens,
+    replay only, every kernel launched in the variant its plan gives,
+    every readout of the untied head in qmatmul's k_lanes layout), then
+    the path check and each twin's steady tick. Returns the summed
+    launches and variants of the captured runs."""
     import gc
 
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.precision import W3A8
     from repro_torch.launch.profile_engine import prompts
+    from repro_torch.launch.serve import export_qp
     from repro_torch.serving.engine import ServingEngine
     launches, variants = None, None
     models = []
-    for arch, layers, small in DENSE:
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+    for arch, small in DENSE:
         cfg = get_config(arch)
         full = cfg.num_layers
         if rehearse:
             cfg = reduced(cfg, **small)
-        elif layers:
-            cfg = dataclasses.replace(cfg, num_layers=layers)
-        master, params, build_s = build_model(cfg, device, seed)
-        del master
-        gc.collect()
+        t0 = time.perf_counter()
+        params, build_s, build_gb = build_model(cfg, device, seed, export_qp)
+        what = f"dense {arch}"
+        build = _build_gate(cfg, params, build_s, build_gb, what)
         reqs = [p for i, p in enumerate(prompts(cfg.vocab_size))
                 if i in DENSE_PROMPTS]
-        what = f"dense {arch}"
 
         def make(capture):
             return ServingEngine(params, cfg, policy=W3A8, slots=8,
@@ -2567,22 +2721,24 @@ def dense_phase(device, seed, rehearse):
                "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
                "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
                "qkv_bias": cfg.qkv_bias, "qk_norm": cfg.qk_norm,
-               "tie_embeddings": cfg.tie_embeddings,
-               "init_export_s": round(build_s, 3),
+               "tie_embeddings": cfg.tie_embeddings, **build,
                "requests": len(done), **_run_line(run),
                "eager_twin": _run_line(runs["eager"]),
                "captured_eager_token_identical": True,
                "launches": run["launches"],
                "launches_by_variant": run["variants"],
                "plain_calls": run["plain"]}
+        t1 = time.perf_counter()
         rec["steady"] = {name: _steady(e, cfg, device, rehearse,
                                        names=("qmatvec", "qmatmul",
                                               "attn_decode"))
                          for name, e in engines.items()}
         del engines, runs
+        t2 = time.perf_counter()
         rec["path"] = _path_check(cfg, params, device)
         if device.type == "cuda":
             rec["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+        rec["seconds"] = _seconds(t0, build_s, t1, t2)
         models.append(rec)
         if launches is None:
             launches, variants = run["launches"], run["variants"]
@@ -2595,7 +2751,8 @@ def dense_phase(device, seed, rehearse):
         if device.type == "cuda":
             torch.cuda.empty_cache()
     emit({"phase": "dense", "engine": "ServingEngine(slots=8, max_len=512, "
-          "bf16, kv bf16), W3A8 qp export of a seeded fp32 master",
+          "bf16, kv bf16), W3A8 qp export built a layer at a time from a "
+          "seed (init_export)",
           "requests": f"{len(DENSE_PROMPTS)} x {DENSE_NEW} new tokens",
           "models": models})
     return launches, variants
@@ -2814,9 +2971,10 @@ def _moe_path_check(cfg, params, device, max_len):
 
 def moe_phase(device, seed, rehearse):
     """The MoE family and the sliding-window ring at full width:
-    phi3.5-moe (8 of 32 layers) and mixtral-8x22b (4 of 56 layers), each
-    from a seeded generator on the card, exported to W3A8 containers (the
-    expert stacks as int8 levels; the fp32 master freed after the export),
+    phi3.5-moe (all 32 layers) and mixtral-8x22b (4 of 56 layers,
+    MOE_CUT), each built from a seeded generator on the card one layer at
+    a time into W3A8 containers (the expert stacks as int8 levels; the
+    build's peak gated by ``_build_gate``),
     served by ServingEngine(slots=8, bf16, kv bf16; max_len 512, and 8192
     for mixtral, whose cache is then a 4096-slot ring) captured and as its
     capture=False twin: phi3.5-moe 8 requests x MOE_NEW tokens; mixtral
@@ -2836,6 +2994,7 @@ def moe_phase(device, seed, rehearse):
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.precision import W3A8
     from repro_torch.launch.profile_engine import prompts
+    from repro_torch.launch.serve import export_qp
     from repro_torch.models.transformer import cache_len_for
     from repro_torch.serving.engine import ServingEngine
     launches, variants = None, None
@@ -2848,18 +3007,13 @@ def moe_phase(device, seed, rehearse):
             cfg = reduced(cfg)
             if cfg.sliding_window:
                 max_len, wrap, solo = 128, (28, 12), (40, 8)
-        else:
+        elif layers:
             cfg = dataclasses.replace(cfg, num_layers=layers)
         cs = cache_len_for(cfg, max_len)
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        master, params, build_s = build_model(cfg, device, seed)
-        build_gb = (round(torch.cuda.max_memory_allocated() / 1e9, 2)
-                    if device.type == "cuda" else None)
-        del master
-        gc.collect()
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
+        what = f"moe {arch}"
+        t0 = time.perf_counter()
+        params, build_s, build_gb = build_model(cfg, device, seed, export_qp)
+        build = _build_gate(cfg, params, build_s, build_gb, what)
         base = [p for i, p in enumerate(prompts(cfg.vocab_size))
                 if i in DENSE_PROMPTS]
         reqs, news = base, [MOE_NEW] * len(base)
@@ -2869,53 +3023,65 @@ def moe_phase(device, seed, rehearse):
                      enumerate((wrap, solo))]
             reqs = base[:4] + longs
             news = [MOE_NEW] * 4 + [wrap[1], solo[1]]
-        what = f"moe {arch}"
 
         def make(capture):
             return ServingEngine(params, cfg, policy=W3A8, slots=8,
                                  max_len=max_len, dtype=torch.bfloat16,
                                  capture=capture, device=device)
-        engines = {"captured": _warmed(make(None), reqs),
-                   "eager": _warmed(make(False), reqs)}
-        logs = {name: _admission_log(e) for name, e in engines.items()}
-        runs = {name: _serve(e, reqs, device, max_new=news)
-                for name, e in engines.items()}
-        run = runs["captured"]
-        done = run["done"]
-        if [len(r.out) for r in done] != news:
-            fail(f"{what}: not every request got its tokens: "
-                 f"{[len(r.out) for r in done]} of {news}")
-        _twin_gate(runs, what)
-        ring = {}
-        if cfg.sliding_window:
-            for name, e in engines.items():
+        # one engine on the card at a time: beside phi3.5-moe's 41 GB
+        # export the captured engine's graph pools (16 GB) and the eager
+        # twin's admissions do not both fit
+        runs, logs, ring, steady = {}, {}, {}, {}
+        steady_s = 0.0
+        for name, capture in (("captured", None), ("eager", False)):
+            e = _warmed(make(capture), reqs)
+            log = _admission_log(e)
+            runs[name] = _serve(e, reqs, device, max_new=news)
+            logs[name] = {k: list(v) for k, v in log.items()}   # the serve's
+            if cfg.sliding_window:
                 ring[name] = {"solo_admissions": len(logs[name]["solo"]),
                               "max_slot_len": int(e.cache["len"].max()),
                               "cache_len": cs}
                 if not logs[name]["solo"] or ring[name]["max_slot_len"] <= cs:
                     fail(f"{what} {name}: no solo admission or no slot past "
                          f"the {cs}-slot ring: {ring[name]}")
-            if not any(len(r.prompt) <= cs < len(r.prompt) + len(r.out)
-                       for r in done):
-                fail(f"{what}: no bucketed request decoded past the ring")
-        if not rehearse:
-            for name, e in engines.items():
+            if not rehearse:
                 _moe_launch_gate(e, cfg, runs[name], logs[name]["tokens"],
                                  f"{what} {name}")
-            if runs["eager"]["launches"] != run["launches"] \
-                    or runs["eager"]["variants"] != run["variants"]:
-                fail(f"{what}: replayed launches {run['variants']} differ "
-                     f"from the eager twin's {runs['eager']['variants']}")
-        cut = (f"depth {cfg.num_layers} of {full}; widths as published"
-               if not rehearse else "CPU rehearsal: reduced()")
+            t1 = time.perf_counter()
+            steady[name] = _steady(e, cfg, device, rehearse,
+                                   names=("qmatvec", "qmatmul",
+                                          "attn_decode"))
+            steady_s += time.perf_counter() - t1
+            del e
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        run = runs["captured"]
+        done = run["done"]
+        if [len(r.out) for r in done] != news:
+            fail(f"{what}: not every request got its tokens: "
+                 f"{[len(r.out) for r in done]} of {news}")
+        _twin_gate(runs, what)
+        if cfg.sliding_window and not any(
+                len(r.prompt) <= cs < len(r.prompt) + len(r.out)
+                for r in done):
+            fail(f"{what}: no bucketed request decoded past the ring")
+        if not rehearse and (runs["eager"]["launches"] != run["launches"]
+                             or runs["eager"]["variants"] != run["variants"]):
+            fail(f"{what}: replayed launches {run['variants']} differ "
+                 f"from the eager twin's {runs['eager']['variants']}")
+        cut = ("CPU rehearsal: reduced()" if rehearse else "none"
+               if cfg.num_layers == full else
+               f"depth {cfg.num_layers} of {full}; widths as published; "
+               f"{MOE_CUT}")
         rec = {"arch": arch, "layers": cfg.num_layers, "full_layers": full,
                "cut": cut, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
                "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
                "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
                "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
                "sliding_window": cfg.sliding_window, "max_len": max_len,
-               "cache_len": cs, "init_export_s": round(build_s, 3),
-               "build_peak_gb": build_gb,
+               "cache_len": cs, **build,
                "requests": [f"{len(p)} prompt + {n} new"
                             for p, n in zip(reqs, news)],
                **_run_line(run), "eager_twin": _run_line(runs["eager"]),
@@ -2924,15 +3090,14 @@ def moe_phase(device, seed, rehearse):
                "ring": ring,
                "launches": run["launches"],
                "launches_by_variant": run["variants"],
-               "plain_calls": run["plain"]}
-        rec["steady"] = {name: _steady(e, cfg, device, rehearse,
-                                       names=("qmatvec", "qmatmul",
-                                              "attn_decode"))
-                         for name, e in engines.items()}
-        del engines, runs
+               "plain_calls": run["plain"], "steady": steady}
+        del runs
+        t2 = time.perf_counter()
         rec["path"] = _moe_path_check(cfg, params, device, max_len)
         if device.type == "cuda":
             rec["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+        rec["seconds"] = _seconds(t0, build_s, t2 - steady_s, t2,
+                                  steady_s)
         models.append(rec)
         if launches is None:
             launches, variants = run["launches"], run["variants"]
@@ -2945,8 +3110,8 @@ def moe_phase(device, seed, rehearse):
         if device.type == "cuda":
             torch.cuda.empty_cache()
     emit({"phase": "moe", "engine": "ServingEngine(slots=8, bf16, kv bf16), "
-          "W3A8 qp export of a seeded fp32 master (expert stacks as int8 "
-          "levels)", "models": models})
+          "W3A8 qp export built a layer at a time from a seed (init_export; "
+          "expert stacks as int8 levels)", "models": models})
     return launches, variants
 
 
@@ -3176,18 +3341,22 @@ def _ssm_resilience(cfg, master, params, device, reqs):
 
 
 def ssm_phase(device, seed, rehearse):
-    """The state-space and hybrid families at full width and depth: each
-    model of SSM built from a seeded generator on the card and exported to
-    W3A8 containers, served captured and as its capture=False twin (the
-    hybrid also with an int8 KV cache), gated (``_ssm_launch_gate``),
-    its path check; for the hybrid also speculative serving with the fp32
-    gate (``_ssm_spec``) and the resilience case (``_ssm_resilience``).
+    """The state-space and hybrid families at full width: each model of
+    SSM (mamba2-2.7b at 32 of 64 layers, zamba2-1.2b at 20 of 38, cuts
+    for the script's time limit) built from a seeded generator on the card
+    and exported to W3A8 containers, served captured and as its
+    capture=False twin (the hybrid also with an int8 KV cache), gated
+    (``_ssm_launch_gate``), its path check; for the hybrid also
+    speculative serving with the fp32 gate (``_ssm_spec``) and the
+    resilience case (``_ssm_resilience``).
     Returns the summed launches and variants of the captured runs."""
+    import dataclasses
     import gc
 
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.profile_engine import prompts
+    from repro_torch.launch.serve import as_master, export_qp
     t0 = time.perf_counter()
     launches, variants = None, None
     models = []
@@ -3200,24 +3369,29 @@ def ssm_phase(device, seed, rehearse):
         launches = {k: launches[k] + v for k, v in run["launches"].items()}
         variants = {n: {k: variants[n][k] + c for k, c in d.items()}
                     for n, d in run["variants"].items()}
-    for arch, small in SSM:
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+    for arch, layers, small in SSM:
+        t_model = time.perf_counter()
         cfg = get_config(arch)
         full = cfg.num_layers
         if rehearse:
             cfg = reduced(cfg, **small)
-        master, params, build_s = build_model(cfg, device, seed)
-        if cfg.family == "ssm":
-            del master
+        elif layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        # the hybrid's spec and resilience cases serve its fp32 master too
+        if cfg.family == "hybrid":
+            (master, params), build_s, _ = build_model(
+                cfg, device, seed, (as_master, export_qp))
+        else:
             master = None
-            gc.collect()
+            params, build_s, _ = build_model(cfg, device, seed, export_qp)
         reqs = [p for i, p in enumerate(prompts(cfg.vocab_size))
                 if i in DENSE_PROMPTS]
         rec = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
                "full_layers": full,
                "cut": (f"CPU rehearsal: reduced({small})" if rehearse
-                       else "none"),
+                       else "none" if cfg.num_layers == full else
+                       f"depth {cfg.num_layers} of {full}; widths as "
+                       "published; for the script's time limit"),
                "d_model": cfg.d_model, "d_inner": cfg.d_inner,
                "ssm_heads": cfg.ssm_heads, "ssm_state": cfg.ssm_state,
                "vocab": cfg.vocab_size,
@@ -3238,13 +3412,14 @@ def ssm_phase(device, seed, rehearse):
                                                 reqs)
         if device.type == "cuda":
             rec["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 2)
+        rec["seconds"] = round(time.perf_counter() - t_model, 1)
         models.append(rec)
         del master, params
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()
     emit({"phase": "ssm", "engine": "ServingEngine(slots=8, max_len=512, "
-          "bf16), W3A8 qp export of a seeded fp32 master",
+          "bf16), W3A8 qp export of a seeded fp32 master (init_export)",
           "requests": f"{len(DENSE_PROMPTS)} x {SSM_NEW} new tokens",
           "models": models, "seconds": round(time.perf_counter() - t0, 1)})
     return launches, variants
@@ -5053,6 +5228,7 @@ def main(argv=None) -> int:
               "false); use --rehearse for the CPU rehearsal", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import as_master, export_qp, to_bf16
 
     device = torch.device("cpu" if args.rehearse else "cuda")
     cfg = get_config("qwen2-1.5b")
@@ -5064,16 +5240,20 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     if args.phase == "analysis":
-        _, params, _ = build_model(cfg, device, args.seed)
+        params, _, _ = build_model(cfg, device, args.seed, export_qp)
         analysis_phase(cfg, params, device, args.rehearse, None)
         print(smi, flush=True)
         return 0
     headline, routes = parity_phase(cfg, device, args.rehearse)
-    master, params, build_s = build_model(cfg, device, args.seed)
+    # the fp32 master (the fp32 engines' weights), its bf16 cast (the spec
+    # phase's target) and its qp export, from one layer-wise pass
+    (master, target, params), build_s, build_gb = build_model(
+        cfg, device, args.seed, (as_master, to_bf16, export_qp))
     emit({"phase": "model", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "form": "qp (W3A8 export_container)", "init_export_s":
-          round(build_s, 3)})
+          round(build_s, 3), "built": "fp32 master, bf16 cast, qp export",
+          "build_peak_gb": None if build_gb is None else round(build_gb, 2)})
     launches, variants, qp_tok_s = engine_phase(cfg, params, device, None,
                                                 args.rehearse)
     gen_launches, gen_variants = generate_phase(cfg, params, device,
@@ -5085,8 +5265,9 @@ def main(argv=None) -> int:
     quarantine_phase(cfg, params, device, args.rehearse)
     path_phase(cfg, params, device)
     spec_launches, spec_variants = spec_phase(
-        *_first_layers(cfg, (master, params), SPEC_LAYERS), device,
+        *_first_layers(cfg, (master, target, params), SPEC_LAYERS), device,
         qp_tok_s, args.rehearse)
+    del target
     # parked on the host while the paper, deploy and dense phases hold the
     # card, back for the resilience phase
     master, params = _on(master, "cpu"), _on(params, "cpu")
@@ -5098,6 +5279,8 @@ def main(argv=None) -> int:
     dense_launches, dense_variants = dense_phase(device, args.seed,
                                                  args.rehearse)
     moe_launches, moe_variants = moe_phase(device, args.seed, args.rehearse)
+    wide_launches, wide_variants = wide_spec_phase(device, args.seed,
+                                                   args.rehearse)
     ssm_launches, ssm_variants = ssm_phase(device, args.seed, args.rehearse)
     train_launches, train_variants = train_phase(device, args.seed,
                                                  args.rehearse)
@@ -5126,6 +5309,7 @@ def main(argv=None) -> int:
                        deploy=deploy_launches[name],
                        dense=dense_launches[name],
                        moe=moe_launches[name],
+                       wide_spec=wide_launches[name],
                        ssm=ssm_launches[name],
                        train=train_launches[name],
                        dist=dist_launches[name],
@@ -5152,6 +5336,7 @@ def main(argv=None) -> int:
                                      "deploy": deploy_variants[name],
                                      "dense": dense_variants[name],
                                      "moe": moe_variants[name],
+                                     "wide_spec": wide_variants[name],
                                      "ssm": ssm_variants[name],
                                      "train": train_variants[name],
                                      "dist": dist_variants[name],

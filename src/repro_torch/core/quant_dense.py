@@ -279,8 +279,9 @@ def fit_deltas_stacked(params: Any, policy: QuantPolicy) -> Any:
 # the fit runs one stacked index and one block of output columns of at
 # most _FIT_BLOCK elements at a time, so its temporaries (a few times the
 # block) stay small beside the master on the card (an MoE expert stack is
-# many GB); each column's delta is its own, so the levels and deltas are
-# those of fitting the whole leaf at once
+# many GB; an unstacked leaf, the embedding or an untied head, is one
+# stacked index: 3.1 GB in fp32 for qwen3-32b); each column's delta is its
+# own, so the levels and deltas are those of fitting the whole leaf at once
 _FIT_BLOCK = 1 << 28
 
 
@@ -295,10 +296,6 @@ def _quantize_leaf(leaf: torch.Tensor, spec: qz.QuantSpec, nd: int):
         dshape = tuple(lead) + (1,) * (leaf.dim() - len(lead) - 1) + (n,)
         return (torch.empty(leaf.shape, dtype=torch.int8, device="meta"),
                 torch.empty(dshape, dtype=torch.float32, device="meta"))
-    if nd == 0:
-        d = qz.optimal_uniform_delta(leaf, cspec)
-        q = qz.quantize_levels(leaf, d, cspec)
-        return q, d.reshape([1] * (leaf.dim() - 1) + [leaf.shape[-1]])
     flat = leaf.reshape(-1, math.prod(leaf.shape[nd:-1]), n)   # (P, K, N)
     q = torch.empty(flat.shape, dtype=torch.int8, device=leaf.device)
     d = torch.empty((flat.shape[0], 1, n), dtype=torch.float32,

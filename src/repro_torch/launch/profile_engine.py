@@ -48,9 +48,10 @@ tick's ``attn_prefill`` is all verify.
 ``--fp32`` serves the seeded fp32 master itself (FLOAT policy, fp32
 activations and K/V; with ``--spec-k`` its qp export drafts), as
 ``chip_smoke.py``'s fp32 gates and resilience phase do: every
-``attn_prefill`` then runs the fp32 kernel. It builds the model from the
-port's ``models`` and ``api.draft_of``, which every tree of the port has,
-so the file can time another tree's ``src`` (``PYTHONPATH``).
+``attn_prefill`` then runs the fp32 kernel. Every form is built one layer
+at a time on the card (``api.init_export``; with ``--spec-k`` the master
+and its drafter in one pass), so the file can time another tree's ``src``
+(``PYTHONPATH``) if that tree has ``init_export``.
 """
 from __future__ import annotations
 
@@ -62,9 +63,9 @@ import time
 import torch
 
 from repro_torch.core.precision import FLOAT
-from repro_torch.launch.serve import build_params, config_for
+from repro_torch.launch.serve import (as_master, build_params, config_for,
+                                     export_qp)
 from repro_torch.models import api as model_api
-from repro_torch.models import get_model
 from repro_torch.serving.engine import ServingEngine, check_family
 
 # launch/serve.py's prompt mix, then 100-250-token prompts that reach the
@@ -119,15 +120,16 @@ def device_ms_by_kernel(prof, kernels=KERNELS):
 
 
 def _cuda_rows(prof):
-    """(name, self device ms) of the profiler's CUDA-type rows."""
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us:
-            yield ev.key, us / 1e3
+    """(name, device ms) of each CUDA-type event of the profiler's trace
+    (kernels, copies, sets), read from its raw kineto events: what the
+    CUDA-type rows of ``key_averages()`` sum, without the function events
+    it parses first (seconds of host for four eager ticks of a 64-layer
+    model)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == cuda and not ev.is_async() \
+                and ev.duration_ns():
+            yield ev.name(), ev.duration_ns() / 1e6
 
 
 def qmatvec_ms_by_variant(prof):
@@ -240,10 +242,14 @@ def main(argv=None):
     if args.fp32:
         quant = "float32"
         gen = torch.Generator(device=dev).manual_seed(0)
-        params = get_model(cfg).init(gen, cfg, device=dev)
         policy, draft_cfg, draft_params = FLOAT, None, None
         if spec_k:
-            draft_cfg, draft_params = model_api.draft_of(cfg, params)
+            params, qp = model_api.init_export(gen, cfg,
+                                               (as_master, export_qp),
+                                               device=dev)
+            draft_cfg, draft_params = model_api.draft_of(cfg, qp)
+        else:
+            params = model_api.init_export(gen, cfg, as_master, device=dev)
     else:
         quant = args.quant or ("float" if spec_k else "w3")
         params, policy, draft_cfg, draft_params = build_params(

@@ -11,11 +11,13 @@ mamba2-2.7b and the hybrid zamba2-1.2b; musicgen-large and internvl2-26b,
 served as their decoders). ``--kv8`` and ``--spec-k`` refuse mamba2-2.7b
 (no KV cache, a state that cannot be rewound) with the engine's error.
 ``--reduced`` shrinks the model for a rehearsal; ``--device cpu`` runs the
-kernels' plain versions on the CPU. ``--layers N`` keeps the first N
-layers at full width: the export is made from an fp32 master on the card,
-and qwen2.5-14b's (59 GB), qwen3-32b's (131 GB), phi3.5-moe's (168 GB) and
-mixtral-8x22b's (564 GB) do not fit one 80 GB card at full depth. ``--spec-k K`` serves speculatively:
-the packed 3-bit export of the same master weights drafts K tokens a tick
+kernels' plain versions on the CPU. The weights are built on the card one
+layer at a time into their serve form (``api.init_export``), so every
+config but mixtral-8x22b serves at full depth on one 80 GB card
+(qwen3-32b's W3A8 export is 14 GB, its fp32 master 131 GB); ``--layers N``
+keeps the first N layers at full width (mixtral-8x22b: its int8 expert
+levels alone are 136 GB). ``--spec-k K`` serves speculatively:
+the packed 3-bit export of the same weights drafts K tokens a tick
 (``--draft-depth`` keeps a leading share of its layers) and the target
 verifies them. The same flags as the reference's ``launch/serve.py``,
 the overload and durability ones among them:
@@ -42,7 +44,6 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import quant_dense
 from repro_torch.core.precision import FLOAT, W3A8
 from repro_torch.models import api as model_api
-from repro_torch.models import get_model
 from repro_torch.serving.engine import ServingEngine, check_family
 
 
@@ -66,28 +67,54 @@ def config_for(arch: str, *, small: bool = False, layers=None):
     return cfg
 
 
+def as_master(tree):
+    """The float master itself: the ``--form w`` serve tree (the W3A8
+    policy fake-quantizes it on the fly) and the fp32 engines' weights."""
+    return tree
+
+
+def to_bf16(tree):
+    """The ``--quant float`` serve tree: the master cast once to bf16."""
+    return cast_weights(tree, torch.bfloat16)
+
+
+def export_q(tree):
+    """The W3A8 int8-level export (``--form q``)."""
+    return quant_dense.export_levels(tree, W3A8)
+
+
+def export_qp(tree):
+    """The W3A8 packed 3-bit container export (``--form qp``, and every
+    speculative drafter)."""
+    return quant_dense.export_container(tree, W3A8)
+
+
+SERVE_EXPORTS = {"w": as_master, "q": export_q, "qp": export_qp}
+
+
 def build_params(cfg, *, quant: str, form: str, seed: int, device,
                  spec_k: int = 0, draft_depth: float = 1.0):
-    """Float master weights from a seeded generator on ``device``, exported
-    to the serve form there, or for ``quant="float"`` cast once to bf16,
-    the serving dtype; the fp32 master is freed. With ``spec_k`` the
-    drafter is derived from the master BEFORE the export (``draft_of``
-    exports its own slice to ``qp``). Returns (params, policy, draft_cfg,
-    draft_params), the last two None without ``spec_k``."""
+    """Weights from a seeded generator, built on ``device`` one layer at a
+    time into their serve form (``api.init_export``: the fp32 master is
+    never whole there): the W3A8 export of ``form``, or for
+    ``quant="float"`` the bf16 cast, the serving dtype. With ``spec_k`` the
+    drafter (``draft_of``) is the ``qp`` export of the same weights: the
+    served export itself under ``form="qp"``, else built in the same pass.
+    Returns (params, policy, draft_cfg, draft_params), the last two None
+    without ``spec_k``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = get_model(cfg).init(gen, cfg, device=device)
+    serve, policy = ((SERVE_EXPORTS[form], W3A8) if quant == "w3"
+                     else (to_bf16, FLOAT))
+    if spec_k and serve is not export_qp:
+        params, qp = model_api.init_export(gen, cfg, (serve, export_qp),
+                                           device=device)
+    else:
+        params = qp = model_api.init_export(gen, cfg, serve, device=device)
     draft_cfg = draft_params = None
     if spec_k:
         draft_cfg, draft_params = model_api.draft_of(
-            cfg, params, depth_fraction=draft_depth)
-    if quant != "w3":
-        return (cast_weights(params, torch.bfloat16), FLOAT, draft_cfg,
-                draft_params)
-    export = {"q": quant_dense.export_levels,
-              "qp": quant_dense.export_container}.get(form)
-    if export:
-        params = export(params, W3A8)
-    return params, W3A8, draft_cfg, draft_params
+            cfg, qp, depth_fraction=draft_depth)
+    return params, policy, draft_cfg, draft_params
 
 
 def main(argv=None):

@@ -5,9 +5,10 @@ packed 3-bit weights read through the on-chip dequantization path.
     PYTHONPATH=src python -m repro_torch.launch.serve_quantized           # the card
     PYTHONPATH=src python -m repro_torch.launch.serve_quantized --device cpu
 
-On the card: qwen2-1.5b at full size, its fp32 master made from seed 0
-there and exported to W3A8 ``qp`` containers; on the CPU the reference
-example's ``reduced`` size (4 layers, d_model 128, vocab 512). Then
+On the card: qwen2-1.5b at full size, made from seed 0 there one layer
+at a time, each layer exported to W3A8 ``qp`` containers as it is drawn;
+on the CPU the reference example's ``reduced`` size (4 layers, d_model
+128, vocab 512). Then
 ``generate`` (its decode step a CUDA graph on the card) on a batch of 4
 prompts, and continuous batching of 6 mixed-length requests through
 ``ServingEngine``: one decode step a tick for every active slot, so the
@@ -22,9 +23,10 @@ import argparse
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import quant_dense
 from repro_torch.core.precision import W3A8
+from repro_torch.launch.serve import export_qp
 from repro_torch.models import get_model
+from repro_torch.models.api import init_export
 from repro_torch.serving.engine import ServingEngine, generate
 
 MAX_NEW = 16                    # generate's new tokens a row
@@ -70,12 +72,12 @@ def main(argv=None) -> dict:
     if dev.type == "cpu":
         cfg = reduced(cfg, layers=4, d_model=128, vocab=512)
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = get_model(cfg).init(gen, cfg, device=dev)
 
-    # deploy: quantize + pack (the paper's "download to the accelerator")
-    float_bytes = _nbytes(params)
-    serve_params = quant_dense.export_container(params, W3A8)
-    del params
+    # deploy: quantize + pack (the paper's "download to the accelerator"),
+    # one layer at a time as it is drawn: the fp32 master is never whole
+    float_bytes = _nbytes(get_model(cfg).init(torch.Generator(), cfg,
+                                              device="meta"))
+    serve_params = init_export(gen, cfg, export_qp, device=dev)
     print(f"deployed weights: {float_bytes / 2**20:.1f} MB fp32 -> "
           f"{_nbytes(serve_params) / 2**20:.2f} MB packed")
 

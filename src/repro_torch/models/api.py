@@ -3,6 +3,7 @@
 ``transformer``; ssm: ``mamba2``; hybrid: ``hybrid``).
 
     init(gen, cfg, dtype, device)                        -> params
+    init_export(gen, cfg, exports, dtype=, device=)      -> serve tree(s)
     forward(params, batch, cfg, *, policy, deltas, ...)  -> (logits, aux)
     prefill(params, batch, cfg, *, policy, ...)          -> (logits, cache)
     decode_step(params, cache, tokens, cfg, *, policy)   -> (logits, cache)
@@ -35,7 +36,7 @@ from repro_torch.core.precision import W3A8
 from repro_torch.core.treeutil import flatten_with_path, unflatten
 from repro_torch.models import hybrid, mamba2, transformer
 
-__all__ = ["get_model", "init_cache", "prefill", "decode_step",
+__all__ = ["get_model", "init_export", "init_cache", "prefill", "decode_step",
            "verify_step", "rollback_cache", "spec_state_snapshot", "draft_of",
            "insert_prefill", "insert_prefill_many", "free_slots",
            "cache_to_host", "cache_from_host"]
@@ -50,6 +51,66 @@ _FAMILY_MODULE = {
 
 def get_model(cfg: ModelConfig) -> ModuleType:
     return _FAMILY_MODULE[cfg.family]
+
+
+def _each(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _each(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_export(gen: torch.Generator, cfg: ModelConfig, exports, *,
+                dtype=torch.float32, device=None):
+    """The serve form of a seeded master, built without the whole master:
+    ``exports`` is one function from a float tree to a serve tree
+    (``quant_dense.export_container`` or ``export_levels`` under W3A8, the
+    bf16 cast ``launch/serve.py::cast_weights``, the identity), or a tuple
+    of them; the result is the matching tree, or tuple of trees, each
+    equal bit for bit to ``export(get_model(cfg).init(gen, cfg, dtype,
+    device))``, and ``gen`` is left in the state ``init`` leaves it in.
+
+    The transformer families (dense, moe, audio, vlm) draw their parts in
+    ``init``'s order (``transformer.init_parts``) and export each part as
+    it is drawn: a layer as a stack of one (its leaves keep their stacked
+    axis, so an export fits it exactly as it fits its slot of the whole
+    stack: the fit, the levels and the packing are by stacked index and
+    output column, ``quant_dense._quantize_leaf``), copied into (L, ...)
+    output stacks; then the embedding, the final norm and any untied
+    head, one at a time. Every export reads each part of one draw, and
+    each part is freed before the next is drawn, so the device holds the
+    exports, one part in fp32 and the fit's temporaries — never the
+    master. ``quant_dense.k_major_head`` is applied to each finished tree
+    (the whole-tree container export applies it; on any other tree it is
+    the identity).
+
+    The ssm and hybrid families compose ``init`` and the exports: their
+    masters fit a card (mamba2-2.7b's is 10.8 GB), and their stacks
+    (hybrid ``groups``, ``tail``) are drawn as one. So is a config with no
+    layer (the dry run's zero-depth lowering)."""
+    single = callable(exports)
+    fns = (exports,) if single else tuple(exports)
+    mod = get_model(cfg)
+    if mod is not transformer or cfg.num_layers == 0:
+        master = mod.init(gen, cfg, dtype, device)
+        outs = tuple(f(master) for f in fns)
+    else:
+        n = cfg.num_layers
+        layers, rest = [None] * len(fns), [{} for _ in fns]
+        for key, part in transformer.init_parts(gen, cfg, dtype, device):
+            if isinstance(key, int):
+                one = {"layers": _each(lambda t: t[None], part)}
+                for j, f in enumerate(fns):
+                    layers[j] = transformer._stack_into(
+                        layers[j], _each(lambda t: t[0], f(one)["layers"]),
+                        key, n)
+                del one
+            else:
+                for j, f in enumerate(fns):
+                    rest[j][key] = f({key: part})[key]
+            del part
+        outs = tuple(quant_dense.k_major_head(transformer.assemble(s, r))
+                     for s, r in zip(layers, rest))
+    return outs[0] if single else outs
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,

@@ -57,10 +57,10 @@ from repro_torch.models.layers import (apply_rope, dget, embed_init,
                                        logits_readout, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, rope_freqs)
 
-__all__ = ["init", "forward", "cache_len_for", "init_cache", "prefill",
-           "decode_step", "verify_step", "spec_state_snapshot",
-           "rollback_cache", "insert_prefill", "insert_prefill_many",
-           "free_slots", "unstack", "remat_layer"]
+__all__ = ["init", "init_parts", "assemble", "forward", "cache_len_for",
+           "init_cache", "prefill", "decode_step", "verify_step",
+           "spec_state_snapshot", "rollback_cache", "insert_prefill",
+           "insert_prefill_many", "free_slots", "unstack", "remat_layer"]
 
 
 # the families this module serves: audio and vlm are the dense decoder whose
@@ -111,6 +111,31 @@ def _stack_into(stacks, tree, i: int, n: int):
     return stacks
 
 
+def init_parts(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+               device=None):
+    """The master of :func:`init`, one part at a time in its draw order:
+    ``(i, tree)`` for layer i of L, then ``(key, tree)`` for the embedding,
+    the final norm and any untied head. A part is drawn only when the
+    caller asks for the next, so a caller that frees each part first holds
+    one at a time (``api.init_export``); this is the one definition of the
+    draw order."""
+    _check_supported(cfg)
+    for i in range(cfg.num_layers):
+        yield i, _layer_init(gen, cfg, dtype, device)
+    yield "embed", embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device)
+    yield "final_norm", rmsnorm_init(cfg.d_model, device)
+    if not cfg.tie_embeddings:
+        yield "head", quant_dense.init(gen, cfg.d_model, cfg.vocab_size,
+                                       bias=False, dtype=dtype, device=device)
+
+
+def assemble(layers, rest: Dict[str, Any]) -> Dict[str, Any]:
+    """The params tree in the reference's key order from the stacked
+    ``layers`` and the other parts of :func:`init_parts`."""
+    return {"embed": rest["embed"], "layers": layers,
+            **{k: v for k, v in rest.items() if k != "embed"}}
+
+
 def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
          device=None) -> Dict[str, Any]:
     """Random float master weights from ``gen`` on ``device``, in the
@@ -118,22 +143,17 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     reference's ``jax.random`` init; parity tests bridge JAX weights. Each
     layer is drawn in turn and copied into preallocated (L, ...) stacks, so
     the build holds the master and one layer, never two masters."""
-    _check_supported(cfg)
-    layers = None
-    for i in range(cfg.num_layers):
-        layers = _stack_into(layers, _layer_init(gen, cfg, dtype, device), i,
-                             cfg.num_layers)
+    layers, rest = None, {}
+    for key, part in init_parts(gen, cfg, dtype, device):
+        if isinstance(key, int):
+            layers = _stack_into(layers, part, key, cfg.num_layers)
+        else:
+            rest[key] = part
+        del part
     if layers is None:        # no layer: the dry run's zero-depth lowering
         layers = _empty_stack(_layer_init(torch.Generator(), cfg, dtype,
                                           "meta"), device)
-    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
-                                  device),
-              "layers": layers, "final_norm": rmsnorm_init(cfg.d_model, device)}
-    if not cfg.tie_embeddings:
-        params["head"] = quant_dense.init(gen, cfg.d_model, cfg.vocab_size,
-                                          bias=False, dtype=dtype,
-                                          device=device)
-    return params
+    return assemble(layers, rest)
 
 
 def _empty_stack(tree, device):

@@ -1325,6 +1325,79 @@ def test_quantize_leaf_chunked_on_card(cuda, shape, block, monkeypatch):
     assert torch.equal(part[1], d.reshape(shape[0], 1, 1, shape[-1]))
 
 
+def test_device_ms_by_kernel_equals_key_averages(cuda):
+    """``profile_engine.device_ms_by_kernel`` reads the trace's CUDA events
+    without ``key_averages()``: the same ms by kernel as the CUDA-type
+    rows of ``key_averages()`` give, a port kernel and a library one."""
+    from repro_torch.launch.profile_engine import (KERNELS,
+                                                   device_ms_by_kernel)
+    g = _gen(3)
+    x = torch.randn((8, 1536), generator=g).to(cuda, torch.bfloat16)
+    w = pack_matrix(torch.randint(-3, 4, (1536, 512), generator=g,
+                                  dtype=torch.int8), 3).to(cuda)
+    d = (torch.rand(512, generator=g) * 0.1).to(cuda)
+    qmv_ops.qmatvec(x, w, d, k=1536)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            qmv_ops.qmatvec(x, w, d, k=1536)
+            x @ x.T
+        torch.cuda.synchronize()
+    want = dict.fromkeys(KERNELS + ("other",), 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in KERNELS if f"{k}_kernel" in ev.key),
+                        "other")
+            want[name] += ev.self_device_time_total / 1e3
+    got = device_ms_by_kernel(prof)
+    assert got.keys() == want.keys()
+    for name, ms in want.items():
+        assert got[name] == pytest.approx(ms, rel=1e-9, abs=1e-9), name
+    assert got["qmatvec"] > 0 and got["other"] > 0
+
+
+def test_init_export_layer_by_layer_on_card(cuda):
+    """The layer-wise build of a config whose fp32 layer is 1.95 GB
+    (qwen3-32b at full width, 4 of its 64 layers) on the card: its peak
+    above what was allocated before stays under its export, two fp32
+    layers, the fp32 embedding and 1 GB, and the export is bit-identical
+    to export_container(init(...)) from a generator in the same state."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.treeutil import flatten_with_path
+    from repro_torch.launch.serve import export_qp
+    from repro_torch.models import api, get_model
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in flatten_with_path(tree).values())
+    cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=4)
+    shapes = get_model(cfg).init(torch.Generator(), cfg, device="meta")
+    layer = nbytes(shapes["layers"]) / cfg.num_layers
+    embed = nbytes(shapes["embed"])
+    assert layer > 1.9e9
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    built = api.init_export(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            export_qp, device=cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    export = nbytes(built)
+    assert peak <= export + 2 * layer + embed + 1e9, (peak, export, layer,
+                                                      embed)
+    want = flatten_with_path(export_qp(get_model(cfg).init(
+        torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)))
+    got = flatten_with_path(built)
+    assert list(got) == list(want)
+    for path, w in want.items():
+        assert (got[path].dtype, got[path].shape, got[path].stride()) == \
+            (w.dtype, w.shape, w.stride()), path
+        assert torch.equal(got[path], w), path
+
+
 # --- the state-space and hybrid families --------------------------------------------
 
 # every projection (K, N) of mamba2-2.7b (in_proj, out_proj) and of
