@@ -61,7 +61,13 @@ Phases, each printing one JSON line:
              and of the library call from torch.profiler. The PLAN
              sigmoid (forward and backward) must be bit-identical, NaN where
              the plain version has NaN; its library column is torch.sigmoid
-             (the same bytes, not the same function).
+             (the same bytes, not the same function). Its signal route (the
+             MLP's activation stage: the sigmoid and the per-row 8-bit
+             signal in one launch) at (100, 1022) and (128, 1022), fp32 and
+             bf16, a row of x <= -5 and a NaN row: launched as "signal",
+             twice the same bits, bit-identical to its plain version and to
+             the CPU's sigmoid_pw + fake_quant_act; no library column (no
+             one PyTorch call computes it).
 3. engine    full-width qwen2-1.5b, built from a seeded generator on
              the card one layer at a time (api.init_export) into its fp32
              master, a bf16 cast (phase 5's target) and W3A8 containers,
@@ -155,19 +161,25 @@ Phases, each printing one JSON line:
 7. deploy    the retrained digit net and a seeded full-width phoneme net
              (429-1022x4-61), exported with export_container(W3A8) and run by
              dnn.forward(..., sigmoid_mode="pw") at batch 100 / 128: each
-             forward must launch qmatvec once per hidden layer (its
+             W3A8 forward must launch qmatvec once per hidden layer (its
              prefill kernel), qmatmul once (the head, in the k_lanes
-             layout) and sigmoid_pw once per
-             hidden layer, with no plain version;
+             layout) and sigmoid_pw's signal route once per hidden layer
+             (its elementwise route never), and the W3 forward (8-bit
+             signals off, counted apart) the same but for the elementwise
+             route in place of the signal route, with no plain version;
              each layer must agree with its CPU plain version fed the same
-             input (8-bit signals off; 1e-4 x the row's max, sigmoid_pw bit
-             for bit) and dnn.forward with that chain bit for bit; end to
+             input (1e-4 x the row's max; with 8-bit signals off sigmoid_pw
+             bit for bit, with them on the signal route bit for bit the
+             CPU's sigmoid_pw + fake_quant_act) and dnn.forward with each
+             chain bit for bit; end to
              end against the CPU, the logits must agree within 1e-4 x
              max|logit| but for a few rows, by no more than PLAN's 1/256
              jump at |x| = 2.375 can move them, with greedy agreement
              >= 0.99 (8-bit signals off) and all but a few rows' argmax
-             equal (on). Prints the deployed test MCR and images/s of the
-             W3A8 kernel forward and of the float net, batch 100.
+             equal (on). Prints the deployed test MCR, and the W3A8 kernel
+             forward at batch 100 eager and replayed from one CUDA graph
+             (gated: the eager forward's bits, its launches), ms a call,
+             device ms and images/s, beside the float net's.
 8. dense     the rest of the dense family at full width and depth:
              stablelm-3b (32 layers, head_dim 80, MHA, untied head),
              qwen2.5-14b (48 layers, G = 5, QKV bias), qwen3-32b (64
@@ -368,11 +380,13 @@ Phases, each printing one JSON line:
              a subprocess of its own (--device cpu in the rehearsal): a
              non-zero exit fails the run. Then the script's seconds.
 17. kernels  the per-kernel summary line (one entry per TPU kernel; qmatvec,
-             qmatmul and attn_prefill add their launches by variant /
-             layout / kernel on each path; then one entry for each of
-             qmatmul's n_lanes and the fp32 attn_prefill, with their
-             launches on the q engine and in the resilience phase's fp32
-             engines and every shape the parity phase held them at),
+             qmatmul, attn_prefill and sigmoid_pw add their launches by
+             variant / layout / kernel / route on each path; then one entry
+             for each of qmatmul's n_lanes, the fp32 attn_prefill, the
+             row-major k_lanes and sigmoid_pw's signal route, with their
+             launches on the q engine, in the resilience phase's fp32
+             engines, the moe phase and the deploy phase, and every shape
+             the parity phase held them at),
              then the card line as
              nvidia-smi prints it, then the result line
              {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -421,6 +435,9 @@ VARIANTS = {
     "attn_prefill": ("launches_by_variant",
                      {"wgmma": "src/repro_torch/csrc/attn_prefill_tc.cu",
                       "simt": "src/repro_torch/csrc/attn_prefill.cu"}),
+    "sigmoid_pw": ("launches_by_variant",
+                   {"plain": "src/repro_torch/csrc/sigmoid_pw.cu",
+                    "signal": "src/repro_torch/csrc/sigmoid_pw.cu"}),
 }
 # qmatmul's n_lanes launches by variant (decode for M <= 16, prefill above),
 # read beside its layouts as "qmatmul/n_lanes"
@@ -436,7 +453,11 @@ SIMT_MERGE = "attn_prefill/merge"
 # the largest bucket, fp32 K/V): (kernel, variant, source)
 ROUTES = (("qmatmul", "n_lanes", "src/repro_torch/csrc/qmatmul.cu"),
           ("attn_prefill", "simt", "src/repro_torch/csrc/attn_prefill.cu"),
-          ("qmatmul", "row_major", "src/repro_torch/csrc/qmatmul.cu"))
+          ("qmatmul", "row_major", "src/repro_torch/csrc/qmatmul.cu"),
+          ("sigmoid_pw", "signal", "src/repro_torch/csrc/sigmoid_pw.cu"))
+# the signal route's operations an element: the PLAN product and sum, the
+# row max, the division, the round, the two clip compares and the product
+SIGNAL_OPS = 8
 # the M at which the parity phase holds the q form's projections: decode,
 # an admission (8 slots x bucket 64) and the largest admission
 Q_MS = (8, 512, 2048)
@@ -1416,7 +1437,7 @@ def _mlp_cases(device, clock, rehearse):
             n, xb = x.numel(), x.element_size()
             case = dict(
                 name="sigmoid_pw", shape=label, dtype=dname, err=err,
-                backward_err=0.0,
+                backward_err=0.0, variant="plain",
                 run=(lambda: sig_ops.sigmoid_pw(x)),
                 plain=(lambda: sig_ref.sigmoid_pw(x)),
                 library=(lambda: torch.sigmoid(x)),
@@ -1427,6 +1448,48 @@ def _mlp_cases(device, clock, rehearse):
             case["bytes_moved"] = 2 * n * xb
             yield case
             del x, r
+    yield from _signal_cases(device, randn, dts)
+
+
+def _signal_cases(device, randn, dts):
+    """The signal route (the MLP's activation stage: the PLAN sigmoid and
+    the per-row 8-bit signal in one launch) at the digit and phoneme nets'
+    hidden shapes, launched as ``signal``, bit for bit its plain version on
+    the card and the two-call chain on the CPU; rows 0 and 1 hold every
+    x <= -5 (all zeros) and a NaN (all NaN)."""
+    from repro_torch.core import qat
+    from repro_torch.kernels.sigmoid_pw import ops as sig_ops
+    from repro_torch.kernels.sigmoid_pw import ref as sig_ref
+    for m, n in ((100, 1022), (128, 1022)):
+        for dname, dt in dts:
+            x = randn(m, n)
+            x[0] = -5.0 - x[0].abs()
+            x[1, n // 2] = float("nan")
+            x = x.to(dt)
+            what = f"sigmoid_pw signal ({m}, {n}) {dname}"
+            got, variant = launched_variant(
+                "sigmoid_pw", lambda: sig_ops.sigmoid_pw_signal(x, 8),
+                "signal")
+            # a rerun the same bits (NaN rows: same_bits' torch.equal fails)
+            compare_exact(sig_ops.sigmoid_pw_signal(x, 8), got,
+                          what + " rerun")
+            err = compare_exact(got, sig_ref.sigmoid_pw_signal(x, 8), what)
+            compare_exact(got.cpu(), qat.fake_quant_act(
+                sig_ref.sigmoid_pw_fwd(x.cpu()), 8, signed=False),
+                what + " against the CPU chain")
+            xb = x.element_size()
+            yield dict(
+                name="sigmoid_pw", shape=f"({m}, {n}) signal, 8 bits",
+                dtype=dname, err=err, variant=variant,
+                run=(lambda: sig_ops.sigmoid_pw_signal(x, 8)),
+                plain=(lambda: sig_ref.sigmoid_pw_signal(x, 8)),
+                library=None,
+                library_call="none: no one PyTorch call computes the "
+                             "sigmoid and the per-row signal",
+                bound=bound_ms(2 * m * n * xb, SIGNAL_OPS * m * n, "float32"),
+                headline=False, summary="signal",
+                summary_headline=(m == 100 and dname == "float32"))
+            del x
 
 
 def parity_phase(cfg, device, rehearse):
@@ -1441,8 +1504,9 @@ def parity_phase(cfg, device, rehearse):
         run, plain, library = c.pop("run"), c.pop("plain"), c.pop("library")
         c["ms"], c["device_ms"] = clock(run), clock.device_ms(run)
         c["plain_ms"] = clock(plain)
-        c["library_ms"] = clock(library)
-        c["library_device_ms"] = clock.device_ms(library)
+        c["library_ms"] = clock(library) if library else None
+        c["library_device_ms"] = clock.device_ms(library) if library \
+            else None
         if c["name"] == "attn_prefill" and "kv-int8" in c["dtype"]:
             # measured again in profiler runs of their own: one run once
             # recorded 0.0014 ms for SDPA here, against 0.0276 in bf16
@@ -2483,15 +2547,21 @@ def _mcr(params, task, policy, device):
 
 def _layerwise(served, cpu, x, policy):
     """Each layer of the deployed forward on the card (qmatvec or qmatmul,
-    then sigmoid_pw) against its plain version on the CPU, both fed the
-    card's input to that layer. Returns each layer's max abs error and the
-    card's logits at the end of this chain."""
+    then sigmoid_pw; under 8-bit signals its signal route) against its
+    plain version on the CPU, both fed the card's input to that layer: the
+    activation stage bit for bit (the signal route against the CPU's
+    two-call chain, sigmoid_pw then qat.fake_quant_act). Returns each
+    layer's max abs error, the card's logits at the end of this chain and,
+    under 8-bit signals, the elements of each layer where the same two
+    calls run on the card differ from the CPU's (not gated: PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal)."""
     import torch
-    from repro_torch.core import quant_dense
+    from repro_torch.core import qat, quant_dense
     from repro_torch.kernels.sigmoid_pw import ops as sig_ops
     from repro_torch.kernels.sigmoid_pw.ref import sigmoid_pw_fwd
     names = [f"fc{i}" for i in range(len(served) - 1)] + ["head"]
-    h, errs = x, {}
+    bits = policy.act_bits
+    h, errs, card_chain = x, {}, {}
     with torch.no_grad():
         for name in names:
             role = "output" if name == "head" else "hidden"
@@ -2500,11 +2570,22 @@ def _layerwise(served, cpu, x, policy):
                                     role=role)
             errs[name] = compare(y.cpu(), ref, "float32",
                                  f"deploy layer {name}")
-            if name != "head":
+            if name == "head":
+                break
+            if not bits:
                 h = sig_ops.sigmoid_pw(y)
                 compare_exact(h.cpu(), sigmoid_pw_fwd(y.cpu()),
                               f"deploy sigmoid_pw after {name}")
-    return errs, y
+                continue
+            h = sig_ops.sigmoid_pw_signal(y, bits)
+            chain = qat.fake_quant_act(sigmoid_pw_fwd(y.cpu()), bits,
+                                       signed=False)
+            compare_exact(h.cpu(), chain,
+                          f"deploy sigmoid_pw signal after {name}")
+            on_card = qat.fake_quant_act(sig_ops.sigmoid_pw(y), bits,
+                                         signed=False).cpu()
+            card_chain[name] = int((on_card != chain).sum())
+    return errs, y, card_chain
 
 
 def _e2e_gate(name, card, plain, card_a8, plain_a8, head):
@@ -2549,13 +2630,72 @@ def _e2e_gate(name, card, plain, card_a8, plain_a8, head):
             "a8_greedy_agreement_vs_cpu": 1.0 - miss_a8 / batch}
 
 
+def _deploy_timing(served, master, x, clock, device, rehearse):
+    """The digit net's W3A8 forward at batch 100, eager and replayed from
+    one CUDA graph (core.graphs.Graphs, as paper.pipeline.evaluate runs it:
+    the batch staged in a fixed buffer, the logits copied into one), and
+    the float forward: CUDA-event ms of a call and profiler device ms. The
+    replay must give the eager forward's bits and launch what it does."""
+    import torch
+    from repro_torch.core.graphs import Graphs
+    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.models import dnn
+    with torch.no_grad():
+        def eager():
+            return dnn.forward(served, x, policy=W3A8, sigmoid_mode="pw")
+        graphs, xb, out = Graphs(device), x.clone(), torch.empty_like(eager())
+
+        def work():
+            out.copy_(dnn.forward(served, xb, policy=W3A8,
+                                  sigmoid_mode="pw"))
+
+        def captured():
+            graphs.run("forward", work)
+        captured()
+        if not torch.equal(out, eager()):
+            fail("deploy digit: the captured forward's logits differ from "
+                 "the eager forward's")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        captured()
+        launches, variants = read_counts()[0], read_variants()
+        if not rehearse and (
+                (launches["qmatvec"], launches["qmatmul"]) != (3, 1)
+                or variants["sigmoid_pw"] != {"plain": 0, "signal": 3}):
+            fail(f"deploy digit: a replay launched {launches} "
+                 f"{variants['sigmoid_pw']}")
+        float_fwd = lambda: dnn.forward(master, x, policy=FLOAT)  # noqa: E731
+        ms = {k: clock(f) for k, f in (("eager", eager),
+                                       ("captured", captured),
+                                       ("float", float_fwd))}
+        dev = {k: clock.device_ms(f) for k, f in (("eager", eager),
+                                                  ("captured", captured))}
+    return {
+        "forward_ms_w3a8_kernels": ms["eager"],
+        "forward_ms_w3a8_captured": ms["captured"],
+        "forward_ms_float": ms["float"],
+        "device_ms_w3a8_kernels": dev["eager"],
+        "device_ms_w3a8_captured": dev["captured"],
+        "images_per_s_w3a8_kernels": 100 / (ms["eager"] / 1e3),
+        "images_per_s_w3a8_captured": 100 / (ms["captured"] / 1e3),
+        "images_per_s_float": 100 / (ms["float"] / 1e3),
+        "captured_equals_eager": True, "captures": graphs.captures,
+        "replay_launches": {"qmatvec": launches["qmatvec"],
+                            "qmatmul": launches["qmatmul"],
+                            "sigmoid_pw": variants["sigmoid_pw"]},
+        "timing": "median of 50 CUDA-event timings of one forward, batch "
+                  "100; device ms from torch.profiler" if not rehearse else
+                  "host clock (CPU rehearsal, not device times)"}
+
+
 def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
     """The W3A8 deployment of the paper's nets through the kernels."""
     import dataclasses
 
     import torch
     from repro_torch.core import quant_dense
-    from repro_torch.core.precision import FLOAT, W3A8
+    from repro_torch.core.precision import W3A8
     from repro_torch.data.synthetic import digit_task, phoneme_task
     from repro_torch.models import dnn
     width = 64 if rehearse else 1022
@@ -2576,22 +2716,28 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
         served = quant_dense.export_container(master, W3A8)
         layers = len(master) - 1
         x = torch.from_numpy(task.test[0][:batch]).to(device)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        reset_counts()
-        with torch.no_grad():
-            logits = dnn.forward(served, x, policy=W3A8, sigmoid_mode="pw")
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        launches, plain = read_counts()
-        variants = read_variants()
-        for k, v in launches.items():
-            total[k] += v
-        for k, split in variants.items():
-            for key, v in split.items():
-                total_variants[k][key] += v
-        want = {"qmatvec": layers, "qmatmul": 1, "sigmoid_pw": layers}
-        if not rehearse:
+        # the W3A8 forward (8-bit signals: sigmoid_pw's signal route) and
+        # the W3 one (signals off: its elementwise route), counted apart
+        runs = {}
+        for pol, route in ((W3A8, "signal"), (no_a8, "plain")):
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            reset_counts()
+            with torch.no_grad():
+                out_ = dnn.forward(served, x, policy=pol, sigmoid_mode="pw")
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            launches, plain = read_counts()
+            variants = read_variants()
+            runs[route] = (out_, launches, variants)
+            for k, v in launches.items():
+                total[k] += v
+            for k, split in variants.items():
+                for key, v in split.items():
+                    total_variants[k][key] += v
+            want = {"qmatvec": layers, "qmatmul": 1, "sigmoid_pw": layers}
+            if rehearse:
+                continue
             if any(launches[k] != v for k, v in want.items()):
                 fail(f"deploy {name}: launches {launches}, want {want}")
             if max(plain.values()) != 0:
@@ -2599,17 +2745,26 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
             if variants["qmatmul"]["k_lanes"] != 1:
                 fail(f"deploy {name}: the 8-bit head did not take the "
                      f"k_lanes layout: {variants}")
+            if variants["sigmoid_pw"] != dict({"plain": 0, "signal": 0},
+                                              **{route: layers}):
+                fail(f"deploy {name}: the activation stages did not all "
+                     f"take sigmoid_pw's {route} route: {variants}")
             if variants["qmatvec"] != {"decode": 0, "prefill": layers}:
                 fail(f"deploy {name}: the hidden layers (M = {batch}) did "
                      f"not all take qmatvec's prefill tiles: {variants}")
+        logits, launches, variants = runs["signal"]
         # parity with the CPU plain path on the same weights and inputs:
         # layer by layer (both fed the card's input to the layer), the
         # real forward against that chain bit for bit, then end to end
         cpu = {k: {kk: v.cpu() for kk, v in leaf.items()}
                for k, leaf in served.items()}
-        layer_err, chain = _layerwise(served, cpu, x, no_a8)
+        layer_err, chain, _ = _layerwise(served, cpu, x, no_a8)
+        layer_err_a8, chain_a8, card_chain = _layerwise(served, cpu, x, W3A8)
+        if not torch.equal(logits, chain_a8):
+            fail(f"deploy {name}: dnn.forward's W3A8 logits differ from its "
+                 f"layers' ({float((logits - chain_a8).abs().max())})")
+        card = runs["plain"][0]
         with torch.no_grad():
-            card = dnn.forward(served, x, policy=no_a8, sigmoid_mode="pw")
             plain_out = dnn.forward(cpu, x.cpu(), policy=no_a8,
                                     sigmoid_mode="pw")
             plain_a8 = dnn.forward(cpu, x.cpu(), policy=W3A8,
@@ -2621,10 +2776,17 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
             fail(f"deploy {name}: dnn.forward's logits differ from its "
                  f"layers' ({float((card - chain).abs().max())})")
         net = {"batch": batch, "launches": launches,
-               "launches_by_variant": variants, "plain_calls": plain,
+               "launches_by_variant": variants,
+               "w3_launches": runs["plain"][1],
+               "w3_sigmoid_pw_by_variant": runs["plain"][2]["sigmoid_pw"],
+               "plain_calls": plain,
                "layerwise_max_abs_err": layer_err,
                "layerwise_tolerance": "1e-4 x the row's max|plain| per "
                                       "layer; sigmoid_pw bit-identical",
+               "layerwise_a8_max_abs_err": layer_err_a8,
+               "layerwise_a8_signal": "the signal route bit for bit the "
+                                      "CPU's sigmoid_pw + fake_quant_act",
+               "card_torch_chain_elements_differing_from_cpu": card_chain,
                "end_to_end_gate": "act_bits None: rows over 1e-4 x "
                                   "max|logit| <= rows_allowed_over, max "
                                   "diff <= plan_jump_bound, greedy >= 0.99; "
@@ -2632,22 +2794,11 @@ def deploy_phase(digit_params, digit_mcr, device, seed, rehearse):
                **_e2e_gate(name, card.cpu(), plain_out, logits.cpu(),
                            plain_a8, cpu["head"])}
         if name == "digit":
-            with torch.no_grad():
-                x100 = x[:100]
-                w3a8_ms = clock(lambda: dnn.forward(served, x100, policy=W3A8,
-                                                    sigmoid_mode="pw"))
-                float_ms = clock(lambda: dnn.forward(master, x100,
-                                                     policy=FLOAT))
+            net.update(_deploy_timing(served, master, x[:100], clock,
+                                      device, rehearse))
             net.update({
                 "deployed_test_mcr": _mcr(served, task, W3A8, device),
-                "w3a8_mcr_fake_quant_per_tensor": digit_mcr,
-                "forward_ms_w3a8_kernels": w3a8_ms,
-                "forward_ms_float": float_ms,
-                "images_per_s_w3a8_kernels": 100 / (w3a8_ms / 1e3),
-                "images_per_s_float": 100 / (float_ms / 1e3),
-                "timing": "median of 50 CUDA-event timings of one forward, "
-                          "batch 100" if not rehearse else
-                          "host clock (CPU rehearsal, not device times)"})
+                "w3a8_mcr_fake_quant_per_tensor": digit_mcr})
         out["nets"][name] = net
     emit(out)
     return total, total_variants
@@ -4897,7 +5048,9 @@ def _launch_counts():
                 for o, n in qmm.launches_by_orientation.items()})
     out.update({f"attn_prefill/{v}": n
                 for v, n in pf.launches_by_variant.items()})
-    out.update({"attn_decode": dec.launches, "sigmoid_pw": sig.launches,
+    out.update({"attn_decode": dec.launches,
+                "sigmoid_pw": sig.launches_by_variant["plain"],
+                "sigmoid_pw/signal": sig.launches_by_variant["signal"],
                 "sigmoid_pw_bwd": sig.bwd_launches})
     return out
 
@@ -5019,6 +5172,8 @@ def _route_cases(device):
          lambda: pf_ops.attn_prefill(qp.float(), kp.float(), kp.float(),
                                      hi)),
         ("sigmoid_pw (100, 1022) fp32", lambda: sig_k.sigmoid_pw_cuda(x1)),
+        ("sigmoid_pw signal (100, 1022) fp32",
+         lambda: sig_k.sigmoid_pw_signal_cuda(x1, 8)),
         ("sigmoid_pw_bwd (100, 1022) fp32",
          lambda: sig_k.sigmoid_pw_bwd_cuda(x1, x1)))
 
@@ -5314,11 +5469,14 @@ def main(argv=None) -> int:
                        train=train_launches[name],
                        dist=dist_launches[name],
                        resilience=res_launches[name])
+        launches_ = by_path["engine_bf16_kv" if name in ENGINE_KERNELS
+                            else "deploy"]
+        if name == "sigmoid_pw":     # its elementwise route (the W3 forward);
+            launches_ = deploy_variants[name]["plain"]  # signal: own entry
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": by_path["engine_bf16_kv" if name in ENGINE_KERNELS
-                                else "deploy"],
+            "launches": launches_,
             "launches_by_path": by_path,
             "max_abs_err": c["err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -5352,7 +5510,9 @@ def main(argv=None) -> int:
                        "merge": res_variants[SIMT_MERGE]["merge"]},
                        res_variants["attn_prefill"]["simt"]),
                    "row_major": ("moe", moe_variants[K_LANES],
-                                 moe_variants[K_LANES]["row_major"])}
+                                 moe_variants[K_LANES]["row_major"]),
+                   "signal": ("deploy", deploy_variants["sigmoid_pw"],
+                              deploy_variants["sigmoid_pw"]["signal"])}
     for name, variant, src in ROUTES:
         cases = routes[variant]
         c = next(c for c in cases if c.get("summary_headline"))

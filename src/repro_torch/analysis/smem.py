@@ -40,6 +40,9 @@ STATIC_SMEM = {
     # csrc/attn_prefill_tc.cu:241: int red[2][4], 32 B declared; ptxas
     # reserves 128 (the block's shared memory aligned to 128 for wgmma)
     "attn_prefill_kernel_wgmma": 128,
+    # csrc/sigmoid_pw.cu, sigmoid_pw_kernel_signal: float red[8], the row
+    # max of each warp
+    "sigmoid_pw_kernel_signal": 32,
 }
 
 
@@ -72,6 +75,8 @@ def launch_functions(note: Dict[str, Any]) -> List[tuple]:
         if plan.splits > 1:
             out.append(("attn_prefill_kernel_merge", 0))
         return out
+    if variant == "signal":
+        return [("sigmoid_pw_kernel_signal", dyn)]
     return [("sigmoid_pw_kernel", dyn)]
 
 

@@ -7,14 +7,22 @@ net as a float forward, and its float and STE training steps, each under
 
 The weights are a seeded init (the time does not depend on training). For
 each forward form it times ``FORWARDS`` forwards with the host clock (after
-a synchronize) and then again under the profiler; for each training form
+a synchronize) and then again under the profiler. ``w3a8_kernels`` is the
+deployed forward run eagerly, ``w3a8_kernels_captured`` the same forward
+replayed from one CUDA graph (``core.graphs.Graphs``, as
+``paper.pipeline.evaluate`` runs it: the batch staged in a fixed buffer,
+the logits copied into one; its bits are checked against the eager
+forward's). For each training form
 one epoch of ``STEPS`` SGD steps (``paper.pipeline.train_mlp`` on a
 ``STEPS * 100``-example digit task), its step replayed as a CUDA graph
 (the epoch's time includes the step's two warm-ups and its capture) and,
 ``_eager``, with ``capture=False``. Prints one JSON line: per form the ms
 per forward or step, images per second, device time summed by kernel (the
-port's kernels by name, everything else as ``other``), device busy ms and
-the device's idle share of the profiled wall time. Device times are the
+port's kernels by name, everything else as ``other``), device busy ms, the
+device operations (kernels, copies, sets) a call and the device's idle
+share of the profiled wall time. Run by path with ``PYTHONPATH`` at
+another tree's ``src`` it measures that tree's forward with this harness
+(an A/B of two trees in one call). Device times are the
 self times of the profiler's CUDA-type rows, as in ``profile_engine.py``.
 """
 from __future__ import annotations
@@ -26,9 +34,11 @@ import time
 import torch
 
 from repro_torch.core import quant_dense
+from repro_torch.core.graphs import Graphs
 from repro_torch.core.precision import FLOAT, W3A8
 from repro_torch.data.synthetic import digit_task
-from repro_torch.launch.profile_engine import card_line, device_ms_by_kernel
+from repro_torch.launch.profile_engine import (_cuda_rows, card_line,
+                                               device_ms_by_kernel)
 from repro_torch.models import dnn
 from repro_torch.paper.pipeline import train_mlp
 
@@ -60,7 +70,23 @@ def _profiled(fn, count: int):
     busy = sum(by_kernel.values())
     return {"ms": ms, "profiled_ms": wall / count * 1e3,
             "device_ms_by_kernel": by_kernel, "device_busy_ms": busy,
+            "device_ops": sum(1 for _ in _cuda_rows(prof)) / count,
             "idle_share": 1.0 - busy / (wall / count * 1e3)}
+
+
+def _captured(fn, x):
+    """``fn(x)`` as one CUDA graph replay: returns the call that replays it
+    and its logits buffer, which each replay rewrites."""
+    graphs, xb = Graphs(x.device), x.clone()
+    out = torch.empty_like(fn(x))
+
+    def work():
+        out.copy_(fn(xb))
+
+    def replay():
+        graphs.run("forward", work)
+    replay()
+    return replay, out
 
 
 def main():
@@ -75,15 +101,24 @@ def main():
     x = torch.from_numpy(task.test[0]).to(dev)
     out = {"card": card_line(), "net": "784-1022-1022-1022-10",
            "batch": BATCH}
-    forwards = {
-        "w3a8_kernels": lambda: dnn.forward(served, x, policy=W3A8,
-                                            sigmoid_mode="pw"),
-        "w3a8_kernels_no_a8": lambda: dnn.forward(
-            served, x, policy=dataclasses.replace(W3A8, act_bits=None),
-            sigmoid_mode="pw"),
-        "float": lambda: dnn.forward(master, x, policy=FLOAT),
-    }
+
+    def w3a8(v):
+        return dnn.forward(served, v, policy=W3A8, sigmoid_mode="pw")
+
     with torch.no_grad():
+        replay, logits = _captured(w3a8, x)
+        torch.cuda.synchronize()
+        if not torch.equal(logits, w3a8(x)):
+            raise SystemExit("profile_mlp: the captured forward's logits "
+                             "differ from the eager forward's")
+        forwards = {
+            "w3a8_kernels": lambda: w3a8(x),
+            "w3a8_kernels_captured": replay,
+            "w3a8_kernels_no_a8": lambda: dnn.forward(
+                served, x, policy=dataclasses.replace(W3A8, act_bits=None),
+                sigmoid_mode="pw"),
+            "float": lambda: dnn.forward(master, x, policy=FLOAT),
+        }
         for name, fn in forwards.items():
             r = _profiled(fn, FORWARDS)
             r["images_per_s"] = BATCH / (r["ms"] / 1e3)

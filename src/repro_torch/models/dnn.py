@@ -7,7 +7,11 @@ biases. ``sigmoid_mode`` selects the exact sigmoid or the piecewise-linear
 PLAN approximation (paper ref [16]). The PLAN sigmoid goes through
 ``kernels.sigmoid_pw.ops``: the CUDA kernel on the card, its plain version
 on the CPU (the reference calls its jnp oracle; the kernel is bit-identical
-to it, so no result differs).
+to it, so no result differs). Where the forward records no gradient, the
+PLAN sigmoid and the 8-bit signal after it are one stage,
+``sig_ops.sigmoid_pw_signal`` (one launch on the card), bit for bit the
+reference's two calls; a forward that records a gradient makes the two
+calls, which carry the PLAN and straight-through gradients.
 
 Any weight form runs: float masters (float or STE fake-quant policy) and
 the ``export_container`` serve form, whose hidden layers go through the
@@ -63,6 +67,10 @@ def forward(params: Dict[str, Any], x: torch.Tensor, *, policy: QuantPolicy,
         h = quant_dense.apply(params[name], h, policy=policy, role=role,
                               delta=(d.get(name) or {}).get("w"))
         if i < n - 1:
+            if sigmoid_mode == "pw" and policy.act_bits and not (
+                    torch.is_grad_enabled() and h.requires_grad):
+                h = sig_ops.sigmoid_pw_signal(h, policy.act_bits)
+                continue
             h = _sigmoid(h, sigmoid_mode)
             if policy.act_bits:                # paper: 8-bit signals, in [0,1]
                 h = qat.fake_quant_act(h, policy.act_bits, signed=False)

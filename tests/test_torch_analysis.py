@@ -50,7 +50,7 @@ def _fake(*shapes, dtype=torch.float32, mode=None):
 def test_every_kernel_is_a_registered_op():
     assert set(_ops.OP_NAMES) == {"qmatvec", "qmatmul", "attn_decode",
                                   "attn_prefill", "sigmoid_pw",
-                                  "sigmoid_pw_bwd"}
+                                  "sigmoid_pw_bwd", "sigmoid_pw_signal"}
     for name in _ops.OP_NAMES:
         assert getattr(torch.ops.repro_torch, name).default
 

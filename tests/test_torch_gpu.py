@@ -148,6 +148,108 @@ def test_sigmoid_pw_views(cuda, dtype):
               sig_ref.sigmoid_pw(base.reshape(-1)[1:]))
 
 
+def _signal_input(m, n, dtype, seed=8):
+    """x * 4 with, where there are rows for them, a row of x <= -5 (scale
+    1e-12, all zeros), a row holding a NaN and a row with +-inf."""
+    x = torch.randn((m, n), generator=_gen(seed)) * 4
+    if m >= 3:
+        x[0] = -5.0 - x[0].abs()
+        x[1, n // 2] = float("nan")
+        x[2, 0], x[2, -1] = float("inf"), float("-inf")
+    return x.to(dtype)
+
+
+def _signal_chain(x, bits):
+    """The two-call chain the signal route fuses, on the CPU."""
+    from repro_torch.core import qat
+    return qat.fake_quant_act(sig_ref.sigmoid_pw(x), bits, signed=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 100, 128])
+@pytest.mark.parametrize("n", [1022, 61, 64, 7, 4096, 20000])
+def test_sigmoid_pw_signal_bit_identical(cuda, dtype, m, n):
+    """The signal route (one launch, counted as ``signal``) gives the bits
+    of its plain version and of the CPU's two-call chain, for 8 and 4 bits,
+    an all-negative row and a NaN row included; a rerun the same bits; the
+    plain version on the card the CPU's bits too. N = 20000 streams its
+    rows (longer than the 2048 vectors a block holds)."""
+    assert (sig_k.signal_plan(m, n, dtype).held == 0) == (n == 20000)
+    x = _signal_input(m, n, dtype)
+    xc = x.to(cuda)
+    with torch.no_grad():
+        for bits in (8, 4):
+            want = sig_ref.sigmoid_pw_signal(x, bits)
+            _same(want, _signal_chain(x, bits))
+            n0, v0 = sig_k.launches, dict(sig_k.launches_by_variant)
+            got = sig_ops.sigmoid_pw_signal(xc, bits)
+            assert sig_k.launches == n0 + 1
+            assert sig_k.launches_by_variant == {
+                "plain": v0["plain"], "signal": v0["signal"] + 1}
+            _same(got, want)
+            _same(sig_ops.sigmoid_pw_signal(xc, bits), got.cpu())
+            _same(sig_ref.sigmoid_pw_signal(xc, bits), want)
+            if m >= 3:
+                assert not got[0].any() and torch.isnan(got[1]).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sigmoid_pw_signal_views(cuda, dtype):
+    """A strided view is made contiguous; a contiguous view whose start is
+    not 16-byte aligned takes the scalar accesses: the plain version's
+    bits, one launch each."""
+    base = _signal_input(100, 1030, dtype)
+    on = base.to(cuda)
+    with torch.no_grad():
+        v0 = sig_k.launches_by_variant["signal"]
+        _same(sig_ops.sigmoid_pw_signal(on[:, 3:1025], 8),
+              sig_ref.sigmoid_pw_signal(base[:, 3:1025], 8))
+        flat = on.reshape(-1)[1:1 + 100 * 1022].view(100, 1022)
+        assert flat.is_contiguous() and flat.data_ptr() % 16
+        _same(sig_ops.sigmoid_pw_signal(flat, 8), sig_ref.sigmoid_pw_signal(
+            base.reshape(-1)[1:1 + 100 * 1022].view(100, 1022), 8))
+        assert sig_k.launches_by_variant["signal"] == v0 + 2
+
+
+def test_sigmoid_pw_signal_in_a_cuda_graph(cuda):
+    """Captured once and replayed on new inputs in the fixed buffer: the
+    eager call's bits; each replay adds the capture's one signal launch."""
+    bufs = [_signal_input(100, 1022, torch.float32, seed=s).to(cuda)
+            for s in (9, 10)]
+    x = bufs[0].clone()
+    out = torch.empty_like(x)
+    gs = graphs.Graphs(cuda, capture=True)
+
+    def work():
+        out.copy_(sig_ops.sigmoid_pw_signal(x, 8))
+
+    with torch.no_grad():
+        for b in bufs:
+            x.copy_(b)
+            v0 = sig_k.launches_by_variant["signal"]
+            gs.run("signal", work)
+            torch.cuda.synchronize()
+            assert sig_k.launches_by_variant["signal"] >= v0 + 1
+            _same(out, sig_ops.sigmoid_pw_signal(b, 8).cpu())
+        v0 = sig_k.launches_by_variant["signal"]
+        gs.run("signal", work)
+        assert sig_k.launches_by_variant["signal"] == v0 + 1
+    assert gs.captures == {"signal": 1}
+
+
+def test_sigmoid_pw_signal_rejects_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        sig_k.sigmoid_pw_signal_cuda(torch.zeros((2, 4)), 8)
+    with pytest.raises(ValueError):
+        sig_k.sigmoid_pw_signal_cuda(
+            torch.zeros((2, 4), dtype=torch.float16, device=cuda), 8)
+    with pytest.raises(ValueError):
+        sig_k.sigmoid_pw_signal_cuda(torch.zeros((2, 4), device=cuda), 0)
+    with pytest.raises(ValueError, match="no gradient"):
+        sig_ops.sigmoid_pw_signal(
+            torch.zeros((2, 4), device=cuda, requires_grad=True), 8)
+
+
 def test_sigmoid_pw_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         sig_k.sigmoid_pw_cuda(torch.zeros(4))
@@ -662,7 +764,9 @@ def test_deployed_digit_forward_on_card_matches_cpu(cuda):
     """The paper's digit net at full width, exported to W3A8 containers and
     run with the PLAN sigmoid: each layer on the card (qmatvec or qmatmul,
     then sigmoid_pw) agrees with its plain version on the CPU fed the same
-    input, within 1e-4 x max|plain| (the sigmoid bit for bit). End to end
+    input, within 1e-4 x max|plain| (the sigmoid and the 8-bit signal stage
+    bit for bit); the W3A8 forward takes the signal route, the one without
+    8-bit signals the elementwise sigmoid. End to end
     the card's classes agree with the CPU's on >= 98% of the rows, with and
     without the 8-bit signals: PLAN jumps by 1/256 at |x| = 2.375 and an
     8-bit signal can flip at a rounding tie, so logits are not compared
@@ -688,11 +792,17 @@ def test_deployed_digit_forward_on_card_matches_cpu(cuda):
             if name != "head":
                 h = sig_ops.sigmoid_pw(y)
                 _same(h, sig_ref.sigmoid_pw(y.cpu()))
-        for policy in (no_a8, W3A8):
+                # the 8-bit signal stage of the W3A8 forward, fed the same
+                _same(sig_ops.sigmoid_pw_signal(y, 8),
+                      _signal_chain(y.cpu(), 8))
+        for policy, variant in ((no_a8, "plain"), (W3A8, "signal")):
             n0 = (qmv_k.launches, qmm_k.launches, sig_k.launches)
+            v0 = dict(sig_k.launches_by_variant)
             got = dnn.forward(on, x.to(cuda), policy=policy, sigmoid_mode="pw")
             assert (qmv_k.launches, qmm_k.launches, sig_k.launches) == \
                 (n0[0] + 3, n0[1] + 1, n0[2] + 3)
+            assert sig_k.launches_by_variant == dict(
+                v0, **{variant: v0[variant] + 3})
             ref = dnn.forward(served, x, policy=policy, sigmoid_mode="pw")
             agree = (got.cpu().argmax(-1) == ref.argmax(-1)).float().mean()
             assert agree >= 0.98
